@@ -1,0 +1,96 @@
+"""Card-only tests of the port: the CUDA ring_mac kernel against its plain
+PyTorch version, and the engine on the card against the engine on the CPU.
+
+Every test here needs an NVIDIA GPU and nvcc and skips without them. The
+file imports no JAX, so it also runs where JAX is absent:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
+
+Tolerances: the kernel sums in f32 in another order than the float64 plain
+version, held to 1e-5 of the output's scale; card vs CPU engine outputs to
+2e-5 absolute (cuFFT vs pocketfft, different MAC summation order).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from tpu_audio_torch.engine.fmajor import FMajorPartitionedConvolution
+from tpu_audio_torch.engine.params import ControlPlane
+from tpu_audio_torch.ops.ring_mac import ring_mac, ring_mac_reference
+
+torch.set_num_threads(1)
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from torch.utils.cpp_extension import CUDA_HOME
+    if CUDA_HOME is None:
+        pytest.skip("needs nvcc (CUDA_HOME)")
+    return torch.device("cuda")
+
+
+@pytest.mark.parametrize("f,vi,pp,kod", [
+    (7, 4, 16, 8), (5, 6, 24, 4), (3, 20, 40, 32), (4, 4, 8, 12),
+    (9, 33, 56, 16)])
+@pytest.mark.parametrize("phase", [0, 1, -1])
+def test_kernel_matches_plain_version(cuda, f, vi, pp, kod, phase):
+    rng = np.random.default_rng(f * 1000 + vi)
+    fdl = torch.tensor(rng.standard_normal((f, vi, 2, pp), dtype=np.float32),
+                       device=cuda)
+    rhs2 = torch.tensor(rng.standard_normal((f, 2, 2 * pp, kod),
+                                            dtype=np.float32), device=cuda)
+    w = phase % pp
+    got = ring_mac(torch.tensor(w, dtype=torch.int32, device=cuda), fdl, rhs2)
+    torch.cuda.synchronize()
+    want = ring_mac_reference(w, fdl.double(), rhs2.double())
+    err = (got.double() - want).abs().max().item()
+    assert err <= 1e-5 * want.abs().max().item()
+
+
+def test_kernel_raises_on_a_window_too_large_for_shared_memory(cuda):
+    pp = 8192  # 2*Pp window rows of even 4 columns exceed the card's limit
+    fdl = torch.zeros((1, 2, 2, pp), device=cuda)
+    rhs2 = torch.zeros((1, 2, 2 * pp, 4), device=cuda)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        ring_mac(torch.zeros((), dtype=torch.int32, device=cuda), fdl, rhs2)
+
+
+def test_engine_on_the_card_matches_the_cpu_and_counts_launches(cuda):
+    rng = np.random.default_rng(3)
+    spectra = np.fft.rfft(rng.standard_normal((3, 2, 10, 64)), axis=-1
+                          ).astype(np.complex64) * 0.1
+    runs = {}
+    for dev in ("cpu", cuda):
+        eng = FMajorPartitionedConvolution(2, 32, 10, max_predelay=64,
+                                           num_irs=3, device=dev)
+        bank = eng.prepare_bank(spectra)
+        cp = ControlPlane(2, 3, 64, device=dev)
+        cp.wet[:] = 0.8
+        cp.predelay[:] = [[17, 3], [40, 0]]
+        cp.pan_wet[:] = [[0.3, -0.4], [-1.0, 0.5]]
+        state = eng.init_converged(bank, cp.snapshot_device())
+        before = ring_mac.launches
+        xs = np.random.default_rng(4).standard_normal((40, 2, 2, 32)) * 0.05
+        outs = []
+        for t, x in enumerate(xs.astype(np.float32)):
+            if t == 10:
+                old = cp.select.copy()
+                cp.select[:] = [[1, 2], [2, 1]]
+                cp.vsteps[:] = 8
+                state = eng.collapse_pure(
+                    state, torch.tensor(old, device=dev),
+                    torch.ones((2, 2), dtype=torch.bool, device=dev))
+            step = (eng.step_coef_indexed if t >= 10
+                    else eng.step_coef_steady)
+            state, out = step(state, bank, cp.snapshot_device(),
+                              torch.tensor(x, device=dev))
+            cp.end_block()
+            outs.append(out.cpu().numpy())
+        runs[str(dev)] = (np.stack(outs), ring_mac.launches - before)
+    np.testing.assert_allclose(runs["cuda"][0], runs["cpu"][0], atol=2e-5)
+    assert runs["cuda"][1] == 40 and runs["cpu"][1] == 0

@@ -1,0 +1,161 @@
+"""Application entry point: settings-driven streaming reverb on a GPU (port
+of tpu_audio/app/main.py, the streaming fmajor path).
+
+Capability equivalent of the reference's main() (reference src/main.cu:18-116):
+select the GPU, read settings, build IR banks and convolution voices, wire
+control mappings and initial values, stream audio, report the average
+per-block runtime at exit. The JACK graph becomes file / synthetic block
+backends; ALSA rawmidi becomes a scripted MIDI schedule.
+
+    python -m tpu_audio_torch.app --settings settings.txt \
+        --input in.wav --output out.wav [--midi events.txt] \
+        [--voices N] [--blocks N] [--realtime] [--device cuda|cpu]
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+
+from tpu_audio_torch.models.reverb import ConvolutionReverb, pair_geometry_keys
+from tpu_audio_torch.runtime.backends import (
+    ImpulseSource, NoiseSource, NullSink, SilenceSource, WavSink, WavSource,
+)
+from tpu_audio_torch.runtime.stream import MidiSchedule
+from tpu_audio_torch.utils.device import select_gpu
+from tpu_audio_torch.utils.log import Log
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="tpu_audio_torch",
+        description="GPU convolution reverb (PyTorch + CUDA)")
+    p.add_argument("--settings", default="settings.txt",
+                   help="reference-format settings file")
+    p.add_argument("--root", default=None,
+                   help="base dir for relative IR index paths")
+    p.add_argument("--input", default=None,
+                   help="input WAV (default: --signal test signal)")
+    p.add_argument("--output", default=None,
+                   help="output WAV (default: discard)")
+    p.add_argument("--signal", default="impulse",
+                   choices=["impulse", "noise", "silence"],
+                   help="test signal when --input is absent")
+    p.add_argument("--midi", default=None,
+                   help="scripted MIDI schedule file (block hexbytes per line)")
+    p.add_argument("--voices", type=int, default=None,
+                   help="override voice count (default: conv.count/2)")
+    p.add_argument("--blocks", type=int, default=None,
+                   help="stop after N blocks")
+    p.add_argument("--block-size", type=int, default=256)
+    p.add_argument("--sample-rate", type=int, default=None,
+                   help="session rate (default: the input WAV's rate, "
+                        "else 44100); IR banks resample to it on load")
+    p.add_argument("--max-ir-seconds", type=float, default=None,
+                   help="truncate bank IRs (memory control)")
+    p.add_argument("--normalize-bank", default=None,
+                   choices=["energy", "peak"],
+                   help="equalise IR loudness across the bank before use")
+    p.add_argument("--out-voice", default=None,
+                   help="which voice to write: index or 'all' (default 0)")
+    p.add_argument("--realtime", action="store_true",
+                   help="pace blocks at the audio rate")
+    p.add_argument("--pipeline-depth", type=int, default=1,
+                   help="blocks in flight between step and sink")
+    p.add_argument("--device", default="cuda",
+                   help="'cuda' (best CUDA device; fails without one), "
+                        "'cuda:N', or 'cpu' for the plain PyTorch path")
+    p.add_argument("--quiet", action="store_true")
+    return p
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
+    if args.quiet:
+        Log.level = 2
+
+    device = (select_gpu(verbose=not args.quiet) if args.device == "cuda"
+              else args.device)
+
+    if not os.path.exists(args.settings):
+        Log.error("app", "settings file not found: %s", args.settings)
+        return 2
+
+    # the session rate drives IR-bank resampling AND the real-time
+    # deadline: an input WAV's rate is authoritative unless overridden
+    if args.sample_rate is None:
+        if args.input:
+            from tpu_audio_torch.io.wav import wav_sample_rate
+            args.sample_rate = wav_sample_rate(args.input)
+            Log.info("app", "session rate %d Hz (from %s)",
+                     args.sample_rate, args.input)
+        else:
+            args.sample_rate = 44100
+
+    from tpu_audio_torch.io.settings import Settings
+    parsed = Settings().open(args.settings, verbose=False)
+    if len(set(pair_geometry_keys(parsed, args.root))) > 1:
+        Log.error("app", "heterogeneous conv pairs (engine groups) are not "
+                  "ported yet; split the settings file per geometry")
+        return 2
+
+    model = ConvolutionReverb.from_settings(
+        args.settings, root=args.root, num_voices=args.voices,
+        max_ir_seconds=args.max_ir_seconds,
+        normalize_bank=args.normalize_bank, block=args.block_size,
+        sample_rate=args.sample_rate, verbose=not args.quiet, device=device)
+    return _stream(args, model)
+
+
+def _stream(args, model) -> int:
+    v, b = model.engine.num_voices, model.block
+    if args.input:
+        source = WavSource(args.input, v, b, max_blocks=args.blocks)
+        sample_rate = source.sample_rate or args.sample_rate
+        if source.sample_rate and source.sample_rate != args.sample_rate:
+            Log.warn("app", "input is %d Hz but the session runs %d Hz: "
+                     "program audio will play detuned (drop --sample-rate "
+                     "to adopt the input's rate)",
+                     source.sample_rate, args.sample_rate)
+    else:
+        n = args.blocks or 400
+        source = {"impulse": ImpulseSource(v, b, n),
+                  "noise": NoiseSource(v, b, n),
+                  "silence": SilenceSource(v, b, n)}[args.signal]
+        sample_rate = args.sample_rate
+
+    if args.output:
+        voice = args.out_voice
+        if voice is not None and voice != "all":
+            voice = int(voice)
+        sink = WavSink(args.output, sample_rate, voice=voice)
+    else:
+        sink = NullSink()
+
+    midi = None
+    if args.midi:
+        with open(args.midi) as fh:
+            midi = MidiSchedule.parse(fh.read())
+
+    session = model.session(source, sink, realtime=args.realtime,
+                            pipeline_depth=args.pipeline_depth)
+    session.run(model.init_state(), max_blocks=args.blocks, midi=midi)
+
+    # reference exit report (src/main.cu:106) + the latency stats it lacked
+    s = session.summary()
+    if s.get("blocks", 0) == 0:
+        print(f"streamed {s['blocks_streamed']} blocks "
+              f"(all within the warmup discard window; no timing recorded) "
+              f"| underruns {s['underruns']}")
+    else:
+        print(f"streamed {s['blocks_streamed']} blocks | avg {s['avg_ms']:.3f} ms "
+              f"| p50 {s['p50_ms']:.3f} | p99 {s['p99_ms']:.3f} "
+              f"| rtf {s.get('rtf', 0):.2f} | missed {s['missed_deadlines']} "
+              f"| underruns {s['underruns']}")
+    if args.output:
+        Log.info("app", "wrote %s", args.output)
+    return 0 if s["blocks_streamed"] > 0 else 1
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

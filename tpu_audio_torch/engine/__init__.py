@@ -1,0 +1,13 @@
+from tpu_audio_torch.engine.params import (
+    CCMapping, VoiceParams, ControlPlane, CC_MAX_PREDELAY, CC_MAX_SPEED,
+)
+from tpu_audio_torch.engine.bank import IRBank
+from tpu_audio_torch.engine.fmajor import (
+    FMajorBank, FMajorPartitionedConvolution, FMajorState,
+)
+
+__all__ = [
+    "FMajorBank", "FMajorPartitionedConvolution", "FMajorState",
+    "CCMapping", "VoiceParams", "ControlPlane", "CC_MAX_PREDELAY", "CC_MAX_SPEED",
+    "IRBank",
+]

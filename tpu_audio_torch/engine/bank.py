@@ -1,0 +1,141 @@
+"""IR bank: host-side loading and partition spectra (port of
+tpu_audio/engine/bank.py:IRBank, without the disk cache).
+
+Capability equivalent of the reference's `_irBuffers` spectra map filled by
+``Convolution::prepare`` (reference src/conv.cu:207-253, wired from index
+files at src/main.cu:72-81). The bank is numpy at heart: IRs are kept as
+[2, L] float32 arrays and turned into [K, 2, P, F] partition spectra once
+per load, which the engine packs and uploads.
+"""
+
+from __future__ import annotations
+
+import os
+
+import numpy as np
+
+from tpu_audio_torch.io.index import load_index
+from tpu_audio_torch.io.wav import WavFile, read_wav
+from tpu_audio_torch.ops.partition import num_partitions, partition_spectra
+from tpu_audio_torch.utils.log import Log
+
+
+def _resample(ir: np.ndarray, from_rate: int, to_rate: int) -> np.ndarray:
+    """Polyphase resample [..., L] (the reference assumes 44.1 kHz and
+    would misplay mismatched IRs, src/wav.cu has no rate handling)."""
+    if from_rate == to_rate:
+        return ir
+    try:
+        from math import gcd
+
+        from scipy.signal import resample_poly
+        g = gcd(from_rate, to_rate)
+        return resample_poly(ir, to_rate // g, from_rate // g,
+                             axis=-1).astype(np.float32)
+    except ImportError:  # linear fallback without scipy
+        length = int(round(ir.shape[-1] * to_rate / from_rate))
+        xp = np.linspace(0.0, 1.0, ir.shape[-1])
+        xq = np.linspace(0.0, 1.0, length)
+        return np.stack([np.interp(xq, xp, ch) for ch in ir]).astype(np.float32)
+
+
+class IRBank:
+    """Ordered collection of stereo IRs."""
+
+    def __init__(self, sample_rate: int = 44100):
+        self.sample_rate = sample_rate
+        self._irs: list[np.ndarray] = []  # each [2, L] float32
+        self._paths: list[str] = []
+
+    # -- construction ------------------------------------------------------------
+
+    @classmethod
+    def from_index(cls, index_path: str | os.PathLike, sample_rate: int = 44100,
+                   root: str | os.PathLike | None = None,
+                   max_seconds: float | None = None,
+                   verbose: bool = True) -> "IRBank":
+        bank = cls(sample_rate)
+        for path in load_index(index_path, root=root):
+            bank.append(read_wav(path, verbose=verbose), max_seconds=max_seconds)
+        return bank
+
+    def append(self, wav: WavFile | np.ndarray, path: str = "",
+               max_seconds: float | None = None) -> int:
+        """Add one IR (a WavFile, resampled to the bank's rate, or a [2, L]
+        / [L] array); returns its index."""
+        if isinstance(wav, WavFile):
+            ir = np.ascontiguousarray(wav.stereo().T, dtype=np.float32)
+            path = path or wav.path
+            if wav.sample_rate != self.sample_rate:
+                ir = _resample(ir, wav.sample_rate, self.sample_rate)
+                Log.info("bank", "resampled IR %s: %d Hz -> %d Hz",
+                         path, wav.sample_rate, self.sample_rate)
+        else:
+            ir = np.asarray(wav, dtype=np.float32)
+            if ir.ndim == 1:
+                ir = np.stack([ir, ir])
+        if max_seconds is not None:
+            ir = ir[:, : int(max_seconds * self.sample_rate)]
+        self._irs.append(ir)
+        self._paths.append(path)
+        return len(self._irs) - 1
+
+    def extend(self, other: "IRBank") -> int:
+        """Concatenate another bank's entries after this one's (the merged-K
+        layout behind per-channel banks); returns the offset of the first
+        appended entry."""
+        offset = len(self._irs)
+        self._irs.extend(other._irs)
+        self._paths.extend(other._paths)
+        return offset
+
+    # -- introspection -------------------------------------------------------------
+
+    def __len__(self) -> int:
+        return len(self._irs)
+
+    @property
+    def paths(self) -> list[str]:
+        return list(self._paths)
+
+    def ir(self, idx: int) -> np.ndarray:
+        return self._irs[idx]
+
+    @property
+    def max_length(self) -> int:
+        return max((ir.shape[-1] for ir in self._irs), default=1)
+
+    def max_partitions(self, block: int) -> int:
+        return num_partitions(self.max_length, block)
+
+    # -- conditioning -----------------------------------------------------------
+
+    def normalize(self, mode: str = "energy", target: float = 0.125) -> None:
+        """Equalise IR loudness across the bank so switching IRs does not jump
+        the wet level. mode="energy": each IR is scaled to RMS `target`;
+        mode="peak": scaled to peak == target."""
+        for i, ir in enumerate(self._irs):
+            if mode == "energy":
+                rms = float(np.sqrt(np.mean(ir.astype(np.float64) ** 2)))
+                gain = target / max(rms, 1e-12)
+            elif mode == "peak":
+                gain = target / max(float(np.abs(ir).max()), 1e-12)
+            else:
+                raise ValueError(f"unknown normalize mode {mode!r}")
+            self._irs[i] = (ir * np.float32(gain))
+
+    # -- spectra -----------------------------------------------------------------
+
+    def partitioned_spectra(self, block: int,
+                            max_partitions: int | None = None) -> np.ndarray:
+        """[K, 2, P, F] complex64 uniform partition spectra (F = block + 1).
+
+        Every IR is padded to the bank-wide partition count so selection is
+        a plain index; zero partitions cost only memory. One rfft per IR:
+        pocketfft runs a 3-D [2, P, 2B] batch far faster than one 4-D call."""
+        p = max_partitions or num_partitions(self.max_length, block)
+        out = np.zeros((len(self._irs), 2, p, block + 1), np.complex64)
+        for i, ir in enumerate(self._irs):
+            spec = partition_spectra(ir, block, max_partitions=p)
+            out[i, :, : spec.shape[1]] = spec
+        return out

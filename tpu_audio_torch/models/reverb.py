@@ -1,0 +1,193 @@
+"""Reverb model: engine + bank + control plane bundle (port of
+tpu_audio/models/reverb.py:ConvolutionReverb, the fmajor branch).
+
+``ConvolutionReverb`` matches the reference's application wiring
+(reference src/main.cu:18-116: settings -> IR bank -> Convolution instance
+-> control mapping -> stream), batched over V stereo voices on one
+FMajorPartitionedConvolution and one shared device bank.
+"""
+
+from __future__ import annotations
+
+import os
+
+from tpu_audio_torch.engine.bank import IRBank
+from tpu_audio_torch.engine.fmajor import FMajorPartitionedConvolution
+from tpu_audio_torch.engine.params import CCMapping, ControlPlane
+from tpu_audio_torch.io.settings import Settings
+from tpu_audio_torch.runtime.backends import BlockSink, BlockSource
+from tpu_audio_torch.runtime.stream import MidiSchedule, StreamSession
+from tpu_audio_torch.utils.device import resolve_device
+from tpu_audio_torch.utils.log import Log
+
+
+def pair_geometry_keys(settings: Settings, root: str | None) -> list[tuple]:
+    """One engine-geometry key per conv pair: (fftSize, maxPredelay,
+    index0, index1). The reference builds count/2 independent instances,
+    each with its own geometry (src/main.cu:31-39, paired fftSizes asserted
+    equal at main.cu:36); one batched ConvolutionReverb serves a file whose
+    keys are all equal."""
+    count = settings.u32("conv.count", default=2)
+    if count % 2:
+        raise ValueError("conv.count must be a multiple of 2 (main.cu:26)")
+    keys = []
+    for n in range(count // 2):
+        fft = settings.u32("conv[%d].fftSize", 2 * n, default=131072)
+        fft2 = settings.u32("conv[%d].fftSize", 2 * n + 1, default=fft)
+        if fft != fft2:
+            raise ValueError(f"convolution pair {n} needs identical fft "
+                             f"sizes (main.cu:36): {fft} != {fft2}")
+        max_pd = settings.u32("conv[%d].maxPredelay", 2 * n, default=8192)
+        keys.append((fft, max_pd, _resolve_index(settings, 2 * n, root),
+                     _resolve_index(settings, 2 * n + 1, root)))
+    return keys
+
+
+def _resolve_index(settings: Settings, idx_ch: int,
+                   root: str | None) -> str:
+    """conv[idx_ch].index resolved against `root` when not found as-is
+    (reference indices list repo-root-relative paths, src/main.cu:72)."""
+    index = settings.str("conv[%d].index", idx_ch, default="")
+    if index and root and not os.path.exists(index):
+        candidate = os.path.join(root, index)
+        if os.path.exists(candidate):
+            index = candidate
+    return index
+
+
+def _merged_bank(index0: str, index1: str, root, max_ir_seconds,
+                 verbose, sample_rate: int = 44100) -> tuple:
+    """A conv pair's bank + per-channel select windows: differing index
+    files concatenate along the bank axis and each channel addresses its
+    own window (the reference shares one map and lets channel 1 overwrite
+    channel 0, src/main.cu:72-81). IRs recorded at another rate than the
+    session's are resampled on load."""
+    bank = (IRBank.from_index(index0, root=root, verbose=verbose,
+                              max_seconds=max_ir_seconds,
+                              sample_rate=sample_rate)
+            if index0 else IRBank(sample_rate=sample_rate))
+    windows = [(0, len(bank))]
+    if index1 and index1 != index0:
+        bank1 = IRBank.from_index(index1, root=root, verbose=verbose,
+                                  max_seconds=max_ir_seconds,
+                                  sample_rate=sample_rate)
+        offset = bank.extend(bank1)
+        windows = [(0, offset), (offset, len(bank1))]
+    return bank, windows
+
+
+class ConvolutionReverb:
+    """V stereo voices of convolution reverb over one IR bank.
+
+    `device`: None or "cuda" selects the best CUDA device (select_gpu,
+    which raises without CUDA); "cpu" runs the plain PyTorch path."""
+
+    def __init__(self, bank: IRBank, num_voices: int = 1, block: int = 256,
+                 sample_rate: int = 44100, engine: str = "fmajor",
+                 max_predelay: int = 8192,
+                 max_partitions: int | None = None,
+                 mac_strategy: str = "auto", mac_dtype: str = "f32",
+                 device=None):
+        if engine != "fmajor":
+            raise NotImplementedError(
+                f"engine {engine!r} is not ported yet; the port serves the "
+                f"fmajor engine")
+        self.bank = bank
+        self.block = block
+        self.sample_rate = sample_rate
+        if getattr(bank, "sample_rate", sample_rate) != sample_rate:
+            Log.warn("reverb", "bank sample rate %d != session rate %d: "
+                     "IRs will play %.1f%% off — load the bank with "
+                     "sample_rate=%d to resample",
+                     bank.sample_rate, sample_rate,
+                     abs(1 - bank.sample_rate / sample_rate) * 100,
+                     sample_rate)
+        self.device = resolve_device(device)
+        self.control = ControlPlane(num_voices, len(bank), max_predelay,
+                                    device=self.device)
+        partitions = max_partitions or bank.max_partitions(block)
+        self.engine = FMajorPartitionedConvolution(
+            num_voices, block, partitions, max_predelay=max_predelay,
+            mac_strategy=mac_strategy, num_irs=len(bank),
+            mac_dtype=mac_dtype, device=self.device)
+        self.spectra = self.engine.prepare_bank(
+            bank.partitioned_spectra(block, max_partitions=partitions))
+        Log.info("reverb", "%d voice(s), %d IRs, engine=fmajor, bank %.1f MB "
+                 "on %s", num_voices, len(bank),
+                 self.spectra.rhs2.numel() * 4 / 1e6, self.device)
+
+    # -- reference-settings construction (src/main.cu:18-116) --------------------
+
+    @classmethod
+    def from_settings(cls, settings: Settings | str, engine: str = "fmajor",
+                      root: str | None = None, num_voices: int | None = None,
+                      max_ir_seconds: float | None = None,
+                      normalize_bank: str | None = None,
+                      verbose: bool = True, **kwargs) -> "ConvolutionReverb":
+        """Build from a reference-format settings file.
+
+        conv.count / 2 stereo voices (reference asserts count is even,
+        src/main.cu:26); per-channel CC mappings + initial values
+        (src/main.cu:54-70); IR banks from BOTH channels' index files
+        (src/main.cu:72-81), concatenated along the bank axis when they
+        differ, each engine channel addressing its own window."""
+        if not isinstance(settings, Settings):
+            settings = Settings().open(settings, verbose=verbose)
+        count = settings.u32("conv.count", default=2)
+        if count % 2:
+            raise ValueError("conv.count must be a multiple of 2 (main.cu:26)")
+        v = num_voices if num_voices is not None else count // 2
+        keys = pair_geometry_keys(settings, root)
+        if len(set(keys)) > 1:
+            raise NotImplementedError(
+                f"settings file has {len(set(keys))} distinct conv-pair "
+                f"geometries (fftSize/maxPredelay/index); heterogeneous "
+                f"pairs need ReverbGroups, which is not ported yet")
+        _, max_pd, _, _ = keys[0]  # fftSize sizes the monolithic engine
+        bank, windows = _merged_bank(
+            _resolve_index(settings, 0, root),
+            _resolve_index(settings, 1, root), root, max_ir_seconds, verbose,
+            sample_rate=kwargs.get("sample_rate", 44100))
+        if normalize_bank:
+            bank.normalize(mode=normalize_bank)
+        model = cls(bank, num_voices=v, engine=engine, max_predelay=max_pd,
+                    **kwargs)
+        model.control.set_channel_banks(windows)
+        for voice in range(min(v, count // 2)):
+            for ch in range(2):
+                idx = voice * 2 + ch
+                model.control.set_mapping(
+                    voice, ch, CCMapping.from_settings(settings, idx))
+                model.control.load_initial_values(settings, voice, ch, idx)
+        # replicate voice 0's config across extra voices (server scale-out)
+        for voice in range(count // 2, v):
+            for ch in range(2):
+                model.control.set_mapping(voice, ch,
+                                          CCMapping.from_settings(settings, ch))
+                model.control.load_initial_values(settings, voice, ch, ch)
+        return model
+
+    # -- running --------------------------------------------------------------------
+
+    def init_state(self, converged: bool = True):
+        if converged:
+            return self.engine.init_converged(
+                self.spectra, self.control.snapshot().to(self.device))
+        return self.engine.init_state()
+
+    def session(self, source: BlockSource, sink: BlockSink,
+                **kwargs) -> StreamSession:
+        return StreamSession(self.engine, self.spectra, self.control,
+                             source, sink, sample_rate=self.sample_rate,
+                             **kwargs)
+
+    def process(self, source: BlockSource, sink: BlockSink,
+                midi: MidiSchedule | None = None,
+                max_blocks: int | None = None, state=None,
+                **session_kwargs):
+        """Convenience: build a session, run to completion, return
+        (final_state, summary dict)."""
+        session = self.session(source, sink, **session_kwargs)
+        state = state if state is not None else self.init_state()
+        state = session.run(state, max_blocks=max_blocks, midi=midi)
+        return state, session.summary()

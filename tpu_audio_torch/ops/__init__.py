@@ -1,0 +1,1 @@
+"""Device math: transforms, partitioning, mixing and the MAC kernel."""

@@ -1,0 +1,158 @@
+"""Ring-pointer all-K partition MAC: the hand-written Hopper kernel and its
+plain PyTorch version.
+
+Port of the Pallas TPU kernel ``tpu_audio/ops/pallas_mac.py:ring_mac``, the
+MAC of the fmajor engine's ring mode (``tpu_audio/engine/fmajor.py``). For
+every frequency bin f, delay-line row vi and bank output column kod::
+
+    m[f, vi, kod] = sum_{c, s} fdl[f, vi, c, s] * rhs2[f, c, Pp - w + s, kod]
+
+with ``w = wptr mod Pp`` the newest ring slot. ``fdl`` keeps the engine's
+layout ``[F, VI, 2, Pp]`` (the Pallas kernel took ``[F, 2, VI, Pp]``);
+``rhs2`` is the doubled, time-reversed bank ``[F, 2, 2*Pp, KOD]``.
+
+``ring_mac`` launches the CUDA kernel (``csrc/ring_mac.cu``) for a CUDA
+tensor and takes the plain version only for a CPU tensor. The kernel is
+compiled with ``nvcc`` for ``sm_90a`` into ``tpu_audio_torch/_build/`` at
+first use and bound with ``ctypes``; nothing CUDA-specific happens at
+import time.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+import torch
+
+_PKG = Path(__file__).resolve().parent.parent
+SOURCE = _PKG / "csrc" / "ring_mac.cu"
+BUILD_DIR = _PKG / "_build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_lock = threading.Lock()
+_lib = None
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    if CUDA_HOME is None:
+        raise RuntimeError("nvcc not found: set CUDA_HOME to the CUDA toolkit")
+    return os.path.join(CUDA_HOME, "bin", "nvcc")
+
+
+def build() -> tuple[Path, float, str]:
+    """Compile csrc/ring_mac.cu into a shared library keyed by the source's
+    hash (a stale build is never loaded). Returns (path, seconds spent
+    compiling — 0.0 when the library already existed, ptxas report)."""
+    src = SOURCE.read_bytes()
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    lib = BUILD_DIR / f"libring_mac_{digest[:16]}.so"
+    if lib.exists():
+        return lib, 0.0, ""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+    t0 = time.perf_counter()
+    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}) on {SOURCE}:\n"
+                           f"{proc.stdout}{proc.stderr}")
+    os.replace(tmp, lib)
+    return lib, time.perf_counter() - t0, proc.stderr
+
+
+def _library() -> ctypes.CDLL:
+    global _lib
+    with _lock:
+        if _lib is None:
+            path, _, _ = build()
+            lib = ctypes.CDLL(str(path))
+            lib.ring_mac_launch.argtypes = (
+                [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+            lib.ring_mac_launch.restype = ctypes.c_int
+            lib.ring_mac_error_string.argtypes = [ctypes.c_int]
+            lib.ring_mac_error_string.restype = ctypes.c_char_p
+            _lib = lib
+    return _lib
+
+
+def _check(w, fdl: torch.Tensor, rhs2: torch.Tensor) -> None:
+    """Raise on anything the kernel does not take."""
+    if not isinstance(w, torch.Tensor) or w.dtype != torch.int32 \
+            or w.numel() != 1:
+        raise TypeError("w must be a one-element int32 tensor")
+    if fdl.dtype != torch.float32 or rhs2.dtype != torch.float32:
+        raise TypeError(f"fdl and rhs2 must be float32, got {fdl.dtype} "
+                        f"and {rhs2.dtype}")
+    if not (fdl.device == rhs2.device == w.device):
+        raise ValueError(f"w, fdl and rhs2 must share a device, got "
+                         f"{w.device}, {fdl.device}, {rhs2.device}")
+    if fdl.dim() != 4 or fdl.shape[2] != 2:
+        raise ValueError(f"fdl must be [F, VI, 2, Pp], got {tuple(fdl.shape)}")
+    f, vi, _, pp = fdl.shape
+    if rhs2.dim() != 4 or rhs2.shape[:3] != (f, 2, 2 * pp):
+        raise ValueError(f"rhs2 must be [F, 2, 2*Pp, KOD] = [{f}, 2, "
+                         f"{2 * pp}, KOD], got {tuple(rhs2.shape)}")
+    kod = rhs2.shape[3]
+    if min(f, vi, pp, kod) == 0 or kod % 4:
+        raise ValueError(f"ring_mac needs nonzero sizes and KOD % 4 == 0, "
+                         f"got F={f} VI={vi} Pp={pp} KOD={kod}")
+    if f > 65535:
+        raise ValueError(f"F={f} exceeds the kernel's grid limit")
+    if not (fdl.is_contiguous() and rhs2.is_contiguous()):
+        raise ValueError("fdl and rhs2 must be contiguous")
+    if fdl.data_ptr() % 16 or rhs2.data_ptr() % 16:
+        raise ValueError("fdl and rhs2 must be 16-byte aligned")
+
+
+def ring_mac_reference(w, fdl: torch.Tensor, rhs2: torch.Tensor
+                       ) -> torch.Tensor:
+    """Plain PyTorch version: gather the window rows [Pp - w, 2Pp - w) of
+    both planes, then one batched-per-bin contraction over q = c*Pp + s in
+    the inputs' dtype. `w` is an int or a one-element integer tensor."""
+    f, vi, _, pp = fdl.shape
+    idx = (pp - w % pp) + torch.arange(pp, device=fdl.device)
+    rhs = rhs2.index_select(2, idx.reshape(-1))            # [F, 2, Pp, KOD]
+    return torch.einsum("fvq,fqk->fvk", fdl.reshape(f, vi, 2 * pp),
+                        rhs.reshape(f, 2 * pp, rhs2.shape[3]))
+
+
+def ring_mac(w: torch.Tensor, fdl: torch.Tensor, rhs2: torch.Tensor
+             ) -> torch.Tensor:
+    """m [F, VI, KOD] f32. `w` is a one-element int32 tensor holding the
+    ring slot (any integer; reduced mod Pp) on the tensors' device.
+
+    A CUDA tensor launches the kernel on the current stream (no sync) or
+    raises; a CPU tensor takes ring_mac_reference."""
+    _check(w, fdl, rhs2)
+    if fdl.device.type == "cpu":
+        return ring_mac_reference(w, fdl, rhs2)
+    if fdl.device.type != "cuda":
+        raise ValueError(f"ring_mac runs on CUDA or CPU, not {fdl.device}")
+    f, vi, _, pp = fdl.shape
+    kod = rhs2.shape[3]
+    lib = _library()
+    m = torch.empty((f, vi, kod), dtype=torch.float32, device=fdl.device)
+    with torch.cuda.device(fdl.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.ring_mac_launch(w.data_ptr(), fdl.data_ptr(),
+                                  rhs2.data_ptr(), m.data_ptr(), f, vi, pp,
+                                  kod, stream)
+    if err != 0:
+        raise RuntimeError(
+            f"ring_mac kernel launch failed: CUDA error {err} "
+            f"({lib.ring_mac_error_string(err).decode()}; F={f} VI={vi} "
+            f"Pp={pp} KOD={kod})")
+    ring_mac.launches += 1
+    return m
+
+
+ring_mac.launches = 0
