@@ -9,18 +9,40 @@ Phases, in order; any failure raises and the script exits non-zero:
 
   1. device: select the GPU, print its name and power limit, check that
      TF32 is off;
-  2. build: compile the ring_mac CUDA kernel from tpu_audio_torch/csrc;
-  3. kernel vs plain: the kernel against its plain PyTorch version in
+  2. build: compile both CUDA kernels from tpu_audio_torch/csrc, one nvcc
+     per source, started together;
+  3. ring_mac vs plain: the kernel against its plain PyTorch version in
      float64 at the 64-voice main-path shapes (every ring phase) and at an
      odd small shape, within 1e-5 of the output's scale;
-  4. the slice at full width: 64 stereo voices, 4 synthetic 4 s IRs,
+  4. ring mode at full width: 64 stereo voices, 4 synthetic 4 s IRs,
      256-frame blocks at 44.1 kHz, streamed through StreamSession for 800
      blocks with a re-select and an interrupting re-select; every block
-     must ride the kernel, the fades the indexed step, every output must be
-     finite, and voices 0 and 63 must match a float64 fftconvolve golden
-     before the re-selects and after the fades decay;
-  5. timing on the card (CUDA events): per-step steady and indexed, the
-     kernel alone against the plain MAC, and the session's wall time.
+     must ride ring_mac (and none mac_shift), the fades the indexed step,
+     every output must be finite, and voices 0 and 63 must match a float64
+     fftconvolve golden before the re-selects and after the fades decay;
+  5. ring-mode timing on the card (CUDA events): per-step steady, indexed
+     and general, ring_mac alone against the plain MAC, the session's wall
+     time;
+  6. mac_shift vs plain: at the 64-voice shapes, at KOD=64 (several column
+     tiles) and at an odd small shape the shifted line must be
+     bit-identical to the plain version's and m within 1e-5 of the float64
+     plain version's scale;
+  7. roll mode at full width (ring=False, swap_snapshot=True): the same 64
+     voices and IRs through StreamSession for 800 blocks with a re-select
+     (collapse_pure, the indexed step), a live swap_bank mid-fade to the
+     same IRs reordered and scaled by 0.5 (materialize_base, the general
+     step) and an interrupting re-select during that fade (the
+     materializing collapse); every block must ride mac_shift and none
+     ring_mac, the indexed and general blocks are counted against floors,
+     and voices 0 and 63 must match the golden before the re-select and
+     after the fades decay against the new bank;
+  8. 'selected' at full width: 64 voices, ring mode, a 24-IR synthetic 4 s
+     bank that mac_strategy='auto' resolves to 'selected', through
+     ConvolutionReverb's session for 600 blocks with a re-select and an
+     interrupt (the materializing collapse, the general step), against
+     the same golden;
+  9. roll and 'selected' timing: per-step steady, indexed and general
+     (CUDA events), mac_shift alone against its plain version, interleaved.
 
 The line before the last is a JSON object describing each kernel; the last
 line is {"ok": true, "device": {...}}. The script imports nothing of JAX
@@ -40,6 +62,12 @@ BLOCKS = 800
 SELECT_AT, INTERRUPT_AT = 300, 306
 SELECT_CC = 21
 DEADLINE_MS = BLOCK / RATE * 1e3
+# roll mode: re-select to IR 1 at 300, swap mid-fade at 320 to the bank
+# new[k] = 0.5 * irs[ROLL_PERM[k]], interrupt to new IR 2 at 326
+ROLL_SWAP_AT, ROLL_INTERRUPT_AT = 320, 326
+ROLL_PERM = (1, 2, 3, 0)
+# 'selected': 24 IRs, re-select at 200 (IR 6), interrupt at 206 (IR 12)
+SEL_IRS, SEL_BLOCKS, SEL_SELECT_AT, SEL_INTERRUPT_AT = 24, 600, 200, 206
 
 
 def synthetic_bank(num_irs, ir_seconds, sample_rate):
@@ -75,6 +103,32 @@ def golden(x, ir_pair, wet, dry, predelay):
     return out
 
 
+def noise_input(blocks):
+    """Voices 0 and 63 of NoiseSource(VOICES, BLOCK, blocks, 0.01, seed 0)."""
+    noise = np.random.default_rng(0)
+    return np.concatenate(
+        [(noise.standard_normal((VOICES, 2, BLOCK)) * 0.01).astype(np.float32)
+         for _ in range(blocks)], axis=-1)[[0, VOICES - 1]]
+
+
+def check_golden(name, out, x, windows, predelay):
+    """out, x [2 voices, 2, T]; windows: (label, first block, end block,
+    IR [2, L]). Returns the largest error; raises beyond 1e-4."""
+    worst = 0.0
+    for i, v in enumerate((0, VOICES - 1)):
+        for label, b0, b1, ir in windows:
+            want = golden(x[i], [ir, ir], wet=0.7, dry=0.2, predelay=predelay)
+            err = float(np.abs(out[i, :, b0 * BLOCK: b1 * BLOCK]
+                               - want[:, b0 * BLOCK: b1 * BLOCK]).max())
+            worst = max(worst, err)
+            print(f"{name} golden voice {v} blocks {b0}-{b1 - 1} ({label}): "
+                  f"max_abs_err {err:.3e} (limit 1e-4)")
+            if not err <= 1e-4:
+                raise AssertionError(f"{name}: voice {v} disagrees with the "
+                                     f"golden {label}")
+    return worst
+
+
 def cuda_ms(fn, reps, warmup=20):
     """Mean device milliseconds per call over `reps` calls (CUDA events)."""
     import torch
@@ -91,6 +145,24 @@ def cuda_ms(fn, reps, warmup=20):
     return start.elapsed_time(end) / reps
 
 
+def step_times(step, state, bank, params, x, n=520, skip=20):
+    """p50/p99 device ms of `n` back-to-back calls of one engine step (CUDA
+    events around each call, the first `skip` dropped). Returns (p50, p99,
+    state)."""
+    import torch
+
+    starts = [torch.cuda.Event(enable_timing=True) for _ in range(n)]
+    ends = [torch.cuda.Event(enable_timing=True) for _ in range(n)]
+    for s, e in zip(starts, ends):
+        s.record()
+        state, _ = step(state, bank, params, x)
+        e.record()
+    torch.cuda.synchronize()
+    times = np.array([s.elapsed_time(e) for s, e in zip(starts, ends)])[skip:]
+    return (float(np.percentile(times, 50)), float(np.percentile(times, 99)),
+            state)
+
+
 def main() -> int:
     import torch
 
@@ -98,12 +170,15 @@ def main() -> int:
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
         return 1
     from tpu_audio_torch.engine.bank import IRBank
-    from tpu_audio_torch.engine.params import CCMapping
+    from tpu_audio_torch.engine.fmajor import FMajorPartitionedConvolution
+    from tpu_audio_torch.engine.params import CCMapping, ControlPlane
     from tpu_audio_torch.models.reverb import ConvolutionReverb
+    from tpu_audio_torch.ops import mac_shift as ms
     from tpu_audio_torch.ops import ring_mac as rm
+    from tpu_audio_torch.ops.cuda_build import build_all
     from tpu_audio_torch.ops.partition import num_partitions
     from tpu_audio_torch.runtime.backends import BlockSink, NoiseSource
-    from tpu_audio_torch.runtime.stream import MidiSchedule
+    from tpu_audio_torch.runtime.stream import MidiSchedule, StreamSession
     from tpu_audio_torch.utils.device import select_gpu
     from tpu_audio_torch.utils.log import Log
 
@@ -125,14 +200,21 @@ def main() -> int:
         raise RuntimeError("TF32 is on after device selection")
 
     # -- 2. build -----------------------------------------------------------------
-    path, build_s, ptxas = rm.build()
-    print(f"build: {path.name} compiled in {build_s:.2f} s"
-          if build_s else f"build: {path.name} already built")
-    for line in ptxas.splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"  {line.strip()}")
+    t0 = time.perf_counter()
+    built = build_all([rm.LIBRARY, ms.LIBRARY])
+    print(f"build: both kernels in {time.perf_counter() - t0:.2f} s wall")
+    for path, build_s, ptxas in built:
+        print(f"  {path.name} compiled in {build_s:.2f} s" if build_s
+              else f"  {path.name} already built")
+        for line in ptxas.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"    {line.strip()}")
 
-    # -- 3. kernel vs plain ---------------------------------------------------------
+    def reset_counts():
+        rm.ring_mac.launches = 0
+        ms.mac_shift.launches = 0
+
+    # -- 3. ring_mac vs plain ---------------------------------------------------------
     engine_pp = -(-num_partitions(int(IR_SECONDS * RATE), BLOCK) // 8) * 8
     f_full, vi_full, kod_full = BLOCK + 1, 2 * VOICES, 4 * NUM_IRS
     rng = np.random.default_rng(0)
@@ -155,7 +237,7 @@ def main() -> int:
             scale = ref64.abs().max().item()
             err = (got.double() - ref64).abs().max().item()
             err32 = (ref32.double() - ref64).abs().max().item()
-            print(f"kernel vs plain [{name} F={f} VI={vi} Pp={pp} KOD={kod} "
+            print(f"ring_mac vs plain [{name} F={f} VI={vi} Pp={pp} KOD={kod} "
                   f"w={w}]: max_abs_err {err:.3e} (plain f32 {err32:.3e}, "
                   f"limit {1e-5 * scale:.3e})")
             if not err <= 1e-5 * scale:
@@ -164,26 +246,24 @@ def main() -> int:
             if name == "64-voice":
                 max_abs_err = max(max_abs_err, err)
 
-    # -- 4. the slice at full width -------------------------------------------------
+    # -- 4. ring mode at full width ---------------------------------------------------
     irs = synthetic_bank(NUM_IRS, IR_SECONDS, RATE)
     bank = IRBank(sample_rate=RATE)
     for ir in irs:
         bank.append(ir)
-    model = ConvolutionReverb(bank, num_voices=VOICES, block=BLOCK,
-                              sample_rate=RATE, engine="fmajor",
-                              max_predelay=8192, device=dev)
-    if model.engine.pp != engine_pp:
-        raise AssertionError(f"engine Pp {model.engine.pp} != {engine_pp}")
-    cp = model.control
-    cp.wet[:] = 0.7
-    cp.dry[:] = 0.2
-    cp.predelay[:] = 1024
-    cp.speed[:] = 50
-    for v in range(VOICES):
-        for ch in range(2):
-            cp.set_mapping(v, ch, CCMapping(message=0xB0, select=SELECT_CC))
-    midi = MidiSchedule([(SELECT_AT, "", bytes([0xB0, SELECT_CC, 32])),
-                         (INTERRUPT_AT, "", bytes([0xB0, SELECT_CC, 64]))])
+
+    def configure(cp):
+        cp.wet[:] = 0.7
+        cp.dry[:] = 0.2
+        cp.predelay[:] = 1024
+        cp.speed[:] = 50
+        for v in range(VOICES):
+            for ch in range(2):
+                cp.set_mapping(v, ch, CCMapping(message=0xB0,
+                                                select=SELECT_CC))
+
+    def select(block, value):
+        return (block, "", bytes([0xB0, SELECT_CC, value]))
 
     class KeepSink(BlockSink):
         """Keeps voices 0 and 63; checks every block is finite."""
@@ -196,73 +276,68 @@ def main() -> int:
             self.kept.append(block[[0, VOICES - 1]].copy())
             self.blocks += 1
 
+        def data(self):
+            return np.concatenate(self.kept, axis=-1)     # [2 voices, 2, T]
+
+    model = ConvolutionReverb(bank, num_voices=VOICES, block=BLOCK,
+                              sample_rate=RATE, engine="fmajor",
+                              max_predelay=8192, device=dev)
+    if model.engine.pp != engine_pp or model.engine.mac_strategy != "allk":
+        raise AssertionError(f"engine Pp {model.engine.pp} != {engine_pp} "
+                             f"or strategy {model.engine.mac_strategy}")
+    cp = model.control
+    configure(cp)
+    midi = MidiSchedule([select(SELECT_AT, 32), select(INTERRUPT_AT, 64)])
     sink = KeepSink()
     session = model.session(NoiseSource(VOICES, BLOCK, BLOCKS,
                                         amplitude=0.01, seed=0), sink)
     state = model.init_state()
-    rm.ring_mac.launches = 0
+    reset_counts()
     t0 = time.perf_counter()
     state = session.run(state, midi=midi)
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
     launches = rm.ring_mac.launches
     steps = session.blocks_streamed
-    print(f"slice: {steps} blocks in {run_s:.3f} s, ring_mac launches "
-          f"{launches}, indexed blocks {session.indexed_blocks}, selects "
-          f"{cp.select[0].tolist()}")
+    print(f"ring slice: {steps} blocks in {run_s:.3f} s, ring_mac launches "
+          f"{launches}, mac_shift launches {ms.mac_shift.launches}, indexed "
+          f"blocks {session.indexed_blocks}, general blocks "
+          f"{session.general_blocks}, selects {cp.select[0].tolist()}")
     if steps != BLOCKS or sink.blocks != BLOCKS:
         raise AssertionError(f"streamed {steps} blocks, delivered "
                              f"{sink.blocks}, wanted {BLOCKS}")
-    if launches != steps:
-        raise AssertionError(f"ring_mac launched {launches} times in "
-                             f"{steps} steps")
-    if session.indexed_blocks < 20:
-        raise AssertionError(f"only {session.indexed_blocks} blocks rode "
-                             f"step_coef_indexed")
+    if launches != steps or ms.mac_shift.launches:
+        raise AssertionError(f"ring_mac launched {launches} times and "
+                             f"mac_shift {ms.mac_shift.launches} in {steps} "
+                             f"ring-mode steps")
+    if session.indexed_blocks < 20 or session.general_blocks:
+        raise AssertionError(f"{session.indexed_blocks} blocks rode "
+                             f"step_coef_indexed, {session.general_blocks} "
+                             f"the general step")
     if not sink.finite:
         raise AssertionError("non-finite output")
     if not float(state.coef_a.max()) < 1e-6:
         raise AssertionError("the crossfades did not decay by the end")
-
-    out = np.concatenate(sink.kept, axis=-1)            # [2 voices, 2, T]
-    noise = np.random.default_rng(0)                    # NoiseSource's stream
-    x = np.concatenate(
-        [(noise.standard_normal((VOICES, 2, BLOCK)) * 0.01).astype(np.float32)
-         for _ in range(BLOCKS)], axis=-1)[[0, VOICES - 1]]
-    windows = (("before the re-selects", 0, SELECT_AT, 0),
-               ("after the fades decay", 500, BLOCKS, 2))
-    golden_err = 0.0
-    for i, v in enumerate((0, VOICES - 1)):
-        for label, b0, b1, sel in windows:
-            want = golden(x[i], [irs[sel], irs[sel]], wet=0.7, dry=0.2,
-                          predelay=int(cp.predelay[v, 0]))
-            err = np.abs(out[i, :, b0 * BLOCK: b1 * BLOCK]
-                         - want[:, b0 * BLOCK: b1 * BLOCK]).max()
-            golden_err = max(golden_err, float(err))
-            print(f"golden voice {v} blocks {b0}-{b1 - 1} ({label}, IR "
-                  f"{sel}): max_abs_err {err:.3e} (limit 1e-4)")
-            if not err <= 1e-4:
-                raise AssertionError(f"voice {v} disagrees with the golden "
-                                     f"{label}")
+    x = noise_input(BLOCKS)
+    golden_err = check_golden(
+        "ring", sink.data(), x,
+        (("before the re-selects, IR 0", 0, SELECT_AT, irs[0]),
+         ("after the fades decay, IR 2", 500, BLOCKS, irs[2])),
+        predelay=int(cp.predelay[0, 0]))
     summary = session.summary()
 
-    # -- 5. timing on the card --------------------------------------------------------
+    # -- 5. ring-mode timing on the card ------------------------------------------------
     engine, bank_t = model.engine, model.spectra
     params = cp.snapshot_device()
-    xt = torch.tensor(x[:, :, :BLOCK].repeat(32, axis=0), device=dev)
+    xt = torch.tensor(x[:, :, :BLOCK].repeat(VOICES // 2, axis=0), device=dev)
     step_ms = {}
     for name in ("step_coef_steady", "step_coef_indexed"):
-        step = getattr(engine, name)
-        starts = [torch.cuda.Event(enable_timing=True) for _ in range(520)]
-        ends = [torch.cuda.Event(enable_timing=True) for _ in range(520)]
-        for s, e in zip(starts, ends):
-            s.record()
-            state, _ = step(state, bank_t, params, xt)
-            e.record()
-        torch.cuda.synchronize()
-        times = np.array([s.elapsed_time(e) for s, e in zip(starts, ends)])[20:]
-        step_ms[name] = (float(np.percentile(times, 50)),
-                         float(np.percentile(times, 99)))
+        p50, p99, state = step_times(getattr(engine, name), state, bank_t,
+                                     params, xt)
+        step_ms[("ring", name)] = (p50, p99)
+    state = engine.materialize_base(state, bank_t)
+    p50, p99, state = step_times(engine.step_coef, state, bank_t, params, xt)
+    step_ms[("ring", "step_coef")] = (p50, p99)
     fdl, rhs2 = tensors["64-voice"]
     wt = torch.tensor(5, dtype=torch.int32, device=dev)
     kernel_runs, plain_runs = [], []
@@ -273,32 +348,238 @@ def main() -> int:
     kernel_ms = float(np.mean(kernel_runs))
     plain_ms = float(np.mean(plain_runs))
     mac_bytes = (fdl.numel() + rhs2.numel() // 2) * 4  # fdl + the window
+    del model, session, state, engine, bank_t, tensors, fdl, rhs2
+    torch.cuda.empty_cache()
+
+    # -- 6. mac_shift vs plain ---------------------------------------------------------
+    shift_err = 0.0
+    shift_tensors = {}
+    for name, (f, vi, pp, kod) in (
+            ("64-voice", (f_full, vi_full, engine_pp, kod_full)),
+            ("64-voice KOD=64", (f_full, vi_full, engine_pp, 64)),
+            ("odd-small", (7, 5, 24, 12))):
+        fdl = torch.tensor(rng.standard_normal((f, vi, 2, pp),
+                                               dtype=np.float32), device=dev)
+        xn = torch.tensor(rng.standard_normal((f, vi, 2, 1),
+                                              dtype=np.float32), device=dev)
+        rhs = torch.tensor(rng.standard_normal((f, 2, pp, kod),
+                                               dtype=np.float32), device=dev)
+        shift64, ref64 = ms.mac_shift_reference(fdl.double(), xn.double(),
+                                                rhs.double())
+        _, ref32 = ms.mac_shift_reference(fdl, xn, rhs)
+        got_fdl, got = ms.mac_shift(fdl, xn, rhs)
+        torch.cuda.synchronize()
+        same = got_fdl is fdl and torch.equal(got_fdl.double(), shift64)
+        scale = ref64.abs().max().item()
+        err = (got.double() - ref64).abs().max().item()
+        err32 = (ref32.double() - ref64).abs().max().item()
+        print(f"mac_shift vs plain [{name} F={f} VI={vi} Pp={pp} KOD={kod}]: "
+              f"shifted line {'bit-identical' if same else 'DIFFERS'}, m "
+              f"max_abs_err {err:.3e} (plain f32 {err32:.3e}, limit "
+              f"{1e-5 * scale:.3e})")
+        if not same:
+            raise AssertionError(f"mac_shift's shifted line differs from the "
+                                 f"plain version at {name}")
+        if not err <= 1e-5 * scale:
+            raise AssertionError(f"mac_shift kernel disagrees with the plain "
+                                 f"version at {name}")
+        if name.startswith("64-voice"):
+            shift_err = max(shift_err, err)
+        shift_tensors[name] = (fdl, xn, rhs)
+
+    # -- 7. roll mode at full width -----------------------------------------------------
+    partitions = bank.max_partitions(BLOCK)
+    roll = FMajorPartitionedConvolution(
+        VOICES, BLOCK, partitions, max_predelay=8192, ring=False,
+        mac_strategy="allk", num_irs=NUM_IRS, swap_snapshot=True, device=dev)
+    roll_bank = roll.prepare_bank(bank.partitioned_spectra(BLOCK))
+    new_irs = [irs[k] * np.float32(0.5) for k in ROLL_PERM]
+    swapped = IRBank(sample_rate=RATE)
+    for ir in new_irs:
+        swapped.append(ir)
+    roll_bank2 = roll.prepare_bank(swapped.partitioned_spectra(BLOCK))
+    roll_cp = ControlPlane(VOICES, NUM_IRS, 8192, device=dev)
+    configure(roll_cp)
+    roll_sink = KeepSink()
+    roll_session = StreamSession(
+        roll, roll_bank, roll_cp,
+        NoiseSource(VOICES, BLOCK, BLOCKS, amplitude=0.01, seed=0),
+        roll_sink, sample_rate=RATE)
+    state = roll.init_converged(roll_bank, roll_cp.snapshot_device())
+    reset_counts()
+    t0 = time.perf_counter()
+    state = roll_session.run(state, max_blocks=ROLL_SWAP_AT,
+                             midi=MidiSchedule([select(SELECT_AT, 32)]))
+    indexed_before_swap = roll_session.indexed_blocks
+    roll_session.swap_bank(roll_bank2)
+    state = roll_session.run(state, midi=MidiSchedule(
+        [select(ROLL_INTERRUPT_AT - ROLL_SWAP_AT, 64)]))
+    torch.cuda.synchronize()
+    roll_s = time.perf_counter() - t0
+    roll_launches = ms.mac_shift.launches
+    steps = roll_session.blocks_streamed
+    print(f"roll slice: {steps} blocks in {roll_s:.3f} s, mac_shift launches "
+          f"{roll_launches}, ring_mac launches {rm.ring_mac.launches}, "
+          f"indexed blocks {roll_session.indexed_blocks}, general blocks "
+          f"{roll_session.general_blocks}, selects "
+          f"{roll_cp.select[0].tolist()}")
+    if steps != BLOCKS or roll_sink.blocks != BLOCKS:
+        raise AssertionError(f"roll: streamed {steps} blocks, delivered "
+                             f"{roll_sink.blocks}, wanted {BLOCKS}")
+    if roll_launches != steps or rm.ring_mac.launches:
+        raise AssertionError(f"mac_shift launched {roll_launches} times and "
+                             f"ring_mac {rm.ring_mac.launches} in {steps} "
+                             f"roll-mode steps")
+    if roll_session.bank is not roll_bank2:
+        raise AssertionError("the bank swap was not applied")
+    if (indexed_before_swap < 15
+            or roll_session.indexed_blocks != indexed_before_swap
+            or roll_session.general_blocks < 60):
+        raise AssertionError(f"roll: {roll_session.indexed_blocks} indexed "
+                             f"blocks ({indexed_before_swap} before the "
+                             f"swap), {roll_session.general_blocks} general")
+    if not roll_sink.finite:
+        raise AssertionError("roll: non-finite output")
+    if not float(state.coef_a.max()) < 1e-6:
+        raise AssertionError("roll: the crossfades did not decay by the end")
+    roll_err = check_golden(
+        "roll", roll_sink.data(), x,
+        (("before the re-select, IR 0", 0, SELECT_AT, irs[0]),
+         ("after the fades decay, new bank IR 2 = 0.5 * IR "
+          f"{ROLL_PERM[2]}", 560, BLOCKS, new_irs[2])),
+        predelay=int(roll_cp.predelay[0, 0]))
+    roll_summary = roll_session.summary()
+
+    # -- 8. 'selected' at full width ----------------------------------------------------
+    sel_irs = synthetic_bank(SEL_IRS, IR_SECONDS, RATE)
+    sel_bank = IRBank(sample_rate=RATE)
+    for ir in sel_irs:
+        sel_bank.append(ir)
+    t0 = time.perf_counter()
+    sel_model = ConvolutionReverb(sel_bank, num_voices=VOICES, block=BLOCK,
+                                  sample_rate=RATE, max_predelay=8192,
+                                  device=dev)
+    sel_build_s = time.perf_counter() - t0
+    if sel_model.engine.mac_strategy != "selected":
+        raise AssertionError(f"auto resolved {SEL_IRS} IRs to "
+                             f"{sel_model.engine.mac_strategy}")
+    sel_cp = sel_model.control
+    configure(sel_cp)
+    sel_sink = KeepSink()
+    sel_session = sel_model.session(
+        NoiseSource(VOICES, BLOCK, SEL_BLOCKS, amplitude=0.01, seed=0),
+        sel_sink)
+    state = sel_model.init_state()
+    reset_counts()
+    t0 = time.perf_counter()
+    state = sel_session.run(state, midi=MidiSchedule(
+        [select(SEL_SELECT_AT, 32), select(SEL_INTERRUPT_AT, 64)]))
+    torch.cuda.synchronize()
+    sel_s = time.perf_counter() - t0
+    steps = sel_session.blocks_streamed
+    print(f"selected slice: {steps} blocks in {sel_s:.3f} s (model built in "
+          f"{sel_build_s:.2f} s), general blocks "
+          f"{sel_session.general_blocks}, indexed blocks "
+          f"{sel_session.indexed_blocks}, ring_mac/mac_shift launches "
+          f"{rm.ring_mac.launches}/{ms.mac_shift.launches}, selects "
+          f"{sel_cp.select[0].tolist()}")
+    if steps != SEL_BLOCKS or sel_sink.blocks != SEL_BLOCKS:
+        raise AssertionError(f"selected: streamed {steps} blocks, delivered "
+                             f"{sel_sink.blocks}, wanted {SEL_BLOCKS}")
+    if (sel_session.general_blocks < 60 or sel_session.indexed_blocks
+            or rm.ring_mac.launches or ms.mac_shift.launches):
+        raise AssertionError("selected: wrong step mix or an all-K kernel "
+                             "launched")
+    if not sel_sink.finite:
+        raise AssertionError("selected: non-finite output")
+    if not float(state.coef_a.max()) < 1e-6:
+        raise AssertionError("selected: the crossfades did not decay")
+    sel_x = noise_input(SEL_BLOCKS)
+    sel_a, sel_b = (32 * SEL_IRS // 128, 64 * SEL_IRS // 128)
+    if sel_cp.select[0].tolist() != [sel_b, sel_b]:
+        raise AssertionError(f"selected: selection {sel_cp.select[0]}")
+    sel_err = check_golden(
+        "selected", sel_sink.data(), sel_x,
+        (("before the re-selects, IR 0", 0, SEL_SELECT_AT, sel_irs[0]),
+         (f"after the fades decay, IR {sel_b} (via IR {sel_a})", 400,
+          SEL_BLOCKS, sel_irs[sel_b])),
+        predelay=int(sel_cp.predelay[0, 0]))
+    sel_summary = sel_session.summary()
+
+    # -- 9. roll and 'selected' timing ------------------------------------------------
+    sel_params = sel_cp.snapshot_device()
+    for name in ("step_coef_steady", "step_coef"):
+        p50, p99, state = step_times(getattr(sel_model.engine, name), state,
+                                     sel_model.spectra, sel_params, xt)
+        step_ms[("selected", name)] = (p50, p99)
+    del sel_model, sel_session, state
+    torch.cuda.empty_cache()
+    roll_params = roll_cp.snapshot_device()
+    state = roll.init_converged(roll_bank2, roll_params)
+    for name in ("step_coef_steady", "step_coef_indexed"):
+        p50, p99, state = step_times(getattr(roll, name), state, roll_bank2,
+                                     roll_params, xt)
+        step_ms[("roll", name)] = (p50, p99)
+    state = roll.materialize_base(state, roll_bank2)
+    p50, p99, state = step_times(roll.step_coef, state, roll_bank2,
+                                 roll_params, xt)
+    step_ms[("roll", "step_coef")] = (p50, p99)
+    shift_ms = {}
+    for name in ("64-voice", "64-voice KOD=64"):
+        fdl, xn, rhs = shift_tensors[name]
+        kernel_runs, plain_runs = [], []
+        for _ in range(2):  # interleaved: plain, kernel, kernel, plain
+            plain_runs.append(cuda_ms(
+                lambda: ms.mac_shift_reference(fdl, xn, rhs), 200))
+            kernel_runs.append(cuda_ms(lambda: ms.mac_shift(fdl, xn, rhs),
+                                       200))
+        shift_ms[name] = (float(np.mean(kernel_runs)),
+                          float(np.mean(plain_runs)),
+                          (2 * fdl.numel() + xn.numel() + rhs.numel()) * 4)
+
     tag = f"[{card}]"
-    lines = [
-        ("steady_step_p50_ms", step_ms["step_coef_steady"][0]),
-        ("steady_step_p99_ms", step_ms["step_coef_steady"][1]),
-        ("indexed_step_p50_ms", step_ms["step_coef_indexed"][0]),
-        ("indexed_step_p99_ms", step_ms["step_coef_indexed"][1]),
+    lines = []
+    for (mode, name), (p50, p99) in step_ms.items():
+        short = {"step_coef_steady": "steady", "step_coef_indexed": "indexed",
+                 "step_coef": "general"}[name]
+        lines += [(f"{mode}_{short}_step_p50_ms", p50),
+                  (f"{mode}_{short}_step_p99_ms", p99)]
+    lines += [
         ("ring_mac_kernel_us", kernel_ms * 1e3),
         ("ring_mac_kernel_GBps", mac_bytes / (kernel_ms * 1e-3) / 1e9),
         ("ring_mac_plain_us", plain_ms * 1e3),
-        ("session_wall_avg_ms_per_block", summary["avg_ms"]),
-        ("session_wall_p50_ms_per_block", summary["p50_ms"]),
-        ("session_wall_p99_ms_per_block", summary["p99_ms"]),
-        ("session_rtf", summary["rtf"]),
-        ("session_missed_deadlines", summary["missed_deadlines"]),
-        ("deadline_ms", DEADLINE_MS),
-        ("golden_max_abs_err", golden_err),
     ]
+    for key, name in (("mac_shift", "64-voice"),
+                      ("mac_shift_kod64", "64-voice KOD=64")):
+        k_ms, p_ms, nbytes = shift_ms[name]
+        lines += [(f"{key}_kernel_us", k_ms * 1e3),
+                  (f"{key}_kernel_GBps", nbytes / (k_ms * 1e-3) / 1e9),
+                  (f"{key}_plain_us", p_ms * 1e3)]
+    for mode, s in (("ring", summary), ("roll", roll_summary),
+                    ("selected", sel_summary)):
+        lines += [(f"{mode}_session_wall_avg_ms_per_block", s["avg_ms"]),
+                  (f"{mode}_session_wall_p50_ms_per_block", s["p50_ms"]),
+                  (f"{mode}_session_wall_p99_ms_per_block", s["p99_ms"]),
+                  (f"{mode}_session_rtf", s["rtf"]),
+                  (f"{mode}_session_missed_deadlines", s["missed_deadlines"])]
+    lines += [("deadline_ms", DEADLINE_MS),
+              ("golden_max_abs_err",
+               max(golden_err, roll_err, sel_err))]
     for key, value in lines:
         print(f"{key} {value} {tag}")
 
-    print(json.dumps({"kernels": [{
-        "name": "ring_mac", "route": "cuda",
-        "source": "tpu_audio_torch/csrc/ring_mac.cu",
-        "replaces": "tpu_audio/ops/pallas_mac.py:160",
-        "launches": launches, "max_abs_err": max_abs_err,
-        "ms": kernel_ms, "plain_ms": plain_ms}]}))
+    k_ms, p_ms, _ = shift_ms["64-voice"]
+    print(json.dumps({"kernels": [
+        {"name": "ring_mac", "route": "cuda",
+         "source": "tpu_audio_torch/csrc/ring_mac.cu",
+         "replaces": "tpu_audio/ops/pallas_mac.py:160",
+         "launches": launches, "max_abs_err": max_abs_err,
+         "ms": kernel_ms, "plain_ms": plain_ms},
+        {"name": "mac_shift", "route": "cuda",
+         "source": "tpu_audio_torch/csrc/mac_shift.cu",
+         "replaces": "tpu_audio/ops/pallas_mac.py:76",
+         "launches": roll_launches, "max_abs_err": shift_err,
+         "ms": k_ms, "plain_ms": p_ms}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

@@ -1,14 +1,16 @@
-"""Card-only tests of the port: the CUDA ring_mac kernel against its plain
-PyTorch version, and the engine on the card against the engine on the CPU.
+"""Card-only tests of the port: the CUDA ring_mac and mac_shift kernels
+against their plain PyTorch versions, and the engine on the card (ring and
+roll mode, 'allk' and 'selected') against the engine on the CPU.
 
 Every test here needs an NVIDIA GPU and nvcc and skips without them. The
 file imports no JAX, so it also runs where JAX is absent:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
-Tolerances: the kernel sums in f32 in another order than the float64 plain
-version, held to 1e-5 of the output's scale; card vs CPU engine outputs to
-2e-5 absolute (cuFFT vs pocketfft, different MAC summation order).
+Tolerances: the kernels sum in f32 in another order than the float64 plain
+version, held to 1e-5 of the output's scale; mac_shift's shifted line is a
+copy and must be bit-equal; card vs CPU engine outputs to 2e-5 absolute
+(cuFFT vs pocketfft, different MAC summation order).
 """
 
 import numpy as np
@@ -17,6 +19,7 @@ import torch
 
 from tpu_audio_torch.engine.fmajor import FMajorPartitionedConvolution
 from tpu_audio_torch.engine.params import ControlPlane
+from tpu_audio_torch.ops.mac_shift import mac_shift, mac_shift_reference
 from tpu_audio_torch.ops.ring_mac import ring_mac, ring_mac_reference
 
 torch.set_num_threads(1)
@@ -60,6 +63,40 @@ def test_kernel_raises_on_a_window_too_large_for_shared_memory(cuda):
         ring_mac(torch.zeros((), dtype=torch.int32, device=cuda), fdl, rhs2)
 
 
+@pytest.mark.parametrize("f,vi,pp,kod", [
+    (7, 4, 16, 8), (5, 6, 24, 4), (3, 20, 40, 32), (4, 4, 8, 12),
+    (9, 33, 56, 16), (6, 10, 136, 64), (2, 3, 8, 12)])
+def test_mac_shift_kernel_matches_plain_version(cuda, f, vi, pp, kod):
+    """KOD 12 and 64 take several column tiles (the shifted rows are
+    written in the last pass only); Pp 136 > 128 takes two chunks per
+    plane, walked tail first."""
+    rng = np.random.default_rng(f * 1000 + vi + kod)
+    fdl = torch.tensor(rng.standard_normal((f, vi, 2, pp), dtype=np.float32),
+                       device=cuda)
+    x_new = torch.tensor(rng.standard_normal((f, vi, 2, 1), dtype=np.float32),
+                         device=cuda)
+    rhs = torch.tensor(rng.standard_normal((f, 2, pp, kod), dtype=np.float32),
+                       device=cuda)
+    want_fdl, want = mac_shift_reference(fdl.double(), x_new.double(),
+                                         rhs.double())
+    before = mac_shift.launches
+    got_fdl, got = mac_shift(fdl, x_new, rhs)
+    torch.cuda.synchronize()
+    assert got_fdl is fdl and mac_shift.launches == before + 1
+    assert torch.equal(got_fdl.double(), want_fdl)
+    err = (got.double() - want).abs().max().item()
+    assert err <= 1e-5 * want.abs().max().item()
+
+
+def test_mac_shift_kernel_raises_on_a_window_too_large_for_shared_memory(
+        cuda):
+    pp = 8192  # 2*Pp window rows of even 4 columns exceed the card's limit
+    fdl = torch.zeros((1, 2, 2, pp), device=cuda)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        mac_shift(fdl, torch.zeros((1, 2, 2, 1), device=cuda),
+                  torch.zeros((1, 2, pp, 4), device=cuda))
+
+
 def test_engine_on_the_card_matches_the_cpu_and_counts_launches(cuda):
     rng = np.random.default_rng(3)
     spectra = np.fft.rfft(rng.standard_normal((3, 2, 10, 64)), axis=-1
@@ -94,3 +131,49 @@ def test_engine_on_the_card_matches_the_cpu_and_counts_launches(cuda):
         runs[str(dev)] = (np.stack(outs), ring_mac.launches - before)
     np.testing.assert_allclose(runs["cuda"][0], runs["cpu"][0], atol=2e-5)
     assert runs["cuda"][1] == 40 and runs["cpu"][1] == 0
+
+
+@pytest.mark.parametrize("ring,strategy", [(False, "allk"), (True, "selected"),
+                                           (False, "selected")])
+def test_roll_and_selected_engines_on_the_card_match_the_cpu(cuda, ring,
+                                                            strategy):
+    """Steady blocks, a materializing re-select, general fade steps and a
+    materialize_base: roll mode launches mac_shift on every block and
+    ring_mac on none; 'selected' launches neither."""
+    rng = np.random.default_rng(5)
+    spectra = np.fft.rfft(rng.standard_normal((3, 2, 10, 64)), axis=-1
+                          ).astype(np.complex64) * 0.1
+    runs = {}
+    for dev in ("cpu", cuda):
+        eng = FMajorPartitionedConvolution(2, 32, 10, max_predelay=64,
+                                           ring=ring, mac_strategy=strategy,
+                                           num_irs=3, device=dev)
+        bank = eng.prepare_bank(spectra)
+        cp = ControlPlane(2, 3, 64, device=dev)
+        cp.wet[:] = 0.8
+        cp.predelay[:] = [[17, 3], [40, 0]]
+        state = eng.init_converged(bank, cp.snapshot_device())
+        before = (mac_shift.launches, ring_mac.launches)
+        xs = np.random.default_rng(6).standard_normal((30, 2, 2, 32)) * 0.05
+        outs = []
+        for t, x in enumerate(xs.astype(np.float32)):
+            if t == 8:
+                old = cp.select.copy()
+                cp.select[:] = [[1, 2], [2, 1]]
+                cp.vsteps[:] = 8
+                state = eng.collapse(
+                    state, bank, torch.tensor(old, device=dev),
+                    torch.ones((2, 2), dtype=torch.bool, device=dev),
+                    torch.tensor(cp.select, device=dev))
+            if t == 12:
+                state = eng.materialize_base(state, bank)
+            step = eng.step_coef if t >= 8 else eng.step_coef_steady
+            state, out = step(state, bank, cp.snapshot_device(),
+                              torch.tensor(x, device=dev))
+            cp.end_block()
+            outs.append(out.cpu().numpy())
+        runs[str(dev)] = (np.stack(outs), mac_shift.launches - before[0],
+                          ring_mac.launches - before[1])
+    np.testing.assert_allclose(runs["cuda"][0], runs["cpu"][0], atol=2e-5)
+    rolled = 30 if (not ring and strategy == "allk") else 0
+    assert runs["cuda"][1:] == (rolled, 0) and runs["cpu"][1:] == (0, 0)

@@ -1,11 +1,20 @@
 """The port's fmajor engine (tpu_audio_torch/engine/fmajor.py) against the
-JAX engine, block for block, on identical banks, inputs and parameters.
+JAX engine, block for block, on identical banks, inputs and parameters, in
+both delay-line modes (ring, roll) and both MAC strategies (allk, selected).
 
 The JAX engine is built with backend="fft" (its default "auto" picks a
 matmul DFT at these sizes) so both sides run an FFT. Tolerances: packs are
 bit-equal (same numpy code); engine outputs agree to 2e-5 absolute (both
 f32, different summation orders in the MAC and the transforms); the golden
 against float64 fftconvolve holds to 2e-4 as in tests/test_engine.py.
+
+Ring mode stores the materialized fade snapshot `base` in bfloat16 in both
+packages. Both round the same f32 values, but those values differ between
+the packages in the last bits, so now and then one entry rounds to the
+neighbouring bf16 value (a step of 2^-8 relative); blocks that read a
+materialized ring-mode base are held to BF16_ATOL = 2e-4, and the bf16
+snapshot itself to one bf16 step of its own scale. Roll mode keeps `base`
+in f32 and is held to 2e-5 throughout.
 """
 
 from dataclasses import fields
@@ -26,6 +35,7 @@ from tpu_audio_torch.engine import fmajor
 torch.set_num_threads(1)
 
 ATOL = 2e-5
+BF16_ATOL = 2e-4
 
 
 def _irs(num_irs=3, ir_len=300, seed=0):
@@ -42,7 +52,8 @@ class Pair:
     set (two ControlPlanes driven identically)."""
 
     def __init__(self, num_voices=2, block=32, ir_len=300, num_irs=3,
-                 seed=0, max_predelay=64):
+                 seed=0, max_predelay=64, ring=True, mac_strategy="allk",
+                 swap_snapshot=True):
         irs = _irs(num_irs, ir_len, seed)
         jbank, tbank = JaxIRBank(), IRBank()
         for ir in irs:
@@ -50,22 +61,36 @@ class Pair:
             tbank.append(ir)
         self.irs = irs
         p = tbank.max_partitions(block)
+        kwargs = dict(max_predelay=max_predelay, ring=ring,
+                      mac_strategy=mac_strategy, num_irs=num_irs,
+                      swap_snapshot=swap_snapshot)
         self.jax = jax_fmajor.FMajorPartitionedConvolution(
-            num_voices, block, p, max_predelay=max_predelay, backend="fft",
-            num_irs=num_irs)
+            num_voices, block, p, backend="fft", **kwargs)
         self.port = fmajor.FMajorPartitionedConvolution(
-            num_voices, block, p, max_predelay=max_predelay,
-            num_irs=num_irs, device="cpu")
+            num_voices, block, p, device="cpu", **kwargs)
         spectra = tbank.partitioned_spectra(block)
         np.testing.assert_array_equal(spectra, jbank.partitioned_spectra(block))
+        self.spectra = spectra
         self.jbank = self.jax.prepare_bank(spectra)
         self.tbank = self.port.prepare_bank(spectra)
         self.jcp = JaxControlPlane(num_voices, num_irs, max_predelay)
         self.tcp = ControlPlane(num_voices, num_irs, max_predelay)
         self.v, self.b = num_voices, block
-        self.j_steady = jax.jit(self.jax.step_coef_steady)
-        self.j_indexed = jax.jit(self.jax.step_coef_indexed)
-        self.j_collapse = jax.jit(self.jax.collapse_pure)
+        self.ring = ring
+        self.selected = mac_strategy == "selected"
+        self.j_steps = {
+            "steady": jax.jit(self.jax.step_coef_steady),
+            "general": jax.jit(self.jax.step_coef)}
+        self.t_steps = {"steady": self.port.step_coef_steady,
+                        "general": self.port.step_coef}
+        self.j_steady = self.j_steps["steady"]
+        if not self.selected:
+            self.j_indexed = self.j_steps["indexed"] = jax.jit(
+                self.jax.step_coef_indexed)
+            self.t_steps["indexed"] = self.port.step_coef_indexed
+            self.j_collapse = jax.jit(self.jax.collapse_pure)
+        self.j_mcollapse = jax.jit(self.jax.collapse)
+        self.j_materialize = jax.jit(self.jax.materialize_base)
 
     def set(self, **values):
         for cp in (self.jcp, self.tcp):
@@ -78,36 +103,59 @@ class Pair:
                 self.port.init_converged(self.tbank,
                                          self.tcp.snapshot_device()))
 
-    def step(self, jst, tst, x, indexed=False):
+    def step(self, jst, tst, x, indexed=False, kind=None):
+        """One block on both sides: kind is "steady", "indexed" or
+        "general" (the materialized-snapshot fade step)."""
+        kind = kind or ("indexed" if indexed else "steady")
         jp = jax.tree.map(jnp.asarray, self.jcp.snapshot())
         tp = self.tcp.snapshot_device()
-        jstep = self.j_indexed if indexed else self.j_steady
-        tstep = (self.port.step_coef_indexed if indexed
-                 else self.port.step_coef_steady)
-        jst, jo = jstep(jst, self.jbank, jp, jnp.asarray(x))
-        tst, to = tstep(tst, self.tbank, tp, torch.tensor(x))
+        jst, jo = self.j_steps[kind](jst, self.jbank, jp, jnp.asarray(x))
+        tst, to = self.t_steps[kind](tst, self.tbank, tp, torch.tensor(x))
         self.jcp.end_block()
         self.tcp.end_block()
         return jst, tst, np.asarray(jo), to.numpy()
 
-    def reselect(self, jst, tst, new):
+    def reselect(self, jst, tst, new, materialize=False):
+        """A re-select on both sides: collapse_pure, or the materializing
+        collapse (with the new selection, which 'selected' re-gathers)."""
         old = self.tcp.select.copy()
         self.set(select=new, vsteps=self.tcp.speed)
         changed = old != self.tcp.select
+        new_sel = self.tcp.select.copy()
+        if materialize:
+            jst = self.j_mcollapse(jst, self.jbank, jnp.asarray(old),
+                                   jnp.asarray(changed), jnp.asarray(new_sel))
+            tst = self.port.collapse(tst, self.tbank, torch.tensor(old),
+                                     torch.tensor(changed),
+                                     torch.tensor(new_sel))
+            return jst, tst
         jst = self.j_collapse(jst, jnp.asarray(old), jnp.asarray(changed))
         tst = self.port.collapse_pure(tst, torch.tensor(old),
                                       torch.tensor(changed))
         return jst, tst
 
+    def materialize(self, jst, tst):
+        return (self.j_materialize(jst, self.jbank),
+                self.port.materialize_base(tst, self.tbank))
+
 
 def _assert_states_close(jst, tst):
-    for name in ("fdl", "prev_in", "wet_ring", "coef_a", "coef_c", "base_g"):
+    for name in ("fdl", "prev_in", "wet_ring", "coef_a", "coef_c", "base_g",
+                 "sel_spectra"):
         np.testing.assert_allclose(getattr(tst, name).numpy(),
                                    np.asarray(getattr(jst, name)),
                                    atol=ATOL, err_msg=name)
     assert int(tst.wptr) == int(jst.wptr)
     np.testing.assert_array_equal(tst.base_pure.numpy(),
                                   np.asarray(jst.base_pure))
+    jbase = np.asarray(jst.base).astype(np.float32)
+    tbase = tst.base.float().numpy()
+    assert tst.base.shape == jst.base.shape
+    assert str(tst.base.dtype).split(".")[-1] == str(jst.base.dtype)
+    # bf16 (ring): one rounding step of the snapshot's own scale
+    tol = (2.0 ** -8 * max(np.abs(jbase).max(), 1e-30)
+           if tst.base.dtype == torch.bfloat16 else ATOL)
+    np.testing.assert_allclose(tbase, jbase, atol=tol, err_msg="base")
 
 
 def test_packs_equal_the_jax_packs():
@@ -272,25 +320,278 @@ def test_port_matches_fftconvolve_golden():
 
 
 def test_paths_outside_the_slice_raise():
+    """What the port still leaves out raises where it is reached: bf16 MAC
+    tensors (engine and carried bank), the 'merged' per-voice MAC and
+    working-set slot updates."""
     pair = Pair()
-    _, tst = pair.init()
-    params = pair.tcp.snapshot_device()
-    x = torch.zeros((2, 2, 32))
-    with pytest.raises(NotImplementedError):
-        pair.port.step_coef(tst, pair.tbank, params, x)  # general fade
-    with pytest.raises(NotImplementedError):
-        pair.port.collapse(tst, pair.tbank, None, None)
-    with pytest.raises(NotImplementedError):
-        pair.port.materialize_base(tst, pair.tbank)
-    for kwargs in ({"mac_strategy": "selected", "num_irs": 3},
-                   {"mac_strategy": "auto", "num_irs": 17},
-                   {"mac_dtype": "bf16", "num_irs": 3}):
+    for kwargs in ({"mac_dtype": "bf16", "num_irs": 3},
+                   {"mac_dtype": "bf16", "mac_strategy": "selected"},
+                   {"pv_mac": "merged", "num_irs": 3}):
         with pytest.raises(NotImplementedError):
             fmajor.FMajorPartitionedConvolution(2, 32, 10, device="cpu",
                                                 **kwargs)
-    jst = pair.jax.init_state()
-    leaves = {f.name: np.asarray(getattr(jst, f.name)) for f in fields(jst)}
-    leaves["coef_a"] = np.full((2, 2), 0.5, np.float32)
-    leaves["base_pure"] = np.zeros((2, 2), bool)
     with pytest.raises(NotImplementedError):
-        fmajor.state_from_numpy(device="cpu", **leaves)
+        pair.port.update_bank_slot(pair.tbank, 1, pair.spectra[:1])
+    jbf16 = jax_fmajor.FMajorPartitionedConvolution(
+        2, 32, pair.port.partitions, max_predelay=64, num_irs=3,
+        mac_dtype="bf16").prepare_bank(pair.spectra)
+    with pytest.raises(NotImplementedError):
+        fmajor.bank_from_numpy(
+            device="cpu", **{f_.name: np.asarray(getattr(jbf16, f_.name))
+                             for f_ in fields(jbf16)})
+    # what the JAX engine rejects, the port rejects the same way
+    for kwargs in ({"mac_strategy": "nope"}, {"pv_mac": "nope"},
+                   {"mac_strategy": "selected", "swap_snapshot": False},
+                   {"mac_strategy": "auto"}):
+        with pytest.raises(ValueError):
+            fmajor.FMajorPartitionedConvolution(2, 32, 10, device="cpu",
+                                                **kwargs)
+
+
+# -- roll mode, the materialized snapshot, 'selected' --------------------------------
+
+
+def _x(rng, v=2, b=32):
+    return (rng.standard_normal((v, 2, b)) * 0.05).astype(np.float32)
+
+
+@pytest.mark.parametrize("ring", [False, True])
+@pytest.mark.parametrize("strategy", ["allk", "selected"])
+def test_banks_and_states_carry_every_leaf(ring, strategy):
+    """prepare_bank packs the leaves this mode and strategy read, with the
+    JAX engine's placeholders elsewhere; bank_from_numpy takes every JAX
+    bank leaf; init_state matches leaf for leaf (shape, dtype, values)."""
+    pair = Pair(ring=ring, mac_strategy=strategy)
+    assert pair.port.t_modulus == pair.jax.t_modulus
+    assert pair.port.mac_strategy == pair.jax.mac_strategy == strategy
+    carried = fmajor.bank_from_numpy(
+        device="cpu", **{f_.name: np.asarray(getattr(pair.jbank, f_.name))
+                         for f_ in fields(pair.jbank)})
+    for f_ in fields(pair.jbank):
+        want = np.asarray(getattr(pair.jbank, f_.name))
+        for bank in (pair.tbank, carried):
+            np.testing.assert_array_equal(getattr(bank, f_.name).numpy(),
+                                          want, err_msg=f_.name)
+    assert pair.tbank.num_irs == carried.num_irs == pair.jbank.num_irs == 3
+    jst, tst = pair.jax.init_state(), pair.port.init_state()
+    for f_ in fields(jst):
+        j, t = np.asarray(getattr(jst, f_.name)), getattr(tst, f_.name)
+        assert tuple(t.shape) == j.shape, f_.name
+        assert str(t.dtype).split(".")[-1] == str(j.dtype), f_.name
+        np.testing.assert_array_equal(t.float().numpy(),
+                                      j.astype(np.float32), err_msg=f_.name)
+
+
+@pytest.mark.parametrize("ring", [False, True])
+def test_steady_matches_jax_in_both_modes_past_the_line_and_a_wrap(ring):
+    """Nonzero predelays, pans and per-channel selections, driven past two
+    trips through the delay line (2 Pp blocks) and so past several wraps
+    of the block counter (roll mode: t_modulus = ring slots = 4)."""
+    pair = Pair(ring=ring)
+    pair.set(wet=0.8, dry=0.2, level=0.9, predelay=[[17, 3], [40, 0]],
+             pan_wet=[[0.3, -0.4], [-1.0, 0.5]], select=[[0, 1], [2, 0]])
+    jst, tst = pair.init()
+    rng = np.random.default_rng(2)
+    n = 2 * pair.port.pp + 5
+    assert n > 2 * pair.port.t_modulus
+    for t in range(n):
+        jst, tst, jo, to = pair.step(jst, tst, _x(rng))
+        np.testing.assert_allclose(to, jo, atol=ATOL, err_msg=f"block {t}")
+    assert int(tst.wptr) == n % pair.port.t_modulus
+    _assert_states_close(jst, tst)
+
+
+def test_roll_equals_ring_through_an_indexed_fade():
+    """The port's roll mode (mac_shift) and ring mode (ring_mac) are the
+    same engine: steady blocks past two trips through the line, then a
+    span re-select and its indexed fade."""
+    roll, ring = Pair(ring=False, seed=9), Pair(ring=True, seed=9)
+    states = []
+    for pair in (roll, ring):
+        pair.set(wet=0.6, speed=6, predelay=[[9, 9], [0, 50]])
+        states.append(pair.port.init_converged(
+            pair.tbank, pair.tcp.snapshot_device()))
+    rng = np.random.default_rng(10)
+    for t in range(2 * roll.port.pp + 20):
+        x = torch.tensor(_x(rng))
+        outs = []
+        for i, pair in enumerate((roll, ring)):
+            if t == 2 * roll.port.pp:
+                old = pair.tcp.select.copy()
+                pair.tcp.select[:] = [[2, 1], [1, 0]]
+                pair.tcp.vsteps[:] = 6
+                states[i] = pair.port.collapse_pure(
+                    states[i], torch.tensor(old),
+                    torch.ones((2, 2), dtype=torch.bool))
+            step = (pair.port.step_coef_indexed if t >= 2 * roll.port.pp
+                    else pair.port.step_coef_steady)
+            states[i], out = step(states[i], pair.tbank,
+                                  pair.tcp.snapshot_device(), x)
+            pair.tcp.end_block()
+            outs.append(out.numpy())
+        np.testing.assert_allclose(outs[0], outs[1], atol=3e-5,
+                                   err_msg=f"block {t}")
+
+
+@pytest.mark.parametrize("ring", [False, True])
+def test_general_fade_and_materializing_collapse_match_jax(ring):
+    """A span re-select and its indexed fade, an interrupting re-select
+    through the materializing collapse (which turns the virtual snapshot
+    into `base`), general fade steps, a second materializing interrupt of
+    one channel and a wet change mid-fade, then the decay back to steady."""
+    pair = Pair(ring=ring)
+    atol = BF16_ATOL if ring else ATOL
+    pair.set(wet=0.7, dry=0.1, speed=6, predelay=[[5, 5], [33, 33]],
+             pan_wet=[[0.2, -0.2], [0.0, 0.4]])
+    jst, tst = pair.init()
+    rng = np.random.default_rng(3)
+    for t in range(80):
+        if t == 3:
+            jst, tst = pair.reselect(jst, tst, [[1, 1], [2, 2]])
+        if t in (6, 9):
+            new = [[2, 0], [0, 1]] if t == 6 else [[2, 0], [0, 2]]
+            jst, tst = pair.reselect(jst, tst, new, materialize=True)
+            _assert_states_close(jst, tst)
+        if t == 12:
+            pair.set(wet=0.95)
+        kind = ("steady" if t < 3 or t >= 75 else
+                "indexed" if t < 6 else "general")
+        jst, tst, jo, to = pair.step(jst, tst, _x(rng), kind=kind)
+        np.testing.assert_allclose(to, jo, atol=ATOL if t < 6 else atol,
+                                   err_msg=f"block {t}")
+    assert float(tst.coef_a.max()) < 1e-6
+    _assert_states_close(jst, tst)
+
+
+@pytest.mark.parametrize("ring", [False, True])
+def test_materialized_fade_equals_the_span_fade(ring):
+    """The two representations of one fade: collapse_pure + the indexed
+    step, against the materializing collapse + the general step (the
+    port's own test of test_fmajor.py's virtual-snapshot case). Roll mode
+    is f32 throughout; ring mode's materialized snapshot is bf16."""
+    span, mat = Pair(ring=ring, seed=11), Pair(ring=ring, seed=11)
+    states = []
+    for pair in (span, mat):
+        pair.set(wet=0.8, speed=20)
+        states.append(pair.init()[1])
+    rng = np.random.default_rng(12)
+    for t in range(14):
+        x = torch.tensor(_x(rng))
+        outs = []
+        for i, pair in enumerate((span, mat)):
+            if t in (0, 5):
+                old = pair.tcp.select.copy()
+                pair.tcp.select[:] = 1 if t == 0 else 2
+                pair.tcp.vsteps[:] = 20
+                args = (torch.tensor(old), torch.ones((2, 2), dtype=torch.bool))
+                states[i] = (pair.port.collapse_pure(states[i], *args)
+                             if pair is span else
+                             pair.port.collapse(states[i], pair.tbank, *args))
+            step = (pair.port.step_coef_indexed if pair is span
+                    else pair.port.step_coef)
+            states[i], out = step(states[i], pair.tbank,
+                                  pair.tcp.snapshot_device(), x)
+            pair.tcp.end_block()
+            outs.append(out.numpy())
+        np.testing.assert_allclose(outs[0], outs[1],
+                                   atol=4e-3 if ring else 3e-6,
+                                   err_msg=f"block {t}")
+
+
+@pytest.mark.parametrize("ring", [False, True])
+@pytest.mark.parametrize("strategy", ["allk", "selected"])
+def test_materialize_base_equals_a_no_change_collapse(ring, strategy):
+    """materialize_base is collapse(changed=all-False) leaf for leaf, bit
+    for bit, and matches the JAX materialize_base (mirrors
+    tests/test_fmajor.py's test of the same name)."""
+    pair = Pair(num_voices=3, ring=ring, mac_strategy=strategy)
+    pair.set(wet=0.7, select=[[0, 1], [1, 2], [2, 0]])
+    jst, tst = pair.init()
+    rng = np.random.default_rng(13)
+    for _ in range(3):
+        jst, tst, _, _ = pair.step(jst, tst, _x(rng, v=3))
+    if strategy == "allk":  # a genuinely virtual mid-fade snapshot
+        jst, tst = pair.reselect(jst, tst, [[1, 1], [0, 2], [2, 2]])
+    else:
+        jst, tst = pair.reselect(jst, tst, [[1, 1], [0, 2], [2, 2]],
+                                 materialize=True)
+    jst, tst, _, _ = pair.step(jst, tst, _x(rng, v=3), kind="general")
+    sel = torch.tensor(pair.tcp.select)
+    ref = pair.port.collapse(tst, pair.tbank, sel,
+                             torch.zeros((3, 2), dtype=torch.bool), sel)
+    jgot, got = pair.materialize(jst, tst)
+    for f_ in fields(got):
+        a, b = getattr(got, f_.name), getattr(ref, f_.name)
+        assert a.dtype == b.dtype and torch.equal(a, b), f_.name
+    assert not bool(got.base_pure.any())
+    _assert_states_close(jgot, got)
+
+
+@pytest.mark.parametrize("ring", [False, True])
+def test_selected_matches_jax_selected(ring):
+    """'selected' through steady blocks, materializing re-selects (the
+    per-voice spectra re-gathered), an interrupt, a wet change and the
+    decay; then a regather against a second bank."""
+    pair = Pair(ring=ring, mac_strategy="selected")
+    atol = BF16_ATOL if ring else ATOL
+    pair.set(wet=0.7, dry=0.1, speed=6, select=[[0, 1], [2, 0]],
+             predelay=[[20, 0], [3, 3]])
+    jst, tst = pair.init()
+    _assert_states_close(jst, tst)
+    rng = np.random.default_rng(21)
+    for t in range(60):
+        if t in (8, 11):
+            new = [[2, 1], [2, 1]] if t == 8 else [[0, 0], [2, 2]]
+            jst, tst = pair.reselect(jst, tst, new, materialize=True)
+        if t == 20:
+            pair.set(wet=0.9)
+        kind = "general" if 8 <= t < 55 else "steady"
+        jst, tst, jo, to = pair.step(jst, tst, _x(rng), kind=kind)
+        np.testing.assert_allclose(to, jo, atol=ATOL if t < 8 else atol,
+                                   err_msg=f"block {t}")
+    _assert_states_close(jst, tst)
+    other = pair.spectra[::-1] * 0.5
+    jnew = pair.jax.prepare_bank(other)
+    tnew = pair.port.prepare_bank(other)
+    sel = pair.tcp.select
+    jst = pair.jax.regather_selection(jst, jnew, jnp.asarray(sel))
+    tst = pair.port.regather_selection(tst, tnew, torch.tensor(sel))
+    _assert_states_close(jst, tst)
+
+
+@pytest.mark.parametrize("ring", [False, True])
+@pytest.mark.parametrize("strategy", ["allk", "selected"])
+def test_resumes_from_a_jax_state_with_a_materialized_base(ring, strategy):
+    """state_from_numpy carries a JAX state whose fade snapshot is
+    MATERIALIZED (base_pure False, coef_a > 0; bf16 bits in ring mode) into
+    the port, which then continues block for block with the JAX engine on
+    the general step."""
+    pair = Pair(seed=4, ring=ring, mac_strategy=strategy)
+    pair.set(wet=0.9, speed=20, predelay=[[70, 0], [0, 9]])
+    j_collapse = jax.jit(pair.jax.collapse)
+    jst = pair.jax.init_converged(
+        pair.jbank, jax.tree.map(jnp.asarray, pair.jcp.snapshot()))
+    rng = np.random.default_rng(5)
+    for t in range(10):
+        if t in (2, 6):
+            old = pair.jcp.select.copy()
+            pair.set(select=(old + 1) % 3, vsteps=20)
+            jst = j_collapse(jst, pair.jbank, jnp.asarray(old),
+                             jnp.asarray(np.ones((2, 2), bool)),
+                             jnp.asarray(pair.jcp.select))
+        jst, _ = pair.j_steps["general" if t >= 2 else "steady"](
+            jst, pair.jbank, jax.tree.map(jnp.asarray, pair.jcp.snapshot()),
+            jnp.asarray(_x(rng)))
+        pair.jcp.end_block()
+        pair.tcp.end_block()  # keep the port's countdown in step
+    assert float(np.asarray(jst.coef_a).max()) > 0.1  # a fade is in flight
+    assert not np.asarray(jst.base_pure).any()        # ... materialized
+    tst = fmajor.state_from_numpy(
+        device="cpu", **{f.name: np.asarray(getattr(jst, f.name))
+                         for f in fields(jst)})
+    np.testing.assert_array_equal(
+        tst.base.float().numpy(), np.asarray(jst.base).astype(np.float32))
+    _assert_states_close(jst, tst)
+    for t in range(16):
+        jst, tst, jo, to = pair.step(jst, tst, _x(rng), kind="general")
+        np.testing.assert_allclose(to, jo, atol=ATOL, err_msg=f"block {t}")

@@ -195,6 +195,51 @@ def test_cli_wavs_match_the_jax_cli_within_one_lsb(settings_env):
     assert int(np.abs(got.astype(np.int32) - want).max()) <= 1
 
 
+def test_no_swap_snapshot_cli_matches_the_jax_cli(settings_env):
+    """--no-swap-snapshot drops the materialized fade snapshot in both
+    CLIs (span-only fades); the WAVs agree within 1 LSB as above."""
+    from tpu_audio.app.main import main as jax_main
+    from tpu_audio_torch.app.main import main as port_main
+
+    base = settings_env
+    common = ["--settings", str(base / "settings.txt"),
+              "--input", str(base / "in.wav"), "--midi",
+              str(base / "events.txt"), "--block-size", "64", "--quiet",
+              "--no-swap-snapshot"]
+    assert jax_main(common + ["--output", str(base / "jax_ns.wav")]) == 0
+    assert port_main(common + ["--output", str(base / "port_ns.wav"),
+                               "--device", "cpu"]) == 0
+    want, got = _pcm16(base / "jax_ns.wav"), _pcm16(base / "port_ns.wav")
+    assert got.shape == want.shape and np.abs(want).max() > 1000
+    assert int(np.abs(got.astype(np.int32) - want).max()) <= 1
+
+
+def test_model_swap_snapshot_rule_matches_jax(settings_env):
+    """swap_snapshot=False composes only with 'allk': under 'auto' the
+    model keeps 'allk' even for a bank that would resolve to 'selected',
+    and the engine carries no snapshot; with the snapshot, 17 IRs resolve
+    to 'selected' (tpu_audio/models/reverb.py:208-213)."""
+    from tpu_audio.engine import IRBank as JaxIRBank
+    from tpu_audio_torch.engine import IRBank
+
+    irs = np.random.default_rng(3).uniform(-0.3, 0.3, (17, 2, 100)
+                                           ).astype(np.float32)
+    for flag, strategy in ((False, "allk"), (True, "selected")):
+        jbank, tbank = JaxIRBank(), IRBank()
+        for ir in irs:
+            jbank.append(ir)
+            tbank.append(ir)
+        jm = JaxReverb(jbank, block=64, max_predelay=64, backend="fft",
+                       swap_snapshot=flag)
+        tm = ConvolutionReverb(tbank, block=64, max_predelay=64,
+                               swap_snapshot=flag, device="cpu")
+        assert (jm.engine.mac_strategy == tm.engine.mac_strategy
+                == strategy)
+        assert tm.engine.swap_snapshot is flag
+        assert (tuple(tm.init_state().base.shape)
+                == tuple(jm.init_state().base.shape))
+
+
 def test_cli_reports_and_rejects_like_the_jax_cli(settings_env, capsys):
     from tpu_audio_torch.app.main import main as port_main
 

@@ -9,7 +9,8 @@ backends; ALSA rawmidi becomes a scripted MIDI schedule.
 
     python -m tpu_audio_torch.app --settings settings.txt \
         --input in.wav --output out.wav [--midi events.txt] \
-        [--voices N] [--blocks N] [--realtime] [--device cuda|cpu]
+        [--voices N] [--blocks N] [--realtime] [--no-swap-snapshot]
+        [--device cuda|cpu]
 """
 
 from __future__ import annotations
@@ -43,6 +44,11 @@ def build_parser() -> argparse.ArgumentParser:
                    help="test signal when --input is absent")
     p.add_argument("--midi", default=None,
                    help="scripted MIDI schedule file (block hexbytes per line)")
+    p.add_argument("--no-swap-snapshot", action="store_true",
+                   help="span-only fades (fmajor 'allk'): drop the "
+                        "materialized fade snapshot, the largest state "
+                        "tensor (~11 MB/voice at 4 s IRs); bank hot-swaps "
+                        "then wait for in-flight crossfades to decay")
     p.add_argument("--voices", type=int, default=None,
                    help="override voice count (default: conv.count/2)")
     p.add_argument("--blocks", type=int, default=None,
@@ -103,7 +109,9 @@ def main(argv=None) -> int:
         args.settings, root=args.root, num_voices=args.voices,
         max_ir_seconds=args.max_ir_seconds,
         normalize_bank=args.normalize_bank, block=args.block_size,
-        sample_rate=args.sample_rate, verbose=not args.quiet, device=device)
+        sample_rate=args.sample_rate,
+        swap_snapshot=not args.no_swap_snapshot, verbose=not args.quiet,
+        device=device)
     return _stream(args, model)
 
 

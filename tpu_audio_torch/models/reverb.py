@@ -87,7 +87,7 @@ class ConvolutionReverb:
                  max_predelay: int = 8192,
                  max_partitions: int | None = None,
                  mac_strategy: str = "auto", mac_dtype: str = "f32",
-                 device=None):
+                 swap_snapshot: bool = True, device=None):
         if engine != "fmajor":
             raise NotImplementedError(
                 f"engine {engine!r} is not ported yet; the port serves the "
@@ -106,15 +106,22 @@ class ConvolutionReverb:
         self.control = ControlPlane(num_voices, len(bank), max_predelay,
                                     device=self.device)
         partitions = max_partitions or bank.max_partitions(block)
+        # swap_snapshot=False only composes with the allk strategy; the
+        # auto rule would silently pick 'selected' on big banks
+        strategy = mac_strategy
+        if not swap_snapshot and strategy == "auto":
+            strategy = "allk"
         self.engine = FMajorPartitionedConvolution(
             num_voices, block, partitions, max_predelay=max_predelay,
-            mac_strategy=mac_strategy, num_irs=len(bank),
-            mac_dtype=mac_dtype, device=self.device)
+            mac_strategy=strategy, num_irs=len(bank), mac_dtype=mac_dtype,
+            swap_snapshot=swap_snapshot, device=self.device)
         self.spectra = self.engine.prepare_bank(
             bank.partitioned_spectra(block, max_partitions=partitions))
-        Log.info("reverb", "%d voice(s), %d IRs, engine=fmajor, bank %.1f MB "
-                 "on %s", num_voices, len(bank),
-                 self.spectra.rhs2.numel() * 4 / 1e6, self.device)
+        bank_bytes = sum(leaf.numel() * leaf.element_size()
+                         for leaf in vars(self.spectra).values())
+        Log.info("reverb", "%d voice(s), %d IRs, engine=fmajor (%s), bank "
+                 "%.1f MB on %s", num_voices, len(bank),
+                 self.engine.mac_strategy, bank_bytes / 1e6, self.device)
 
     # -- reference-settings construction (src/main.cu:18-116) --------------------
 

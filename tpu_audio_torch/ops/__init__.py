@@ -1,1 +1,1 @@
-"""Device math: transforms, partitioning, mixing and the MAC kernel."""
+"""Device math: transforms, partitioning, mixing and the MAC kernels."""

@@ -1,0 +1,105 @@
+"""Build, load and launch the port's hand-written CUDA kernels.
+
+Each kernel lives in ``tpu_audio_torch/csrc/<name>.cu`` behind a plain C
+interface: ``int <name>_launch(...)`` returns a cudaError_t and
+``const char* <name>_error_string(int)`` names it. The source is compiled
+with ``nvcc`` for ``sm_90a`` into a shared library under
+``tpu_audio_torch/_build/``, keyed by a hash of the source and the flags
+(a stale build is never loaded), and bound with ``ctypes``. Nothing
+happens at import time: a library is built at its first launch, or ahead
+of time by ``build_all``, which starts one nvcc per source, all at once.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import subprocess
+import threading
+import time
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    if CUDA_HOME is None:
+        raise RuntimeError("nvcc not found: set CUDA_HOME to the CUDA toolkit")
+    return os.path.join(CUDA_HOME, "bin", "nvcc")
+
+
+class CudaLibrary:
+    """One kernel source: its build, its ctypes binding and its launch.
+
+    `argtypes` are the ctypes types of ``<name>_launch``'s parameters
+    (``ctypes.c_void_p`` for every pointer and the stream, ``ctypes.c_int``
+    for every int)."""
+
+    def __init__(self, name: str, argtypes: list):
+        self.name = name
+        self.source = CSRC / f"{name}.cu"
+        self.argtypes = list(argtypes)
+        self._lock = threading.Lock()
+        self._lib = None
+
+    def build(self) -> tuple[Path, float, str]:
+        """Compile the source unless a build of this exact source exists.
+        Returns (library path, seconds spent compiling — 0.0 when the
+        library already existed, the ptxas report)."""
+        src = self.source.read_bytes()
+        digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+        lib = BUILD_DIR / f"lib{self.name}_{digest[:16]}.so"
+        if lib.exists():
+            return lib, 0.0, ""
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = lib.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(self.source)],
+            capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}) on "
+                               f"{self.source}:\n{proc.stdout}{proc.stderr}")
+        os.replace(tmp, lib)
+        return lib, time.perf_counter() - t0, proc.stderr
+
+    def _load(self) -> ctypes.CDLL:
+        with self._lock:
+            if self._lib is None:
+                path, _, _ = self.build()
+                lib = ctypes.CDLL(str(path))
+                fn = getattr(lib, f"{self.name}_launch")
+                fn.argtypes = self.argtypes
+                fn.restype = ctypes.c_int
+                err = getattr(lib, f"{self.name}_error_string")
+                err.argtypes = [ctypes.c_int]
+                err.restype = ctypes.c_char_p
+                self._lib = lib
+        return self._lib
+
+    def launch(self, *args, context: str = "") -> None:
+        """Call ``<name>_launch(*args)``; raise RuntimeError on a nonzero
+        cudaError_t (a refused launch never runs, and a later synchronize
+        would not report it)."""
+        lib = self._load()
+        err = getattr(lib, f"{self.name}_launch")(*args)
+        if err != 0:
+            what = getattr(lib, f"{self.name}_error_string")(err).decode()
+            raise RuntimeError(f"{self.name} kernel launch failed: CUDA "
+                               f"error {err} ({what}; {context})")
+
+
+def build_all(libraries: list[CudaLibrary]
+              ) -> list[tuple[Path, float, str]]:
+    """Build every library at once, one nvcc process each; results in the
+    order given."""
+    with ThreadPoolExecutor(max_workers=max(1, len(libraries))) as pool:
+        return list(pool.map(CudaLibrary.build, libraries))

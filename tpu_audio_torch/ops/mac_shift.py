@@ -1,0 +1,107 @@
+"""In-place delay-line shift fused with the all-K partition MAC: the
+hand-written Hopper kernel and its plain PyTorch version.
+
+Port of the Pallas TPU kernel ``tpu_audio/ops/pallas_mac.py:mac_shift``,
+the MAC of the fmajor engine's roll mode (``tpu_audio/engine/fmajor.py``).
+For every frequency bin f and delay-line row vi::
+
+    fdl'[f, vi, c, 0] = x_new[f, vi, c]
+    fdl'[f, vi, c, s] = fdl[f, vi, c, s - 1]            (s >= 1, within plane c)
+    m[f, vi, kod]     = sum_{c, s} fdl'[f, vi, c, s] * rhs[f, c, s, kod]
+
+``fdl`` keeps the engine's layout ``[F, VI, 2, Pp]`` and ``x_new`` is
+``[F, VI, 2, 1]`` (the Pallas kernel took ``[F, 2, VI, P]`` and
+``[F, 2, VI, 1]``); ``rhs`` is the natural-order bank ``[F, 2, Pp, KOD]``.
+
+``mac_shift`` writes the shifted line over ``fdl`` IN PLACE — the Pallas
+call aliases its delay line in and out (``input_output_aliases={0: 0}``) —
+and returns ``(fdl, m)`` with that same tensor. It launches the CUDA kernel
+(``csrc/mac_shift.cu``) for a CUDA tensor and takes the plain version only
+for a CPU tensor. The kernel is compiled at first use and bound with
+``ctypes`` (ops/cuda_build.py); nothing CUDA-specific happens at import
+time.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from tpu_audio_torch.ops.cuda_build import CudaLibrary
+
+LIBRARY = CudaLibrary(
+    "mac_shift", [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+
+
+def _check(fdl: torch.Tensor, x_new: torch.Tensor, rhs: torch.Tensor) -> None:
+    """Raise on anything the kernel does not take."""
+    for name, t in (("fdl", fdl), ("x_new", x_new), ("rhs", rhs)):
+        if not isinstance(t, torch.Tensor) or t.dtype != torch.float32:
+            raise TypeError(f"{name} must be a float32 tensor, got "
+                            f"{getattr(t, 'dtype', type(t))}")
+    if not (fdl.device == x_new.device == rhs.device):
+        raise ValueError(f"fdl, x_new and rhs must share a device, got "
+                         f"{fdl.device}, {x_new.device}, {rhs.device}")
+    if fdl.dim() != 4 or fdl.shape[2] != 2:
+        raise ValueError(f"fdl must be [F, VI, 2, Pp], got {tuple(fdl.shape)}")
+    f, vi, _, pp = fdl.shape
+    if tuple(x_new.shape) != (f, vi, 2, 1):
+        raise ValueError(f"x_new must be [F, VI, 2, 1] = [{f}, {vi}, 2, 1], "
+                         f"got {tuple(x_new.shape)}")
+    if rhs.dim() != 4 or rhs.shape[:3] != (f, 2, pp):
+        raise ValueError(f"rhs must be [F, 2, Pp, KOD] = [{f}, 2, {pp}, KOD], "
+                         f"got {tuple(rhs.shape)}")
+    kod = rhs.shape[3]
+    if min(f, vi, pp, kod) == 0 or kod % 4:
+        raise ValueError(f"mac_shift needs nonzero sizes and KOD % 4 == 0, "
+                         f"got F={f} VI={vi} Pp={pp} KOD={kod}")
+    if not (fdl.is_contiguous() and x_new.is_contiguous()
+            and rhs.is_contiguous()):
+        raise ValueError("fdl, x_new and rhs must be contiguous")
+    if rhs.data_ptr() % 16:
+        raise ValueError("rhs must be 16-byte aligned")
+    if x_new.untyped_storage().data_ptr() == fdl.untyped_storage().data_ptr():
+        raise ValueError("x_new must not share memory with fdl (fdl is "
+                         "written while x_new is read)")
+
+
+def mac_shift_reference(fdl: torch.Tensor, x_new: torch.Tensor,
+                        rhs: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version, pure: returns (the shifted line as a new
+    tensor, m), one batched-per-bin contraction over q = c*Pp + s in the
+    inputs' dtype."""
+    f, vi, _, pp = fdl.shape
+    shifted = torch.cat([x_new, fdl[..., :-1]], dim=-1)
+    m = torch.einsum("fvq,fqk->fvk", shifted.reshape(f, vi, 2 * pp),
+                     rhs.reshape(f, 2 * pp, rhs.shape[3]))
+    return shifted, m
+
+
+def mac_shift(fdl: torch.Tensor, x_new: torch.Tensor, rhs: torch.Tensor
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Shift `fdl` in place and return (fdl, m [F, VI, KOD] f32).
+
+    A CUDA tensor launches the kernel on the current stream (no sync) or
+    raises; a CPU tensor takes mac_shift_reference and copies the shifted
+    line back into `fdl`."""
+    _check(fdl, x_new, rhs)
+    if fdl.device.type == "cpu":
+        shifted, m = mac_shift_reference(fdl, x_new, rhs)
+        fdl.copy_(shifted)
+        return fdl, m
+    if fdl.device.type != "cuda":
+        raise ValueError(f"mac_shift runs on CUDA or CPU, not {fdl.device}")
+    f, vi, _, pp = fdl.shape
+    kod = rhs.shape[3]
+    m = torch.empty((f, vi, kod), dtype=torch.float32, device=fdl.device)
+    with torch.cuda.device(fdl.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        LIBRARY.launch(fdl.data_ptr(), x_new.data_ptr(), rhs.data_ptr(),
+                       m.data_ptr(), f, vi, pp, kod, stream,
+                       context=f"F={f} VI={vi} Pp={pp} KOD={kod}")
+    mac_shift.launches += 1
+    return fdl, m
+
+
+mac_shift.launches = 0

@@ -13,75 +13,20 @@ layout ``[F, VI, 2, Pp]`` (the Pallas kernel took ``[F, 2, VI, Pp]``);
 
 ``ring_mac`` launches the CUDA kernel (``csrc/ring_mac.cu``) for a CUDA
 tensor and takes the plain version only for a CPU tensor. The kernel is
-compiled with ``nvcc`` for ``sm_90a`` into ``tpu_audio_torch/_build/`` at
-first use and bound with ``ctypes``; nothing CUDA-specific happens at
-import time.
+compiled at first use and bound with ``ctypes`` (ops/cuda_build.py);
+nothing CUDA-specific happens at import time.
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import subprocess
-import threading
-import time
-from pathlib import Path
 
 import torch
 
-_PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "ring_mac.cu"
-BUILD_DIR = _PKG / "_build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+from tpu_audio_torch.ops.cuda_build import CudaLibrary
 
-_lock = threading.Lock()
-_lib = None
-
-
-def _nvcc() -> str:
-    from torch.utils.cpp_extension import CUDA_HOME
-
-    if CUDA_HOME is None:
-        raise RuntimeError("nvcc not found: set CUDA_HOME to the CUDA toolkit")
-    return os.path.join(CUDA_HOME, "bin", "nvcc")
-
-
-def build() -> tuple[Path, float, str]:
-    """Compile csrc/ring_mac.cu into a shared library keyed by the source's
-    hash (a stale build is never loaded). Returns (path, seconds spent
-    compiling — 0.0 when the library already existed, ptxas report)."""
-    src = SOURCE.read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    lib = BUILD_DIR / f"libring_mac_{digest[:16]}.so"
-    if lib.exists():
-        return lib, 0.0, ""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    t0 = time.perf_counter()
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}) on {SOURCE}:\n"
-                           f"{proc.stdout}{proc.stderr}")
-    os.replace(tmp, lib)
-    return lib, time.perf_counter() - t0, proc.stderr
-
-
-def _library() -> ctypes.CDLL:
-    global _lib
-    with _lock:
-        if _lib is None:
-            path, _, _ = build()
-            lib = ctypes.CDLL(str(path))
-            lib.ring_mac_launch.argtypes = (
-                [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
-            lib.ring_mac_launch.restype = ctypes.c_int
-            lib.ring_mac_error_string.argtypes = [ctypes.c_int]
-            lib.ring_mac_error_string.restype = ctypes.c_char_p
-            _lib = lib
-    return _lib
+LIBRARY = CudaLibrary(
+    "ring_mac", [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
 
 
 def _check(w, fdl: torch.Tensor, rhs2: torch.Tensor) -> None:
@@ -139,18 +84,12 @@ def ring_mac(w: torch.Tensor, fdl: torch.Tensor, rhs2: torch.Tensor
         raise ValueError(f"ring_mac runs on CUDA or CPU, not {fdl.device}")
     f, vi, _, pp = fdl.shape
     kod = rhs2.shape[3]
-    lib = _library()
     m = torch.empty((f, vi, kod), dtype=torch.float32, device=fdl.device)
     with torch.cuda.device(fdl.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.ring_mac_launch(w.data_ptr(), fdl.data_ptr(),
-                                  rhs2.data_ptr(), m.data_ptr(), f, vi, pp,
-                                  kod, stream)
-    if err != 0:
-        raise RuntimeError(
-            f"ring_mac kernel launch failed: CUDA error {err} "
-            f"({lib.ring_mac_error_string(err).decode()}; F={f} VI={vi} "
-            f"Pp={pp} KOD={kod})")
+        LIBRARY.launch(w.data_ptr(), fdl.data_ptr(), rhs2.data_ptr(),
+                       m.data_ptr(), f, vi, pp, kod, stream,
+                       context=f"F={f} VI={vi} Pp={pp} KOD={kod}")
     ring_mac.launches += 1
     return m
 

@@ -15,18 +15,26 @@ Capability equivalent of the reference's JACK process-callback runtime
     ControlPlane (reference's per-device MIDI thread, src/midi.cu:22-59);
   - coefficient-engine management driven by HOST mirrors, never by device
     reads (the hot path does not sync): an analytic coef_a mirror selects
-    the steady step once every crossfade has decayed, the indexed (span)
-    step while one is live, and collapse_pure on each IR re-select.
+    the steady step once every crossfade has decayed; while one is live,
+    the indexed (span) step where every fading voice's snapshot is in the
+    bank's span ('allk'), else the general step over the materialized
+    snapshot; a re-select runs collapse_pure or the materializing collapse
+    to match;
+  - live bank swaps (swap_bank) between blocks: in-flight fade snapshots
+    are materialized against the OLD bank first, so fade tails keep its
+    sound, and the 'selected' strategy's per-voice spectra are re-gathered
+    from the new one; a span-only engine (swap_snapshot=False) defers the
+    swap until its fades decay.
 
 Left out of this port for now: mesh serving, chunked dispatch, batched
-fetches and the pcm16 wire, layout pinning, checkpoints and live bank
-swaps.
+fetches and the pcm16 wire, layout pinning and checkpoints.
 """
 
 from __future__ import annotations
 
 import collections
 import time
+from dataclasses import replace
 
 import numpy as np
 import torch
@@ -99,9 +107,6 @@ class StreamSession:
                  realtime: bool = False,
                  pipeline_depth: int = 1, underrun_policy: str = "stop",
                  max_consecutive_underruns: int | None = None):
-        if getattr(engine, "mac_strategy", None) != "allk":
-            raise NotImplementedError("the port's StreamSession drives the "
-                                      "fmajor 'allk' engine")
         self.engine = engine
         self.bank = bank
         self.device = engine.device
@@ -126,16 +131,25 @@ class StreamSession:
         self.timer = BlockTimer(warmup=warmup, deadline_s=self.block_period)
         self._missed_logged = 0
         self.blocks_streamed = 0
-        self.indexed_blocks = 0
+        self.indexed_blocks = 0   # blocks that rode step_coef_indexed
+        self.general_blocks = 0   # blocks that rode the general fade step
 
+        allk = engine.mac_strategy == "allk"
         self._step_steady = engine.step_coef_steady
-        self._step_indexed = engine.step_coef_indexed
-        self._collapse_pure = engine.collapse_pure
-        # analytic host mirror of coef_a for the steady/indexed switch, and
-        # of span purity (base_pure) for the collapse_pure precondition
+        self._step_full = engine.step_coef
+        # the span paths exist for 'allk' only; 'selected' fades run the
+        # general step and its re-selects the materializing collapse, which
+        # also re-gathers the per-voice spectra
+        self._step_indexed = engine.step_coef_indexed if allk else None
+        self._collapse_pure = engine.collapse_pure if allk else None
+        # analytic host mirror of coef_a for the step choice, and of span
+        # purity (base_pure) for the indexed-step precondition
         self._a_host = np.zeros((engine.num_voices, 2), np.float64)
         self._pure_host = np.ones((engine.num_voices, 2), bool)
         self._pending_old: dict[tuple[int, int], int] = {}
+        self._pending_bank = None
+        self._swap_wait_logged = False
+        self._swap_deferred_blocks = 0
         control.on_select_change = self._note_select_change
 
     # -- coef-engine hooks ---------------------------------------------------------
@@ -156,26 +170,100 @@ class StreamSession:
     def _maybe_collapse(self, state):
         if not self._pending_old:
             return state
-        # collapse_pure is exact iff the pre-state was indexed-valid: every
-        # changed voice is then either pure (the affine re-base stays in
-        # the span, interrupted fades included) or converged (its stale span
-        # restarts at c*onehot). The materializing collapse that would
-        # serve the other case is not part of this port.
-        if not self._indexed_valid():
-            raise NotImplementedError(
-                "re-select while a materialized fade is live needs the "
-                "materializing collapse, which this port does not have yet")
-        old_sel = self.control.select.copy()
+        # collapse_pure (a [V,2,K]-sized span update — the re-select block
+        # then costs the same as a steady block) is valid iff the pre-state
+        # was indexed-valid: every changed voice is then either pure (the
+        # affine re-base stays in the span EXACTLY, interrupted fades
+        # included) or converged (its stale span restarts at c*onehot).
+        # Only a bank swap mid-fade breaks purity and routes re-selects
+        # through the materializing collapse below.
+        use_pure = self._step_indexed is not None and self._indexed_valid()
+        new_sel = self.control.select.copy()
+        old_sel = new_sel.copy()
         changed = np.zeros_like(old_sel, dtype=bool)
         for (v, ch), old in self._pending_old.items():
             old_sel[v, ch] = old
             changed[v, ch] = True
             self._a_host[v, ch] = 1.0
-            self._pure_host[v, ch] = True
+            self._pure_host[v, ch] = use_pure
         self._pending_old.clear()
-        return self._collapse_pure(
-            state, torch.tensor(old_sel, device=self.device),
-            torch.tensor(changed, device=self.device))
+        old_t = torch.tensor(old_sel, device=self.device)
+        changed_t = torch.tensor(changed, device=self.device)
+        if use_pure:
+            return self._collapse_pure(state, old_t, changed_t)
+        # materializing collapse: every voice's base becomes a valid tensor
+        # (virtual snapshots are materialized too), so the general fade
+        # step may read state.base for anyone afterwards
+        self._pure_host[:] = False
+        return self.engine.collapse(state, self.bank, old_t, changed_t,
+                                    torch.tensor(new_sel, device=self.device))
+
+    def _materialize_base(self, state):
+        """Materialize virtual fade snapshots with NO re-select (bank-swap
+        and run-start paths)."""
+        state = self.engine.materialize_base(state, self.bank)
+        self._pure_host[:] = False
+        return state
+
+    # -- live bank swap ------------------------------------------------------------------
+
+    def swap_bank(self, bank) -> None:
+        """Live IR-bank replacement (the reference's `prepare` reload path,
+        src/conv.cu:206-253, made safe): `bank` (an FMajorBank of the same
+        geometry, on the session's device) is applied between blocks, or at
+        the next run start. Before switching, any VIRTUAL fade snapshot is
+        materialized against the OLD bank, and the 'selected' strategy's
+        per-voice spectra are re-gathered from the new bank — so fade tails
+        keep the old sound and the steady path plays the new bank from the
+        swap block on."""
+        self._pending_bank = bank
+
+    def _apply_pending_bank(self, state):
+        if self._pending_bank is None:
+            return state
+        if (not self.engine.swap_snapshot
+                and bool((self._a_host >= STEADY_THRESHOLD).any())):
+            # span-only engine (swap_snapshot=False): there is nothing to
+            # materialize the old bank's fade tails into, so the swap
+            # waits for in-flight crossfades to decay — bounded by the
+            # fade time ONLY while no new fades start. Continuous MIDI
+            # select churn resets coef_a to 1.0 on every re-select and can
+            # defer a live swap indefinitely (the swap needs one full fade
+            # window of select silence); the periodic re-log keeps that
+            # visible.
+            self._swap_deferred_blocks += 1
+            if not self._swap_wait_logged:
+                self._swap_wait_logged = True
+                Log.info("stream", "bank swap deferred until in-flight "
+                         "crossfades decay (span-only engine)")
+            elif self._swap_deferred_blocks % 500 == 0:
+                Log.warn("stream", "bank swap still deferred after %d "
+                         "blocks — continuous re-selects keep fades in "
+                         "flight; pause select events for one fade window "
+                         "to let the swap through",
+                         self._swap_deferred_blocks)
+            return state
+        self._swap_deferred_blocks = 0
+        self._swap_wait_logged = False
+        new_bank = self._pending_bank
+        self._pending_bank = None
+        if not self.engine.swap_snapshot:
+            # the deferral above guarantees every fade has decayed, so the
+            # old-bank span coefficients are inert: zero them so no stale
+            # provenance is reinterpreted against the new bank
+            state = replace(state, base_g=torch.zeros_like(state.base_g))
+        elif bool(state.base_pure.any()):
+            # materialize virtual snapshots against the OLD bank: the
+            # fade-out tail must keep playing the old bank's sound
+            state = self._materialize_base(state)
+        if self.engine.mac_strategy == "selected":
+            # the steady MAC reads materialized per-voice spectra —
+            # re-gather them from the NEW bank
+            state = self.engine.regather_selection(
+                state, new_bank, torch.tensor(self.control.select,
+                                              device=self.device))
+        self.bank = new_bank
+        return state
 
     def _underrun_stop(self) -> bool:
         """Account one silence-substituted underrun; True when the
@@ -225,9 +313,17 @@ class StreamSession:
         The engine updates the state's delay line and wet ring in place:
         the state passed in is consumed."""
         # resync the analytic mirrors from the state (one host read, before
-        # the loop) so a session started mid-crossfade keeps the fade step
+        # the loop) so a session started mid-crossfade keeps the fade step;
+        # snapshot provenance is state-carried, so purity survives too
         self._a_host = state.coef_a.double().cpu().numpy()
         self._pure_host = state.base_pure.cpu().numpy().copy()
+        if (self._step_indexed is None and self.engine.swap_snapshot
+                and bool((self._pure_host
+                          & (self._a_host >= STEADY_THRESHOLD)).any())):
+            # a span-collapsed fade is in flight but this engine has no
+            # indexed step ('selected'): materialize the virtual snapshots
+            # once so the general fade reads a valid base tensor
+            state = self._materialize_base(state)
 
         pending = collections.deque()
         block_index = 0
@@ -248,17 +344,17 @@ class StreamSession:
                     self.control.apply_midi_message(message, device)
 
             self.timer.start()
+            state = self._apply_pending_bank(state)
             state = self._maybe_collapse(state)
             vsteps = self.control.vsteps.astype(np.float64)
             if bool((self._a_host < STEADY_THRESHOLD).all()):
                 step = self._step_steady
-            elif self._indexed_valid():
+            elif self._step_indexed is not None and self._indexed_valid():
                 step = self._step_indexed
                 self.indexed_blocks += 1
             else:
-                raise NotImplementedError(
-                    "a materialized fade is live; the general fade step is "
-                    "not part of this port yet")
+                step = self._step_full
+                self.general_blocks += 1
             # advance the analytic coef_a mirror exactly like the device
             # recursion does
             self._a_host *= 1.0 - 1.0 / (vsteps + 5.0)
