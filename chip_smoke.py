@@ -22,11 +22,11 @@ Phases, in order; any failure raises and the script exits non-zero:
      fftconvolve golden before the re-selects and after the fades decay;
   5. ring-mode timing on the card (CUDA events): per-step steady, indexed
      and general, ring_mac alone against the plain MAC, the session's wall
-     time;
-  6. mac_shift vs plain: at the 64-voice shapes, at KOD=64 (several column
-     tiles) and at an odd small shape the shifted line must be
-     bit-identical to the plain version's and m within 1e-5 of the float64
-     plain version's scale;
+     time; ring_mac and its plain version also at the 64-voice shapes of
+     KOD 36 and 64 (9 and 16 IRs), each checked once against float64;
+  6. mac_shift vs plain: at the 64-voice shapes of KOD 16, 36 and 64 and at
+     an odd small shape the shifted line must be bit-identical to the plain
+     version's and m within 1e-5 of the float64 plain version's scale;
   7. roll mode at full width (ring=False, swap_snapshot=True): the same 64
      voices and IRs through StreamSession for 800 blocks with a re-select
      (collapse_pure, the indexed step), a live swap_bank mid-fade to the
@@ -42,11 +42,19 @@ Phases, in order; any failure raises and the script exits non-zero:
      interrupt (the materializing collapse, the general step), against
      the same golden;
   9. roll and 'selected' timing: per-step steady, indexed and general
-     (CUDA events), mac_shift alone against its plain version, interleaved.
+     (CUDA events), mac_shift alone against its plain version at KOD 16, 36
+     and 64, interleaved;
+ 10. roll mode at the all-K ceiling: 64 voices, 16 synthetic 4 s IRs,
+     mac_strategy='auto' (which must resolve to 'allk': KOD=64), through
+     StreamSession for 400 blocks with a re-select and an interrupting
+     re-select; every block must ride mac_shift and none ring_mac, and
+     voices 0 and 63 must match the golden before the re-select and after
+     the fades decay; then its steady step is timed.
 
-The line before the last is a JSON object describing each kernel; the last
-line is {"ok": true, "device": {...}}. The script imports nothing of JAX
-and nothing of the JAX package.
+The line before the last is a JSON object describing each kernel (its
+launches summed over the phases whose path rides it: 4 for ring_mac, 7 and
+10 for mac_shift); the last line is {"ok": true, "device": {...}}. The
+script imports nothing of JAX and nothing of the JAX package.
 """
 
 import json
@@ -68,6 +76,10 @@ ROLL_SWAP_AT, ROLL_INTERRUPT_AT = 320, 326
 ROLL_PERM = (1, 2, 3, 0)
 # 'selected': 24 IRs, re-select at 200 (IR 6), interrupt at 206 (IR 12)
 SEL_IRS, SEL_BLOCKS, SEL_SELECT_AT, SEL_INTERRUPT_AT = 24, 600, 200, 206
+# roll mode at the all-K ceiling: 16 IRs, re-select at 100 (IR 4),
+# interrupt at 106 (IR 8)
+CEIL_IRS, CEIL_BLOCKS, CEIL_SELECT_AT, CEIL_INTERRUPT_AT = 16, 400, 100, 106
+WIDE_KODS = (36, 64)  # 9 and 16 IRs: KOD not a multiple of 16, the ceiling
 
 
 def synthetic_bank(num_irs, ir_seconds, sample_rate):
@@ -348,7 +360,33 @@ def main() -> int:
     kernel_ms = float(np.mean(kernel_runs))
     plain_ms = float(np.mean(plain_runs))
     mac_bytes = (fdl.numel() + rhs2.numel() // 2) * 4  # fdl + the window
-    del model, session, state, engine, bank_t, tensors, fdl, rhs2
+    del model, session, state, engine, bank_t, tensors, rhs2
+    torch.cuda.empty_cache()
+    ring_wide_ms = {}
+    for kod in WIDE_KODS:
+        rhs2 = torch.tensor(rng.standard_normal((f_full, 2, 2 * engine_pp, kod),
+                                                dtype=np.float32), device=dev)
+        got = rm.ring_mac(wt, fdl, rhs2)
+        torch.cuda.synchronize()
+        ref64 = rm.ring_mac_reference(5, fdl.double(), rhs2.double())
+        err = (got.double() - ref64).abs().max().item()
+        limit = 1e-5 * ref64.abs().max().item()
+        del ref64
+        print(f"ring_mac vs plain [64-voice KOD={kod} w=5]: max_abs_err "
+              f"{err:.3e} (limit {limit:.3e})")
+        if not err <= limit:
+            raise AssertionError(f"ring_mac kernel disagrees with the plain "
+                                 f"version at KOD={kod}")
+        kernel_runs, plain_runs = [], []
+        for _ in range(2):  # interleaved: plain, kernel, kernel, plain
+            plain_runs.append(cuda_ms(
+                lambda: rm.ring_mac_reference(wt, fdl, rhs2), 100))
+            kernel_runs.append(cuda_ms(lambda: rm.ring_mac(wt, fdl, rhs2),
+                                       100))
+        ring_wide_ms[kod] = (float(np.mean(kernel_runs)),
+                             float(np.mean(plain_runs)))
+        del rhs2
+    del fdl
     torch.cuda.empty_cache()
 
     # -- 6. mac_shift vs plain ---------------------------------------------------------
@@ -356,6 +394,7 @@ def main() -> int:
     shift_tensors = {}
     for name, (f, vi, pp, kod) in (
             ("64-voice", (f_full, vi_full, engine_pp, kod_full)),
+            ("64-voice KOD=36", (f_full, vi_full, engine_pp, 36)),
             ("64-voice KOD=64", (f_full, vi_full, engine_pp, 64)),
             ("odd-small", (7, 5, 24, 12))):
         fdl = torch.tensor(rng.standard_normal((f, vi, 2, pp),
@@ -386,6 +425,7 @@ def main() -> int:
         if name.startswith("64-voice"):
             shift_err = max(shift_err, err)
         shift_tensors[name] = (fdl, xn, rhs)
+        del shift64, ref64, ref32
 
     # -- 7. roll mode at full width -----------------------------------------------------
     partitions = bank.max_partitions(BLOCK)
@@ -525,7 +565,7 @@ def main() -> int:
                                  roll_params, xt)
     step_ms[("roll", "step_coef")] = (p50, p99)
     shift_ms = {}
-    for name in ("64-voice", "64-voice KOD=64"):
+    for name in ("64-voice", "64-voice KOD=36", "64-voice KOD=64"):
         fdl, xn, rhs = shift_tensors[name]
         kernel_runs, plain_runs = [], []
         for _ in range(2):  # interleaved: plain, kernel, kernel, plain
@@ -536,6 +576,73 @@ def main() -> int:
         shift_ms[name] = (float(np.mean(kernel_runs)),
                           float(np.mean(plain_runs)),
                           (2 * fdl.numel() + xn.numel() + rhs.numel()) * 4)
+    del shift_tensors, fdl, xn, rhs, roll, roll_bank, roll_bank2, state
+    torch.cuda.empty_cache()
+
+    # -- 10. roll mode at the all-K ceiling -------------------------------------------
+    ceil_irs = synthetic_bank(CEIL_IRS, IR_SECONDS, RATE)
+    ceil_bank = IRBank(sample_rate=RATE)
+    for ir in ceil_irs:
+        ceil_bank.append(ir)
+    ceil = FMajorPartitionedConvolution(
+        VOICES, BLOCK, ceil_bank.max_partitions(BLOCK), max_predelay=8192,
+        ring=False, mac_strategy="auto", num_irs=CEIL_IRS, device=dev)
+    ceil_spectra = ceil.prepare_bank(ceil_bank.partitioned_spectra(BLOCK))
+    ceil_kod = ceil_spectra.mac_rhs.shape[3]
+    if ceil.mac_strategy != "allk" or ceil_kod != 4 * CEIL_IRS:
+        raise AssertionError(f"auto resolved {CEIL_IRS} IRs to "
+                             f"{ceil.mac_strategy}, KOD {ceil_kod}")
+    ceil_cp = ControlPlane(VOICES, CEIL_IRS, 8192, device=dev)
+    configure(ceil_cp)
+    ceil_sink = KeepSink()
+    ceil_session = StreamSession(
+        ceil, ceil_spectra, ceil_cp,
+        NoiseSource(VOICES, BLOCK, CEIL_BLOCKS, amplitude=0.01, seed=0),
+        ceil_sink, sample_rate=RATE)
+    state = ceil.init_converged(ceil_spectra, ceil_cp.snapshot_device())
+    reset_counts()
+    t0 = time.perf_counter()
+    state = ceil_session.run(state, midi=MidiSchedule(
+        [select(CEIL_SELECT_AT, 32), select(CEIL_INTERRUPT_AT, 64)]))
+    torch.cuda.synchronize()
+    ceil_s = time.perf_counter() - t0
+    ceil_launches = ms.mac_shift.launches
+    steps = ceil_session.blocks_streamed
+    print(f"roll ceiling slice ({CEIL_IRS} IRs, KOD={ceil_kod}): {steps} "
+          f"blocks in {ceil_s:.3f} s, mac_shift launches {ceil_launches}, "
+          f"ring_mac launches {rm.ring_mac.launches}, indexed blocks "
+          f"{ceil_session.indexed_blocks}, general blocks "
+          f"{ceil_session.general_blocks}, selects "
+          f"{ceil_cp.select[0].tolist()}")
+    if steps != CEIL_BLOCKS or ceil_sink.blocks != CEIL_BLOCKS:
+        raise AssertionError(f"roll ceiling: streamed {steps} blocks, "
+                             f"delivered {ceil_sink.blocks}, wanted "
+                             f"{CEIL_BLOCKS}")
+    if ceil_launches != steps or rm.ring_mac.launches:
+        raise AssertionError(f"mac_shift launched {ceil_launches} times and "
+                             f"ring_mac {rm.ring_mac.launches} in {steps} "
+                             f"roll-mode steps")
+    if ceil_session.indexed_blocks < 20 or ceil_session.general_blocks:
+        raise AssertionError(f"roll ceiling: {ceil_session.indexed_blocks} "
+                             f"indexed blocks, {ceil_session.general_blocks} "
+                             f"general")
+    if not ceil_sink.finite:
+        raise AssertionError("roll ceiling: non-finite output")
+    if not float(state.coef_a.max()) < 1e-6:
+        raise AssertionError("roll ceiling: the crossfades did not decay")
+    ceil_a, ceil_b = (32 * CEIL_IRS // 128, 64 * CEIL_IRS // 128)
+    if ceil_cp.select[0].tolist() != [ceil_b, ceil_b]:
+        raise AssertionError(f"roll ceiling: selection {ceil_cp.select[0]}")
+    ceil_err = check_golden(
+        "roll ceiling", ceil_sink.data(), noise_input(CEIL_BLOCKS),
+        (("before the re-selects, IR 0", 0, CEIL_SELECT_AT, ceil_irs[0]),
+         (f"after the fades decay, IR {ceil_b} (via IR {ceil_a})", 300,
+          CEIL_BLOCKS, ceil_irs[ceil_b])),
+        predelay=int(ceil_cp.predelay[0, 0]))
+    ceil_summary = ceil_session.summary()
+    p50, p99, state = step_times(ceil.step_coef_steady, state, ceil_spectra,
+                                 ceil_cp.snapshot_device(), xt)
+    step_ms[("roll16", "step_coef_steady")] = (p50, p99)
 
     tag = f"[{card}]"
     lines = []
@@ -549,14 +656,18 @@ def main() -> int:
         ("ring_mac_kernel_GBps", mac_bytes / (kernel_ms * 1e-3) / 1e9),
         ("ring_mac_plain_us", plain_ms * 1e3),
     ]
+    for kod, (k_ms, p_ms) in ring_wide_ms.items():
+        lines += [(f"ring_mac_kod{kod}_kernel_us", k_ms * 1e3),
+                  (f"ring_mac_kod{kod}_plain_us", p_ms * 1e3)]
     for key, name in (("mac_shift", "64-voice"),
+                      ("mac_shift_kod36", "64-voice KOD=36"),
                       ("mac_shift_kod64", "64-voice KOD=64")):
         k_ms, p_ms, nbytes = shift_ms[name]
         lines += [(f"{key}_kernel_us", k_ms * 1e3),
                   (f"{key}_kernel_GBps", nbytes / (k_ms * 1e-3) / 1e9),
                   (f"{key}_plain_us", p_ms * 1e3)]
     for mode, s in (("ring", summary), ("roll", roll_summary),
-                    ("selected", sel_summary)):
+                    ("selected", sel_summary), ("roll16", ceil_summary)):
         lines += [(f"{mode}_session_wall_avg_ms_per_block", s["avg_ms"]),
                   (f"{mode}_session_wall_p50_ms_per_block", s["p50_ms"]),
                   (f"{mode}_session_wall_p99_ms_per_block", s["p99_ms"]),
@@ -564,7 +675,7 @@ def main() -> int:
                   (f"{mode}_session_missed_deadlines", s["missed_deadlines"])]
     lines += [("deadline_ms", DEADLINE_MS),
               ("golden_max_abs_err",
-               max(golden_err, roll_err, sel_err))]
+               max(golden_err, roll_err, sel_err, ceil_err))]
     for key, value in lines:
         print(f"{key} {value} {tag}")
 
@@ -578,7 +689,7 @@ def main() -> int:
         {"name": "mac_shift", "route": "cuda",
          "source": "tpu_audio_torch/csrc/mac_shift.cu",
          "replaces": "tpu_audio/ops/pallas_mac.py:76",
-         "launches": roll_launches, "max_abs_err": shift_err,
+         "launches": roll_launches + ceil_launches, "max_abs_err": shift_err,
          "ms": k_ms, "plain_ms": p_ms}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

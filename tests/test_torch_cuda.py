@@ -63,20 +63,16 @@ def test_kernel_raises_on_a_window_too_large_for_shared_memory(cuda):
         ring_mac(torch.zeros((), dtype=torch.int32, device=cuda), fdl, rhs2)
 
 
-@pytest.mark.parametrize("f,vi,pp,kod", [
-    (7, 4, 16, 8), (5, 6, 24, 4), (3, 20, 40, 32), (4, 4, 8, 12),
-    (9, 33, 56, 16), (6, 10, 136, 64), (2, 3, 8, 12)])
-def test_mac_shift_kernel_matches_plain_version(cuda, f, vi, pp, kod):
-    """KOD 12 and 64 take several column tiles (the shifted rows are
-    written in the last pass only); Pp 136 > 128 takes two chunks per
-    plane, walked tail first."""
-    rng = np.random.default_rng(f * 1000 + vi + kod)
+def _check_mac_shift_kernel(device, f, vi, pp, kod, seed):
+    """One launch against the float64 plain version: the shifted line
+    bit-equal, m within 1e-5 of the output's scale."""
+    rng = np.random.default_rng(seed)
     fdl = torch.tensor(rng.standard_normal((f, vi, 2, pp), dtype=np.float32),
-                       device=cuda)
+                       device=device)
     x_new = torch.tensor(rng.standard_normal((f, vi, 2, 1), dtype=np.float32),
-                         device=cuda)
+                         device=device)
     rhs = torch.tensor(rng.standard_normal((f, 2, pp, kod), dtype=np.float32),
-                       device=cuda)
+                       device=device)
     want_fdl, want = mac_shift_reference(fdl.double(), x_new.double(),
                                          rhs.double())
     before = mac_shift.launches
@@ -88,11 +84,32 @@ def test_mac_shift_kernel_matches_plain_version(cuda, f, vi, pp, kod):
     assert err <= 1e-5 * want.abs().max().item()
 
 
-def test_mac_shift_kernel_raises_on_a_window_too_large_for_shared_memory(
-        cuda):
-    pp = 8192  # 2*Pp window rows of even 4 columns exceed the card's limit
+@pytest.mark.parametrize("f,vi,pp,kod", [
+    (7, 4, 16, 8), (5, 6, 24, 4), (3, 20, 40, 32), (4, 4, 8, 12),
+    (9, 33, 56, 16), (6, 10, 136, 64), (2, 3, 8, 12),
+    (3, 130, 40, 4), (2, 130, 44, 20), (3, 130, 40, 36), (2, 131, 52, 60),
+    (2, 130, 136, 64), (2, 129, 40, 80)])
+def test_mac_shift_kernel_matches_plain_version(cuda, f, vi, pp, kod):
+    """Every KOD <= 64 takes one column tile (16, 32 or 64 wide, the columns
+    past KOD masked); KOD 80 takes two column groups, the shifted rows
+    written in the last. VI 129-131 leaves a ragged second row tile of 128;
+    Pp 40, 44, 52 and 136 put a 32-q chunk across the plane boundary."""
+    _check_mac_shift_kernel(cuda, f, vi, pp, kod, seed=f * 1000 + vi + kod)
+
+
+@pytest.mark.parametrize("pp,kod", [(2048, 16), (8192, 4)])
+def test_mac_shift_kernel_matches_plain_version_at_long_lines(cuda, pp, kod):
+    """Shared memory no longer grows with Pp: lines whose whole rhs window
+    no shared memory could stage."""
+    _check_mac_shift_kernel(cuda, 2, 6, pp, kod, seed=pp + kod)
+
+
+def test_mac_shift_kernel_refuses_an_odd_pp(cuda):
+    """The kernel copies 16-byte vectors of each row: a CUDA line of odd Pp
+    raises (the CPU path takes it, tests/test_torch_mac_shift.py)."""
+    pp = 13
     fdl = torch.zeros((1, 2, 2, pp), device=cuda)
-    with pytest.raises(RuntimeError, match="launch failed"):
+    with pytest.raises(ValueError, match="even Pp"):
         mac_shift(fdl, torch.zeros((1, 2, 2, 1), device=cuda),
                   torch.zeros((1, 2, pp, 4), device=cuda))
 

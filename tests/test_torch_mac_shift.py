@@ -64,6 +64,46 @@ def test_mac_shift_matches_pallas_kernel_and_reference():
     np.testing.assert_allclose(got_m.numpy(), np.asarray(kern_m), atol=1e-5)
 
 
+@pytest.mark.parametrize("k", [5, 9, 15])
+def test_mac_shift_matches_the_jax_package_at_all_k_bank_sizes(k):
+    """KOD = 4K = 20, 36 and 60: bank sizes that mac_strategy='auto' sends
+    through mac_shift and whose KOD is no multiple of 16 (the CUDA kernel
+    covers them with one masked column tile)."""
+    rng = np.random.default_rng(10 + k)
+    p = 24
+    fdl = rng.standard_normal((F, 2, VI, p)).astype(np.float32)
+    x_new = rng.standard_normal((F, 2, VI, 1)).astype(np.float32)
+    spectra = (rng.standard_normal((k, O, p, F))
+               + 1j * rng.standard_normal((k, O, p, F))).astype(np.complex64)
+    rhs = pack_rhs_planes(spectra)
+    assert rhs.shape == (F, 2, p, 4 * k)
+    want_fdl, want_m = jax_mac_shift_reference(
+        jnp.asarray(fdl), jnp.asarray(x_new), jnp.asarray(rhs))
+    kern_fdl, kern_m = jax_mac_shift(jnp.asarray(fdl), jnp.asarray(x_new),
+                                     jnp.asarray(rhs), f_tile=2,
+                                     interpret=True)
+    got_fdl, got_m = mac_shift(_port(fdl), _port(x_new), torch.tensor(rhs))
+    np.testing.assert_array_equal(_jax(got_fdl), np.asarray(want_fdl))
+    np.testing.assert_array_equal(_jax(got_fdl), np.asarray(kern_fdl))
+    np.testing.assert_allclose(got_m.numpy(), np.asarray(want_m), atol=1e-5)
+    np.testing.assert_allclose(got_m.numpy(), np.asarray(kern_m), atol=1e-5)
+
+
+def test_cpu_path_takes_an_odd_pp():
+    """The CUDA kernel refuses an odd Pp (its 16-byte row copies); the plain
+    version on the CPU takes any Pp, as the JAX package does."""
+    rng = np.random.default_rng(9)
+    p = 13
+    fdl = rng.standard_normal((F, 2, VI, p)).astype(np.float32)
+    x_new = rng.standard_normal((F, 2, VI, 1)).astype(np.float32)
+    rhs = rng.standard_normal((F, 2, p, KOD)).astype(np.float32)
+    want_fdl, want_m = jax_mac_shift_reference(
+        jnp.asarray(fdl), jnp.asarray(x_new), jnp.asarray(rhs))
+    got_fdl, got_m = mac_shift(_port(fdl), _port(x_new), torch.tensor(rhs))
+    np.testing.assert_array_equal(_jax(got_fdl), np.asarray(want_fdl))
+    np.testing.assert_allclose(got_m.numpy(), np.asarray(want_m), atol=1e-5)
+
+
 def test_mac_shift_streams_blocks_like_a_complex_delay_line():
     """Streaming blocks through mac_shift reproduces the partition MAC of a
     from-scratch complex delay line, sum_p X[t - p] * H_p, block for block."""

@@ -20,186 +20,255 @@
 // partitions (Pp > P) stay inert: the last real partition shifts into a pad
 // slot, whose rhs rows are zero.
 //
-// What bounds it on an H100: bytes. At 64 voices (F=257, VI=128, Pp=696,
-// KOD=16) one call reads the 183 MB delay line and writes it back, and reads
-// 23 MB of rhs: ~389 MB against 1.5 GFLOP, ~4 FLOP/byte, far below the
-// card's f32 ridge point, so the floor is ~116 us at 3.35 TB/s.
+// What bounds it on an H100: bytes. A call must read the delay line and
+// write it back (2 x 183 MB at 64 voices: F=257, VI=128, Pp=696) and read
+// the rhs (F * 2Pp * KOD * 4 B: 23 MB at KOD=16, 92 MB at KOD=64), so
+// ~389 MB at KOD=16 and ~458 MB at KOD=64, against 2*F*VI*2Pp*KOD FLOP
+// (1.5 and 5.9 GFLOP): at most 12.8 FLOP/byte, below the card's f32
+// CUDA-core ridge of ~67 TFLOP/s / 3.35 TB/s = 20. The floor at 3.35 TB/s
+// is ~116 us at KOD=16 and ~137 us at KOD=64, provided each byte crosses
+// device memory once and the FMAs (~90-100 us of the card's f32 rate at
+// KOD=64) overlap the copies.
 //
-// Design against that bound, after ring_mac.cu:
-//   - one block per bin f owns every row of that bin, so no other block
-//     ever reads or writes them;
-//   - the block stages the bin's rhs column tile in shared memory ONCE,
-//     pre-shifted: window row q = c*Pp + s holds rhs[f, c, s + 1] (zero at
-//     s = Pp - 1), so the OLD value at q pairs with window row q and the
-//     shifted line never has to exist before the MAC; rhs[f, c, 0] is
-//     staged beside it for the x_new term. The window's row stride is
-//     KT + 1 floats (odd), so 32 lanes reading 32 consecutive rows hit 32
-//     distinct banks;
-//   - each warp walks groups of kRows rows; 32 lanes read 32 neighbouring q
-//     (coalesced 128-byte rows), kUnroll loads per row in flight, and one
-//     window value feeds kRows FMAs;
-//   - f32 FMA only (no TF32, no tensor cores): each lane sums its share of
-//     q, then a warp butterfly adds the 32 partial sums.
+// Design against that bound:
+//   - a block owns one bin f, a tile of kRows = 128 delay-line rows (all VI
+//     rows at 64 voices: 257 blocks, two resident per SM, one wave) and ALL
+//     the KOD columns of those rows at once. Rows are independent, so
+//     splitting VI over blocks is race-free; splitting the columns is not (a
+//     second block would read rows the first had shifted), and re-reading
+//     the line once per column tile is what bound the previous design;
+//   - the block streams the reduction axis q in chunks of kQC = 32, tail
+//     first, through a ring of kStages = 4 shared-memory stages. A stage
+//     holds the chunk's fdl tile [128 rows][32 q] and its pre-shifted rhs
+//     tile [32 q][KT]: row q holds rhs[f, q + 1], zero where s = Pp - 1 and
+//     past Q, so the OLD value at q pairs with rhs row q and the shifted
+//     line never has to exist before the MAC. Shared memory is fixed (104 KB
+//     at KT = 64) whatever Pp is;
+//   - the stages are filled with cp.async (16 bytes, L2 only), not TMA: the
+//     rhs tile starts one row below the chunk and has a zero row at each
+//     plane's end, the fdl tile has a ragged top chunk and masked rows, and
+//     cp.async's zero-fill form (src-size 0) covers all of that per 16-byte
+//     vector with no tensor map to encode on the host for each call; at ~6
+//     copies per thread per chunk its instruction cost is small beside the
+//     FMAs;
+//   - each thread keeps a register micro-tile of kTM rows x kTN columns of
+//     the block's [128, KT] output (4 x 8 at KT = 64), read outer-product
+//     style from shared memory: per q, kTM row values (a warp's rows fall
+//     in distinct banks: the tile's row stride is kQC + 4 floats) and kTN/4
+//     float4 of rhs. Columns come in groups of 4 (KOD % 4 == 0 is all the
+//     wrapper promises); the column tile KT is 16, 32, 48 or 64, the least
+//     that covers KOD, and columns past KOD are zero-filled, never stored;
+//   - f32 FMA on the CUDA cores only: no TF32, no tensor cores (the port
+//     keeps full f32 on value-carrying products);
+//   - the shifted line is written from shared memory, in place, with
+//     aligned 16-byte stores: slot q of chunk [a, a + 32) takes old[q - 1]
+//     (old[a - 1] from the chunk below) or x_new at a plane's slot 0. A
+//     store shifted by one slot would leave every 128-byte line half
+//     written until the next chunk: measured on the H100, that store
+//     pattern alone cost ~180 us of a ~220 us call at KOD=16. So a chunk is
+//     written one iteration late, once the chunk below has landed, and two
+//     of the four stages are in flight while the block computes.
 //
-// The in-place race, and how it is avoided. A lane that writes slot s+1
-// clobbers the old value there, which another lane, or the next chunk of
-// the same row, may not have read yet. So each warp walks a row's chunks of
-// 32*kUnroll values from the TAIL toward q = 0: chunk [a, b) writes
-// fdl'[q + 1] for q in [a, b) (never across a plane boundary) and x_new
-// into the slot-0 positions it owns, i.e. only addresses >= a, which are
-// either in this chunk (loaded already) or in the chunk above (loaded one
-// iteration earlier). A __syncwarp() between a chunk's loads and its
-// stores orders every lane's read before any lane's write. Each address is
-// written exactly once: slot s >= 1 by the owner of slot s - 1, slot 0 by
-// its own owner.
+// The in-place race, and how it is avoided. The chunks are walked from the
+// tail (q = Q - 1) toward q = 0. At iteration i the block writes chunk
+// i - 1's slots, all of which it has read (chunk i - 1 and chunk i have
+// landed); the copies in flight are of chunks i + 1 and i + 2, below them.
+// Each slot is written once, by the chunk that holds it; plane 0's last
+// slot drops out and never lands in plane 1's slot 0. Chunks may straddle
+// the plane boundary.
 //
-// The column-tile race, and how it is avoided. ring_mac splits KOD over
-// grid.y tiles when a window of all KOD columns does not fit in shared
-// memory; here two blocks of one bin would then read rows that the other
-// had already shifted. Instead the one block of a bin loops over its column
-// tiles (KT = the largest of 16, 8, 4 that divides KOD and fits), restages
-// the window for each, and writes the shifted rows only during the LAST
-// pass, after its last read of them; a __syncthreads() separates the
-// passes. A KOD wider than one tile costs one more read of the delay line
-// per extra tile. The launch allocates nothing and does not synchronise;
-// it returns a cudaError_t so the caller can raise.
+// KOD > 64 (only an explicit 'allk' with more than 16 IRs): the block loops
+// over column groups of 64, re-reading the line per group, and writes the
+// shifted line in the last group only. KOD <= 64 reads the line once.
+//
+// Alignment: fdl rows start on 16 bytes only if Q is a multiple of 4, so
+// the launch refuses an odd Pp (the engine pads Pp to a multiple of 8).
+// The launch allocates nothing and does not synchronise; it returns a
+// cudaError_t so the caller can raise.
 
 #include <cuda_runtime.h>
 #include <stddef.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int kWarps = 8;                   // warps per block
-constexpr int kThreads = kWarps * 32;
-constexpr int kRows = 4;                    // delay-line rows per warp pass
-constexpr int kUnroll = 4;                  // q loads per row in flight
-constexpr int kChunk = 32 * kUnroll;        // q values per warp chunk
+constexpr int kThreads = 256;
+constexpr int kRows = 128;                  // delay-line rows per block
+constexpr int kQC = 32;                     // q per chunk
+constexpr int kAStride = kQC + 4;           // fdl tile row stride, floats
+constexpr int kStages = 4;                  // depth of the cp.async ring
+constexpr int kAhead = kStages - 2;         // chunks in flight
+
+template <int KT>
+__host__ __device__ constexpr int stage_floats() {
+  return kRows * kAStride + kQC * KT;
+}
+
+// 16-byte asynchronous copy, global -> shared, zero-filled when !valid
+__device__ __forceinline__ void copy16(float* dst, const float* src,
+                                       bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(s), "l"(src), "r"(valid ? 16 : 0) : "memory");
+}
+
+__device__ __forceinline__ void commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wait_pending() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
 
 template <int KT>
 __global__ void __launch_bounds__(kThreads, 2)
 mac_shift_kernel(float* __restrict__ fdl, const float* __restrict__ x_new,
                  const float* __restrict__ rhs, float* __restrict__ m,
                  int vi_count, int pp, int kod) {
-  extern __shared__ float smem[];
+  constexpr int kCG = KT == 64 ? 8 : 4;     // column groups of the tile
+  constexpr int kNV = KT / (4 * kCG);       // float4 columns per thread
+  constexpr int kTN = 4 * kNV;              // columns per thread
+  constexpr int kRG = kThreads / kCG;       // row groups of the tile
+  constexpr int kTM = kRows / kRG;          // rows per thread
+  constexpr int kVecs = kQC / 4;            // float4 per row of a chunk
+  extern __shared__ __align__(16) float smem[];
+
+  const int row_tiles = (vi_count + kRows - 1) / kRows;
+  const int f = blockIdx.x / row_tiles;
+  const int row0 = (blockIdx.x - f * row_tiles) * kRows;
+  const int rows = min(kRows, vi_count - row0);
   const int q_total = 2 * pp;
-  float* win = smem;                        // [Q][KT + 1], pre-shifted
-  float* head = smem + q_total * (KT + 1);  // [2][KT]: rhs[f, c, 0]
+  const int chunks = (q_total + kQC - 1) / kQC;
+  const int tid = threadIdx.x;
+  const int cg = tid % kCG;                 // a warp's lanes: kCG column
+  const int rg = tid / kCG;                 // groups x consecutive rows
 
-  const int f = blockIdx.x;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int tiles = kod / KT;
-  const int chunks = (q_total + kChunk - 1) / kChunk;
-
+  float* line = fdl + ((size_t)f * vi_count + row0) * q_total;
+  const float* xn = x_new + ((size_t)f * vi_count + row0) * 2;
   const float* rhs_f = rhs + (size_t)f * q_total * kod;
-  float* fdl_f = fdl + (size_t)f * vi_count * q_total;
-  const float* xn_f = x_new + (size_t)f * vi_count * 2;
 
-  for (int tile = 0; tile < tiles; ++tile) {
-    const int col0 = tile * KT;
-    const bool last = tile == tiles - 1;
-    if (tile > 0) __syncthreads();          // every warp is done with the window
+  for (int col0 = 0; col0 < kod; col0 += KT) {
+    const int cols = min(KT, kod - col0);
+    const bool last = col0 + KT >= kod;
+    if (col0 > 0) __syncthreads();          // every thread is off the ring
 
-    // stage: row j = c*pp + s <- rhs[f, c, s + 1, col0:col0+KT] (0 at s = pp-1)
-    constexpr int kVec = KT / 4;
-    for (int e = threadIdx.x; e < q_total * kVec; e += kThreads) {
-      const int j = e / kVec;
-      const int v = e - j * kVec;
-      const int c = j >= pp ? 1 : 0;
-      const int s = j - c * pp;
-      float4 b = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (s + 1 < pp)
-        b = __ldg(reinterpret_cast<const float4*>(
-                      rhs_f + ((size_t)c * pp + s + 1) * kod + col0) + v);
-      float* dst = win + j * (KT + 1) + 4 * v;
-      dst[0] = b.x;
-      dst[1] = b.y;
-      dst[2] = b.z;
-      dst[3] = b.w;
-    }
-    for (int e = threadIdx.x; e < 2 * KT; e += kThreads) {
-      const int c = e / KT;
-      head[e] = rhs_f[(size_t)c * pp * kod + col0 + (e - c * KT)];
-    }
-    __syncthreads();
-
-    for (int row0 = warp * kRows; row0 < vi_count; row0 += kWarps * kRows) {
-      float* rows[kRows];
-      bool live[kRows];
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        live[r] = row0 + r < vi_count;
-        rows[r] = fdl_f + (size_t)(live[r] ? row0 + r : row0) * q_total;
+    // chunk i of the walk, [a, a + kQC) with a = (chunks - 1 - i) * kQC,
+    // into stage i % kStages
+    auto load = [&](int i) {
+      const int a = (chunks - 1 - i) * kQC;
+      float* as = smem + (i % kStages) * stage_floats<KT>();
+      float* bs = as + kRows * kAStride;
+      for (int e = tid; e < kRows * kVecs; e += kThreads) {
+        const int r = e / kVecs;
+        const int qq = 4 * (e % kVecs);
+        const bool ok = r < rows && a + qq < q_total;
+        copy16(as + r * kAStride + qq,
+               ok ? line + (size_t)r * q_total + a + qq : fdl, ok);
       }
-      float acc[kRows][KT];
-#pragma unroll
-      for (int r = 0; r < kRows; ++r)
-#pragma unroll
-        for (int k = 0; k < KT; ++k) acc[r][k] = 0.f;
+      for (int e = tid; e < kQC * (KT / 4); e += kThreads) {
+        const int j = e / (KT / 4);
+        const int col = 4 * (e % (KT / 4));
+        const int q = a + j;
+        const int s = q >= pp ? q - pp : q;
+        const bool ok = q < q_total && s + 1 < pp && col < cols;
+        copy16(bs + j * KT + col,
+               ok ? rhs_f + (size_t)(q + 1) * kod + col0 + col : rhs, ok);
+      }
+    };
 
-      // tail-first walk: see the in-place race note at the top
-      for (int chunk = chunks - 1; chunk >= 0; --chunk) {
-        const int q0 = chunk * kChunk + lane;
-        float x[kUnroll][kRows];
+    // the shifted slots of chunk i, from its stage and that of chunk i + 1
+    // (the chunk below, whose last slot is old[a - 1]); lanes: kVecs
+    // float4 of a row x kThreads / kVecs rows
+    auto write_back = [&](int i) {
+      const int a = (chunks - 1 - i) * kQC;
+      const float* cur = smem + (i % kStages) * stage_floats<KT>();
+      const float* below = smem + ((i + 1) % kStages) * stage_floats<KT>();
+      const int v = tid % kVecs;
+      const int q0 = a + 4 * v;
+      for (int r0 = 0; r0 < rows; r0 += kThreads / kVecs) {
+        const int r = r0 + tid / kVecs;
+        const bool live = r < rows && q0 < q_total;
+        const float4 x = live ? *reinterpret_cast<const float4*>(
+                                    cur + r * kAStride + 4 * v)
+                              : make_float4(0.f, 0.f, 0.f, 0.f);
+        // old[q0 - 1] is the last value of the lane to the left
+        float prev = __shfl_up_sync(0xffffffffu, x.w, 1, kVecs);
+        if (!live) continue;
+        if (v == 0 && a > 0) prev = below[r * kAStride + kQC - 1];
+        float o[4] = {prev, x.x, x.y, x.z};
 #pragma unroll
-        for (int u = 0; u < kUnroll; ++u) {
-          const int q = q0 + 32 * u;
-#pragma unroll
-          for (int r = 0; r < kRows; ++r)
-            x[u][r] = (live[r] && q < q_total) ? rows[r][q] : 0.f;
+        for (int e = 0; e < 4; ++e) {
+          const int c = q0 + e >= pp ? 1 : 0;
+          if (q0 + e == c * pp) o[e] = xn[2 * r + c];   // a plane's slot 0
         }
-        __syncwarp();                       // every read before any write
+        *reinterpret_cast<float4*>(line + (size_t)r * q_total + q0) =
+            make_float4(o[0], o[1], o[2], o[3]);
+      }
+    };
+
+    float acc[kTM][kTN];
+#pragma unroll
+    for (int t = 0; t < kTM; ++t)
+#pragma unroll
+      for (int k = 0; k < kTN; ++k) acc[t][k] = 0.f;
 
 #pragma unroll
-        for (int u = 0; u < kUnroll; ++u) {
-          const int q = q0 + 32 * u;
-          if (q >= q_total) break;
-          const float* wrow = win + q * (KT + 1);
+    for (int i = 0; i < kAhead; ++i) {
+      if (i < chunks) load(i);
+      commit();
+    }
+    for (int i = 0; i < chunks; ++i) {
+      wait_pending<kAhead - 1>();           // this thread's copies of chunk i
+      __syncthreads();                      // everyone's; stage i-2 is free
+      if (i + kAhead < chunks) load(i + kAhead);
+      commit();
+      if (last && i > 0) write_back(i - 1);
+      const float* as = smem + (i % kStages) * stage_floats<KT>();
+      const float* bs = as + kRows * kAStride;
+#pragma unroll 16
+      for (int j = 0; j < kQC; ++j) {
+        float av[kTM];
 #pragma unroll
-          for (int k = 0; k < KT; ++k) {
-            const float b = wrow[k];
+        for (int t = 0; t < kTM; ++t) av[t] = as[(rg + kRG * t) * kAStride + j];
 #pragma unroll
-            for (int r = 0; r < kRows; ++r)
-              acc[r][k] = fmaf(x[u][r], b, acc[r][k]);
+        for (int v = 0; v < kNV; ++v) {
+          const float4 b = *reinterpret_cast<const float4*>(
+              bs + j * KT + 4 * (cg + kCG * v));
+#pragma unroll
+          for (int t = 0; t < kTM; ++t) {
+            acc[t][4 * v + 0] = fmaf(av[t], b.x, acc[t][4 * v + 0]);
+            acc[t][4 * v + 1] = fmaf(av[t], b.y, acc[t][4 * v + 1]);
+            acc[t][4 * v + 2] = fmaf(av[t], b.z, acc[t][4 * v + 2]);
+            acc[t][4 * v + 3] = fmaf(av[t], b.w, acc[t][4 * v + 3]);
           }
         }
-
-        if (last) {
-#pragma unroll
-          for (int u = 0; u < kUnroll; ++u) {
-            const int q = q0 + 32 * u;
-            if (q >= q_total) break;
-            const int c = q >= pp ? 1 : 0;
-            const int s = q - c * pp;
-#pragma unroll
-            for (int r = 0; r < kRows; ++r) {
-              if (!live[r]) continue;
-              if (s + 1 < pp) rows[r][q + 1] = x[u][r];
-              if (s == 0) rows[r][q] = xn_f[(row0 + r) * 2 + c];
-            }
-          }
-        }
       }
+    }
+    if (last) write_back(chunks - 1);
 
+    // m = the chunks' sums + x_new * rhs[f, c, 0]
 #pragma unroll
-      for (int r = 0; r < kRows; ++r)
+    for (int t = 0; t < kTM; ++t) {
+      const int r = rg + kRG * t;
+      if (r >= rows) continue;
+      const float x0 = xn[2 * r];
+      const float x1 = xn[2 * r + 1];
+      float* out = m + ((size_t)f * vi_count + row0 + r) * kod + col0;
 #pragma unroll
-        for (int k = 0; k < KT; ++k)
-#pragma unroll
-          for (int off = 16; off > 0; off >>= 1)
-            acc[r][k] += __shfl_xor_sync(0xffffffffu, acc[r][k], off);
-
-      // every lane holds every sum: add the x_new term, spread the stores
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        if (!live[r]) continue;
-        const float x0 = xn_f[(row0 + r) * 2];
-        const float x1 = xn_f[(row0 + r) * 2 + 1];
-        float* out = m + ((size_t)f * vi_count + row0 + r) * kod + col0;
-#pragma unroll
-        for (int k = 0; k < KT; ++k)
-          if (((r * KT + k) & 31) == lane)
-            out[k] = fmaf(x1, head[KT + k], fmaf(x0, head[k], acc[r][k]));
+      for (int v = 0; v < kNV; ++v) {
+        const int col = 4 * (cg + kCG * v);
+        if (col >= cols) continue;
+        const float4 h0 = __ldg(
+            reinterpret_cast<const float4*>(rhs_f + col0 + col));
+        const float4 h1 = __ldg(reinterpret_cast<const float4*>(
+            rhs_f + (size_t)pp * kod + col0 + col));
+        float4 o;
+        o.x = fmaf(x1, h1.x, fmaf(x0, h0.x, acc[t][4 * v + 0]));
+        o.y = fmaf(x1, h1.y, fmaf(x0, h0.y, acc[t][4 * v + 1]));
+        o.z = fmaf(x1, h1.z, fmaf(x0, h0.z, acc[t][4 * v + 2]));
+        o.w = fmaf(x1, h1.w, fmaf(x0, h0.w, acc[t][4 * v + 3]));
+        *reinterpret_cast<float4*>(out + col) = o;
       }
     }
   }
@@ -207,52 +276,48 @@ mac_shift_kernel(float* __restrict__ fdl, const float* __restrict__ x_new,
 
 template <int KT>
 cudaError_t launch(float* a, const float* xn, const float* b, float* out,
-                   int f, int vi, int pp, int kod, size_t smem,
-                   cudaStream_t s) {
+                   int f, int vi, int pp, int kod, cudaStream_t s) {
+  constexpr size_t smem = kStages * stage_floats<KT>() * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
       mac_shift_kernel<KT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  mac_shift_kernel<KT><<<f, kThreads, smem, s>>>(a, xn, b, out, vi, pp, kod);
+  const unsigned blocks =
+      static_cast<unsigned>(f) * static_cast<unsigned>((vi + kRows - 1) / kRows);
+  mac_shift_kernel<KT><<<blocks, kThreads, smem, s>>>(a, xn, b, out, vi, pp,
+                                                      kod);
   return cudaGetLastError();
 }
 
-size_t smem_bytes(size_t q_total, int kt) {
-  return (q_total * (kt + 1) + 2 * kt) * sizeof(float);
+bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
 }  // namespace
 
 // fdl f32 [f, vi, 2, pp], shifted in place; x_new f32 [f, vi, 2, 1];
-// rhs f32 [f, 2, pp, kod]; m f32 [f, vi, kod]. kod must be a multiple of 4
-// and rhs 16-byte aligned. Returns a cudaError_t: the launch's, or
-// cudaErrorInvalidValue when no column tile's window fits in shared memory.
+// rhs f32 [f, 2, pp, kod]; m f32 [f, vi, kod]. pp must be even, kod a
+// multiple of 4, and fdl, rhs and m 16-byte aligned. Returns a cudaError_t:
+// the launch's, or cudaErrorInvalidValue for arguments the kernel does not
+// take.
 extern "C" int mac_shift_launch(void* fdl, const void* x_new, const void* rhs,
                                 void* m, int f, int vi, int pp, int kod,
                                 void* stream) {
-  int dev = 0, smem_max = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&smem_max,
-                                 cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  if (f <= 0 || vi <= 0 || pp <= 0 || kod <= 0 || pp % 2 || kod % 4 ||
+      !aligned16(fdl) || !aligned16(rhs) || !aligned16(m))
+    return static_cast<int>(cudaErrorInvalidValue);
   float* a = static_cast<float*>(fdl);
   const float* xn = static_cast<const float*>(x_new);
   const float* b = static_cast<const float*>(rhs);
   float* out = static_cast<float*>(m);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const size_t q_total = 2 * static_cast<size_t>(pp);
-  const size_t max_smem = static_cast<size_t>(smem_max);
-  if (kod % 16 == 0 && smem_bytes(q_total, 16) <= max_smem)
-    return static_cast<int>(launch<16>(a, xn, b, out, f, vi, pp, kod,
-                                       smem_bytes(q_total, 16), s));
-  if (kod % 8 == 0 && smem_bytes(q_total, 8) <= max_smem)
-    return static_cast<int>(launch<8>(a, xn, b, out, f, vi, pp, kod,
-                                      smem_bytes(q_total, 8), s));
-  if (kod % 4 == 0 && smem_bytes(q_total, 4) <= max_smem)
-    return static_cast<int>(launch<4>(a, xn, b, out, f, vi, pp, kod,
-                                      smem_bytes(q_total, 4), s));
-  return static_cast<int>(cudaErrorInvalidValue);
+  if (kod <= 16)
+    return static_cast<int>(launch<16>(a, xn, b, out, f, vi, pp, kod, s));
+  if (kod <= 32)
+    return static_cast<int>(launch<32>(a, xn, b, out, f, vi, pp, kod, s));
+  if (kod <= 48)
+    return static_cast<int>(launch<48>(a, xn, b, out, f, vi, pp, kod, s));
+  return static_cast<int>(launch<64>(a, xn, b, out, f, vi, pp, kod, s));
 }
 
 extern "C" const char* mac_shift_error_string(int err) {

@@ -83,8 +83,9 @@ def mac_shift(fdl: torch.Tensor, x_new: torch.Tensor, rhs: torch.Tensor
     """Shift `fdl` in place and return (fdl, m [F, VI, KOD] f32).
 
     A CUDA tensor launches the kernel on the current stream (no sync) or
-    raises; a CPU tensor takes mac_shift_reference and copies the shifted
-    line back into `fdl`."""
+    raises (the kernel also needs an even Pp); a CPU tensor takes
+    mac_shift_reference, at any Pp, and copies the shifted line back into
+    `fdl`."""
     _check(fdl, x_new, rhs)
     if fdl.device.type == "cpu":
         shifted, m = mac_shift_reference(fdl, x_new, rhs)
@@ -94,6 +95,11 @@ def mac_shift(fdl: torch.Tensor, x_new: torch.Tensor, rhs: torch.Tensor
         raise ValueError(f"mac_shift runs on CUDA or CPU, not {fdl.device}")
     f, vi, _, pp = fdl.shape
     kod = rhs.shape[3]
+    # the kernel copies 16-byte vectors of each fdl row: rows must start on
+    # 16 bytes (the engine pads Pp to a multiple of 8)
+    if pp % 2 or fdl.data_ptr() % 16:
+        raise ValueError(f"the mac_shift kernel needs an even Pp and a "
+                         f"16-byte aligned fdl, got Pp={pp}")
     m = torch.empty((f, vi, kod), dtype=torch.float32, device=fdl.device)
     with torch.cuda.device(fdl.device):
         stream = torch.cuda.current_stream().cuda_stream
