@@ -12,8 +12,9 @@ Phases, in order; any failure raises and the script exits non-zero:
   2. build: compile both CUDA kernels from tpu_audio_torch/csrc, one nvcc
      per source, started together;
   3. ring_mac vs plain: the kernel against its plain PyTorch version in
-     float64 at the 64-voice main-path shapes (every ring phase) and at an
-     odd small shape, within 1e-5 of the output's scale;
+     float64 at the 64-voice shapes of KOD 16, 36 and 64 (4, 9 and 16 IRs)
+     and at an odd small shape, at every ring phase, within 1e-5 of the
+     output's scale (the library yardstick of phase 5 too);
   4. ring mode at full width: 64 stereo voices, 4 synthetic 4 s IRs,
      256-frame blocks at 44.1 kHz, streamed through StreamSession for 800
      blocks with a re-select and an interrupting re-select; every block
@@ -21,9 +22,10 @@ Phases, in order; any failure raises and the script exits non-zero:
      every output must be finite, and voices 0 and 63 must match a float64
      fftconvolve golden before the re-selects and after the fades decay;
   5. ring-mode timing on the card (CUDA events): per-step steady, indexed
-     and general, ring_mac alone against the plain MAC, the session's wall
-     time; ring_mac and its plain version also at the 64-voice shapes of
-     KOD 36 and 64 (9 and 16 IRs), each checked once against float64;
+     and general, the session's wall time; ring_mac against its plain
+     version and against one library call (an einsum over the sliced
+     window) at the 64-voice shapes of KOD 16, 36 and 64, interleaved, with
+     GB/s and the share of the roofline bound;
   6. mac_shift vs plain: at the 64-voice shapes of KOD 16, 36 and 64 and at
      an odd small shape the shifted line must be bit-identical to the plain
      version's and m within 1e-5 of the float64 plain version's scale;
@@ -49,12 +51,20 @@ Phases, in order; any failure raises and the script exits non-zero:
      StreamSession for 400 blocks with a re-select and an interrupting
      re-select; every block must ride mac_shift and none ring_mac, and
      voices 0 and 63 must match the golden before the re-select and after
-     the fades decay; then its steady step is timed.
+     the fades decay; then its steady step is timed;
+ 11. ring mode at the all-K ceiling: ConvolutionReverb with its defaults
+     (ring mode, mac_strategy='auto' -> 'allk', KOD=64) over the same 16
+     IRs, 400 blocks through its session with a re-select and an
+     interrupting re-select; every block must ride ring_mac and none
+     mac_shift, with phase 10's checks against the golden; then its steady
+     step is timed.
 
 The line before the last is a JSON object describing each kernel (its
-launches summed over the phases whose path rides it: 4 for ring_mac, 7 and
-10 for mac_shift); the last line is {"ok": true, "device": {...}}. The
-script imports nothing of JAX and nothing of the JAX package.
+launches summed over the phases whose path rides it: 4 and 11 for
+ring_mac, 7 and 10 for mac_shift; its times and roofline bound at KOD=16,
+and under per_kod at KOD 16, 36 and 64); the last line is {"ok": true,
+"device": {...}}. The script imports nothing of JAX and nothing of the JAX
+package.
 """
 
 import json
@@ -79,7 +89,11 @@ SEL_IRS, SEL_BLOCKS, SEL_SELECT_AT, SEL_INTERRUPT_AT = 24, 600, 200, 206
 # roll mode at the all-K ceiling: 16 IRs, re-select at 100 (IR 4),
 # interrupt at 106 (IR 8)
 CEIL_IRS, CEIL_BLOCKS, CEIL_SELECT_AT, CEIL_INTERRUPT_AT = 16, 400, 100, 106
-WIDE_KODS = (36, 64)  # 9 and 16 IRs: KOD not a multiple of 16, the ceiling
+RING_KODS = (16, 36, 64)  # 4, 9 and 16 IRs: the main path, a KOD that is no
+                         # multiple of 16, the all-K ceiling
+# published peaks of one H100 SXM (NVIDIA's data sheet): HBM bytes/s and
+# f32 FLOP/s outside the tensor cores, at the full 700 W power limit
+HBM_BYTES_PER_S, F32_FLOPS = 3.35e12, 67e12
 
 
 def synthetic_bank(num_irs, ir_seconds, sample_rate):
@@ -139,6 +153,26 @@ def check_golden(name, out, x, windows, predelay):
                 raise AssertionError(f"{name}: voice {v} disagrees with the "
                                      f"golden {label}")
     return worst
+
+
+def roofline_ms(nbytes, flops):
+    """The least time the card could take: the larger of `nbytes` over the
+    HBM rate and `flops` f32 operations over the f32 peak. Returns (ms,
+    "bytes" or "operations")."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def ring_mac_library(w, fdl, rhs2):
+    """One PyTorch call computing ring_mac's function with a host-side ring
+    slot `w`: the yardstick chip_smoke.py times beside the kernel
+    (library_ms). The port never calls it."""
+    import torch
+
+    pp = fdl.shape[3]
+    w = w % pp
+    return torch.einsum("fvcs,fcsk->fvk", fdl, rhs2[:, :, pp - w: 2 * pp - w])
 
 
 def cuda_ms(fn, reps, warmup=20):
@@ -219,7 +253,8 @@ def main() -> int:
         print(f"  {path.name} compiled in {build_s:.2f} s" if build_s
               else f"  {path.name} already built")
         for line in ptxas.splitlines():
-            if "registers" in line or "spill" in line:
+            if any(key in line for key in ("Function properties",
+                                           "registers", "spill")):
                 print(f"    {line.strip()}")
 
     def reset_counts():
@@ -230,33 +265,45 @@ def main() -> int:
     engine_pp = -(-num_partitions(int(IR_SECONDS * RATE), BLOCK) // 8) * 8
     f_full, vi_full, kod_full = BLOCK + 1, 2 * VOICES, 4 * NUM_IRS
     rng = np.random.default_rng(0)
+
+    def randn(*shape):
+        return torch.tensor(rng.standard_normal(shape, dtype=np.float32),
+                            device=dev)
+
     max_abs_err = 0.0
-    tensors = {}
-    for name, (f, vi, pp, kod) in (("64-voice", (f_full, vi_full, engine_pp,
-                                                 kod_full)),
-                                   ("odd-small", (7, 4, 16, 8))):
-        fdl = torch.tensor(rng.standard_normal((f, vi, 2, pp),
-                                               dtype=np.float32), device=dev)
-        rhs2 = torch.tensor(rng.standard_normal((f, 2, 2 * pp, kod),
-                                                dtype=np.float32), device=dev)
-        tensors[name] = (fdl, rhs2)
+    fdl_full = randn(f_full, vi_full, 2, engine_pp)
+    ring_inputs = {kod: (fdl_full, randn(f_full, 2, 2 * engine_pp, kod))
+                   for kod in RING_KODS}
+    for name, (fdl, rhs2) in [
+            *(("64-voice", ring_inputs[kod]) for kod in RING_KODS),
+            ("odd-small", (randn(7, 4, 2, 16), randn(7, 2, 32, 8)))]:
+        f, vi, _, pp = fdl.shape
+        fdl64, rhs64 = fdl.double(), rhs2.double()
         for w in sorted({0, 1, 347 % pp, pp - 1}):
             wt = torch.tensor(w, dtype=torch.int32, device=dev)
             got = rm.ring_mac(wt, fdl, rhs2)
             torch.cuda.synchronize()
-            ref64 = rm.ring_mac_reference(w, fdl.double(), rhs2.double())
-            ref32 = rm.ring_mac_reference(wt, fdl, rhs2)
+            ref64 = rm.ring_mac_reference(w, fdl64, rhs64)
             scale = ref64.abs().max().item()
             err = (got.double() - ref64).abs().max().item()
-            err32 = (ref32.double() - ref64).abs().max().item()
-            print(f"ring_mac vs plain [{name} F={f} VI={vi} Pp={pp} KOD={kod} "
-                  f"w={w}]: max_abs_err {err:.3e} (plain f32 {err32:.3e}, "
-                  f"limit {1e-5 * scale:.3e})")
+            err32 = (rm.ring_mac_reference(wt, fdl, rhs2).double()
+                     - ref64).abs().max().item()
+            err_lib = (ring_mac_library(w, fdl, rhs2).double()
+                       - ref64).abs().max().item()
+            print(f"ring_mac vs plain [{name} F={f} VI={vi} Pp={pp} "
+                  f"KOD={rhs2.shape[3]} w={w}]: max_abs_err {err:.3e} (plain "
+                  f"f32 {err32:.3e}, library {err_lib:.3e}, limit "
+                  f"{1e-5 * scale:.3e})")
             if not err <= 1e-5 * scale:
                 raise AssertionError(f"ring_mac kernel disagrees with the "
                                      f"plain version at {name} w={w}")
-            if name == "64-voice":
+            if not err_lib <= 1e-5 * scale:
+                raise AssertionError(f"the library yardstick computes "
+                                     f"another function at {name} w={w}")
+            if name.startswith("64-voice"):
                 max_abs_err = max(max_abs_err, err)
+            del ref64
+        del fdl64, rhs64
 
     # -- 4. ring mode at full width ---------------------------------------------------
     irs = synthetic_bank(NUM_IRS, IR_SECONDS, RATE)
@@ -350,43 +397,33 @@ def main() -> int:
     state = engine.materialize_base(state, bank_t)
     p50, p99, state = step_times(engine.step_coef, state, bank_t, params, xt)
     step_ms[("ring", "step_coef")] = (p50, p99)
-    fdl, rhs2 = tensors["64-voice"]
-    wt = torch.tensor(5, dtype=torch.int32, device=dev)
-    kernel_runs, plain_runs = [], []
-    for _ in range(2):  # interleaved: plain, kernel, kernel, plain
-        plain_runs.append(cuda_ms(lambda: rm.ring_mac_reference(wt, fdl, rhs2),
-                                  200))
-        kernel_runs.append(cuda_ms(lambda: rm.ring_mac(wt, fdl, rhs2), 200))
-    kernel_ms = float(np.mean(kernel_runs))
-    plain_ms = float(np.mean(plain_runs))
-    mac_bytes = (fdl.numel() + rhs2.numel() // 2) * 4  # fdl + the window
-    del model, session, state, engine, bank_t, tensors, rhs2
+    del model, session, state, engine, bank_t
     torch.cuda.empty_cache()
-    ring_wide_ms = {}
-    for kod in WIDE_KODS:
-        rhs2 = torch.tensor(rng.standard_normal((f_full, 2, 2 * engine_pp, kod),
-                                                dtype=np.float32), device=dev)
-        got = rm.ring_mac(wt, fdl, rhs2)
-        torch.cuda.synchronize()
-        ref64 = rm.ring_mac_reference(5, fdl.double(), rhs2.double())
-        err = (got.double() - ref64).abs().max().item()
-        limit = 1e-5 * ref64.abs().max().item()
-        del ref64
-        print(f"ring_mac vs plain [64-voice KOD={kod} w=5]: max_abs_err "
-              f"{err:.3e} (limit {limit:.3e})")
-        if not err <= limit:
-            raise AssertionError(f"ring_mac kernel disagrees with the plain "
-                                 f"version at KOD={kod}")
-        kernel_runs, plain_runs = [], []
-        for _ in range(2):  # interleaved: plain, kernel, kernel, plain
-            plain_runs.append(cuda_ms(
-                lambda: rm.ring_mac_reference(wt, fdl, rhs2), 100))
-            kernel_runs.append(cuda_ms(lambda: rm.ring_mac(wt, fdl, rhs2),
-                                       100))
-        ring_wide_ms[kod] = (float(np.mean(kernel_runs)),
-                             float(np.mean(plain_runs)))
-        del rhs2
-    del fdl
+    w_host = 5
+    wt = torch.tensor(w_host, dtype=torch.int32, device=dev)
+    ring_ms = {}
+    for kod in RING_KODS:
+        fdl, rhs2 = ring_inputs[kod]
+        calls = {"plain": lambda: rm.ring_mac_reference(wt, fdl, rhs2),
+                 "library": lambda: ring_mac_library(w_host, fdl, rhs2),
+                 "kernel": lambda: rm.ring_mac(wt, fdl, rhs2)}
+        runs = {key: [] for key in calls}
+        # interleaved: plain, library, kernel, kernel, library, plain
+        for key in ("plain", "library", "kernel", "kernel", "library",
+                    "plain"):
+            runs[key].append(cuda_ms(calls[key], 200))
+        f, vi, _, pp = fdl.shape
+        nbytes = (fdl.numel() + f * 2 * pp * kod + f * vi * kod) * 4
+        bound_ms, bound_by = roofline_ms(nbytes, 2 * f * vi * 2 * pp * kod)
+        ring_ms[kod] = {key: float(np.mean(v)) for key, v in runs.items()}
+        ring_ms[kod].update(bound=bound_ms, bound_by=bound_by, bytes=nbytes)
+        k_ms = ring_ms[kod]["kernel"]
+        print(f"ring_mac timing [64-voice KOD={kod}]: kernel {k_ms * 1e3:.2f} "
+              f"us ({nbytes / (k_ms * 1e-3) / 1e9:.0f} GB/s, "
+              f"{100 * bound_ms / k_ms:.1f} % of the {bound_ms * 1e3:.2f} us "
+              f"bound by {bound_by}), plain {ring_ms[kod]['plain'] * 1e3:.2f}"
+              f" us, library {ring_ms[kod]['library'] * 1e3:.2f} us")
+    del ring_inputs, fdl_full, fdl, rhs2, calls
     torch.cuda.empty_cache()
 
     # -- 6. mac_shift vs plain ---------------------------------------------------------
@@ -573,9 +610,14 @@ def main() -> int:
                 lambda: ms.mac_shift_reference(fdl, xn, rhs), 200))
             kernel_runs.append(cuda_ms(lambda: ms.mac_shift(fdl, xn, rhs),
                                        200))
-        shift_ms[name] = (float(np.mean(kernel_runs)),
-                          float(np.mean(plain_runs)),
-                          (2 * fdl.numel() + xn.numel() + rhs.numel()) * 4)
+        f, vi, _, pp = fdl.shape
+        kod = rhs.shape[3]
+        nbytes = (2 * fdl.numel() + xn.numel() + rhs.numel()
+                  + f * vi * kod) * 4
+        bound_ms, bound_by = roofline_ms(nbytes, 2 * f * vi * 2 * pp * kod)
+        shift_ms[kod] = {"kernel": float(np.mean(kernel_runs)),
+                         "plain": float(np.mean(plain_runs)), "bytes": nbytes,
+                         "bound": bound_ms, "bound_by": bound_by}
     del shift_tensors, fdl, xn, rhs, roll, roll_bank, roll_bank2, state
     torch.cuda.empty_cache()
 
@@ -584,6 +626,48 @@ def main() -> int:
     ceil_bank = IRBank(sample_rate=RATE)
     for ir in ceil_irs:
         ceil_bank.append(ir)
+
+    def ceil_midi():
+        return MidiSchedule([select(CEIL_SELECT_AT, 32),
+                             select(CEIL_INTERRUPT_AT, 64)])
+
+    def check_ceiling(name, session, sink, state, cp, run_s, launches):
+        """The checks of a 16-IR session (phases 10 and 11): every block
+        launches the first kernel of `launches` ({kernel: launches}) and
+        none the second, the fades ride the indexed step, the output is
+        finite and its fades decay, and voices 0 and 63 match the golden
+        before the re-select and after the fades decay. Returns the largest
+        golden error."""
+        steps = session.blocks_streamed
+        (rode, n_rode), (other, n_other) = launches.items()
+        print(f"{name}: {steps} blocks in {run_s:.3f} s, {rode} launches "
+              f"{n_rode}, {other} launches {n_other}, indexed blocks "
+              f"{session.indexed_blocks}, general blocks "
+              f"{session.general_blocks}, selects {cp.select[0].tolist()}")
+        if steps != CEIL_BLOCKS or sink.blocks != CEIL_BLOCKS:
+            raise AssertionError(f"{name}: streamed {steps} blocks, "
+                                 f"delivered {sink.blocks}, wanted "
+                                 f"{CEIL_BLOCKS}")
+        if n_rode != steps or n_other:
+            raise AssertionError(f"{name}: {rode} launched {n_rode} times "
+                                 f"and {other} {n_other} in {steps} steps")
+        if session.indexed_blocks < 20 or session.general_blocks:
+            raise AssertionError(f"{name}: {session.indexed_blocks} indexed "
+                                 f"blocks, {session.general_blocks} general")
+        if not sink.finite:
+            raise AssertionError(f"{name}: non-finite output")
+        if not float(state.coef_a.max()) < 1e-6:
+            raise AssertionError(f"{name}: the crossfades did not decay")
+        sel_a, sel_b = (32 * CEIL_IRS // 128, 64 * CEIL_IRS // 128)
+        if cp.select[0].tolist() != [sel_b, sel_b]:
+            raise AssertionError(f"{name}: selection {cp.select[0]}")
+        return check_golden(
+            name, sink.data(), noise_input(CEIL_BLOCKS),
+            (("before the re-selects, IR 0", 0, CEIL_SELECT_AT, ceil_irs[0]),
+             (f"after the fades decay, IR {sel_b} (via IR {sel_a})", 300,
+              CEIL_BLOCKS, ceil_irs[sel_b])),
+            predelay=int(cp.predelay[0, 0]))
+
     ceil = FMajorPartitionedConvolution(
         VOICES, BLOCK, ceil_bank.max_partitions(BLOCK), max_predelay=8192,
         ring=False, mac_strategy="auto", num_irs=CEIL_IRS, device=dev)
@@ -602,47 +686,53 @@ def main() -> int:
     state = ceil.init_converged(ceil_spectra, ceil_cp.snapshot_device())
     reset_counts()
     t0 = time.perf_counter()
-    state = ceil_session.run(state, midi=MidiSchedule(
-        [select(CEIL_SELECT_AT, 32), select(CEIL_INTERRUPT_AT, 64)]))
+    state = ceil_session.run(state, midi=ceil_midi())
     torch.cuda.synchronize()
-    ceil_s = time.perf_counter() - t0
     ceil_launches = ms.mac_shift.launches
-    steps = ceil_session.blocks_streamed
-    print(f"roll ceiling slice ({CEIL_IRS} IRs, KOD={ceil_kod}): {steps} "
-          f"blocks in {ceil_s:.3f} s, mac_shift launches {ceil_launches}, "
-          f"ring_mac launches {rm.ring_mac.launches}, indexed blocks "
-          f"{ceil_session.indexed_blocks}, general blocks "
-          f"{ceil_session.general_blocks}, selects "
-          f"{ceil_cp.select[0].tolist()}")
-    if steps != CEIL_BLOCKS or ceil_sink.blocks != CEIL_BLOCKS:
-        raise AssertionError(f"roll ceiling: streamed {steps} blocks, "
-                             f"delivered {ceil_sink.blocks}, wanted "
-                             f"{CEIL_BLOCKS}")
-    if ceil_launches != steps or rm.ring_mac.launches:
-        raise AssertionError(f"mac_shift launched {ceil_launches} times and "
-                             f"ring_mac {rm.ring_mac.launches} in {steps} "
-                             f"roll-mode steps")
-    if ceil_session.indexed_blocks < 20 or ceil_session.general_blocks:
-        raise AssertionError(f"roll ceiling: {ceil_session.indexed_blocks} "
-                             f"indexed blocks, {ceil_session.general_blocks} "
-                             f"general")
-    if not ceil_sink.finite:
-        raise AssertionError("roll ceiling: non-finite output")
-    if not float(state.coef_a.max()) < 1e-6:
-        raise AssertionError("roll ceiling: the crossfades did not decay")
-    ceil_a, ceil_b = (32 * CEIL_IRS // 128, 64 * CEIL_IRS // 128)
-    if ceil_cp.select[0].tolist() != [ceil_b, ceil_b]:
-        raise AssertionError(f"roll ceiling: selection {ceil_cp.select[0]}")
-    ceil_err = check_golden(
-        "roll ceiling", ceil_sink.data(), noise_input(CEIL_BLOCKS),
-        (("before the re-selects, IR 0", 0, CEIL_SELECT_AT, ceil_irs[0]),
-         (f"after the fades decay, IR {ceil_b} (via IR {ceil_a})", 300,
-          CEIL_BLOCKS, ceil_irs[ceil_b])),
-        predelay=int(ceil_cp.predelay[0, 0]))
+    ceil_err = check_ceiling(
+        f"roll ceiling ({CEIL_IRS} IRs, KOD={ceil_kod})", ceil_session,
+        ceil_sink, state, ceil_cp, time.perf_counter() - t0,
+        {"mac_shift": ceil_launches, "ring_mac": rm.ring_mac.launches})
     ceil_summary = ceil_session.summary()
     p50, p99, state = step_times(ceil.step_coef_steady, state, ceil_spectra,
                                  ceil_cp.snapshot_device(), xt)
     step_ms[("roll16", "step_coef_steady")] = (p50, p99)
+    del ceil, ceil_spectra, ceil_session, state
+    torch.cuda.empty_cache()
+
+    # -- 11. ring mode at the all-K ceiling -------------------------------------------
+    t0 = time.perf_counter()
+    ring16 = ConvolutionReverb(ceil_bank, num_voices=VOICES, block=BLOCK,
+                               sample_rate=RATE, max_predelay=8192,
+                               device=dev)
+    ring16_build_s = time.perf_counter() - t0
+    ring16_kod = ring16.spectra.rhs2.shape[3]
+    if (not ring16.engine.ring_mode or ring16.engine.mac_strategy != "allk"
+            or ring16_kod != 4 * CEIL_IRS):
+        raise AssertionError(f"the model resolved {CEIL_IRS} IRs to ring "
+                             f"{ring16.engine.ring_mode}, "
+                             f"{ring16.engine.mac_strategy}, KOD {ring16_kod}")
+    configure(ring16.control)
+    ring16_sink = KeepSink()
+    ring16_session = ring16.session(
+        NoiseSource(VOICES, BLOCK, CEIL_BLOCKS, amplitude=0.01, seed=0),
+        ring16_sink)
+    state = ring16.init_state()
+    reset_counts()
+    t0 = time.perf_counter()
+    state = ring16_session.run(state, midi=ceil_midi())
+    torch.cuda.synchronize()
+    ring16_launches = rm.ring_mac.launches
+    print(f"ring ceiling: model built in {ring16_build_s:.2f} s")
+    ring16_err = check_ceiling(
+        f"ring ceiling ({CEIL_IRS} IRs, KOD={ring16_kod})", ring16_session,
+        ring16_sink, state, ring16.control, time.perf_counter() - t0,
+        {"ring_mac": ring16_launches, "mac_shift": ms.mac_shift.launches})
+    ring16_summary = ring16_session.summary()
+    p50, p99, state = step_times(ring16.engine.step_coef_steady, state,
+                                 ring16.spectra,
+                                 ring16.control.snapshot_device(), xt)
+    step_ms[("ring16", "step_coef_steady")] = (p50, p99)
 
     tag = f"[{card}]"
     lines = []
@@ -651,23 +741,19 @@ def main() -> int:
                  "step_coef": "general"}[name]
         lines += [(f"{mode}_{short}_step_p50_ms", p50),
                   (f"{mode}_{short}_step_p99_ms", p99)]
-    lines += [
-        ("ring_mac_kernel_us", kernel_ms * 1e3),
-        ("ring_mac_kernel_GBps", mac_bytes / (kernel_ms * 1e-3) / 1e9),
-        ("ring_mac_plain_us", plain_ms * 1e3),
-    ]
-    for kod, (k_ms, p_ms) in ring_wide_ms.items():
-        lines += [(f"ring_mac_kod{kod}_kernel_us", k_ms * 1e3),
-                  (f"ring_mac_kod{kod}_plain_us", p_ms * 1e3)]
-    for key, name in (("mac_shift", "64-voice"),
-                      ("mac_shift_kod36", "64-voice KOD=36"),
-                      ("mac_shift_kod64", "64-voice KOD=64")):
-        k_ms, p_ms, nbytes = shift_ms[name]
-        lines += [(f"{key}_kernel_us", k_ms * 1e3),
-                  (f"{key}_kernel_GBps", nbytes / (k_ms * 1e-3) / 1e9),
-                  (f"{key}_plain_us", p_ms * 1e3)]
+    for kernel, timed in (("ring_mac", ring_ms), ("mac_shift", shift_ms)):
+        for kod, t in timed.items():
+            key = kernel if kod == kod_full else f"{kernel}_kod{kod}"
+            lines += [(f"{key}_kernel_us", t["kernel"] * 1e3),
+                      (f"{key}_kernel_GBps",
+                       t["bytes"] / (t["kernel"] * 1e-3) / 1e9),
+                      (f"{key}_plain_us", t["plain"] * 1e3),
+                      (f"{key}_bound_us", t["bound"] * 1e3)]
+            if "library" in t:
+                lines.append((f"{key}_library_us", t["library"] * 1e3))
     for mode, s in (("ring", summary), ("roll", roll_summary),
-                    ("selected", sel_summary), ("roll16", ceil_summary)):
+                    ("selected", sel_summary), ("roll16", ceil_summary),
+                    ("ring16", ring16_summary)):
         lines += [(f"{mode}_session_wall_avg_ms_per_block", s["avg_ms"]),
                   (f"{mode}_session_wall_p50_ms_per_block", s["p50_ms"]),
                   (f"{mode}_session_wall_p99_ms_per_block", s["p99_ms"]),
@@ -675,22 +761,27 @@ def main() -> int:
                   (f"{mode}_session_missed_deadlines", s["missed_deadlines"])]
     lines += [("deadline_ms", DEADLINE_MS),
               ("golden_max_abs_err",
-               max(golden_err, roll_err, sel_err, ceil_err))]
+               max(golden_err, roll_err, sel_err, ceil_err, ring16_err))]
     for key, value in lines:
         print(f"{key} {value} {tag}")
 
-    k_ms, p_ms, _ = shift_ms["64-voice"]
+    def entry(name, replaces, launches, err, timed):
+        """The kernel's line entry at the 4-IR sessions' shapes (KOD=16),
+        with every timed 64-voice KOD (4, 9 and 16 IRs) under per_kod."""
+        per_kod = {kod: {"ms": t["kernel"], "plain_ms": t["plain"],
+                         "library_ms": t.get("library"),
+                         "bound_ms": t["bound"], "bound_by": t["bound_by"]}
+                   for kod, t in timed.items()}
+        return {"name": name, "route": "cuda",
+                "source": f"tpu_audio_torch/csrc/{name}.cu",
+                "replaces": replaces, "launches": launches,
+                "max_abs_err": err, **per_kod[kod_full], "per_kod": per_kod}
+
     print(json.dumps({"kernels": [
-        {"name": "ring_mac", "route": "cuda",
-         "source": "tpu_audio_torch/csrc/ring_mac.cu",
-         "replaces": "tpu_audio/ops/pallas_mac.py:160",
-         "launches": launches, "max_abs_err": max_abs_err,
-         "ms": kernel_ms, "plain_ms": plain_ms},
-        {"name": "mac_shift", "route": "cuda",
-         "source": "tpu_audio_torch/csrc/mac_shift.cu",
-         "replaces": "tpu_audio/ops/pallas_mac.py:76",
-         "launches": roll_launches + ceil_launches, "max_abs_err": shift_err,
-         "ms": k_ms, "plain_ms": p_ms}]}))
+        entry("ring_mac", "tpu_audio/ops/pallas_mac.py:160",
+              launches + ring16_launches, max_abs_err, ring_ms),
+        entry("mac_shift", "tpu_audio/ops/pallas_mac.py:76",
+              roll_launches + ceil_launches, shift_err, shift_ms)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

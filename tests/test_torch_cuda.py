@@ -55,11 +55,54 @@ def test_kernel_matches_plain_version(cuda, f, vi, pp, kod, phase):
     assert err <= 1e-5 * want.abs().max().item()
 
 
-def test_kernel_raises_on_a_window_too_large_for_shared_memory(cuda):
-    pp = 8192  # 2*Pp window rows of even 4 columns exceed the card's limit
+def _check_ring_mac_kernel(device, f, vi, pp, kod, phase, seed):
+    """One launch against the float64 plain version, within 1e-5 of the
+    output's scale; the launch is counted once."""
+    rng = np.random.default_rng(seed)
+    fdl = torch.tensor(rng.standard_normal((f, vi, 2, pp), dtype=np.float32),
+                       device=device)
+    rhs2 = torch.tensor(rng.standard_normal((f, 2, 2 * pp, kod),
+                                            dtype=np.float32), device=device)
+    w = phase % pp
+    before = ring_mac.launches
+    got = ring_mac(torch.tensor(w, dtype=torch.int32, device=device), fdl, rhs2)
+    torch.cuda.synchronize()
+    assert ring_mac.launches == before + 1
+    want = ring_mac_reference(w, fdl.double(), rhs2.double())
+    err = (got.double() - want).abs().max().item()
+    assert err <= 1e-5 * want.abs().max().item()
+
+
+@pytest.mark.parametrize("f,vi,pp,kod", [
+    (6, 10, 136, 64), (2, 3, 8, 20), (3, 130, 40, 4), (2, 130, 44, 20),
+    (3, 130, 40, 36), (2, 129, 52, 48), (2, 131, 52, 60), (2, 130, 136, 64),
+    (2, 129, 40, 80)])
+@pytest.mark.parametrize("phase", [0, 1, -1])
+def test_kernel_matches_plain_version_at_every_column_tile(cuda, f, vi, pp,
+                                                          kod, phase):
+    """Every KOD <= 64 takes one column tile (16, 32, 48 or 64 wide, the
+    columns past KOD masked); KOD 80 takes two column groups on separate
+    blocks. VI 129-131 leaves a ragged second row tile of 128; Pp 40, 44,
+    52 and 136 put a 32-q chunk across the plane boundary."""
+    _check_ring_mac_kernel(cuda, f, vi, pp, kod, phase,
+                           seed=f * 1000 + vi + kod)
+
+
+@pytest.mark.parametrize("pp,kod", [(2048, 16), (2048, 64), (8192, 4)])
+@pytest.mark.parametrize("phase", [0, 1, -1])
+def test_kernel_matches_plain_version_at_long_lines(cuda, pp, kod, phase):
+    """Shared memory no longer grows with Pp: lines whose whole rhs window
+    no shared memory could stage."""
+    _check_ring_mac_kernel(cuda, 2, 6, pp, kod, phase, seed=pp + kod)
+
+
+def test_kernel_refuses_an_odd_pp(cuda):
+    """The kernel copies 16-byte vectors of each row: a CUDA line of odd Pp
+    raises (the CPU path takes it, tests/test_torch_ring_mac.py)."""
+    pp = 13
     fdl = torch.zeros((1, 2, 2, pp), device=cuda)
     rhs2 = torch.zeros((1, 2, 2 * pp, 4), device=cuda)
-    with pytest.raises(RuntimeError, match="launch failed"):
+    with pytest.raises(ValueError, match="even Pp"):
         ring_mac(torch.zeros((), dtype=torch.int32, device=cuda), fdl, rhs2)
 
 

@@ -74,7 +74,8 @@ class Pair:
         self.jbank = self.jax.prepare_bank(spectra)
         self.tbank = self.port.prepare_bank(spectra)
         self.jcp = JaxControlPlane(num_voices, num_irs, max_predelay)
-        self.tcp = ControlPlane(num_voices, num_irs, max_predelay)
+        self.tcp = ControlPlane(num_voices, num_irs, max_predelay,
+                                device="cpu")
         self.v, self.b = num_voices, block
         self.ring = ring
         self.selected = mac_strategy == "selected"

@@ -72,6 +72,36 @@ def test_engine_and_explicit_devices_pin_f32(tf32_on):
     assert _tf32_off()
 
 
+def _engine(**kwargs):
+    from tpu_audio_torch.engine.fmajor import FMajorPartitionedConvolution
+    return FMajorPartitionedConvolution(1, 32, 4, num_irs=1, **kwargs)
+
+
+def _control_plane(**kwargs):
+    return ControlPlane(2, 3, 64, **kwargs)
+
+
+@pytest.mark.parametrize("make", [_engine, _control_plane])
+def test_engine_and_control_plane_default_to_the_card(make):
+    """Like ConvolutionReverb and the CLI, the engine and the control plane
+    run on the best CUDA device unless the caller asks for the CPU, and
+    raise where no card is visible."""
+    if torch.cuda.is_available():
+        assert make().device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
+    assert make(device="cpu").device == torch.device("cpu")
+
+
+@pytest.mark.parametrize("make", [_engine, _control_plane])
+def test_engine_and_control_plane_raise_without_a_card(make, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for device in (None, "cuda"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make(device=device)
+
+
 def test_gpu_scoring_prefers_more_sms_times_clock():
     class Props:
         def __init__(self, sms, clock, cc=(9, 0)):
@@ -157,7 +187,8 @@ def test_index_and_bank_match(tmp_path):
 
 
 def test_control_plane_cc_scalings_match():
-    a, b = ControlPlane(2, 5, 8192), JaxControlPlane(2, 5, 8192)
+    a = ControlPlane(2, 5, 8192, device="cpu")
+    b = JaxControlPlane(2, 5, 8192)
     for cp, mapping in ((a, CCMapping), (b, JaxCCMapping)):
         m = mapping(device="hw:1", select=21, predelay=22, dry=23, wet=24,
                     speed=25, pan_dry=26, pan_wet=27, level=28)

@@ -58,6 +58,28 @@ def test_ring_mac_matches_pallas_kernel_every_phase(w):
     np.testing.assert_allclose(got, want_ref, atol=1e-5)
 
 
+@pytest.mark.parametrize("w", [0, 1, P - 1])
+@pytest.mark.parametrize("k", [5, 9, 15])
+def test_ring_mac_matches_the_jax_package_at_all_k_bank_sizes(k, w):
+    """KOD = 4K = 20, 36 and 60: bank sizes that mac_strategy='auto' sends
+    through ring_mac and whose KOD is no multiple of 16 (the CUDA kernel
+    covers them with one masked column tile of 32, 48 or 64)."""
+    rng = np.random.default_rng(20 + k)
+    fdl = rng.standard_normal((F, 2, VI, P)).astype(np.float32)
+    spectra = (rng.standard_normal((k, O, P, F))
+               + 1j * rng.standard_normal((k, O, P, F))).astype(np.complex64)
+    rhs2 = double_reversed_rhs(pack_rhs_planes(spectra))
+    assert rhs2.shape == (F, 2, 2 * P, 4 * k)
+    want_kernel = np.asarray(jax_ring_mac(w, jnp.asarray(fdl),
+                                          jnp.asarray(rhs2), f_tile=2,
+                                          interpret=True))
+    want_ref = np.asarray(jax_ring_mac_reference(w, jnp.asarray(fdl),
+                                                 jnp.asarray(rhs2)))
+    got = ring_mac(_w(w), _port_fdl(fdl), torch.tensor(rhs2)).numpy()
+    np.testing.assert_allclose(got, want_kernel, atol=1e-5)
+    np.testing.assert_allclose(got, want_ref, atol=1e-5)
+
+
 def test_ring_mac_reduces_the_block_counter_mod_p():
     """The engine passes its block counter (mod t_modulus), not the slot:
     any w congruent mod P selects the same window."""
@@ -121,6 +143,34 @@ def test_reference_accepts_an_int_slot_and_float64():
     want = np.asarray(jax_ring_mac_reference(9, jnp.asarray(fdl),
                                              jnp.asarray(rhs2)))
     np.testing.assert_allclose(got, want, atol=1e-5)
+
+
+def test_cpu_path_takes_an_odd_pp():
+    """The CUDA kernel refuses an odd Pp (its 16-byte row copies); the plain
+    version on the CPU takes any Pp, as the JAX package does."""
+    rng = np.random.default_rng(11)
+    p = 13
+    fdl = rng.standard_normal((F, 2, VI, p)).astype(np.float32)
+    rhs2 = rng.standard_normal((F, 2, 2 * p, KOD)).astype(np.float32)
+    for w in (0, 1, p - 1):
+        want = np.asarray(jax_ring_mac_reference(w, jnp.asarray(fdl),
+                                                 jnp.asarray(rhs2)))
+        got = ring_mac(_w(w), _port_fdl(fdl), torch.tensor(rhs2)).numpy()
+        np.testing.assert_allclose(got, want, atol=1e-5)
+
+
+def test_build_hash_covers_the_shared_headers(tmp_path, monkeypatch):
+    """A kernel that includes csrc/*.cuh is rebuilt when a header changes:
+    a stale library is never loaded."""
+    from tpu_audio_torch.ops import cuda_build
+    (tmp_path / "k.cu").write_text('#include "h.cuh"\n')
+    (tmp_path / "h.cuh").write_text("// one\n")
+    monkeypatch.setattr(cuda_build, "CSRC", tmp_path)
+    lib = cuda_build.CudaLibrary("k", [], source=tmp_path / "k.cu")
+    first = lib.digest()
+    assert lib.digest() == first
+    (tmp_path / "h.cuh").write_text("// two\n")
+    assert lib.digest() != first
 
 
 def test_cpu_path_launches_no_kernel():

@@ -77,7 +77,7 @@ class Sessions:
         self.teng = FMajorPartitionedConvolution(num_voices, BLOCK, p,
                                                  device="cpu", **kwargs)
         self.jcp = JaxControlPlane(num_voices, k, 64)
-        self.tcp = ControlPlane(num_voices, k, 64)
+        self.tcp = ControlPlane(num_voices, k, 64, device="cpu")
         for cp, mapping in ((self.jcp, JaxCCMapping), (self.tcp, CCMapping)):
             for v in range(num_voices):
                 for ch in range(2):

@@ -90,6 +90,8 @@
 #include <stddef.h>
 #include <stdint.h>
 
+#include "cp_async.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -102,23 +104,6 @@ constexpr int kAhead = kStages - 2;         // chunks in flight
 template <int KT>
 __host__ __device__ constexpr int stage_floats() {
   return kRows * kAStride + kQC * KT;
-}
-
-// 16-byte asynchronous copy, global -> shared, zero-filled when !valid
-__device__ __forceinline__ void copy16(float* dst, const float* src,
-                                       bool valid) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(s), "l"(src), "r"(valid ? 16 : 0) : "memory");
-}
-
-__device__ __forceinline__ void commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void wait_pending() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
 }
 
 template <int KT>

@@ -13,183 +13,277 @@
 // bank. The window [Pp - w, 2*Pp - w) of each plane pairs slot s with bank
 // partition (w - s) mod Pp.
 //
-// What bounds it on an H100: bytes. At 64 voices (F=257, VI=128, Pp=696,
-// KOD=16) one call reads the 183 MB delay line once plus a 23 MB rhs
-// window, ~206 MB, against 1.5 GFLOP: ~7 FLOP/byte, far below the card's
-// f32 ridge point, so the floor is ~61 us at 3.35 TB/s.
+// What bounds it on an H100. A call must read the delay line once (183 MB
+// at 64 voices: F=257, VI=128, Pp=696), the rhs window once (F * 2Pp * KOD
+// * 4 B: 23 MB at KOD=16, 92 MB at KOD=64) and write m, against
+// 2*F*VI*2Pp*KOD FLOP. At KOD 16 and 36 that is 7 and 14 FLOP/byte: bytes
+// bound it (208 MB ~ 62 us, 239 MB ~ 72 us at 3.35 TB/s). At KOD=64 it is
+// 20.7 FLOP/byte, on the card's f32 CUDA-core ridge (67 TFLOP/s / 3.35
+// TB/s = 20): 5.86 GFLOP ~ 88 us and 283 MB ~ 85 us, so the copies and the
+// FMAs must overlap almost fully to come near either.
 //
 // Design against that bound:
-//   - one block per (bin f, tile of KT output columns); the block stages
-//     its whole rhs window [Q, KT] into shared memory ONCE, with 16-byte
-//     loads, so after staging the only device-memory traffic is the delay
-//     line, read exactly once;
-//   - each warp walks groups of kRows delay-line rows; the 32 lanes read 32
-//     neighbouring q of a row (coalesced 128-byte rows) and kUnroll such
-//     loads per row are issued before any arithmetic, to keep bytes in
-//     flight;
-//   - one window value read from shared memory feeds kRows FMAs, so
-//     shared-memory traffic stays below the device-memory time;
-//   - the window's row stride is KT + 1 floats (odd), so 32 lanes reading
-//     32 consecutive window rows hit 32 distinct banks;
+//   - a block owns one bin f, a tile of kRows = 128 delay-line rows (all VI
+//     rows at 64 voices: 257 blocks, two resident per SM, one wave) and ALL
+//     the KOD columns of those rows, so the line is read exactly once at
+//     every KOD <= 64. The column tile KT is 16, 32, 48 or 64, the least
+//     that covers KOD; columns past KOD are zero-filled, never stored;
+//   - the block streams the reduction axis q in chunks of kQC = 32 through
+//     a ring of kStages = 4 shared-memory stages filled with cp.async (16
+//     bytes, L2 only), three chunks in flight while one is computed. A
+//     stage holds the chunk's fdl tile [128 rows][32 q] (row stride kQC + 4
+//     floats, so a warp's rows fall in distinct banks) and its window tile
+//     [32 q][KT]: window row q is rhs2[f, c, Pp - w + s] with c = (q >= Pp)
+//     and s = q - c*Pp, computed per row, so a chunk that straddles the
+//     plane boundary needs nothing special. cp.async's zero-fill form covers
+//     the ragged last chunk, the masked rows and columns. Shared memory is
+//     fixed (104 KB at KT = 64) whatever Pp is: no line is too long. Each
+//     thread's copies of the next chunk go out two q steps apart among the
+//     chunk's FMAs, not in one burst after the barrier: a warp that meets a
+//     full copy queue stalls, and with a burst every warp stalls at once;
 //   - the ring slot is read from a device int32 (the engine's block
 //     counter), the counterpart of Pallas scalar prefetch: the host never
-//     syncs to learn it;
-//   - f32 FMA only (no TF32, no tensor cores): each lane sums its share of
-//     q in f32, then a warp butterfly adds the 32 partial sums.
-// The column tile KT is the largest of 16, 8, 4 that divides KOD and whose
-// window fits in shared memory; a larger KOD costs one more pass over the
-// delay line per extra tile. The launch allocates nothing and does not
-// synchronise; it returns a cudaError_t so the caller can raise.
+//     syncs to learn it, and every block computes its own window start;
+//   - the FMAs are bound by shared memory, not by the FMA units, unless a
+//     thread's register tile is large: every 128-bit shared load costs 4 of
+//     the SM's 128-byte-per-clock cycles whether or not the warp's lanes
+//     share addresses, so a thread with a kTM x kTN tile needs kTM + kTN
+//     floats per q for kTM * kTN FMAs, and the SM keeps its 128 FMA lanes
+//     busy only if that is <= 1/4 (measured on the H100: 2 x 4, 2 x 12 and
+//     4 x 8 tiles ran the FMAs alone at 1/3, 2/5 and 3/5 of the f32 peak).
+//     So the block's 256 threads form two groups of 128, each taking one
+//     half (16 q) of every chunk, and a thread keeps an 8 x 8 tile of the
+//     [128, 64] output at KT = 64 (4 x 12, 4 x 8, 4 x 4 at KT = 48, 32,
+//     16), read outer-product style: per q, kTM fdl values (one per row)
+//     and kTN/4 float4 of the window. The two groups' sums are added once,
+//     through shared memory, at the end;
+//   - f32 FMA on the CUDA cores only: no TF32, no tensor cores (the port
+//     keeps full f32 on value-carrying products). Each group's sum over
+//     half of q then the one add make a two-level sum;
+//   - m is stored with aligned 16-byte stores.
+//
+// What is left (measured on the H100 at 64 voices): the copies alone run at
+// ~2.4 TB/s (100 / 112 us at KOD 36 / 64), the FMAs alone at ~63 % of the
+// f32 peak (105 / 140 us), and together they take ~152 / ~190 us: the
+// copies stall the warps that issue them. One extra warp that issues every
+// copy overlaps them better, but a ninth warp caps registers at 96 (spills),
+// and 128 compute threads per block leave too few warps for the FMAs; both
+// measured slower, as did loading the fdl tile with one 2-D tensor copy
+// (TMA) per chunk.
+//
+// KOD > 64 (only an explicit 'allk' with more than 16 IRs): column groups
+// of 64 go to separate blocks (grid y), each re-reading the line. That is
+// race-free, since nothing is written in place.
+//
+// Alignment: fdl rows start on 16 bytes only if Q is a multiple of 4, so
+// the launch refuses an odd Pp (the engine pads Pp to a multiple of 8).
+// The launch allocates nothing and does not synchronise; it returns a
+// cudaError_t so the caller can raise.
 
 #include <cuda_runtime.h>
 #include <stddef.h>
+#include <stdint.h>
+
+#include "cp_async.cuh"
 
 namespace {
 
-constexpr int kWarps = 8;                   // warps per block
-constexpr int kThreads = kWarps * 32;
-constexpr int kRows = 4;                    // delay-line rows per warp pass
-constexpr int kUnroll = 4;                  // q loads per row in flight
+constexpr int kThreads = 256;
+constexpr int kGroup = 128;                 // threads of one q group
+constexpr int kRows = 128;                  // delay-line rows per block
+constexpr int kQC = 32;                     // q per chunk
+constexpr int kAStride = kQC + 4;           // fdl tile row stride, floats
+constexpr int kStages = 4;                  // depth of the cp.async ring
+
+template <int KT>
+__host__ __device__ constexpr int stage_floats() {
+  return kRows * kAStride + kQC * KT;
+}
 
 template <int KT>
 __global__ void __launch_bounds__(kThreads, 2)
 ring_mac_kernel(const int* __restrict__ wptr, const float* __restrict__ fdl,
                 const float* __restrict__ rhs2, float* __restrict__ m,
                 int vi_count, int pp, int kod) {
-  extern __shared__ float win[];            // [Q][KT + 1]
+  constexpr int kCG = KT == 64 ? 8 : 4;     // column groups of the tile
+  constexpr int kNV = KT / (4 * kCG);       // float4 columns per thread
+  constexpr int kTN = 4 * kNV;              // columns per thread
+  constexpr int kRG = kGroup / kCG;         // row groups of the tile
+  constexpr int kTM = kRows / kRG;          // rows per thread
+  constexpr int kVecs = kQC / 4;            // float4 per row of a chunk
+  constexpr int kHalf = kQC / 2;            // q of a chunk per group
+  extern __shared__ __align__(16) float smem[];
 
-  const int f = blockIdx.x;
+  const int row_tiles = (vi_count + kRows - 1) / kRows;
+  const int f = blockIdx.x / row_tiles;
+  const int row0 = (blockIdx.x - f * row_tiles) * kRows;
+  const int rows = min(kRows, vi_count - row0);
   const int col0 = blockIdx.y * KT;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
+  const int cols = min(KT, kod - col0);
   const int q_total = 2 * pp;
+  const int chunks = (q_total + kQC - 1) / kQC;
+  const int tid = threadIdx.x;
+  const int group = tid / kGroup;           // which half of each chunk
+  const int gtid = tid % kGroup;
+  const int cg = gtid % kCG;                // a warp's lanes: kCG column
+  const int rg = gtid / kCG;                // groups x consecutive rows
 
   int w = wptr[0] % pp;
   if (w < 0) w += pp;
-  const int start = pp - w;
+  const int start = pp - w;                 // window row of slot 0
 
-  // stage the window: row j = c*pp + s <- rhs2[f, c, start + s, col0:col0+KT]
+  const float* line = fdl + ((size_t)f * vi_count + row0) * q_total;
   const float* rhs_f = rhs2 + (size_t)f * 2 * q_total * kod + col0;
-  constexpr int kVec = KT / 4;
-  for (int e = threadIdx.x; e < q_total * kVec; e += kThreads) {
-    const int j = e / kVec;
-    const int v = e - j * kVec;
-    const int c = j >= pp ? 1 : 0;
-    const size_t src = ((size_t)c * q_total + start + (j - c * pp)) * kod;
-    const float4 b = __ldg(reinterpret_cast<const float4*>(rhs_f + src) + v);
-    float* dst = win + j * (KT + 1) + 4 * v;
-    dst[0] = b.x;
-    dst[1] = b.y;
-    dst[2] = b.z;
-    dst[3] = b.w;
-  }
-  __syncthreads();
 
-  const float* fdl_f = fdl + (size_t)f * vi_count * q_total;
-  for (int row0 = warp * kRows; row0 < vi_count; row0 += kWarps * kRows) {
-    const float* rows[kRows];
-    bool live[kRows];
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      live[r] = row0 + r < vi_count;
-      rows[r] = fdl_f + (size_t)(live[r] ? row0 + r : row0) * q_total;
+  // copy k of this thread for chunk i, q in [i * kQC, (i + 1) * kQC), into
+  // stage i % kStages: the chunk's kFdlCopies fdl vectors, then its window
+  // vectors, kThreads apart
+  constexpr int kFdlCopies = kRows * kVecs;
+  constexpr int kCopies =                   // per thread and chunk
+      (kFdlCopies + kQC * KT / 4 + kThreads - 1) / kThreads;
+  auto copy = [&](int i, int k) {
+    const int a = i * kQC;
+    float* as = smem + (i % kStages) * stage_floats<KT>();
+    const int e = tid + k * kThreads;
+    if (e < kFdlCopies) {
+      const int r = e / kVecs;
+      const int qq = 4 * (e % kVecs);
+      const bool ok = r < rows && a + qq < q_total;
+      copy16(as + r * kAStride + qq,
+             ok ? line + (size_t)r * q_total + a + qq : fdl, ok);
+    } else if (e - kFdlCopies < kQC * KT / 4) {
+      const int j = (e - kFdlCopies) / (KT / 4);
+      const int col = 4 * ((e - kFdlCopies) % (KT / 4));
+      const int q = a + j;
+      const int c = q >= pp ? 1 : 0;
+      const bool ok = q < q_total && col < cols;
+      const size_t row = (size_t)c * q_total + start + (q - c * pp);
+      copy16(as + kRows * kAStride + j * KT + col,
+             ok ? rhs_f + row * kod + col : rhs2, ok);
     }
-    float acc[kRows][KT];
-#pragma unroll
-    for (int r = 0; r < kRows; ++r)
-#pragma unroll
-      for (int k = 0; k < KT; ++k) acc[r][k] = 0.f;
+  };
 
-    for (int q0 = lane; q0 < q_total; q0 += 32 * kUnroll) {
-      float x[kUnroll][kRows];
+  float acc[kTM][kTN];
 #pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        const int q = q0 + 32 * u;
+  for (int t = 0; t < kTM; ++t)
 #pragma unroll
-        for (int r = 0; r < kRows; ++r)
-          x[u][r] = (live[r] && q < q_total) ? __ldcs(rows[r] + q) : 0.f;
-      }
+    for (int k = 0; k < kTN; ++k) acc[t][k] = 0.f;
+
 #pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        const int q = q0 + 32 * u;
-        if (q >= q_total) break;
-        const float* wrow = win + q * (KT + 1);
+  for (int i = 0; i < kStages - 1; ++i) {
+    if (i < chunks)
 #pragma unroll
-        for (int k = 0; k < KT; ++k) {
-          const float b = wrow[k];
+      for (int k = 0; k < kCopies; ++k) copy(i, k);
+    commit();
+  }
+  for (int i = 0; i < chunks; ++i) {
+    wait_pending<kStages - 2>();            // this thread's copies of chunk i
+    __syncthreads();                        // everyone's; stage i-1 is free
+    const bool ahead = i + kStages - 1 < chunks;
+    const float* as = smem + (i % kStages) * stage_floats<KT>();
+    const float* bs = as + kRows * kAStride;
+#pragma unroll 8                            // a full unroll spills at KT 48, 64
+    for (int jj = 0; jj < kHalf; ++jj) {
+      // the next chunk's copies, two steps apart
+      if (jj % 2 == 0 && jj / 2 < kCopies && ahead)
+        copy(i + kStages - 1, jj / 2);
+      const int j = group * kHalf + jj;
+      float x[kTM];
 #pragma unroll
-          for (int r = 0; r < kRows; ++r)
-            acc[r][k] = fmaf(x[u][r], b, acc[r][k]);
+      for (int t = 0; t < kTM; ++t) x[t] = as[(rg + kRG * t) * kAStride + j];
+#pragma unroll
+      for (int v = 0; v < kNV; ++v) {
+        const float4 b = *reinterpret_cast<const float4*>(
+            bs + j * KT + 4 * (cg + kCG * v));
+#pragma unroll
+        for (int t = 0; t < kTM; ++t) {
+          acc[t][4 * v + 0] = fmaf(x[t], b.x, acc[t][4 * v + 0]);
+          acc[t][4 * v + 1] = fmaf(x[t], b.y, acc[t][4 * v + 1]);
+          acc[t][4 * v + 2] = fmaf(x[t], b.z, acc[t][4 * v + 2]);
+          acc[t][4 * v + 3] = fmaf(x[t], b.w, acc[t][4 * v + 3]);
         }
       }
     }
+    commit();
+  }
 
+  // add the two groups' sums: group 1 parks its tile in the (now idle)
+  // stages, thread by thread, and group 0 adds it and stores m
+  wait_pending<0>();
+  __syncthreads();
+  float4* park = reinterpret_cast<float4*>(smem);
+  if (group == 1) {
 #pragma unroll
-    for (int r = 0; r < kRows; ++r)
+    for (int t = 0; t < kTM; ++t)
 #pragma unroll
-      for (int k = 0; k < KT; ++k)
+      for (int v = 0; v < kNV; ++v)
+        park[(t * kNV + v) * kGroup + gtid] =
+            make_float4(acc[t][4 * v + 0], acc[t][4 * v + 1],
+                        acc[t][4 * v + 2], acc[t][4 * v + 3]);
+  }
+  __syncthreads();
+  if (group == 1) return;
 #pragma unroll
-        for (int off = 16; off > 0; off >>= 1)
-          acc[r][k] += __shfl_xor_sync(0xffffffffu, acc[r][k], off);
-
-    // every lane holds every sum; spread the stores over the lanes
+  for (int t = 0; t < kTM; ++t) {
+    const int r = rg + kRG * t;
+    if (r >= rows) continue;
+    float* out = m + ((size_t)f * vi_count + row0 + r) * kod + col0;
 #pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      if (!live[r]) continue;
-      float* out = m + ((size_t)f * vi_count + row0 + r) * kod + col0;
-#pragma unroll
-      for (int k = 0; k < KT; ++k)
-        if (((r * KT + k) & 31) == lane) out[k] = acc[r][k];
+    for (int v = 0; v < kNV; ++v) {
+      const int col = 4 * (cg + kCG * v);
+      if (col >= cols) continue;
+      const float4 o = park[(t * kNV + v) * kGroup + gtid];
+      *reinterpret_cast<float4*>(out + col) =
+          make_float4(acc[t][4 * v + 0] + o.x, acc[t][4 * v + 1] + o.y,
+                      acc[t][4 * v + 2] + o.z, acc[t][4 * v + 3] + o.w);
     }
   }
 }
 
 template <int KT>
 cudaError_t launch(const int* w, const float* a, const float* b, float* out,
-                   int f, int vi, int pp, int kod, size_t smem,
-                   cudaStream_t s) {
+                   int f, int vi, int pp, int kod, cudaStream_t s) {
+  constexpr size_t smem = kStages * stage_floats<KT>() * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
       ring_mac_kernel<KT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  const dim3 grid(f, kod / KT);
+  const unsigned row_tiles = static_cast<unsigned>((vi + kRows - 1) / kRows);
+  const dim3 grid(static_cast<unsigned>(f) * row_tiles,
+                  static_cast<unsigned>((kod + KT - 1) / KT));
   ring_mac_kernel<KT><<<grid, kThreads, smem, s>>>(w, a, b, out, vi, pp, kod);
   return cudaGetLastError();
+}
+
+bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
 }  // namespace
 
 // wptr: device int32 block counter (reduced mod pp in the kernel);
 // fdl f32 [f, vi, 2, pp]; rhs2 f32 [f, 2, 2*pp, kod]; m f32 [f, vi, kod].
-// kod must be a multiple of 4 and every pointer 16-byte aligned. Returns a
-// cudaError_t: the launch's, or cudaErrorInvalidValue when no column tile's
-// window fits in shared memory.
+// pp must be even, kod a multiple of 4, and fdl, rhs2 and m 16-byte
+// aligned. Returns a cudaError_t: the launch's, or cudaErrorInvalidValue
+// for arguments the kernel does not take.
 extern "C" int ring_mac_launch(const void* wptr, const void* fdl,
                                const void* rhs2, void* m, int f, int vi,
                                int pp, int kod, void* stream) {
-  int dev = 0, smem_max = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&smem_max,
-                                 cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  if (f <= 0 || vi <= 0 || pp <= 0 || kod <= 0 || pp % 2 || kod % 4 ||
+      !aligned16(fdl) || !aligned16(rhs2) || !aligned16(m))
+    return static_cast<int>(cudaErrorInvalidValue);
   const int* w = static_cast<const int*>(wptr);
   const float* a = static_cast<const float*>(fdl);
   const float* b = static_cast<const float*>(rhs2);
   float* out = static_cast<float*>(m);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const size_t q_total = 2 * static_cast<size_t>(pp);
-  const size_t max_smem = static_cast<size_t>(smem_max);
-  if (kod % 16 == 0 && q_total * 17 * sizeof(float) <= max_smem)
-    return static_cast<int>(launch<16>(w, a, b, out, f, vi, pp, kod,
-                                       q_total * 17 * sizeof(float), s));
-  if (kod % 8 == 0 && q_total * 9 * sizeof(float) <= max_smem)
-    return static_cast<int>(launch<8>(w, a, b, out, f, vi, pp, kod,
-                                      q_total * 9 * sizeof(float), s));
-  if (kod % 4 == 0 && q_total * 5 * sizeof(float) <= max_smem)
-    return static_cast<int>(launch<4>(w, a, b, out, f, vi, pp, kod,
-                                      q_total * 5 * sizeof(float), s));
-  return static_cast<int>(cudaErrorInvalidValue);
+  if (kod <= 16)
+    return static_cast<int>(launch<16>(w, a, b, out, f, vi, pp, kod, s));
+  if (kod <= 32)
+    return static_cast<int>(launch<32>(w, a, b, out, f, vi, pp, kod, s));
+  if (kod <= 48)
+    return static_cast<int>(launch<48>(w, a, b, out, f, vi, pp, kod, s));
+  return static_cast<int>(launch<64>(w, a, b, out, f, vi, pp, kod, s));
 }
 
 extern "C" const char* ring_mac_error_string(int err) {

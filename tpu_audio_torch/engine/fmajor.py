@@ -67,7 +67,7 @@ from tpu_audio_torch.ops.fft import SpectralTransform
 from tpu_audio_torch.ops.mac_shift import mac_shift
 from tpu_audio_torch.ops.mix import add_dry, wet_scale
 from tpu_audio_torch.ops.ring_mac import ring_mac
-from tpu_audio_torch.utils.device import pin_full_f32
+from tpu_audio_torch.utils.device import resolve_device
 
 _LATER = ("is not ported yet (ROADMAP.md, Queue 1 item 9: the rest of "
           "the fmajor engine)")
@@ -221,7 +221,10 @@ def _bcast(vi: torch.Tensor) -> torch.Tensor:
 
 
 class FMajorPartitionedConvolution:
-    """V stereo voices, f-major planar partitioned-OLS, coef crossfades."""
+    """V stereo voices, f-major planar partitioned-OLS, coef crossfades.
+
+    `device`: None or "cuda" selects the best CUDA device (select_gpu,
+    which raises without CUDA); "cpu" runs the plain PyTorch path."""
 
     ALLK_MAX_COLUMNS = 64  # K <= 16 stereo IRs ride the all-K MAC
 
@@ -229,7 +232,7 @@ class FMajorPartitionedConvolution:
                  max_predelay: int = 8192, ring: bool = True,
                  mac_strategy: str = "allk", num_irs: int | None = None,
                  mac_dtype: str = "f32", swap_snapshot: bool = True,
-                 pv_mac: str = "dot", device="cpu"):
+                 pv_mac: str = "dot", device=None):
         self.num_voices = num_voices
         self.block = block
         self.partitions = partitions
@@ -263,8 +266,7 @@ class FMajorPartitionedConvolution:
         if pv_mac != "dot":
             raise NotImplementedError(f"pv_mac={pv_mac!r} " + _LATER)
         self.num_irs = num_irs
-        self.device = torch.device(device)
-        pin_full_f32()
+        self.device = resolve_device(device)
         self.xf = SpectralTransform(2 * block)
         self.num_bins = self.xf.num_bins
         # block-slot accumulator: slots 0..maxPD//B (+1 for the sub-block

@@ -26,6 +26,7 @@ from dataclasses import dataclass, fields, replace
 import numpy as np
 import torch
 
+from tpu_audio_torch.utils.device import resolve_device
 from tpu_audio_torch.utils.log import Log
 
 CC_MAX_PREDELAY = 8192  # reference src/conv.h:26-28
@@ -94,14 +95,17 @@ class ControlPlane:
 
     Mutates numpy arrays on CC events / direct sets; snapshot() yields the
     host VoiceParams for the next block; end_block() advances countdowns.
+    `device` (where snapshot_device uploads to): None or "cuda" selects the
+    best CUDA device (select_gpu, which raises without CUDA); "cpu" keeps
+    the parameters on the CPU.
     """
 
     def __init__(self, num_voices: int, bank_size: int,
-                 max_predelay: int = CC_MAX_PREDELAY, device="cpu"):
+                 max_predelay: int = CC_MAX_PREDELAY, device=None):
         self.num_voices = num_voices
         self.bank_size = bank_size
         self.max_predelay = max_predelay
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         v = num_voices
         # per-channel bank windows: each (voice, ch) selects from the slice
         # [select_base, select_base + select_span) of the merged bank (see

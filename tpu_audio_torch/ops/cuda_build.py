@@ -4,8 +4,9 @@ Each kernel lives in ``tpu_audio_torch/csrc/<name>.cu`` behind a plain C
 interface: ``int <name>_launch(...)`` returns a cudaError_t and
 ``const char* <name>_error_string(int)`` names it. The source is compiled
 with ``nvcc`` for ``sm_90a`` into a shared library under
-``tpu_audio_torch/_build/``, keyed by a hash of the source and the flags
-(a stale build is never loaded), and bound with ``ctypes``. Nothing
+``tpu_audio_torch/_build/``, keyed by a hash of the source, the shared
+headers ``csrc/*.cuh`` and the flags (a stale build is never loaded), and
+bound with ``ctypes``. Nothing
 happens at import time: a library is built at its first launch, or ahead
 of time by ``build_all``, which starts one nvcc per source, all at once.
 """
@@ -41,29 +42,39 @@ class CudaLibrary:
 
     `argtypes` are the ctypes types of ``<name>_launch``'s parameters
     (``ctypes.c_void_p`` for every pointer and the stream, ``ctypes.c_int``
-    for every int)."""
+    for every int). `source` defaults to ``csrc/<name>.cu``; another file
+    exporting the same C interface (an earlier version of the kernel, to
+    time against) builds into a library of its own."""
 
-    def __init__(self, name: str, argtypes: list):
+    def __init__(self, name: str, argtypes: list, source: Path | None = None):
         self.name = name
-        self.source = CSRC / f"{name}.cu"
+        self.source = Path(source) if source else CSRC / f"{name}.cu"
         self.argtypes = list(argtypes)
         self._lock = threading.Lock()
         self._lib = None
 
+    def digest(self) -> str:
+        """Hash of the source, every shared header and the flags: what a
+        build depends on."""
+        digest = hashlib.sha256(self.source.read_bytes())
+        for header in sorted(CSRC.glob("*.cuh")):
+            digest.update(header.read_bytes())
+        digest.update(" ".join(NVCC_FLAGS).encode())
+        return digest.hexdigest()[:16]
+
     def build(self) -> tuple[Path, float, str]:
-        """Compile the source unless a build of this exact source exists.
-        Returns (library path, seconds spent compiling — 0.0 when the
-        library already existed, the ptxas report)."""
-        src = self.source.read_bytes()
-        digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-        lib = BUILD_DIR / f"lib{self.name}_{digest[:16]}.so"
+        """Compile the source unless a build of this exact source, headers
+        and flags exists. Returns (library path, seconds spent compiling —
+        0.0 when the library already existed, the ptxas report)."""
+        lib = BUILD_DIR / f"lib{self.name}_{self.digest()}.so"
         if lib.exists():
             return lib, 0.0, ""
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = lib.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
         t0 = time.perf_counter()
         proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(self.source)],
+            [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
+             str(self.source)],
             capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed ({proc.returncode}) on "

@@ -11,7 +11,8 @@ with ``w = wptr mod Pp`` the newest ring slot. ``fdl`` keeps the engine's
 layout ``[F, VI, 2, Pp]`` (the Pallas kernel took ``[F, 2, VI, Pp]``);
 ``rhs2`` is the doubled, time-reversed bank ``[F, 2, 2*Pp, KOD]``.
 
-``ring_mac`` launches the CUDA kernel (``csrc/ring_mac.cu``) for a CUDA
+``ring_mac`` launches the CUDA kernel (``csrc/ring_mac.cu``: one pass over
+the delay line at every KOD <= 64, whatever the line's length) for a CUDA
 tensor and takes the plain version only for a CPU tensor. The kernel is
 compiled at first use and bound with ``ctypes`` (ops/cuda_build.py);
 nothing CUDA-specific happens at import time.
@@ -50,8 +51,6 @@ def _check(w, fdl: torch.Tensor, rhs2: torch.Tensor) -> None:
     if min(f, vi, pp, kod) == 0 or kod % 4:
         raise ValueError(f"ring_mac needs nonzero sizes and KOD % 4 == 0, "
                          f"got F={f} VI={vi} Pp={pp} KOD={kod}")
-    if f > 65535:
-        raise ValueError(f"F={f} exceeds the kernel's grid limit")
     if not (fdl.is_contiguous() and rhs2.is_contiguous()):
         raise ValueError("fdl and rhs2 must be contiguous")
     if fdl.data_ptr() % 16 or rhs2.data_ptr() % 16:
@@ -76,7 +75,8 @@ def ring_mac(w: torch.Tensor, fdl: torch.Tensor, rhs2: torch.Tensor
     ring slot (any integer; reduced mod Pp) on the tensors' device.
 
     A CUDA tensor launches the kernel on the current stream (no sync) or
-    raises; a CPU tensor takes ring_mac_reference."""
+    raises (the kernel also needs an even Pp); a CPU tensor takes
+    ring_mac_reference, at any Pp."""
     _check(w, fdl, rhs2)
     if fdl.device.type == "cpu":
         return ring_mac_reference(w, fdl, rhs2)
@@ -84,6 +84,10 @@ def ring_mac(w: torch.Tensor, fdl: torch.Tensor, rhs2: torch.Tensor
         raise ValueError(f"ring_mac runs on CUDA or CPU, not {fdl.device}")
     f, vi, _, pp = fdl.shape
     kod = rhs2.shape[3]
+    # the kernel copies 16-byte vectors of each fdl row: rows must start on
+    # 16 bytes (the engine pads Pp to a multiple of 8)
+    if pp % 2:
+        raise ValueError(f"the ring_mac kernel needs an even Pp, got Pp={pp}")
     m = torch.empty((f, vi, kod), dtype=torch.float32, device=fdl.device)
     with torch.cuda.device(fdl.device):
         stream = torch.cuda.current_stream().cuda_stream
