@@ -57,10 +57,26 @@ Phases, in order; any failure raises and the script exits non-zero:
      IRs, 400 blocks through its session with a re-select and an
      interrupting re-select; every block must ride ring_mac and none
      mac_shift, with phase 10's checks against the golden; then its steady
-     step is timed.
+     step is timed;
+ 12. a working set at the reference bank's size: 152 synthetic 4 s IRs
+     served through 16 resident slots (ConvolutionReverb with
+     bank_capacity=16, its bank prepared on the card: ring mode, 'allk',
+     KOD=64),
+     800 blocks in which new IRs of the full bank are selected every 32
+     blocks (13 sync faults), then a re-select of a resident IR (a hit)
+     and quiet blocks; every block must ride ring_mac and none mac_shift,
+     the output must be finite, voices 0 and 63 must match the golden
+     before the churn and after the last fade to 3e-6 (and read above that
+     against the golden of the IR played before the hit, the control),
+     and the resident bank must equal a fresh device prep of the IRs its
+     slots name. The same
+     timeline runs again with async_paging=True (the pager packs each
+     fault on its own CUDA stream), where every deferred select must
+     apply. Prints the model's build time, one fault's time at first use
+     (the session's warm-up) and warm, and both sessions' figures.
 
 The line before the last is a JSON object describing each kernel (its
-launches summed over the phases whose path rides it: 4 and 11 for
+launches summed over the phases whose path rides it: 4, 11 and 12 for
 ring_mac, 7 and 10 for mac_shift; its times and roofline bound at KOD=16,
 and under per_kod at KOD 16, 36 and 64); the last line is {"ok": true,
 "device": {...}}. The script imports nothing of JAX and nothing of the JAX
@@ -89,6 +105,17 @@ SEL_IRS, SEL_BLOCKS, SEL_SELECT_AT, SEL_INTERRUPT_AT = 24, 600, 200, 206
 # roll mode at the all-K ceiling: 16 IRs, re-select at 100 (IR 4),
 # interrupt at 106 (IR 8)
 CEIL_IRS, CEIL_BLOCKS, CEIL_SELECT_AT, CEIL_INTERRUPT_AT = 16, 400, 100, 106
+# working set: 152 IRs through 16 slots; a new IR of the full bank every
+# 32 blocks from block 100 (CC values 20, 27, ..., 104 -> IRs 23 ... 123),
+# then a re-select of the fourth of them (resident: a hit) at 516
+WS_IRS, WS_CAPACITY, WS_BLOCKS = 152, 16, 800
+WS_CHURN = [(100 + 32 * j, 20 + 7 * j) for j in range(13)]
+WS_HIT_AT, WS_HIT_VALUE = 516, 41
+WS_QUIET_FROM = 660  # the hit's fade has decayed below 1e-6 by then
+# phase 12's golden limit: sound runs read 1.43e-6 (the 4-IR ring phase
+# reads 1.39e-6 with the same kernel); a voice playing the IR it played
+# before the hit, as a stale or misplaced slot would, reads far above it
+WS_GOLDEN_LIMIT = 3e-6
 RING_KODS = (16, 36, 64)  # 4, 9 and 16 IRs: the main path, a KOD that is no
                          # multiple of 16, the all-K ceiling
 # published peaks of one H100 SXM (NVIDIA's data sheet): HBM bytes/s and
@@ -137,19 +164,25 @@ def noise_input(blocks):
          for _ in range(blocks)], axis=-1)[[0, VOICES - 1]]
 
 
-def check_golden(name, out, x, windows, predelay):
+def golden_error(out, x, i, b0, b1, ir, predelay):
+    """Max abs error of voice row `i` of `out` over blocks b0..b1-1 against
+    the golden of IR `ir`."""
+    want = golden(x[i], [ir, ir], wet=0.7, dry=0.2, predelay=predelay)
+    return float(np.abs(out[i, :, b0 * BLOCK: b1 * BLOCK]
+                        - want[:, b0 * BLOCK: b1 * BLOCK]).max())
+
+
+def check_golden(name, out, x, windows, predelay, limit=1e-4):
     """out, x [2 voices, 2, T]; windows: (label, first block, end block,
-    IR [2, L]). Returns the largest error; raises beyond 1e-4."""
+    IR [2, L]). Returns the largest error; raises beyond `limit`."""
     worst = 0.0
     for i, v in enumerate((0, VOICES - 1)):
         for label, b0, b1, ir in windows:
-            want = golden(x[i], [ir, ir], wet=0.7, dry=0.2, predelay=predelay)
-            err = float(np.abs(out[i, :, b0 * BLOCK: b1 * BLOCK]
-                               - want[:, b0 * BLOCK: b1 * BLOCK]).max())
+            err = golden_error(out, x, i, b0, b1, ir, predelay)
             worst = max(worst, err)
             print(f"{name} golden voice {v} blocks {b0}-{b1 - 1} ({label}): "
-                  f"max_abs_err {err:.3e} (limit 1e-4)")
-            if not err <= 1e-4:
+                  f"max_abs_err {err:.3e} (limit {limit:.0e})")
+            if not err <= limit:
                 raise AssertionError(f"{name}: voice {v} disagrees with the "
                                      f"golden {label}")
     return worst
@@ -207,6 +240,236 @@ def step_times(step, state, bank, params, x, n=520, skip=20):
     times = np.array([s.elapsed_time(e) for s, e in zip(starts, ends)])[skip:]
     return (float(np.percentile(times, 50)), float(np.percentile(times, 99)),
             state)
+
+
+def run_working_set(bank, async_paging, configure, select, keep_sink, dev,
+                    x, irs, hit_ir, reset_counts, rm, ms):
+    """Phase 12, one run: build the 16-slot working-set model over the
+    152-IR bank with device prep, stream the churn timeline, check it and
+    time its faults. Returns the run's figures."""
+    import torch
+
+    from tpu_audio_torch.engine import device_prep
+    from tpu_audio_torch.models.reverb import ConvolutionReverb
+    from tpu_audio_torch.runtime.backends import NoiseSource
+    from tpu_audio_torch.runtime.stream import MidiSchedule
+
+    mode = "async" if async_paging else "sync"
+    name = f"working set ({mode})"
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = ConvolutionReverb(bank, num_voices=VOICES, block=BLOCK,
+                              sample_rate=RATE, max_predelay=8192,
+                              bank_capacity=WS_CAPACITY,
+                              async_paging=async_paging, device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    ws, cp, engine = model.working_set, model.control, model.engine
+    kod = model.spectra.rhs2.shape[3]
+    if (not engine.ring_mode or engine.mac_strategy != "allk"
+            or kod != 4 * WS_CAPACITY or ws.full_size != WS_IRS):
+        raise AssertionError(f"{name}: ring {engine.ring_mode}, "
+                             f"{engine.mac_strategy}, KOD {kod}, full size "
+                             f"{ws.full_size}")
+    configure(cp)
+
+    class TimedSource(NoiseSource):
+        """Stamps the start of every session iteration (MIDI included)."""
+
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            self.stamps = []
+
+        def read(self):
+            self.stamps.append(time.perf_counter())
+            return super().read()
+
+    source = TimedSource(VOICES, BLOCK, WS_BLOCKS, amplitude=0.01, seed=0)
+    sink = keep_sink()
+    session = model.session(source, sink)
+    first = {}
+
+    def timed_warmup():
+        """The session's warm-up is the fault path's first use."""
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t1 = time.perf_counter()
+        start.record()
+        ws.warmup()
+        end.record()
+        torch.cuda.synchronize()
+        first["wall_ms"] = (time.perf_counter() - t1) * 1e3
+        first["ms"] = start.elapsed_time(end)
+
+    if session.pre_run_hooks != [ws.warmup]:
+        raise AssertionError(f"{name}: pre_run_hooks {session.pre_run_hooks}")
+    session.pre_run_hooks[:] = [timed_warmup]
+
+    # host ms per iteration of the parts a select event runs: the MIDI
+    # handling (the sync faults inside it), a slot's pack (on the pager's
+    # thread in async mode), the collapse, the whole session block
+    # (collapse, step, end_block with the pager's poll, delivery)
+    parts = {}
+
+    def timed(what, fn):
+        def call(*args, **kwargs):
+            t1 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                key = (what, len(source.stamps) - 1)
+                parts[key] = (parts.get(key, 0.0)
+                              + (time.perf_counter() - t1) * 1e3)
+        return call
+
+    cp.apply_midi_message = timed("midi", cp.apply_midi_message)
+    ws._fault = timed("fault", ws._fault)
+    engine.pack_bank_slot = timed("pack", engine.pack_bank_slot)
+    session._maybe_collapse = timed("collapse", session._maybe_collapse)
+    stop = session.timer.stop
+
+    def timed_stop():
+        elapsed = stop()
+        parts["block", len(source.stamps) - 1] = elapsed * 1e3
+        return elapsed
+
+    session.timer.stop = timed_stop
+    cp.block_hooks[:] = [timed("poll", h) if h == ws.poll else h
+                         for h in cp.block_hooks]
+    midi = MidiSchedule([select(b, v) for b, v in WS_CHURN]
+                        + [select(WS_HIT_AT, WS_HIT_VALUE)])
+    state = model.init_state()
+    reset_counts()
+    t0 = time.perf_counter()
+    state = session.run(state, midi=midi)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches, shifts = rm.ring_mac.launches, ms.mac_shift.launches
+    if async_paging:
+        ws.drain(timeout=60)
+    steps = session.blocks_streamed
+    final = {ws.slot_to_full[int(s)] for s in cp.select.ravel()}
+    print(f"{name}: {steps} blocks in {run_s:.3f} s (model built in "
+          f"{build_s:.2f} s, bank {model.bank_bytes() / 1e6:.1f} MB), "
+          f"ring_mac launches {launches}, mac_shift launches {shifts}, "
+          f"misses {ws.misses}, hits {ws.hits}, deferred {ws.deferred}, "
+          f"starved {ws.starved}, indexed blocks {session.indexed_blocks}, "
+          f"general blocks {session.general_blocks}, resident "
+          f"{ws.slot_to_full}, now playing {sorted(final)}")
+    if steps != WS_BLOCKS or sink.blocks != WS_BLOCKS:
+        raise AssertionError(f"{name}: streamed {steps} blocks, delivered "
+                             f"{sink.blocks}, wanted {WS_BLOCKS}")
+    if launches != steps or shifts:
+        raise AssertionError(f"{name}: ring_mac launched {launches} times "
+                             f"and mac_shift {shifts} in {steps} steps")
+    if ws.misses < 12 or ws.hits < 1 or ws.warmups != 1:
+        raise AssertionError(f"{name}: {ws.misses} misses, {ws.hits} hits, "
+                             f"{ws.warmups} warm-ups")
+    if async_paging and (not ws.deferred or ws._pending
+                         or ws._deferred_target):
+        raise AssertionError(f"{name}: {ws.deferred} deferred selects, "
+                             f"{len(ws._deferred_target)} never applied")
+    if final != {hit_ir}:
+        raise AssertionError(f"{name}: voices play IRs {sorted(final)}, "
+                             f"wanted {hit_ir}")
+    if not sink.finite:
+        raise AssertionError(f"{name}: non-finite output")
+    if not float(state.coef_a.max()) < 1e-6:
+        raise AssertionError(f"{name}: the crossfades did not decay")
+    out, predelay = sink.data(), int(cp.predelay[0, 0])
+    golden_worst = check_golden(
+        f"working set ({mode})", out, x,
+        (("before the churn, IR 0", 0, WS_CHURN[0][0], irs[0]),
+         (f"after the last fade, IR {hit_ir}", WS_QUIET_FROM, WS_BLOCKS,
+          irs[hit_ir])),
+        predelay=predelay, limit=WS_GOLDEN_LIMIT)
+    # the control: the same blocks against the IR played before the hit
+    stale_ir = WS_CHURN[-1][1] * WS_IRS // 128
+    stale_err = min(golden_error(out, x, i, WS_QUIET_FROM, WS_BLOCKS,
+                                 irs[stale_ir], predelay) for i in (0, 1))
+    print(f"{name}: control, blocks {WS_QUIET_FROM}-{WS_BLOCKS - 1} against "
+          f"IR {stale_ir}'s golden (a stale or misplaced slot): max_abs_err "
+          f"{stale_err:.3e} (must exceed {WS_GOLDEN_LIMIT:.0e})")
+    if not stale_err > WS_GOLDEN_LIMIT:
+        raise AssertionError(f"{name}: the golden check cannot tell IR "
+                             f"{hit_ir} from IR {stale_ir}")
+    summary = session.summary()
+    peak_mb = torch.cuda.max_memory_allocated() / 1e6
+
+    # per-iteration wall time with the MIDI handling (and so the sync
+    # faults) that the session's own block timer leaves out
+    iters = np.diff(np.array(source.stamps)) * 1e3   # iteration i -> i+1
+    over = [i for i, t in enumerate(iters) if i >= 10 and t > DEADLINE_MS]
+    event_blocks = {b for b, _ in WS_CHURN} | {WS_HIT_AT}
+    at_selects = [i for i in over if i in event_blocks]
+    slowest = sorted((round(float(iters[b]), 3) for b in event_blocks),
+                     reverse=True)[:4]
+    print(f"{name}: {len(over)} iterations over the deadline after "
+          f"warm-up (first {over[:8]}), {len(at_selects)} of them at select "
+          f"blocks {at_selects[:8]}; slowest select-block iterations "
+          f"{slowest} ms")
+    names_ms = ("midi", "fault", "pack", "collapse", "poll", "block")
+    for i in over:
+        split = ", ".join(f"{what} {parts.get((what, i), 0.0):.3f}"
+                          for what in names_ms)
+        print(f"{name}: iteration {i} {iters[i]:.3f} ms host: {split}")
+    churn = [b for b, _ in WS_CHURN]
+    mean_ms = {what: float(np.mean([parts.get((what, b), 0.0)
+                                    for b in churn])) for what in names_ms}
+    print(f"{name}: mean over the 13 churn blocks, host ms: iteration "
+          f"{float(np.mean(iters[churn])):.3f}, "
+          + ", ".join(f"{what} {ms:.3f}" for what, ms in mean_ms.items()))
+
+    # the resident bank against a fresh device prep of what its slots name
+    names = [int(f) for f in ws.slot_to_full]
+    fresh = device_prep.prepare_fmajor_bank_device(
+        engine, np.stack([irs[f] for f in names]))
+    bank_err = 0.0
+    for leaf in ("rhs2", "spectra_rev2"):
+        got, want = getattr(ws.bank, leaf), getattr(fresh, leaf)
+        err = (got - want).abs().max().item()
+        scale = want.abs().max().item()
+        print(f"{name}: resident {leaf} vs a fresh device prep of slots "
+              f"{names}: max_abs_err {err:.3e} (limit {1e-6 * scale:.3e})")
+        if not err <= 1e-6 * scale:
+            raise AssertionError(f"{name}: resident {leaf} differs from a "
+                                 f"fresh prep")
+        bank_err = max(bank_err, err)
+    del fresh
+
+    # warm faults: re-page slot 0's resident IR (no change to the bank)
+    warm, warm_wall = [], []
+    for _ in range(7):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        start.record()
+        engine.update_bank_slot(ws.bank, 0, irs[names[0]])
+        end.record()
+        torch.cuda.synchronize()
+        warm_wall.append((time.perf_counter() - t1) * 1e3)
+        warm.append(start.elapsed_time(end))
+    ws.close()
+    out = {"build_s": build_s, "bank_mb": model.bank_bytes() / 1e6,
+           "peak_mb": peak_mb, "first_ms": first["ms"],
+           "first_wall_ms": first["wall_ms"],
+           "warm_ms": float(np.median(warm)),
+           "warm_wall_ms": float(np.median(warm_wall)),
+           "summary": summary, "iter_p99_ms": float(np.percentile(
+               iters[10:], 99)),
+           "iter_over": len(over), "iter_over_at_selects": len(at_selects),
+           "misses": ws.misses, "hits": ws.hits, "deferred": ws.deferred,
+           "starved": ws.starved, "bank_err": bank_err,
+           "golden_err": golden_worst, "stale_err": stale_err,
+           "launches": launches}
+    print(f"{name}: fault first use {first['ms']:.3f} ms (CUDA events; "
+          f"{first['wall_ms']:.3f} ms wall), warm median {out['warm_ms']:.3f}"
+          f" ms ({out['warm_wall_ms']:.3f} ms wall); peak allocated "
+          f"{peak_mb:.1f} MB")
+    del model, session, state, ws, engine
+    return out
 
 
 def main() -> int:
@@ -734,6 +997,24 @@ def main() -> int:
                                  ring16.control.snapshot_device(), xt)
     step_ms[("ring16", "step_coef_steady")] = (p50, p99)
 
+    del ring16, ring16_session, state
+    torch.cuda.empty_cache()
+
+    # -- 12. a working set at the reference bank's size ------------------------------
+    ws_irs = synthetic_bank(WS_IRS, IR_SECONDS, RATE)
+    ws_bank = IRBank(sample_rate=RATE)
+    for ir in ws_irs:
+        ws_bank.append(ir)
+    hit_ir = WS_HIT_VALUE * WS_IRS // 128
+    ws_x = noise_input(WS_BLOCKS)
+    ws_runs = {}
+    for mode, async_paging in (("sync", False), ("async", True)):
+        ws_runs[mode] = run_working_set(
+            ws_bank, async_paging, configure, select, KeepSink, dev, ws_x,
+            ws_irs, hit_ir, reset_counts, rm, ms)
+        torch.cuda.empty_cache()
+    del ws_irs, ws_bank
+
     tag = f"[{card}]"
     lines = []
     for (mode, name), (p50, p99) in step_ms.items():
@@ -759,9 +1040,37 @@ def main() -> int:
                   (f"{mode}_session_wall_p99_ms_per_block", s["p99_ms"]),
                   (f"{mode}_session_rtf", s["rtf"]),
                   (f"{mode}_session_missed_deadlines", s["missed_deadlines"])]
+    for mode, r in ws_runs.items():
+        s = r["summary"]
+        lines += [(f"ws_{mode}_build_s", r["build_s"]),
+                  (f"ws_{mode}_bank_MB", r["bank_mb"]),
+                  (f"ws_{mode}_peak_allocated_MB", r["peak_mb"]),
+                  (f"ws_{mode}_fault_first_use_ms", r["first_ms"]),
+                  (f"ws_{mode}_fault_first_use_wall_ms", r["first_wall_ms"]),
+                  (f"ws_{mode}_fault_warm_median_ms", r["warm_ms"]),
+                  (f"ws_{mode}_fault_warm_median_wall_ms", r["warm_wall_ms"]),
+                  (f"ws_{mode}_session_wall_avg_ms_per_block", s["avg_ms"]),
+                  (f"ws_{mode}_session_wall_p50_ms_per_block", s["p50_ms"]),
+                  (f"ws_{mode}_session_wall_p99_ms_per_block", s["p99_ms"]),
+                  (f"ws_{mode}_session_rtf", s["rtf"]),
+                  (f"ws_{mode}_session_missed_deadlines",
+                   s["missed_deadlines"]),
+                  (f"ws_{mode}_iteration_p99_ms", r["iter_p99_ms"]),
+                  (f"ws_{mode}_iterations_over_deadline",
+                   r["iter_over"]),
+                  (f"ws_{mode}_iterations_over_deadline_at_selects",
+                   r["iter_over_at_selects"]),
+                  (f"ws_{mode}_misses", r["misses"]),
+                  (f"ws_{mode}_hits", r["hits"]),
+                  (f"ws_{mode}_deferred", r["deferred"]),
+                  (f"ws_{mode}_starved", r["starved"]),
+                  (f"ws_{mode}_bank_max_abs_err", r["bank_err"]),
+                  (f"ws_{mode}_golden_max_abs_err", r["golden_err"]),
+                  (f"ws_{mode}_stale_ir_golden_max_abs_err", r["stale_err"])]
     lines += [("deadline_ms", DEADLINE_MS),
               ("golden_max_abs_err",
-               max(golden_err, roll_err, sel_err, ceil_err, ring16_err))]
+               max(golden_err, roll_err, sel_err, ceil_err, ring16_err,
+                   *(r["golden_err"] for r in ws_runs.values())))]
     for key, value in lines:
         print(f"{key} {value} {tag}")
 
@@ -779,7 +1088,9 @@ def main() -> int:
 
     print(json.dumps({"kernels": [
         entry("ring_mac", "tpu_audio/ops/pallas_mac.py:160",
-              launches + ring16_launches, max_abs_err, ring_ms),
+              launches + ring16_launches
+              + sum(r["launches"] for r in ws_runs.values()),
+              max_abs_err, ring_ms),
         entry("mac_shift", "tpu_audio/ops/pallas_mac.py:76",
               roll_launches + ceil_launches, shift_err, shift_ms)]}))
     print(json.dumps({"ok": True, "device": {

@@ -237,3 +237,97 @@ def test_roll_and_selected_engines_on_the_card_match_the_cpu(cuda, ring,
     np.testing.assert_allclose(runs["cuda"][0], runs["cpu"][0], atol=2e-5)
     rolled = 30 if (not ring and strategy == "allk") else 0
     assert runs["cuda"][1:] == (rolled, 0) and runs["cpu"][1:] == (0, 0)
+
+
+def _ws_irs(num_irs=6, n=1500, seed=7):
+    rng = np.random.default_rng(seed)
+    return [(rng.standard_normal((2, n - 13 * k)) * 0.3).astype(np.float32)
+            for k in range(num_irs)]
+
+
+@pytest.mark.parametrize("ring", [True, False])
+def test_device_prep_and_slot_update_on_the_card_match_the_cpu(cuda, ring):
+    """Device prep with cuFFT against the CPU path (pocketfft), then one
+    in-place slot update on each, within 1e-6 of the bank's scale."""
+    from tpu_audio_torch.engine import IRBank
+    from tpu_audio_torch.engine import device_prep as dp
+
+    irs = _ws_irs()
+    bank = IRBank()
+    for ir in irs[:3]:
+        bank.append(ir)
+    banks = {}
+    for dev in ("cpu", cuda):
+        eng = FMajorPartitionedConvolution(2, 32, 47, max_predelay=64,
+                                           ring=ring, num_irs=3, device=dev)
+        prepared = dp.prepare_fmajor_bank_device(eng, bank)
+        before = {name: getattr(prepared, name).cpu().clone()
+                  for name in ("mac_rhs", "rhs2", "spectra", "spectra_rev2")}
+        assert eng.update_bank_slot(prepared, 1, irs[5]) is prepared
+        banks[str(dev)] = (before, prepared)
+    for name in ("mac_rhs", "rhs2", "spectra", "spectra_rev2"):
+        for got, want in (
+                (banks["cuda"][0][name], banks["cpu"][0][name]),
+                (getattr(banks["cuda"][1], name).cpu(),
+                 getattr(banks["cpu"][1], name))):
+            scale = want.abs().max().item()
+            assert (got - want).abs().max().item() <= 1e-6 * scale, name
+
+
+def _ws_session(device, irs, async_paging, x, events):
+    from tpu_audio_torch.engine import IRBank
+    from tpu_audio_torch.engine.params import CCMapping
+    from tpu_audio_torch.models.reverb import ConvolutionReverb
+    from tpu_audio_torch.runtime.backends import WavSink, WavSource
+    from tpu_audio_torch.runtime.stream import MidiSchedule
+
+    bank = IRBank()
+    for ir in irs:
+        bank.append(ir)
+    model = ConvolutionReverb(bank, num_voices=2, block=32, max_predelay=64,
+                              bank_capacity=3, async_paging=async_paging,
+                              device=device)
+    ws, cp = model.working_set, model.control
+    ws.min_age_blocks = 20
+    cp.wet[:] = 0.8
+    cp.speed[:] = 6
+    for v in range(2):
+        for c in range(2):
+            cp.set_mapping(v, c, CCMapping(message=0xB0, select=0x15 + 2 * v
+                                           + c))
+    if async_paging:
+        cp.block_hooks.append(ws.drain)
+    sink = WavSink("/dev/null", keep_data=True)
+    before = ring_mac.launches
+    session = model.session(WavSource(x, 2, 32), sink, warmup=0)
+    session.run(model.init_state(), midi=MidiSchedule(list(events)))
+    ws.close()
+    return sink.data, ws, ring_mac.launches - before, session.blocks_streamed
+
+
+def test_async_paging_session_on_the_card_matches_the_cpu(cuda):
+    """A 3-slot working set whose pager packs every fault on its own CUDA
+    stream while blocks stream, drained at every block end: the same
+    residency and counters as the CPU run of the same session, outputs
+    within 2e-5, every block on ring_mac. A publish that did not wait for
+    the pager's stream, or that raced the blocks in flight, would play a
+    half-written slot."""
+    irs = _ws_irs(num_irs=7)
+    x = (np.random.default_rng(8).standard_normal((2, 2, 32 * 120)) * 0.05
+         ).astype(np.float32)
+    events = [(5, "", bytes([0xB0, 0x15, 100])),
+              (9, "", bytes([0xB0, 0x16, 127])),
+              (14, "", bytes([0xB0, 0x17, 127])),
+              (30, "", bytes([0xB0, 0x15, 127])),
+              (105, "", bytes([0xB0, 0x18, 60]))]
+    runs = {str(dev): _ws_session(dev, irs, True, x, events)
+            for dev in ("cpu", cuda)}
+    (got, gws, launches, steps), (want, wws, cpu_launches, _) = (
+        runs["cuda"], runs["cpu"])
+    np.testing.assert_allclose(got, want, atol=2e-5)
+    assert np.abs(want).max() > 1e-2
+    assert gws.slot_to_full == wws.slot_to_full
+    assert (gws.misses, gws.hits, gws.deferred) == (
+        wws.misses, wws.hits, wws.deferred)
+    assert gws.misses >= 3 and gws.deferred >= 3
+    assert launches == steps == 120 and cpu_launches == 0

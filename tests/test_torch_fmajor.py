@@ -322,8 +322,9 @@ def test_port_matches_fftconvolve_golden():
 
 def test_paths_outside_the_slice_raise():
     """What the port still leaves out raises where it is reached: bf16 MAC
-    tensors (engine and carried bank), the 'merged' per-voice MAC and
-    working-set slot updates."""
+    tensors (engine and carried bank), the 'merged' per-voice MAC, and
+    working-set slot updates from a spectra payload (the port's faults
+    carry the time-domain IR only)."""
     pair = Pair()
     for kwargs in ({"mac_dtype": "bf16", "num_irs": 3},
                    {"mac_dtype": "bf16", "mac_strategy": "selected"},
@@ -331,7 +332,7 @@ def test_paths_outside_the_slice_raise():
         with pytest.raises(NotImplementedError):
             fmajor.FMajorPartitionedConvolution(2, 32, 10, device="cpu",
                                                 **kwargs)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="time-domain"):
         pair.port.update_bank_slot(pair.tbank, 1, pair.spectra[:1])
     jbf16 = jax_fmajor.FMajorPartitionedConvolution(
         2, 32, pair.port.partitions, max_predelay=64, num_irs=3,

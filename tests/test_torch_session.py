@@ -256,7 +256,9 @@ def test_cli_reports_and_rejects_like_the_jax_cli(settings_env, capsys):
 def test_import_leaves_jax_out():
     code = ("import sys; import tpu_audio_torch.app.main, "
             "tpu_audio_torch.engine, tpu_audio_torch.runtime, "
-            "tpu_audio_torch.ops.ring_mac; "
+            "tpu_audio_torch.ops.ring_mac, "
+            "tpu_audio_torch.engine.device_prep, "
+            "tpu_audio_torch.runtime.working_set; "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'tpu_audio.'))]; "
             "assert not bad, bad")

@@ -10,7 +10,12 @@ backends; ALSA rawmidi becomes a scripted MIDI schedule.
     python -m tpu_audio_torch.app --settings settings.txt \
         --input in.wav --output out.wav [--midi events.txt] \
         [--voices N] [--blocks N] [--realtime] [--no-swap-snapshot]
+        [--bank-capacity N [--async-paging] [--ws-exhausted defer|raise]]
         [--device cuda|cpu]
+
+IR banks are always prepared on the engine's device; ``--bank-prep`` and
+``--fault-upload td`` are accepted so that the JAX CLI's command lines run
+unchanged.
 """
 
 from __future__ import annotations
@@ -25,6 +30,16 @@ from tpu_audio_torch.runtime.backends import (
 from tpu_audio_torch.runtime.stream import MidiSchedule
 from tpu_audio_torch.utils.device import select_gpu
 from tpu_audio_torch.utils.log import Log
+
+
+def _fault_upload(value: str) -> str:
+    """--fault-upload: the port has the time-domain payload only."""
+    if value != "td":
+        raise argparse.ArgumentTypeError(
+            f"{value!r}: the port uploads the time-domain IR ('td') only; "
+            f"the JAX package's 'dual' and 'derived' spectra payloads are "
+            f"left out by design (ROADMAP.md, Queue 1 item 15)")
+    return value
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -49,6 +64,37 @@ def build_parser() -> argparse.ArgumentParser:
                         "materialized fade snapshot, the largest state "
                         "tensor (~11 MB/voice at 4 s IRs); bank hot-swaps "
                         "then wait for in-flight crossfades to decay")
+    p.add_argument("--bank-capacity", type=int, default=None,
+                   help="working-set IR residency: keep only N IR slots on "
+                        "the device (the all-K MAC) and page IRs from the "
+                        "full bank in on demand — large banks at "
+                        "small-bank speed when few IRs sound at once")
+    p.add_argument("--bank-prep", default="device",
+                   choices=["host", "device"],
+                   help="accepted for the JAX CLI's command lines and "
+                        "ignored: the bank is always uploaded as "
+                        "time-domain PCM and transformed and packed on the "
+                        "device (the reference's prepare() architecture, "
+                        "src/conv.cu:207-253)")
+    p.add_argument("--fault-upload", default="td", type=_fault_upload,
+                   help="working-set fault payload: 'td', the time-domain "
+                        "IR, transformed and packed on the device (the "
+                        "only payload the port has)")
+    p.add_argument("--ws-exhausted", default="defer",
+                   choices=["defer", "raise"],
+                   help="working-set policy when every resident slot is "
+                        "fade-protected: 'defer' parks the select and "
+                        "applies it once a slot frees (serving never "
+                        "crashes on hot MIDI); 'raise' keeps the strict "
+                        "capacity-sizing contract")
+    p.add_argument("--async-paging", action="store_true",
+                   help="working-set residency only: pack bank misses on "
+                        "a background thread and CUDA stream; the select "
+                        "(and its crossfade) applies on the first block the "
+                        "IR is resident. The pager holds the GIL while it "
+                        "packs, so on the port this misses more deadlines "
+                        "than the default sync paging (PERF.md); prefer sync "
+                        "paging")
     p.add_argument("--voices", type=int, default=None,
                    help="override voice count (default: conv.count/2)")
     p.add_argument("--blocks", type=int, default=None,
@@ -111,8 +157,13 @@ def main(argv=None) -> int:
         normalize_bank=args.normalize_bank, block=args.block_size,
         sample_rate=args.sample_rate,
         swap_snapshot=not args.no_swap_snapshot, verbose=not args.quiet,
-        device=device)
-    return _stream(args, model)
+        bank_capacity=args.bank_capacity, ws_exhausted=args.ws_exhausted,
+        async_paging=args.async_paging, device=device)
+    try:
+        return _stream(args, model)
+    finally:
+        if model.working_set is not None:
+            model.working_set.close()
 
 
 def _stream(args, model) -> int:
@@ -160,6 +211,11 @@ def _stream(args, model) -> int:
               f"| p50 {s['p50_ms']:.3f} | p99 {s['p99_ms']:.3f} "
               f"| rtf {s.get('rtf', 0):.2f} | missed {s['missed_deadlines']} "
               f"| underruns {s['underruns']}")
+    ws = model.working_set
+    if ws is not None:
+        print(f"working set: {ws.capacity} slots | misses {ws.misses} "
+              f"| hits {ws.hits} | deferred {ws.deferred} "
+              f"| starved {ws.starved}")
     if args.output:
         Log.info("app", "wrote %s", args.output)
     return 0 if s["blocks_streamed"] > 0 else 1

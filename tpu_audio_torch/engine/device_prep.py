@@ -1,0 +1,152 @@
+"""On-device IR preparation (port of tpu_audio/engine/device_prep.py, the
+fmajor part): time-domain PCM crosses the bus, and the partition spectra
+and packed MAC tensors are computed on the engine's device.
+
+Reference parity: ``Convolution::prepare`` computes every IR spectrum ON
+THE GPU (cufftExecC2C + Hermitian unpack, reference src/conv.cu:207-253);
+the only host-to-device traffic is the WAV's PCM samples (src/wav.cu:100).
+Here the host uploads one [K, O, L] float32 tensor (~215 MB for the
+152-IR 4 s bank), the partition transforms run as ``torch.fft.rfft`` on
+the device (cuFFT on a card, as ops/fft.py does for the block transforms),
+and the double+reverse and plane packs are tensor gathers and permutes.
+
+Exactness: the packs are bit-exact axis moves plus one negation, so a
+device-prepared bank differs from the host prep (numpy pocketfft) only by
+the FFT's rounding (~1e-7 relative).
+"""
+
+from __future__ import annotations
+
+from typing import TYPE_CHECKING
+
+import numpy as np
+import torch
+
+if TYPE_CHECKING:
+    from tpu_audio_torch.engine.fmajor import FMajorBank
+
+
+def bank_time_domain(bank) -> np.ndarray:
+    """IRBank -> [K, O, Lmax] float32, IRs zero-padded to the bank's
+    longest entry (zero tail partitions transform to zero spectra — the
+    same padding prepare_bank's gather layout already relies on)."""
+    k = len(bank)
+    l_max = bank.max_length
+    out = np.zeros((k, 2, l_max), np.float32)
+    for i in range(k):
+        ir = bank.ir(i)
+        out[i, :, : ir.shape[-1]] = ir
+    return out
+
+
+# -- building blocks ------------------------------------------------------------
+
+
+def partition_fd(td: torch.Tensor, block: int, parts: int, offset: int,
+                 xf) -> torch.Tensor:
+    """``ops.partition.partition_spectra`` on the device: [..., L]
+    time-domain -> [..., parts, F] complex partition spectra (each
+    partition `block` samples zero-padded to 2*block, overlap-save
+    layout). Samples past offset + parts*block are EXCLUDED (the host
+    version truncates the same way via max_partitions)."""
+    lead = tuple(td.shape[:-1])
+    length = td.shape[-1]
+    keep = max(min(length - offset, parts * block), 0)
+    start = min(offset, length)  # offset > length is legal: all zeros
+    x = td[..., start: start + keep]
+    x = torch.nn.functional.pad(x, (0, parts * block - keep))
+    x = x.reshape(lead + (parts, block))
+    x = torch.nn.functional.pad(x, (0, block))
+    return xf.rfft(x)
+
+
+def pad_parts(spec: torch.Tensor, pp: int) -> torch.Tensor:
+    """Zero-pad the partition axis (-2) to pp (fmajor._pad_p on spectra; a
+    zero partition has a zero spectrum, so padding commutes with the FFT
+    and is done here, after it — cheaper)."""
+    pad = pp - spec.shape[-2]
+    if pad == 0:
+        return spec
+    zeros = spec.new_zeros(spec.shape[:-2] + (pad, spec.shape[-1]))
+    return torch.cat([spec, zeros], dim=-2)
+
+
+def double_reversed_j(spec: torch.Tensor, axis: int) -> torch.Tensor:
+    """``fmajor.double_reversed`` on the device: out[j] = spec[(-j) mod
+    P], tiled twice along `axis` (one gather; the index is built on the
+    device, so no host copy waits for the stream)."""
+    p = spec.shape[axis]
+    idx = (p - torch.arange(2 * p, device=spec.device)) % p
+    return spec.index_select(axis, idx)
+
+
+def pack_mac_rhs_j(spec: torch.Tensor) -> torch.Tensor:
+    """``fmajor.pack_mac_rhs`` on an already partition-padded [K, O, P, F]
+    complex spectra: -> [F, 2, P, K*O*2] f32 plane-major MAC rhs (plane 0
+    = (br, bi), plane 1 = (-bi, br))."""
+    k, o, p, f = spec.shape
+    br = spec.real.permute(3, 2, 0, 1)                     # [F, P, K, O]
+    bi = spec.imag.permute(3, 2, 0, 1)
+    p0 = torch.stack([br, bi], dim=-1)                     # [F, P, K, O, 2]
+    p1 = torch.stack([-bi, br], dim=-1)
+    return torch.stack([p0, p1], dim=1).reshape(f, 2, p, k * o * 2)
+
+
+def pack_rev2_j(dbl: torch.Tensor) -> torch.Tensor:
+    """``fmajor.pack_spectra_rev2`` taking the already doubled+reversed
+    [K, O, 2Pp, F] complex: -> [K, F, O, 2, 2Pp] f32."""
+    re = dbl.real.permute(0, 3, 1, 2)                      # [K, F, O, 2Pp]
+    im = dbl.imag.permute(0, 3, 1, 2)
+    return torch.stack([re, im], dim=3)                    # [K, F, O, 2, 2Pp]
+
+
+def pack_planar_j(spec: torch.Tensor) -> torch.Tensor:
+    """``fmajor.pack_planar_spectra`` on partition-padded [K, O, Pp, F]
+    complex: -> [K, O, Pp, F, 2] f32."""
+    return torch.stack([spec.real, spec.imag], dim=-1)
+
+
+# -- the whole bank ----------------------------------------------------------------
+
+
+def _fmajor_bank(engine, td: torch.Tensor) -> FMajorBank:
+    """td [K, O, L] f32 on the engine's device -> the FMajorBank
+    engine.prepare_bank would build from host spectra, placeholders
+    included."""
+    from tpu_audio_torch.engine.fmajor import FMajorBank
+
+    spec = pad_parts(
+        partition_fd(td, engine.block, engine.partitions, 0, engine.xf),
+        engine.pp)                                         # [K, O, Pp, F]
+
+    def placeholder(ndim):
+        return torch.zeros((1,) * ndim, dtype=torch.float32,
+                           device=engine.device)
+
+    allk = engine.mac_strategy == "allk"
+    if engine.ring_mode:
+        dbl = double_reversed_j(spec, axis=2)              # [K, O, 2Pp, F]
+        return FMajorBank(
+            mac_rhs=placeholder(4),
+            rhs2=pack_mac_rhs_j(dbl) if allk else placeholder(4),
+            spectra=placeholder(5),
+            spectra_rev2=pack_rev2_j(dbl))
+    return FMajorBank(
+        mac_rhs=pack_mac_rhs_j(spec) if allk else placeholder(4),
+        rhs2=placeholder(4),
+        spectra=pack_planar_j(spec),
+        spectra_rev2=placeholder(5))
+
+
+def prepare_fmajor_bank_device(engine, td) -> FMajorBank:
+    """[K, O, L] host f32 (or an IRBank) -> FMajorBank on the engine's
+    device, spectra and packs computed there. Mirrors
+    engine.prepare_bank(spectra) to the FFT's rounding."""
+    td = td if isinstance(td, np.ndarray) else bank_time_domain(td)
+    if engine.num_irs is not None and td.shape[0] != engine.num_irs:
+        raise ValueError(f"bank has {td.shape[0]} IRs, engine was built "
+                         f"for num_irs={engine.num_irs}")
+    engine.num_irs = td.shape[0]
+    dev = torch.as_tensor(np.ascontiguousarray(td, np.float32)
+                          ).to(engine.device)
+    return _fmajor_bank(engine, dev)

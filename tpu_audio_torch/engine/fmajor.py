@@ -28,8 +28,9 @@ Two MAC strategies (``mac_strategy``):
     voice (ops/ring_mac.py in ring mode, ops/mac_shift.py in roll mode:
     the hand-written CUDA kernels on the card) and a [V, 2]-indexed gather
     picks each voice's selection;
-  - ``selected`` (banks of more than 16 IRs under 'auto'): each voice's
-    selected spectra stay materialized in state (``sel_spectra``, the
+  - ``selected`` (banks of more than 16 IRs under 'auto'; a working set
+    serves larger banks on 'allk' instead, runtime/working_set.py): each
+    voice's selected spectra stay materialized in state (``sel_spectra``, the
     snapshot's layout), refreshed at collapse; the hot loop contracts the
     delay line against them per voice (per_voice_mac).
 
@@ -62,6 +63,7 @@ from dataclasses import dataclass, replace
 import numpy as np
 import torch
 
+from tpu_audio_torch.engine import device_prep
 from tpu_audio_torch.engine.params import VoiceParams
 from tpu_audio_torch.ops.fft import SpectralTransform
 from tpu_audio_torch.ops.mac_shift import mac_shift
@@ -114,6 +116,20 @@ class FMajorState:
                             # ('allk'; [V, 2, 1] placeholder for 'selected')
     base_pure: torch.Tensor  # bool [V, 2]: the snapshot is sum_k base_g[k] *
                              # bank[k] and `base` may be stale
+
+
+@dataclass
+class BankSlot:
+    """One IR packed for one bank slot (FMajorPartitionedConvolution.
+    pack_bank_slot): the slot's 4 MAC columns and its planar spectra row,
+    built on the engine's device on whatever stream was current. `done`
+    (CUDA only) marks the end of that work; `host` is the pinned staging
+    buffer of the upload, kept alive with the slot until it is written."""
+
+    columns: torch.Tensor   # f32 [F, 2, 2Pp, 4] (ring) or [F, 2, Pp, 4]
+    row: torch.Tensor       # f32 [F, O, 2, 2Pp] (ring) or [O, Pp, F, 2]
+    host: torch.Tensor      # f32 [O, partitions * block]
+    done: torch.cuda.Event | None = None
 
 
 def _pad_p(arr: np.ndarray, axis: int, pp: int) -> np.ndarray:
@@ -313,9 +329,81 @@ class FMajorPartitionedConvolution:
         return FMajorBank(mac_rhs=mac_rhs, rhs2=rhs2, spectra=planar,
                           spectra_rev2=rev2)
 
-    def update_bank_slot(self, *args, **kwargs):
-        raise NotImplementedError("update_bank_slot (working-set residency) "
-                                  + _LATER)
+    def update_bank_slot(self, bank: FMajorBank, slot: int,
+                         ir: np.ndarray) -> FMajorBank:
+        """Replace ONE IR slot of a device bank (working-set residency,
+        runtime/working_set.py) with the time-domain IR `ir` [O, L]: its
+        partition FFT and packs run on the device (pack_bank_slot), and
+        the slot's columns and row are written IN PLACE, stream-ordered
+        after every step already queued (write_bank_slot). Returns the
+        same bank object. 'allk' only: the 'selected' strategy
+        materializes per-voice spectra in state, which a bank-slot write
+        would silently miss."""
+        return self.write_bank_slot(bank, slot, self.pack_bank_slot(ir))
+
+    def pack_bank_slot(self, ir: np.ndarray) -> BankSlot:
+        """Host [O, L] IR -> its BankSlot on the engine's device: one
+        zero-pad to the static partition grid on the host, one upload
+        (through a pinned buffer on CUDA), then the partition FFT, the
+        double+reverse (ring) and the packs on the current stream. Reads
+        no bank, so it may run on a side stream while blocks stream."""
+        self._require_allk()
+        ir = np.asarray(ir)
+        if ir.ndim != 2 or np.iscomplexobj(ir):
+            raise ValueError(f"a slot update takes a time-domain [O, L] "
+                             f"IR, got {ir.dtype} {ir.shape}")
+        lp = self.partitions * self.block
+        pad = np.zeros((ir.shape[0], lp), np.float32)
+        pad[:, : min(ir.shape[1], lp)] = ir[:, :lp]
+        host = torch.from_numpy(pad)
+        if self.device.type == "cuda":
+            host = host.pin_memory()
+        td = host.to(self.device, non_blocking=True)
+        spec = device_prep.pad_parts(
+            device_prep.partition_fd(td[None], self.block, self.partitions,
+                                     0, self.xf), self.pp)   # [1, O, Pp, F]
+        if self.ring_mode:
+            dbl = device_prep.double_reversed_j(spec, axis=2)
+            columns = device_prep.pack_mac_rhs_j(dbl)
+            row = device_prep.pack_rev2_j(dbl)[0]
+        else:
+            columns = device_prep.pack_mac_rhs_j(spec)
+            row = device_prep.pack_planar_j(spec)[0]
+        done = None
+        if self.device.type == "cuda":
+            done = torch.cuda.Event()
+            done.record()
+        return BankSlot(columns=columns, row=row, host=host, done=done)
+
+    def _require_allk(self) -> None:
+        if self.mac_strategy != "allk":
+            raise ValueError("working-set slot updates require the 'allk' "
+                             "MAC strategy (mac_strategy='selected' copies "
+                             "spectra into state at collapse)")
+
+    def write_bank_slot(self, bank: FMajorBank, slot: int,
+                        packed: BankSlot) -> FMajorBank:
+        """Write a packed slot into `bank` in place on the current stream:
+        ring mode rhs2[..., 4k:4k+4] and spectra_rev2[k], roll mode
+        mac_rhs[..., 4k:4k+4] and spectra[k]. On CUDA the current stream
+        first waits for the stream that packed the slot, and the packed
+        tensors are marked in use by this stream so that their memory is
+        not handed out again before the copies ran."""
+        self._require_allk()
+        col0 = 4 * int(slot)
+        if self.ring_mode:
+            columns, rows = bank.rhs2, bank.spectra_rev2
+        else:
+            columns, rows = bank.mac_rhs, bank.spectra
+        if self.device.type == "cuda":
+            stream = torch.cuda.current_stream(self.device)
+            if packed.done is not None:
+                stream.wait_event(packed.done)
+            for t in (packed.columns, packed.row):
+                t.record_stream(stream)
+        columns[..., col0: col0 + 4].copy_(packed.columns)
+        rows[int(slot)].copy_(packed.row)
+        return bank
 
     # -- state ---------------------------------------------------------------------
 

@@ -126,8 +126,27 @@ class ControlPlane:
         self._host_cache = None
         self._dirty = True
         self.uploads = 0  # param-upload counter
+        self.blocks = 0  # processed-block counter (the working set's clock)
         # sessions subscribe here to collapse on IR re-select
         self.on_select_change = None  # callback (voice, ch, old, new)
+        # optional full-bank-index -> engine-slot translation installed by
+        # runtime/working_set.py; CC scaling and per-channel bank windows
+        # stay in full-bank coordinates, `select` then holds slot indices
+        self.select_remap = None      # callable (voice, ch, full_idx) -> slot
+        # between-blocks callbacks (e.g. async working-set paging publishes
+        # completed slot uploads here), fired at the END of end_block
+        self.block_hooks: list = []
+        # auxiliary runtime state kept beside the parameters (numpy arrays
+        # keyed by name): the working set keeps its host-side maps here and
+        # registers on_aux_restored to rebuild device residency after a
+        # checkpoint load
+        self.aux: dict = {}
+        self.on_aux_restored = None
+        # fired by sessions immediately BEFORE a checkpoint is written:
+        # subsystems with in-flight host-side work (async working-set
+        # uploads and their deferred selects) publish it so the checkpoint
+        # captures a consistent world
+        self.pre_checkpoint_hooks: list = []
 
     # -- wiring ---------------------------------------------------------------
 
@@ -143,16 +162,23 @@ class ControlPlane:
             off, size = windows[min(ch, len(windows) - 1)]
             self.select_base[:, ch] = off
             self.select_span[:, ch] = max(size, 1)
-            self.select[:, ch] = np.clip(self.select[:, ch], off,
-                                         off + max(size, 1) - 1)
+            if self.select_remap is None:
+                # clamp existing selections into the new window; under
+                # working-set residency `select` holds SLOT indices (a
+                # different coordinate space) and the remap hook applies
+                # the windows at event time instead
+                self.select[:, ch] = np.clip(self.select[:, ch], off,
+                                             off + max(size, 1) - 1)
 
     def load_initial_values(self, settings, voice: int, ch: int, idx: int) -> None:
         """Initial values from settings (reference src/main.cu:63-70)."""
         self._dirty = True
         sel = settings.u32("conv[%d].value.select", idx, default=0)
-        self.select[voice, ch] = (self.select_base[voice, ch]
-                                  + min(sel, max(self.select_span[voice, ch]
-                                                 - 1, 0)))
+        full = (self.select_base[voice, ch]
+                + min(sel, max(self.select_span[voice, ch] - 1, 0)))
+        if self.select_remap is not None:
+            full = self.select_remap(voice, ch, int(full))
+        self.select[voice, ch] = full
         pd = settings.u32("conv[%d].value.predelay", idx, default=0)
         if pd > self.max_predelay:
             # an out-of-range predelay would match no wet-ring slot and
@@ -182,6 +208,8 @@ class ControlPlane:
         if controller == m.select:
             new = (int(self.select_base[voice, ch])
                    + value * int(self.select_span[voice, ch]) // 128)
+            if self.select_remap is not None:
+                new = int(self.select_remap(voice, ch, new))
             old = int(self.select[voice, ch])
             self.select[voice, ch] = new
             self.vsteps[voice, ch] = self.speed[voice, ch]
@@ -225,9 +253,13 @@ class ControlPlane:
                 self.apply_cc(voice, ch, status, controller, value)
 
     def set_select(self, voice: int, ch: int, index: int) -> None:
-        """Direct (non-MIDI) IR selection with crossfade, like a CC hit."""
+        """Direct (non-MIDI) IR selection with crossfade, like a CC hit.
+        `index` is a FULL-bank index; working-set residency remaps it to
+        a device slot exactly like the CC path."""
         self._dirty = True
-        if not 0 <= index < max(self.bank_size, 1):
+        if self.select_remap is not None:
+            index = int(self.select_remap(voice, ch, index))
+        elif not 0 <= index < max(self.bank_size, 1):
             # clamp like snapshot() will: storing the raw index would
             # desync the played IR from the collapse provenance
             Log.warn("params", "select %d outside the %d-IR bank; clamped",
@@ -262,6 +294,7 @@ class ControlPlane:
         cache follows in lockstep, so a crossfade in flight uploads no
         parameters per block. Real parameter events still mark the plane
         dirty and re-upload."""
+        self.blocks += 1
         np.maximum(self.vsteps - 1, 0, out=self.vsteps)
         if (self._device_params is not None and self._host_cache is not None
                 and self._host_cache.vsteps.any()):
@@ -273,6 +306,12 @@ class ControlPlane:
             self._device_params = replace(
                 self._device_params,
                 vsteps=torch.clamp_min(self._device_params.vsteps - 1, 0))
+        # between-blocks hooks fire LAST (after the countdown advance) so
+        # an event they raise — e.g. async paging re-issuing a deferred
+        # select with fresh vsteps — is not clobbered by this block's
+        # decrement and behaves exactly like a next-block MIDI event
+        for hook in self.block_hooks:
+            hook()
 
     def snapshot_device(self) -> VoiceParams:
         """Device-resident VoiceParams, re-uploaded only when parameters

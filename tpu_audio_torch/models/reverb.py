@@ -4,16 +4,19 @@ tpu_audio/models/reverb.py:ConvolutionReverb, the fmajor branch).
 ``ConvolutionReverb`` matches the reference's application wiring
 (reference src/main.cu:18-116: settings -> IR bank -> Convolution instance
 -> control mapping -> stream), batched over V stereo voices on one
-FMajorPartitionedConvolution and one shared device bank.
+FMajorPartitionedConvolution and one shared device bank. With
+``bank_capacity=N`` the device holds only N IR slots and a working set
+(runtime/working_set.py) pages IRs of the full bank in on demand.
 """
 
 from __future__ import annotations
 
 import os
 
+from tpu_audio_torch.engine import device_prep
 from tpu_audio_torch.engine.bank import IRBank
 from tpu_audio_torch.engine.fmajor import FMajorPartitionedConvolution
-from tpu_audio_torch.engine.params import CCMapping, ControlPlane
+from tpu_audio_torch.engine.params import CC_MAX_SPEED, CCMapping, ControlPlane
 from tpu_audio_torch.io.settings import Settings
 from tpu_audio_torch.runtime.backends import BlockSink, BlockSource
 from tpu_audio_torch.runtime.stream import MidiSchedule, StreamSession
@@ -80,14 +83,26 @@ class ConvolutionReverb:
     """V stereo voices of convolution reverb over one IR bank.
 
     `device`: None or "cuda" selects the best CUDA device (select_gpu,
-    which raises without CUDA); "cpu" runs the plain PyTorch path."""
+    which raises without CUDA); "cpu" runs the plain PyTorch path.
+
+    The bank is prepared on the engine's device: the time-domain IRs are
+    uploaded and their spectra and packs computed there
+    (engine/device_prep.py, the reference's prepare() architecture,
+    src/conv.cu:207-253), so a working set's resident and faulted slots
+    come from the same FFT. `bank_capacity=N` keeps N resident IR slots on
+    the 'allk' MAC and pages the rest of the bank in on demand
+    (runtime/working_set.py), each fault uploading the time-domain IR,
+    with `async_paging` and `ws_exhausted` ("defer" or "raise")."""
 
     def __init__(self, bank: IRBank, num_voices: int = 1, block: int = 256,
                  sample_rate: int = 44100, engine: str = "fmajor",
                  max_predelay: int = 8192,
                  max_partitions: int | None = None,
                  mac_strategy: str = "auto", mac_dtype: str = "f32",
-                 swap_snapshot: bool = True, device=None):
+                 swap_snapshot: bool = True,
+                 bank_capacity: int | None = None,
+                 async_paging: bool = False, ws_exhausted: str = "defer",
+                 device=None):
         if engine != "fmajor":
             raise NotImplementedError(
                 f"engine {engine!r} is not ported yet; the port serves the "
@@ -105,6 +120,13 @@ class ConvolutionReverb:
         self.device = resolve_device(device)
         self.control = ControlPlane(num_voices, len(bank), max_predelay,
                                     device=self.device)
+        self.working_set = None
+        if bank_capacity is not None:
+            self._init_working_set(
+                bank, num_voices, block, max_predelay, max_partitions,
+                mac_dtype, min(bank_capacity, len(bank)), swap_snapshot,
+                async_paging, ws_exhausted)
+            return
         partitions = max_partitions or bank.max_partitions(block)
         # swap_snapshot=False only composes with the allk strategy; the
         # auto rule would silently pick 'selected' on big banks
@@ -115,13 +137,58 @@ class ConvolutionReverb:
             num_voices, block, partitions, max_predelay=max_predelay,
             mac_strategy=strategy, num_irs=len(bank), mac_dtype=mac_dtype,
             swap_snapshot=swap_snapshot, device=self.device)
-        self.spectra = self.engine.prepare_bank(
-            bank.partitioned_spectra(block, max_partitions=partitions))
-        bank_bytes = sum(leaf.numel() * leaf.element_size()
-                         for leaf in vars(self.spectra).values())
+        self.spectra = device_prep.prepare_fmajor_bank_device(self.engine,
+                                                              bank)
         Log.info("reverb", "%d voice(s), %d IRs, engine=fmajor (%s), bank "
                  "%.1f MB on %s", num_voices, len(bank),
-                 self.engine.mac_strategy, bank_bytes / 1e6, self.device)
+                 self.engine.mac_strategy, self.bank_bytes() / 1e6,
+                 self.device)
+
+    def _init_working_set(self, bank, num_voices, block, max_predelay,
+                          max_partitions, mac_dtype, capacity,
+                          swap_snapshot, async_paging, ws_exhausted):
+        """Large banks at small-bank speed: the engine runs the all-K path
+        over `capacity` resident IR slots; the full bank stays on the host
+        and select events page IRs in on demand (runtime/working_set.py).
+        Engine geometry is sized by the FULL bank so any member IR fits
+        its slot."""
+        from tpu_audio_torch.runtime.working_set import WorkingSetBank
+
+        partitions = max_partitions or bank.max_partitions(block)
+        residents = list(range(capacity))
+        self.engine = FMajorPartitionedConvolution(
+            num_voices, block, partitions, max_predelay=max_predelay,
+            mac_strategy="allk", num_irs=capacity, mac_dtype=mac_dtype,
+            swap_snapshot=swap_snapshot, device=self.device)
+        compact = IRBank(sample_rate=bank.sample_rate)
+        for k in residents:
+            compact.append(bank.ir(k))
+        self.spectra = device_prep.prepare_fmajor_bank_device(self.engine,
+                                                              compact)
+        # the slowest CC-reachable crossfade (speed 127 -> vsteps 1016)
+        # plus decay margin sets the eviction protection window: a slot
+        # must never be reclaimed while a fade-out still references it
+        self.working_set = WorkingSetBank(
+            self.engine, self.control, bank.ir, self.spectra, residents,
+            min_age_blocks=CC_MAX_SPEED + 64, async_paging=async_paging,
+            on_exhausted=ws_exhausted)
+        self.working_set.on_update = self._publish_bank
+        self._live_session = None
+        Log.info("reverb", "%d voice(s), %d-IR bank with %d resident slots, "
+                 "engine=fmajor (allk), bank %.1f MB on %s", num_voices,
+                 len(bank), capacity, self.bank_bytes() / 1e6, self.device)
+
+    def bank_bytes(self) -> int:
+        """Bytes of the device bank, placeholders included."""
+        return sum(leaf.numel() * leaf.element_size()
+                   for leaf in vars(self.spectra).values())
+
+    def _publish_bank(self, new_bank) -> None:
+        self.spectra = new_bank
+        if self._live_session is not None:
+            # slot updates only touch fade-inert slots (min-age eviction),
+            # so the swap is safe to apply directly between blocks
+            self._live_session.bank = new_bank
 
     # -- reference-settings construction (src/main.cu:18-116) --------------------
 
@@ -184,9 +251,15 @@ class ConvolutionReverb:
 
     def session(self, source: BlockSource, sink: BlockSink,
                 **kwargs) -> StreamSession:
-        return StreamSession(self.engine, self.spectra, self.control,
+        sess = StreamSession(self.engine, self.spectra, self.control,
                              source, sink, sample_rate=self.sample_rate,
                              **kwargs)
+        if self.working_set is not None:
+            self._live_session = sess
+            # warm the fault path before block 0, so the first real bank
+            # miss pays no one-off cost mid-stream
+            sess.pre_run_hooks.append(self.working_set.warmup)
+        return sess
 
     def process(self, source: BlockSource, sink: BlockSink,
                 midi: MidiSchedule | None = None,

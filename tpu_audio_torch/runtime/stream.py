@@ -150,6 +150,10 @@ class StreamSession:
         self._pending_bank = None
         self._swap_wait_logged = False
         self._swap_deferred_blocks = 0
+        # fired once per run(), before the first block: the seam for
+        # warm-up work (the working set builds its fault path's FFT plan
+        # there, models/reverb.py:session)
+        self.pre_run_hooks: list = []
         control.on_select_change = self._note_select_change
 
     # -- coef-engine hooks ---------------------------------------------------------
@@ -312,6 +316,8 @@ class StreamSession:
 
         The engine updates the state's delay line and wet ring in place:
         the state passed in is consumed."""
+        for hook in self.pre_run_hooks:
+            hook()
         # resync the analytic mirrors from the state (one host read, before
         # the loop) so a session started mid-crossfade keeps the fade step;
         # snapshot provenance is state-carried, so purity survives too
