@@ -73,12 +73,35 @@ Phases, in order; any failure raises and the script exits non-zero:
      timeline runs again with async_paging=True (the pager packs each
      fault on its own CUDA stream), where every deferred select must
      apply. Prints the model's build time, one fault's time at first use
-     (the session's warm-up) and warm, and both sessions' figures.
+     (the session's warm-up) and warm, and both sessions' figures;
+ 13. ring_mac at the cascade's shapes (KOD 16): the head [257, VI, 2, 32]
+     and one group's tail [4097, VI/16, 2, 48] at 64 and 1024 voices,
+     against the float64 plain version at four ring phases within 1e-5 of
+     scale, then timed against plain and one einsum, interleaved;
+ 14. the cascade at full width: ConvolutionReverb(engine='cascade'), 64
+     voices, the 4 IRs, ratio 16, through its session for 800 blocks with
+     phase 4's re-select and interrupt, a swap_bank requested mid-fade
+     (to phase 7's new bank; it must wait for the fades to decay, then
+     apply) and a predelay edit at 720. Every block must launch ring_mac
+     twice (head and tail) and mac_shift never, the fades ride the
+     indexed step, voices 0 and 63 must match the golden before the
+     re-select and, against the new bank, after the swap. The same
+     timeline then runs with predelay_side='read', which must equal the
+     write side within 2e-5 of scale on every block and voice; both
+     sides' steps are timed, with their device busy time per step and the
+     device operations that take most of it;
+ 15. the cascade at 1024 voices (4 s IRs, f32, ratio 16) through the
+     model's session for 300 blocks with a re-select at 100, two ring_mac
+     launches per block, voices 0 and 1023 against the golden before the
+     re-select and after the fade, the host ms of each part of its
+     session block; its steps and the fmajor ring/allk steady step at 1024
+     voices (swap_snapshot=False) are timed.
 
 The line before the last is a JSON object describing each kernel (its
-launches summed over the phases whose path rides it: 4, 11 and 12 for
-ring_mac, 7 and 10 for mac_shift; its times and roofline bound at KOD=16,
-and under per_kod at KOD 16, 36 and 64); the last line is {"ok": true,
+launches summed over the phases whose path rides it: 4, 11, 12, 14 and 15
+for ring_mac, 7 and 10 for mac_shift; its times and roofline bound at
+KOD=16, under per_kod at KOD 16, 36 and 64, and ring_mac's at the
+cascade's four shapes under cascade); the last line is {"ok": true,
 "device": {...}}. The script imports nothing of JAX and nothing of the JAX
 package.
 """
@@ -94,7 +117,7 @@ VOICES, BLOCK, RATE = 64, 256, 44100
 NUM_IRS, IR_SECONDS = 4, 4.0
 BLOCKS = 800
 SELECT_AT, INTERRUPT_AT = 300, 306
-SELECT_CC = 21
+SELECT_CC, PREDELAY_CC = 21, 22
 DEADLINE_MS = BLOCK / RATE * 1e3
 # roll mode: re-select to IR 1 at 300, swap mid-fade at 320 to the bank
 # new[k] = 0.5 * irs[ROLL_PERM[k]], interrupt to new IR 2 at 326
@@ -116,6 +139,25 @@ WS_QUIET_FROM = 660  # the hit's fade has decayed below 1e-6 by then
 # reads 1.39e-6 with the same kernel); a voice playing the IR it played
 # before the hit, as a stale or misplaced slot would, reads far above it
 WS_GOLDEN_LIMIT = 3e-6
+# the cascade (phases 13-15): ratio 16 over 4 s IRs, so P1p = 32 head and
+# P2p = 48 tail partitions, F2 = 16 * 256 + 1 tail bins
+CAS_RATIO, CAS_PP1, CAS_PP2 = 16, 32, 48
+# phase 14: re-select at 300, interrupt at 306 (as phase 4), a swap_bank to
+# the bank new[k] = 0.5 * irs[ROLL_PERM[k]] requested mid-fade at 320 (it
+# waits for the fades to decay), the golden against the new bank over
+# 520-719, then a predelay edit (CC 41: 2624 samples) at 720
+CAS_BLOCKS, CAS_SWAP_AT, CAS_AFTER = 800, 320, 520
+CAS_EDIT_AT, CAS_EDIT_VALUE = 720, 41
+# phase 15: 1024 voices, 300 blocks, a re-select at 100 (IR 1); the fade
+# and the tail's 2*ratio+1 blocks of lag are over by 250
+BIG_VOICES, BIG_BLOCKS, BIG_SELECT_AT, BIG_AFTER = 1024, 300, 100, 250
+# ring_mac's shapes on the cascade's two stages, KOD 16: (F, VI, Pp)
+CASCADE_SHAPES = {
+    "head_64v": (BLOCK + 1, 2 * VOICES, CAS_PP1),
+    "tail_64v": (CAS_RATIO * BLOCK + 1, 2 * VOICES // CAS_RATIO, CAS_PP2),
+    "head_1024v": (BLOCK + 1, 2 * BIG_VOICES, CAS_PP1),
+    "tail_1024v": (CAS_RATIO * BLOCK + 1, 2 * BIG_VOICES // CAS_RATIO,
+                   CAS_PP2)}
 RING_KODS = (16, 36, 64)  # 4, 9 and 16 IRs: the main path, a KOD that is no
                          # multiple of 16, the all-K ceiling
 # published peaks of one H100 SXM (NVIDIA's data sheet): HBM bytes/s and
@@ -156,12 +198,14 @@ def golden(x, ir_pair, wet, dry, predelay):
     return out
 
 
-def noise_input(blocks):
-    """Voices 0 and 63 of NoiseSource(VOICES, BLOCK, blocks, 0.01, seed 0)."""
+def noise_input(blocks, voices=VOICES):
+    """The first and last voice of NoiseSource(voices, BLOCK, blocks, 0.01,
+    seed 0)."""
     noise = np.random.default_rng(0)
     return np.concatenate(
-        [(noise.standard_normal((VOICES, 2, BLOCK)) * 0.01).astype(np.float32)
-         for _ in range(blocks)], axis=-1)[[0, VOICES - 1]]
+        [(noise.standard_normal((voices, 2, BLOCK)) * 0.01
+          ).astype(np.float32)[[0, voices - 1]] for _ in range(blocks)],
+        axis=-1)
 
 
 def golden_error(out, x, i, b0, b1, ir, predelay):
@@ -172,11 +216,13 @@ def golden_error(out, x, i, b0, b1, ir, predelay):
                         - want[:, b0 * BLOCK: b1 * BLOCK]).max())
 
 
-def check_golden(name, out, x, windows, predelay, limit=1e-4):
-    """out, x [2 voices, 2, T]; windows: (label, first block, end block,
-    IR [2, L]). Returns the largest error; raises beyond `limit`."""
+def check_golden(name, out, x, windows, predelay, limit=1e-4,
+                 voices=VOICES):
+    """out, x [2 voices, 2, T]: the first and last of `voices`; windows:
+    (label, first block, end block, IR [2, L]). Returns the largest error;
+    raises beyond `limit`."""
     worst = 0.0
-    for i, v in enumerate((0, VOICES - 1)):
+    for i, v in enumerate((0, voices - 1)):
         for label, b0, b1, ir in windows:
             err = golden_error(out, x, i, b0, b1, ir, predelay)
             worst = max(worst, err)
@@ -472,6 +518,348 @@ def run_working_set(bank, async_paging, configure, select, keep_sink, dev,
     return out
 
 
+def device_busy(step, state, bank, params, x, n=30, label=None):
+    """Device-busy microseconds and device operations (kernels, copies,
+    fills) per call of one engine step, from torch.profiler over `n` calls
+    after 5 unprofiled ones; with a `label`, also prints the eight device
+    operations that took the most time. Returns (busy_us, ops, state);
+    busy_us and ops are None when the profiler recorded no device
+    activity."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(5):
+        state, _ = step(state, bank, params, x)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            state, _ = step(state, bank, params, x)
+        torch.cuda.synchronize()
+    device = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not device:
+        return None, None, state
+    busy = sum(e.time_range.elapsed_us() for e in device)
+    if label:
+        per_op = {}
+        for e in device:
+            per_op[e.name] = per_op.get(e.name, 0.0) + e.time_range.elapsed_us()
+        for op, us in sorted(per_op.items(), key=lambda kv: -kv[1])[:8]:
+            print(f"{label}: {us / n:8.1f} us per step in {op[:100]}")
+    return busy / n, len(device) / n, state
+
+
+def time_ring_mac(rm, fdl, rhs2, w_host=5):
+    """ring_mac at one shape against its plain version and one library
+    call, interleaved (plain, library, kernel, kernel, library, plain),
+    with the roofline bound from the bytes each input is read once and m
+    written once. Returns {kernel, plain, library, bound, bound_by,
+    bytes} in ms (bytes in bytes)."""
+    import torch
+
+    wt = torch.tensor(w_host, dtype=torch.int32, device=fdl.device)
+    calls = {"plain": lambda: rm.ring_mac_reference(wt, fdl, rhs2),
+             "library": lambda: ring_mac_library(w_host, fdl, rhs2),
+             "kernel": lambda: rm.ring_mac(wt, fdl, rhs2)}
+    runs = {key: [] for key in calls}
+    for key in ("plain", "library", "kernel", "kernel", "library", "plain"):
+        runs[key].append(cuda_ms(calls[key], 200))
+    f, vi, _, pp = fdl.shape
+    kod = rhs2.shape[3]
+    nbytes = (fdl.numel() + f * 2 * pp * kod + f * vi * kod) * 4
+    bound_ms, bound_by = roofline_ms(nbytes, 2 * f * vi * 2 * pp * kod)
+    out = {key: float(np.mean(v)) for key, v in runs.items()}
+    out.update(bound=bound_ms, bound_by=bound_by, bytes=nbytes)
+    return out
+
+
+def check_cascade_shapes(rm, dev, rng):
+    """Phase 13: ring_mac at the cascade's four shapes (KOD 16) against the
+    float64 plain version at w in {0, 1, Pp/2+1, Pp-1}, within 1e-5 of
+    the output's scale, then timed (time_ring_mac). Returns (largest
+    error, {shape: timing})."""
+    import torch
+
+    worst, timed = 0.0, {}
+    kod = 4 * NUM_IRS
+    for name, (f, vi, pp) in CASCADE_SHAPES.items():
+        fdl = torch.tensor(rng.standard_normal((f, vi, 2, pp),
+                                               dtype=np.float32), device=dev)
+        rhs2 = torch.tensor(rng.standard_normal((f, 2, 2 * pp, kod),
+                                                dtype=np.float32), device=dev)
+        fdl64, rhs64 = fdl.double(), rhs2.double()
+        for w in sorted({0, 1, pp // 2 + 1, pp - 1}):
+            wt = torch.tensor(w, dtype=torch.int32, device=dev)
+            got = rm.ring_mac(wt, fdl, rhs2)
+            torch.cuda.synchronize()
+            ref64 = rm.ring_mac_reference(w, fdl64, rhs64)
+            scale = ref64.abs().max().item()
+            err = (got.double() - ref64).abs().max().item()
+            err_lib = (ring_mac_library(w, fdl, rhs2).double()
+                       - ref64).abs().max().item()
+            print(f"ring_mac vs plain [cascade {name} F={f} VI={vi} Pp={pp} "
+                  f"KOD={kod} w={w}]: max_abs_err {err:.3e} (library "
+                  f"{err_lib:.3e}, limit {1e-5 * scale:.3e})")
+            if not err <= 1e-5 * scale:
+                raise AssertionError(f"ring_mac kernel disagrees with the "
+                                     f"plain version at cascade {name} w={w}")
+            if not err_lib <= 1e-5 * scale:
+                raise AssertionError(f"the library yardstick computes "
+                                     f"another function at {name} w={w}")
+            worst = max(worst, err)
+            del ref64
+        del fdl64, rhs64
+        t = timed[name] = time_ring_mac(rm, fdl, rhs2)
+        gbps = t["bytes"] / (t["kernel"] * 1e-3) / 1e9
+        print(f"ring_mac timing [cascade {name}]: kernel "
+              f"{t['kernel'] * 1e3:.2f} us ({gbps:.0f} GB/s, "
+              f"{100 * t['bound'] / t['kernel']:.1f} % of "
+              f"the {t['bound'] * 1e3:.2f} us bound by {t['bound_by']}), "
+              f"plain {t['plain'] * 1e3:.2f} us, library "
+              f"{t['library'] * 1e3:.2f} us")
+        del fdl, rhs2
+        torch.cuda.empty_cache()
+    return worst, timed
+
+
+def run_cascade_timeline(bank, irs, new_irs, side, dev, configure, select,
+                         keep_sink, reset_counts, rm, ms):
+    """Phase 14, one run: ConvolutionReverb(engine='cascade') at 64 voices
+    through its session for 800 blocks: the re-select and interrupt of
+    phase 4, a swap_bank to `new_irs` requested mid-fade (it must wait for
+    the fades to decay, then apply), a predelay edit after the golden
+    windows. Every block must launch ring_mac twice and mac_shift never.
+    Returns the run's figures, the whole output among them."""
+    import torch
+
+    from tpu_audio_torch.engine import device_prep
+    from tpu_audio_torch.models.reverb import ConvolutionReverb
+    from tpu_audio_torch.runtime.backends import NoiseSource
+    from tpu_audio_torch.runtime.stream import MidiSchedule
+
+    name = f"cascade 64 voices ({side} side)"
+    t0 = time.perf_counter()
+    model = ConvolutionReverb(bank, num_voices=VOICES, block=BLOCK,
+                              sample_rate=RATE, engine="cascade",
+                              max_predelay=8192, cascade_ratio=CAS_RATIO,
+                              predelay_side=side, device=dev)
+    engine = model.engine
+    new_bank = device_prep.prepare_cascade_bank_device(
+        engine, np.stack(new_irs))
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    if ((engine.ratio, engine.pp1, engine.pp2, engine.mac_strategy)
+            != (CAS_RATIO, CAS_PP1, CAS_PP2, "allk")):
+        raise AssertionError(f"{name}: ratio {engine.ratio}, Pp "
+                             f"{engine.pp1}/{engine.pp2}, "
+                             f"{engine.mac_strategy}")
+    cp = model.control
+    configure(cp)
+    predelay = int(cp.predelay[0, 0])
+    sink = keep_sink(keep_all=True)
+    session = model.session(NoiseSource(VOICES, BLOCK, CAS_BLOCKS,
+                                        amplitude=0.01, seed=0), sink)
+    state = model.init_state()
+    reset_counts()
+    t0 = time.perf_counter()
+    state = session.run(state, max_blocks=CAS_SWAP_AT, midi=MidiSchedule(
+        [select(SELECT_AT, 32), select(INTERRUPT_AT, 64)]))
+    session.swap_bank(new_bank)
+    applied = []
+    apply = session._apply_pending_bank
+
+    def watch(st):
+        st = apply(st)
+        applied.append(session._pending_bank is None)
+        return st
+
+    session._apply_pending_bank = watch
+    state = session.run(state, midi=MidiSchedule(
+        [(CAS_EDIT_AT - CAS_SWAP_AT, "",
+          bytes([0xB0, PREDELAY_CC, CAS_EDIT_VALUE]))]))
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches, shifts = rm.ring_mac.launches, ms.mac_shift.launches
+    steps = session.blocks_streamed
+    swap_at = CAS_SWAP_AT + applied.index(True) if True in applied else None
+    print(f"{name}: {steps} blocks in {run_s:.3f} s (model and new bank "
+          f"built in {build_s:.2f} s), ring_mac launches {launches}, "
+          f"mac_shift launches {shifts}, indexed blocks "
+          f"{session.indexed_blocks}, general blocks "
+          f"{session.general_blocks}, swap requested at {CAS_SWAP_AT} and "
+          f"applied at {swap_at}, selects {cp.select[0].tolist()}, predelay "
+          f"{cp.predelay[0].tolist()}")
+    if steps != CAS_BLOCKS or sink.blocks != CAS_BLOCKS:
+        raise AssertionError(f"{name}: streamed {steps} blocks, delivered "
+                             f"{sink.blocks}, wanted {CAS_BLOCKS}")
+    if launches != 2 * steps or shifts:
+        raise AssertionError(f"{name}: ring_mac launched {launches} times "
+                             f"and mac_shift {shifts} in {steps} steps")
+    if session.indexed_blocks < 20 or session.general_blocks:
+        raise AssertionError(f"{name}: {session.indexed_blocks} indexed "
+                             f"blocks, {session.general_blocks} general")
+    if (swap_at is None or swap_at <= INTERRUPT_AT + 50
+            or session.bank is not new_bank):
+        raise AssertionError(f"{name}: the swap applied at {swap_at}, not "
+                             f"after the fades decayed")
+    if not sink.finite:
+        raise AssertionError(f"{name}: non-finite output")
+    if not float(state.coef_a.max()) < 1e-6:
+        raise AssertionError(f"{name}: the crossfades did not decay")
+    out = sink.data()
+    golden_err = check_golden(
+        name, out[[0, VOICES - 1]], noise_input(CAS_BLOCKS, VOICES),
+        (("before the re-selects, IR 0", 0, SELECT_AT, irs[0]),
+         (f"after the swap, new bank IR 2 = 0.5 * IR {ROLL_PERM[2]}",
+          CAS_AFTER, CAS_EDIT_AT, new_irs[2])),
+        predelay=predelay, voices=VOICES)
+    return {"model": model, "state": state, "out": out,
+            "summary": session.summary(), "launches": launches,
+            "swap_at": swap_at, "golden_err": golden_err,
+            "indexed": session.indexed_blocks, "run_s": run_s}
+
+
+def run_cascade_1024(bank, irs, dev, configure, select, keep_sink,
+                     reset_counts, rm, ms):
+    """Phase 15: the cascade at 1024 voices (the JAX bench's default
+    cascade leg: 4 s IRs, f32, ratio 16) through the model's session for
+    300 blocks with a re-select at 100, against the golden on voices 0 and
+    1023; then its steps and the fmajor ring/allk steady step at the same
+    voice count, timed. Returns the figures."""
+    import torch
+
+    from tpu_audio_torch.engine import device_prep
+    from tpu_audio_torch.engine.fmajor import FMajorPartitionedConvolution
+    from tpu_audio_torch.engine.params import ControlPlane
+    from tpu_audio_torch.models.reverb import ConvolutionReverb
+    from tpu_audio_torch.runtime.backends import NoiseSource
+    from tpu_audio_torch.runtime.stream import MidiSchedule
+
+    name = f"cascade {BIG_VOICES} voices"
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = ConvolutionReverb(bank, num_voices=BIG_VOICES, block=BLOCK,
+                              sample_rate=RATE, engine="cascade",
+                              max_predelay=8192, cascade_ratio=CAS_RATIO,
+                              device=dev)
+    engine, cp = model.engine, model.control
+    configure(cp)
+    state = model.init_state()
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    state_mb = sum(v.numel() * v.element_size() for v in vars(state).values()
+                   if isinstance(v, torch.Tensor)) / 1e6
+    if (engine.ratio, engine.pp2) != (CAS_RATIO, CAS_PP2):
+        raise AssertionError(f"{name}: ratio {engine.ratio}, P2p "
+                             f"{engine.pp2}")
+    sink = keep_sink()
+    session = model.session(NoiseSource(BIG_VOICES, BLOCK, BIG_BLOCKS,
+                                        amplitude=0.01, seed=0), sink)
+
+    # host seconds of each part of a session block, per call
+    parts = {}
+
+    def timed(what, fn):
+        def call(*args, **kwargs):
+            t1 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                parts.setdefault(what, []).append(time.perf_counter() - t1)
+        return call
+
+    for attr, what in (("_apply_pending_bank", "swap"),
+                       ("_maybe_collapse", "collapse"), ("_upload", "upload"),
+                       ("_step_steady", "step"), ("_step_indexed", "step"),
+                       ("_start_fetch", "fetch"), ("_deliver", "deliver")):
+        setattr(session, attr, timed(what, getattr(session, attr)))
+    for attr, what in (("snapshot_device", "params"),
+                       ("end_block", "end_block")):
+        setattr(cp, attr, timed(what, getattr(cp, attr)))
+    reset_counts()
+    t0 = time.perf_counter()
+    state = session.run(state, midi=MidiSchedule(
+        [select(BIG_SELECT_AT, 32)]))
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    # mean host ms per block of each part after the session's warm-up
+    split = {what: 1e3 * float(np.sum(t[10:BIG_BLOCKS])) / (BIG_BLOCKS - 10)
+             for what, t in parts.items()}
+    launches, shifts = rm.ring_mac.launches, ms.mac_shift.launches
+    steps = session.blocks_streamed
+    peak_mb = torch.cuda.max_memory_allocated() / 1e6
+    summary = session.summary()
+    print(f"{name}: {steps} blocks in {run_s:.3f} s (model built in "
+          f"{build_s:.2f} s; state {state_mb:.1f} MB, bank "
+          f"{model.bank_bytes() / 1e6:.1f} MB, peak allocated {peak_mb:.1f} "
+          f"MB), ring_mac launches {launches}, mac_shift launches {shifts}, "
+          f"indexed blocks {session.indexed_blocks}, general blocks "
+          f"{session.general_blocks}, session p50 / p99 "
+          f"{summary['p50_ms']:.3f} / {summary['p99_ms']:.3f} ms per block, "
+          f"RTF {summary['rtf']:.3f}, missed {summary['missed_deadlines']}")
+    print(f"{name}: host ms per session block after warm-up: "
+          + ", ".join(f"{what} {ms:.3f}" for what, ms in split.items())
+          + f" (the whole block: {summary['avg_ms']:.3f} mean)")
+    if steps != BIG_BLOCKS or sink.blocks != BIG_BLOCKS:
+        raise AssertionError(f"{name}: streamed {steps} blocks, delivered "
+                             f"{sink.blocks}, wanted {BIG_BLOCKS}")
+    if launches != 2 * steps or shifts:
+        raise AssertionError(f"{name}: ring_mac launched {launches} times "
+                             f"and mac_shift {shifts} in {steps} steps")
+    if session.indexed_blocks < 20 or session.general_blocks:
+        raise AssertionError(f"{name}: {session.indexed_blocks} indexed "
+                             f"blocks, {session.general_blocks} general")
+    if not sink.finite:
+        raise AssertionError(f"{name}: non-finite output")
+    if not float(state.coef_a.max()) < 1e-6:
+        raise AssertionError(f"{name}: the crossfade did not decay")
+    golden_err = check_golden(
+        name, sink.data(), noise_input(BIG_BLOCKS, BIG_VOICES),
+        (("before the re-select, IR 0", 0, BIG_SELECT_AT, irs[0]),
+         ("after the fade and the tail's lag, IR 1", BIG_AFTER, BIG_BLOCKS,
+          irs[1])),
+        predelay=int(cp.predelay[0, 0]), voices=BIG_VOICES)
+
+    params = cp.snapshot_device()
+    x = torch.randn((BIG_VOICES, 2, BLOCK), device=dev) * 0.01
+    steps_ms = {}
+    for step_name in ("step_coef_steady", "step_coef_indexed"):
+        step = getattr(engine, step_name)
+        p50, p99, state = step_times(step, state, model.spectra, params, x)
+        busy, ops, state = device_busy(step, state, model.spectra, params, x,
+                                       label=f"cascade1024 {step_name}")
+        steps_ms[step_name] = (p50, p99, busy, ops)
+    del model, session, state, engine
+    torch.cuda.empty_cache()
+
+    fm = FMajorPartitionedConvolution(
+        BIG_VOICES, BLOCK, bank.max_partitions(BLOCK), max_predelay=8192,
+        num_irs=NUM_IRS, swap_snapshot=False, device=dev)
+    fm_bank = device_prep.prepare_fmajor_bank_device(fm, bank)
+    fm_cp = ControlPlane(BIG_VOICES, NUM_IRS, 8192, device=dev)
+    configure(fm_cp)
+    fm_params = fm_cp.snapshot_device()
+    fm_state = fm.init_converged(fm_bank, fm_params)
+    p50, p99, fm_state = step_times(fm.step_coef_steady, fm_state, fm_bank,
+                                    fm_params, x)
+    busy, ops, fm_state = device_busy(fm.step_coef_steady, fm_state, fm_bank,
+                                      fm_params, x,
+                                      label="fmajor1024 step_coef_steady")
+    steps_ms["fmajor_step_coef_steady"] = (p50, p99, busy, ops)
+    for step_name, (p50, p99, busy, ops) in steps_ms.items():
+        what = "not measured" if busy is None else (
+            f"device busy {busy:.1f} us in {ops:.1f} device ops")
+        print(f"{name}: {step_name} p50 / p99 {p50:.3f} / {p99:.3f} ms (CUDA "
+              f"events), {what} per step")
+    del fm, fm_bank, fm_state
+    torch.cuda.empty_cache()
+    return {"summary": summary, "launches": launches, "peak_mb": peak_mb,
+            "state_mb": state_mb, "build_s": build_s, "run_s": run_s,
+            "golden_err": golden_err, "steps": steps_ms, "split": split}
+
+
 def main() -> int:
     import torch
 
@@ -579,23 +967,27 @@ def main() -> int:
         cp.dry[:] = 0.2
         cp.predelay[:] = 1024
         cp.speed[:] = 50
-        for v in range(VOICES):
+        for v in range(cp.num_voices):
             for ch in range(2):
                 cp.set_mapping(v, ch, CCMapping(message=0xB0,
-                                                select=SELECT_CC))
+                                                select=SELECT_CC,
+                                                predelay=PREDELAY_CC))
 
     def select(block, value):
         return (block, "", bytes([0xB0, SELECT_CC, value]))
 
     class KeepSink(BlockSink):
-        """Keeps voices 0 and 63; checks every block is finite."""
+        """Keeps the first and last voice (all voices with keep_all);
+        checks every block is finite."""
 
-        def __init__(self):
+        def __init__(self, keep_all=False):
             self.kept, self.finite, self.blocks = [], True, 0
+            self.keep_all = keep_all
 
         def write(self, block):
             self.finite &= bool(np.isfinite(block).all())
-            self.kept.append(block[[0, VOICES - 1]].copy())
+            self.kept.append(block.copy() if self.keep_all
+                             else block[[0, len(block) - 1]].copy())
             self.blocks += 1
 
         def data(self):
@@ -1015,13 +1407,78 @@ def main() -> int:
         torch.cuda.empty_cache()
     del ws_irs, ws_bank
 
+    # -- 13. ring_mac at the cascade's shapes ------------------------------------------
+    cas_err, cas_ms = check_cascade_shapes(rm, dev, rng)
+
+    # -- 14. the cascade at full width, write side then read side ----------------------
+    cas_runs = {}
+    for side in ("write", "read"):
+        cas_runs[side] = run_cascade_timeline(
+            bank, irs, new_irs, side, dev, configure, select, KeepSink,
+            reset_counts, rm, ms)
+        # steps of the 64-voice cascade, after its session (the read side's
+        # carry its retime, computed every block)
+        mode = "cascade64" if side == "write" else "cascade64_read"
+        cas_model, cas_state = (cas_runs[side].pop("model"),
+                                cas_runs[side].pop("state"))
+        cas_params = cas_model.control.snapshot_device()
+        for name in ("step_coef_steady", "step_coef_indexed"):
+            step = getattr(cas_model.engine, name)
+            p50, p99, cas_state = step_times(
+                step, cas_state, cas_model.spectra, cas_params, xt)
+            busy, ops, cas_state = device_busy(
+                step, cas_state, cas_model.spectra, cas_params, xt,
+                label=f"{mode} {name}")
+            step_ms[(mode, name)] = (p50, p99)
+            step_ms[(mode, name, "busy")] = (busy, ops)
+        del cas_model, cas_state
+        torch.cuda.empty_cache()
+    write_out, read_out = cas_runs["write"].pop("out"), cas_runs["read"].pop(
+        "out")
+    cas_scale = float(np.abs(write_out).max())
+    read_err = float(np.abs(read_out - write_out).max())
+    print(f"cascade 64 voices: read side against write side over all "
+          f"{CAS_BLOCKS} blocks and {VOICES} voices (a predelay edit at "
+          f"{CAS_EDIT_AT}): max_abs_err {read_err:.3e} (limit "
+          f"{2e-5 * cas_scale:.3e})")
+    if not read_err <= 2e-5 * cas_scale:
+        raise AssertionError("cascade: the read side disagrees with the "
+                             "write side")
+    del write_out, read_out
+
+    # -- 15. the cascade at 1024 voices, and fmajor beside it --------------------------
+    big = run_cascade_1024(bank, irs, dev, configure, select, KeepSink,
+                           reset_counts, rm, ms)
+    torch.cuda.empty_cache()
+
     tag = f"[{card}]"
     lines = []
-    for (mode, name), (p50, p99) in step_ms.items():
-        short = {"step_coef_steady": "steady", "step_coef_indexed": "indexed",
-                 "step_coef": "general"}[name]
+    shorts = {"step_coef_steady": "steady", "step_coef_indexed": "indexed",
+              "step_coef": "general"}
+    for key, (p50, p99) in step_ms.items():
+        mode, short = key[0], shorts[key[1]]
+        if len(key) == 3:   # (device busy us, device ops) per step
+            lines += [(f"{mode}_{short}_step_device_busy_us", p50),
+                      (f"{mode}_{short}_step_device_ops", p99)]
+        else:
+            lines += [(f"{mode}_{short}_step_p50_ms", p50),
+                      (f"{mode}_{short}_step_p99_ms", p99)]
+    for step_name, (p50, p99, busy, ops) in big["steps"].items():
+        mode = ("fmajor1024" if step_name.startswith("fmajor")
+                else "cascade1024")
+        short = shorts[step_name.replace("fmajor_", "")]
         lines += [(f"{mode}_{short}_step_p50_ms", p50),
-                  (f"{mode}_{short}_step_p99_ms", p99)]
+                  (f"{mode}_{short}_step_p99_ms", p99),
+                  (f"{mode}_{short}_step_device_busy_us", busy),
+                  (f"{mode}_{short}_step_device_ops", ops)]
+    for shape, t in cas_ms.items():
+        key = f"ring_mac_cascade_{shape}"
+        lines += [(f"{key}_kernel_us", t["kernel"] * 1e3),
+                  (f"{key}_kernel_GBps",
+                   t["bytes"] / (t["kernel"] * 1e-3) / 1e9),
+                  (f"{key}_plain_us", t["plain"] * 1e3),
+                  (f"{key}_library_us", t["library"] * 1e3),
+                  (f"{key}_bound_us", t["bound"] * 1e3)]
     for kernel, timed in (("ring_mac", ring_ms), ("mac_shift", shift_ms)):
         for kod, t in timed.items():
             key = kernel if kod == kod_full else f"{kernel}_kod{kod}"
@@ -1034,7 +1491,10 @@ def main() -> int:
                 lines.append((f"{key}_library_us", t["library"] * 1e3))
     for mode, s in (("ring", summary), ("roll", roll_summary),
                     ("selected", sel_summary), ("roll16", ceil_summary),
-                    ("ring16", ring16_summary)):
+                    ("ring16", ring16_summary),
+                    ("cascade64_write", cas_runs["write"]["summary"]),
+                    ("cascade64_read", cas_runs["read"]["summary"]),
+                    ("cascade1024", big["summary"])):
         lines += [(f"{mode}_session_wall_avg_ms_per_block", s["avg_ms"]),
                   (f"{mode}_session_wall_p50_ms_per_block", s["p50_ms"]),
                   (f"{mode}_session_wall_p99_ms_per_block", s["p99_ms"]),
@@ -1067,30 +1527,47 @@ def main() -> int:
                   (f"ws_{mode}_bank_max_abs_err", r["bank_err"]),
                   (f"ws_{mode}_golden_max_abs_err", r["golden_err"]),
                   (f"ws_{mode}_stale_ir_golden_max_abs_err", r["stale_err"])]
-    lines += [("deadline_ms", DEADLINE_MS),
+    lines += [("cascade64_swap_requested_block", CAS_SWAP_AT),
+              ("cascade64_swap_applied_block", cas_runs["write"]["swap_at"]),
+              ("cascade64_read_vs_write_max_abs_err", read_err),
+              ("cascade1024_build_s", big["build_s"]),
+              ("cascade1024_state_MB", big["state_mb"]),
+              ("cascade1024_peak_allocated_MB", big["peak_mb"]),
+              *((f"cascade1024_session_host_{what}_ms", ms)
+                for what, ms in big["split"].items()),
+              ("cascade_golden_max_abs_err",
+               max(big["golden_err"],
+                   *(r["golden_err"] for r in cas_runs.values()))),
+              ("deadline_ms", DEADLINE_MS),
               ("golden_max_abs_err",
                max(golden_err, roll_err, sel_err, ceil_err, ring16_err,
                    *(r["golden_err"] for r in ws_runs.values())))]
     for key, value in lines:
         print(f"{key} {value} {tag}")
 
-    def entry(name, replaces, launches, err, timed):
+    def timings(t):
+        return {"ms": t["kernel"], "plain_ms": t["plain"],
+                "library_ms": t.get("library"), "bound_ms": t["bound"],
+                "bound_by": t["bound_by"]}
+
+    def entry(name, replaces, launches, err, timed, **extra):
         """The kernel's line entry at the 4-IR sessions' shapes (KOD=16),
         with every timed 64-voice KOD (4, 9 and 16 IRs) under per_kod."""
-        per_kod = {kod: {"ms": t["kernel"], "plain_ms": t["plain"],
-                         "library_ms": t.get("library"),
-                         "bound_ms": t["bound"], "bound_by": t["bound_by"]}
-                   for kod, t in timed.items()}
+        per_kod = {kod: timings(t) for kod, t in timed.items()}
         return {"name": name, "route": "cuda",
                 "source": f"tpu_audio_torch/csrc/{name}.cu",
                 "replaces": replaces, "launches": launches,
-                "max_abs_err": err, **per_kod[kod_full], "per_kod": per_kod}
+                "max_abs_err": err, **per_kod[kod_full], "per_kod": per_kod,
+                **extra}
 
     print(json.dumps({"kernels": [
         entry("ring_mac", "tpu_audio/ops/pallas_mac.py:160",
               launches + ring16_launches
-              + sum(r["launches"] for r in ws_runs.values()),
-              max_abs_err, ring_ms),
+              + sum(r["launches"] for r in ws_runs.values())
+              + sum(r["launches"] for r in cas_runs.values())
+              + big["launches"],
+              max(max_abs_err, cas_err), ring_ms,
+              cascade={shape: timings(t) for shape, t in cas_ms.items()}),
         entry("mac_shift", "tpu_audio/ops/pallas_mac.py:76",
               roll_launches + ceil_launches, shift_err, shift_ms)]}))
     print(json.dumps({"ok": True, "device": {

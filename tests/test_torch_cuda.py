@@ -1,6 +1,7 @@
 """Card-only tests of the port: the CUDA ring_mac and mac_shift kernels
-against their plain PyTorch versions, and the engine on the card (ring and
-roll mode, 'allk' and 'selected') against the engine on the CPU.
+against their plain PyTorch versions, and the engines on the card (fmajor
+in ring and roll mode, 'allk' and 'selected'; the cascade on both predelay
+sides) against the engines on the CPU.
 
 Every test here needs an NVIDIA GPU and nvcc and skips without them. The
 file imports no JAX, so it also runs where JAX is absent:
@@ -331,3 +332,103 @@ def test_async_paging_session_on_the_card_matches_the_cpu(cuda):
         wws.misses, wws.hits, wws.deferred)
     assert gws.misses >= 3 and gws.deferred >= 3
     assert launches == steps == 120 and cpu_launches == 0
+
+
+@pytest.mark.parametrize("f,vi,pp,kod", [
+    (33, 8, 8, 12), (129, 2, 16, 12), (257, 64, 32, 16), (513, 8, 48, 16)])
+@pytest.mark.parametrize("phase", [0, 1, -1])
+def test_kernel_matches_plain_version_at_cascade_shapes(cuda, f, vi, pp, kod,
+                                                        phase):
+    """The cascade's two MAC stages at small widths: the head (F1 = B+1,
+    VI = 2V, P1p) and one group's tail (F2 = ratio*B+1, VI = 2V/ratio,
+    P2p), whose few rows leave most of a 128-row tile empty."""
+    _check_ring_mac_kernel(cuda, f, vi, pp, kod, phase, seed=f + vi + kod)
+
+
+def _cascade_session(device, side, x):
+    """ConvolutionReverb(engine='cascade') over 3 IRs at 4 voices, ratio 4:
+    a re-select, an interrupt and a predelay edit through MIDI."""
+    from tpu_audio_torch.engine import IRBank
+    from tpu_audio_torch.engine.params import CCMapping
+    from tpu_audio_torch.models.reverb import ConvolutionReverb
+    from tpu_audio_torch.runtime.backends import WavSink, WavSource
+    from tpu_audio_torch.runtime.stream import MidiSchedule
+
+    bank = IRBank()
+    for ir in _ws_irs(num_irs=3, n=1200, seed=9):
+        bank.append(ir)
+    model = ConvolutionReverb(bank, num_voices=4, block=32, max_predelay=273,
+                              engine="cascade", cascade_ratio=4,
+                              predelay_side=side, device=device)
+    cp = model.control
+    cp.wet[:] = 0.8
+    cp.speed[:] = 8
+    cp.predelay[:, 0] = [273, 9, 100, 63]
+    for v in range(4):
+        for c in range(2):
+            cp.set_mapping(v, c, CCMapping(message=0xB0, select=0x15,
+                                           predelay=0x16))
+    events = [(5, "", bytes([0xB0, 0x15, 64])),
+              (9, "", bytes([0xB0, 0x15, 127])),
+              (50, "", bytes([0xB0, 0x16, 10]))]
+    sink = WavSink("/dev/null", keep_data=True)
+    before = ring_mac.launches
+    session = model.session(WavSource(x, 4, 32), sink, warmup=0)
+    session.run(model.init_state(), midi=MidiSchedule(events))
+    return (sink.data, ring_mac.launches - before, session.blocks_streamed,
+            session.indexed_blocks)
+
+
+@pytest.mark.parametrize("side", ["write", "read"])
+def test_cascade_session_on_the_card_matches_the_cpu(cuda, side):
+    """Both MAC stages launch ring_mac: two launches per block on the card,
+    none on the CPU, outputs within 2e-5."""
+    x = (np.random.default_rng(10).standard_normal((4, 2, 32 * 70)) * 0.05
+         ).astype(np.float32)
+    runs = {str(dev): _cascade_session(dev, side, x) for dev in ("cpu", cuda)}
+    (got, launches, steps, indexed), (want, cpu_launches, _, cpu_indexed) = (
+        runs["cuda"], runs["cpu"])
+    np.testing.assert_allclose(got, want, atol=2e-5)
+    assert np.abs(want).max() > 0.1
+    assert launches == 2 * steps == 140 and cpu_launches == 0
+    assert indexed == cpu_indexed >= 10
+
+
+@pytest.mark.parametrize("side", ["write", "read"])
+def test_cascade_steps_never_sync(cuda, side):
+    """The steady and indexed steps read nothing back from the device: the
+    host counter picks the group, the slots and the MAC windows, and the
+    read side's retime is selected on the device. A predelay edit between
+    the steps takes the retime path."""
+    from tpu_audio_torch.engine import IRBank
+    from tpu_audio_torch.engine import device_prep as dp
+    from tpu_audio_torch.engine.cascade import CascadeConvolution
+
+    bank = IRBank()
+    for ir in _ws_irs(num_irs=3, n=1200, seed=9):
+        bank.append(ir)
+    eng = CascadeConvolution(4, 32, 38, ratio=4, max_predelay=273,
+                             predelay_side=side, num_irs=3, device=cuda)
+    prepared = dp.prepare_cascade_bank_device(eng, bank)
+    cp = ControlPlane(4, 3, 273, device=cuda)
+    cp.wet[:] = 0.8
+    cp.predelay[:, 0] = [273, 9, 100, 63]
+    p1 = cp.snapshot_device()
+    cp.predelay[:, 0] = [5, 200, 40, 273]
+    p2 = cp.snapshot_device()
+    x = torch.randn((4, 2, 32), device=cuda) * 0.05
+    state = eng.init_converged(prepared, p1)
+    state, _ = eng.step_coef_indexed(state, prepared, p2, x)   # warm-up
+    torch.cuda.synchronize()
+    before = ring_mac.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for t in range(8):
+            params = p1 if t % 3 else p2
+            step = eng.step_coef_steady if t % 2 else eng.step_coef_indexed
+            state, out = step(state, prepared, params, x)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert ring_mac.launches - before == 16
+    assert state.step == 9 and int(state.t) == 9
+    assert bool(torch.isfinite(out).all())

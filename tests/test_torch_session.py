@@ -258,6 +258,7 @@ def test_import_leaves_jax_out():
             "tpu_audio_torch.engine, tpu_audio_torch.runtime, "
             "tpu_audio_torch.ops.ring_mac, "
             "tpu_audio_torch.engine.device_prep, "
+            "tpu_audio_torch.engine.cascade, "
             "tpu_audio_torch.runtime.working_set; "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'tpu_audio.'))]; "

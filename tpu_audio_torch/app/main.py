@@ -1,5 +1,6 @@
 """Application entry point: settings-driven streaming reverb on a GPU (port
-of tpu_audio/app/main.py, the streaming fmajor path).
+of tpu_audio/app/main.py, the streaming path of the fmajor and cascade
+engines).
 
 Capability equivalent of the reference's main() (reference src/main.cu:18-116):
 select the GPU, read settings, build IR banks and convolution voices, wire
@@ -9,6 +10,8 @@ backends; ALSA rawmidi becomes a scripted MIDI schedule.
 
     python -m tpu_audio_torch.app --settings settings.txt \
         --input in.wav --output out.wav [--midi events.txt] \
+        [--engine fmajor|cascade [--cascade-ratio N]
+         [--predelay-side write|read]]
         [--voices N] [--blocks N] [--realtime] [--no-swap-snapshot]
         [--bank-capacity N [--async-paging] [--ws-exhausted defer|raise]]
         [--device cuda|cpu]
@@ -59,6 +62,21 @@ def build_parser() -> argparse.ArgumentParser:
                    help="test signal when --input is absent")
     p.add_argument("--midi", default=None,
                    help="scripted MIDI schedule file (block hexbytes per line)")
+    p.add_argument("--engine", default="fmajor",
+                   choices=["fmajor", "cascade", "partitioned", "monolithic"],
+                   help="'fmajor' (uniform partitions) or 'cascade' (two "
+                        "stages, the voice-scaling engine); 'partitioned' "
+                        "and 'monolithic' are not ported yet")
+    p.add_argument("--predelay-side", default="write",
+                   choices=["write", "read"],
+                   help="cascade only: apply block-predelay at ring WRITE "
+                        "(reference residual semantics) or at ring READ "
+                        "(a FIFO head ring; predelay edits re-time the "
+                        "buffered wet, so both give the same output)")
+    p.add_argument("--cascade-ratio", type=int, default=16,
+                   help="cascade engine tail stagger ratio (tail partition "
+                        "size = ratio*block; auto-shrunk to fit the voice "
+                        "count and IR length)")
     p.add_argument("--no-swap-snapshot", action="store_true",
                    help="span-only fades (fmajor 'allk'): drop the "
                         "materialized fade snapshot, the largest state "
@@ -125,6 +143,10 @@ def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     if args.quiet:
         Log.level = 2
+    if args.engine in ("partitioned", "monolithic"):
+        Log.error("app", "engine %r is not ported yet (ROADMAP.md, Queue 1 "
+                  "item 14); use --engine fmajor or cascade", args.engine)
+        return 2
 
     device = (select_gpu(verbose=not args.quiet) if args.device == "cuda"
               else args.device)
@@ -152,13 +174,15 @@ def main(argv=None) -> int:
         return 2
 
     model = ConvolutionReverb.from_settings(
-        args.settings, root=args.root, num_voices=args.voices,
+        args.settings, engine=args.engine, root=args.root,
+        num_voices=args.voices,
         max_ir_seconds=args.max_ir_seconds,
         normalize_bank=args.normalize_bank, block=args.block_size,
         sample_rate=args.sample_rate,
         swap_snapshot=not args.no_swap_snapshot, verbose=not args.quiet,
         bank_capacity=args.bank_capacity, ws_exhausted=args.ws_exhausted,
-        async_paging=args.async_paging, device=device)
+        async_paging=args.async_paging, cascade_ratio=args.cascade_ratio,
+        predelay_side=args.predelay_side, device=device)
     try:
         return _stream(args, model)
     finally:

@@ -2,11 +2,15 @@ from tpu_audio_torch.engine.params import (
     CCMapping, VoiceParams, ControlPlane, CC_MAX_PREDELAY, CC_MAX_SPEED,
 )
 from tpu_audio_torch.engine.bank import IRBank
+from tpu_audio_torch.engine.cascade import (
+    CascadeBank, CascadeConvolution, CascadeState,
+)
 from tpu_audio_torch.engine.fmajor import (
     FMajorBank, FMajorPartitionedConvolution, FMajorState,
 )
 
 __all__ = [
+    "CascadeBank", "CascadeConvolution", "CascadeState",
     "FMajorBank", "FMajorPartitionedConvolution", "FMajorState",
     "CCMapping", "VoiceParams", "ControlPlane", "CC_MAX_PREDELAY", "CC_MAX_SPEED",
     "IRBank",

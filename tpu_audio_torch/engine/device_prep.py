@@ -1,6 +1,7 @@
-"""On-device IR preparation (port of tpu_audio/engine/device_prep.py, the
-fmajor part): time-domain PCM crosses the bus, and the partition spectra
-and packed MAC tensors are computed on the engine's device.
+"""On-device IR preparation (port of tpu_audio/engine/device_prep.py, for
+the fmajor and cascade engines): time-domain PCM crosses the bus, and the
+partition spectra and packed MAC tensors are computed on the engine's
+device.
 
 Reference parity: ``Convolution::prepare`` computes every IR spectrum ON
 THE GPU (cufftExecC2C + Hermitian unpack, reference src/conv.cu:207-253);
@@ -23,6 +24,7 @@ import numpy as np
 import torch
 
 if TYPE_CHECKING:
+    from tpu_audio_torch.engine.cascade import CascadeBank
     from tpu_audio_torch.engine.fmajor import FMajorBank
 
 
@@ -138,15 +140,49 @@ def _fmajor_bank(engine, td: torch.Tensor) -> FMajorBank:
         spectra_rev2=placeholder(5))
 
 
-def prepare_fmajor_bank_device(engine, td) -> FMajorBank:
-    """[K, O, L] host f32 (or an IRBank) -> FMajorBank on the engine's
-    device, spectra and packs computed there. Mirrors
-    engine.prepare_bank(spectra) to the FFT's rounding."""
+def cascade_columns(engine, td: torch.Tensor
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """td [K, O, L] f32 on the cascade engine's device -> the (head, tail)
+    MAC tensors [F, 2, 2*Pp, KOD] of both stages: the head partitions the
+    first 2*B2 samples at the block size, the tail the rest at B2. The
+    JAX package packs its tail frequency-minor (``pack_tail_fminor_j``);
+    the port keeps fmajor's frequency-major pack for both stages, which
+    is what ring_mac reads."""
+    head = pad_parts(
+        partition_fd(td, engine.block, engine.head_parts, 0, engine.xf1),
+        engine.pp1)
+    tail = pad_parts(
+        partition_fd(td, engine.b2, engine.tail_parts, 2 * engine.b2,
+                     engine.xf2),
+        engine.pp2)
+    return (pack_mac_rhs_j(double_reversed_j(head, axis=2)),
+            pack_mac_rhs_j(double_reversed_j(tail, axis=2)))
+
+
+def _upload(engine, td) -> torch.Tensor:
+    """[K, O, L] host f32 (or an IRBank) -> the same on the engine's
+    device, after checking the bank size against the engine's."""
     td = td if isinstance(td, np.ndarray) else bank_time_domain(td)
     if engine.num_irs is not None and td.shape[0] != engine.num_irs:
         raise ValueError(f"bank has {td.shape[0]} IRs, engine was built "
                          f"for num_irs={engine.num_irs}")
     engine.num_irs = td.shape[0]
-    dev = torch.as_tensor(np.ascontiguousarray(td, np.float32)
-                          ).to(engine.device)
-    return _fmajor_bank(engine, dev)
+    return torch.as_tensor(np.ascontiguousarray(td, np.float32)
+                           ).to(engine.device)
+
+
+def prepare_fmajor_bank_device(engine, td) -> FMajorBank:
+    """[K, O, L] host f32 (or an IRBank) -> FMajorBank on the engine's
+    device, spectra and packs computed there. Mirrors
+    engine.prepare_bank(spectra) to the FFT's rounding."""
+    return _fmajor_bank(engine, _upload(engine, td))
+
+
+def prepare_cascade_bank_device(engine, td) -> CascadeBank:
+    """[K, O, L] host f32 (or an IRBank) -> CascadeBank on the cascade
+    engine's device, both stages' spectra and packs computed there.
+    Mirrors engine.prepare_bank(bank) to the FFT's rounding."""
+    from tpu_audio_torch.engine.cascade import CascadeBank
+
+    head, tail = cascade_columns(engine, _upload(engine, td))
+    return CascadeBank(head_rhs2=head, tail_rhs2=tail)

@@ -1,12 +1,14 @@
 """Reverb model: engine + bank + control plane bundle (port of
-tpu_audio/models/reverb.py:ConvolutionReverb, the fmajor branch).
+tpu_audio/models/reverb.py:ConvolutionReverb, the fmajor and cascade
+branches).
 
 ``ConvolutionReverb`` matches the reference's application wiring
 (reference src/main.cu:18-116: settings -> IR bank -> Convolution instance
--> control mapping -> stream), batched over V stereo voices on one
-FMajorPartitionedConvolution and one shared device bank. With
-``bank_capacity=N`` the device holds only N IR slots and a working set
-(runtime/working_set.py) pages IRs of the full bank in on demand.
+-> control mapping -> stream), batched over V stereo voices on one engine
+(FMajorPartitionedConvolution, or CascadeConvolution for voice scaling)
+and one shared device bank. With ``bank_capacity=N`` the device holds only
+N IR slots and a working set (runtime/working_set.py) pages IRs of the
+full bank in on demand.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ import os
 
 from tpu_audio_torch.engine import device_prep
 from tpu_audio_torch.engine.bank import IRBank
+from tpu_audio_torch.engine.cascade import CascadeConvolution
 from tpu_audio_torch.engine.fmajor import FMajorPartitionedConvolution
 from tpu_audio_torch.engine.params import CC_MAX_SPEED, CCMapping, ControlPlane
 from tpu_audio_torch.io.settings import Settings
@@ -22,6 +25,19 @@ from tpu_audio_torch.runtime.backends import BlockSink, BlockSource
 from tpu_audio_torch.runtime.stream import MidiSchedule, StreamSession
 from tpu_audio_torch.utils.device import resolve_device
 from tpu_audio_torch.utils.log import Log
+
+
+def _fit_cascade_ratio(requested: int, num_voices: int, partitions: int) -> int:
+    """Largest valid stagger ratio <= requested: the cascade engine needs
+    `num_voices % ratio == 0` (one voice group's tail chunk per block) and
+    `partitions > 2*ratio` (the head must not swallow the whole IR)."""
+    for ratio in range(min(requested, num_voices, (partitions - 1) // 2), 1, -1):
+        if num_voices % ratio == 0:
+            return ratio
+    raise ValueError(
+        f"no cascade stagger ratio >= 2 fits voices={num_voices}, "
+        f"IR partitions={partitions}; use engine='fmajor' (short IRs or "
+        f"awkward voice counts don't benefit from the cascade)")
 
 
 def pair_geometry_keys(settings: Settings, root: str | None) -> list[tuple]:
@@ -92,21 +108,28 @@ class ConvolutionReverb:
     come from the same FFT. `bank_capacity=N` keeps N resident IR slots on
     the 'allk' MAC and pages the rest of the bank in on demand
     (runtime/working_set.py), each fault uploading the time-domain IR,
-    with `async_paging` and `ws_exhausted` ("defer" or "raise")."""
+    with `async_paging` and `ws_exhausted` ("defer" or "raise").
+
+    `engine="cascade"` builds the two-stage engine (engine/cascade.py)
+    with the largest stagger ratio <= `cascade_ratio` that the voice count
+    and the IR length allow, and its `predelay_side` and `tail_mac`."""
 
     def __init__(self, bank: IRBank, num_voices: int = 1, block: int = 256,
                  sample_rate: int = 44100, engine: str = "fmajor",
                  max_predelay: int = 8192,
                  max_partitions: int | None = None,
                  mac_strategy: str = "auto", mac_dtype: str = "f32",
-                 swap_snapshot: bool = True,
+                 swap_snapshot: bool = True, cascade_ratio: int = 16,
+                 predelay_side: str = "write", tail_mac: str = "auto",
                  bank_capacity: int | None = None,
                  async_paging: bool = False, ws_exhausted: str = "defer",
                  device=None):
-        if engine != "fmajor":
+        if engine in ("partitioned", "monolithic"):
             raise NotImplementedError(
-                f"engine {engine!r} is not ported yet; the port serves the "
-                f"fmajor engine")
+                f"engine {engine!r} is not ported yet (ROADMAP.md, Queue 1 "
+                f"item 14); the port serves 'fmajor' and 'cascade'")
+        if engine not in ("fmajor", "cascade"):
+            raise ValueError(f"unknown engine {engine!r}")
         self.bank = bank
         self.block = block
         self.sample_rate = sample_rate
@@ -121,50 +144,83 @@ class ConvolutionReverb:
         self.control = ControlPlane(num_voices, len(bank), max_predelay,
                                     device=self.device)
         self.working_set = None
-        if bank_capacity is not None:
-            self._init_working_set(
-                bank, num_voices, block, max_predelay, max_partitions,
-                mac_dtype, min(bank_capacity, len(bank)), swap_snapshot,
-                async_paging, ws_exhausted)
-            return
         partitions = max_partitions or bank.max_partitions(block)
-        # swap_snapshot=False only composes with the allk strategy; the
-        # auto rule would silently pick 'selected' on big banks
-        strategy = mac_strategy
-        if not swap_snapshot and strategy == "auto":
-            strategy = "allk"
-        self.engine = FMajorPartitionedConvolution(
-            num_voices, block, partitions, max_predelay=max_predelay,
-            mac_strategy=strategy, num_irs=len(bank), mac_dtype=mac_dtype,
-            swap_snapshot=swap_snapshot, device=self.device)
-        self.spectra = device_prep.prepare_fmajor_bank_device(self.engine,
-                                                              bank)
-        Log.info("reverb", "%d voice(s), %d IRs, engine=fmajor (%s), bank "
-                 "%.1f MB on %s", num_voices, len(bank),
+        if bank_capacity is not None:
+            capacity = min(bank_capacity, len(bank))
+            if engine == "cascade":
+                # residency is defined over the all-K MAC's bank slots
+                self.engine = self._cascade(
+                    num_voices, block, partitions, cascade_ratio,
+                    max_predelay, capacity, mac_dtype, predelay_side,
+                    tail_mac, "allk")
+            else:
+                self.engine = FMajorPartitionedConvolution(
+                    num_voices, block, partitions, max_predelay=max_predelay,
+                    mac_strategy="allk", num_irs=capacity,
+                    mac_dtype=mac_dtype, swap_snapshot=swap_snapshot,
+                    device=self.device)
+            self._init_working_set(bank, capacity, async_paging,
+                                   ws_exhausted)
+            return
+        if engine == "cascade":
+            self.engine = self._cascade(
+                num_voices, block, partitions, cascade_ratio, max_predelay,
+                len(bank), mac_dtype, predelay_side, tail_mac, mac_strategy)
+            self.spectra = device_prep.prepare_cascade_bank_device(
+                self.engine, bank)
+        else:
+            # swap_snapshot=False only composes with the allk strategy;
+            # the auto rule would silently pick 'selected' on big banks
+            strategy = mac_strategy
+            if not swap_snapshot and strategy == "auto":
+                strategy = "allk"
+            self.engine = FMajorPartitionedConvolution(
+                num_voices, block, partitions, max_predelay=max_predelay,
+                mac_strategy=strategy, num_irs=len(bank),
+                mac_dtype=mac_dtype, swap_snapshot=swap_snapshot,
+                device=self.device)
+            self.spectra = device_prep.prepare_fmajor_bank_device(
+                self.engine, bank)
+        Log.info("reverb", "%d voice(s), %d IRs, engine=%s (%s), bank "
+                 "%.1f MB on %s", num_voices, len(bank), engine,
                  self.engine.mac_strategy, self.bank_bytes() / 1e6,
                  self.device)
 
-    def _init_working_set(self, bank, num_voices, block, max_predelay,
-                          max_partitions, mac_dtype, capacity,
-                          swap_snapshot, async_paging, ws_exhausted):
-        """Large banks at small-bank speed: the engine runs the all-K path
-        over `capacity` resident IR slots; the full bank stays on the host
-        and select events page IRs in on demand (runtime/working_set.py).
-        Engine geometry is sized by the FULL bank so any member IR fits
-        its slot."""
+    def _cascade(self, num_voices, block, partitions, requested, max_predelay,
+                 num_irs, mac_dtype, predelay_side, tail_mac, mac_strategy):
+        """The cascade engine at the largest stagger ratio <= `requested`
+        that fits (a warning says when it shrank). A bank that
+        mac_strategy='auto' sends to 'selected' raises NotImplementedError
+        (the engine's)."""
+        ratio = _fit_cascade_ratio(requested, num_voices, partitions)
+        if ratio != requested:
+            Log.warn("reverb", "cascade ratio %d adjusted to %d (voices=%d "
+                     "must divide, IR partitions=%d must exceed 2*ratio)",
+                     requested, ratio, num_voices, partitions)
+        return CascadeConvolution(
+            num_voices, block, partitions, ratio=ratio,
+            max_predelay=max_predelay, num_irs=num_irs, mac_dtype=mac_dtype,
+            predelay_side=predelay_side, tail_mac=tail_mac,
+            mac_strategy=mac_strategy, device=self.device)
+
+    def _init_working_set(self, bank, capacity, async_paging, ws_exhausted):
+        """Large banks at small-bank speed: the engine (built over
+        `capacity` slots) runs the all-K path; the full bank stays on the
+        host and select events page IRs in on demand
+        (runtime/working_set.py). Engine geometry is sized by the FULL
+        bank so any member IR fits its slot."""
         from tpu_audio_torch.runtime.working_set import WorkingSetBank
 
-        partitions = max_partitions or bank.max_partitions(block)
         residents = list(range(capacity))
-        self.engine = FMajorPartitionedConvolution(
-            num_voices, block, partitions, max_predelay=max_predelay,
-            mac_strategy="allk", num_irs=capacity, mac_dtype=mac_dtype,
-            swap_snapshot=swap_snapshot, device=self.device)
         compact = IRBank(sample_rate=bank.sample_rate)
         for k in residents:
             compact.append(bank.ir(k))
-        self.spectra = device_prep.prepare_fmajor_bank_device(self.engine,
-                                                              compact)
+        if isinstance(self.engine, CascadeConvolution):
+            self.spectra = device_prep.prepare_cascade_bank_device(
+                self.engine, compact)
+        else:
+            self.spectra = device_prep.prepare_fmajor_bank_device(
+                self.engine, compact)
         # the slowest CC-reachable crossfade (speed 127 -> vsteps 1016)
         # plus decay margin sets the eviction protection window: a slot
         # must never be reclaimed while a fade-out still references it
@@ -175,8 +231,9 @@ class ConvolutionReverb:
         self.working_set.on_update = self._publish_bank
         self._live_session = None
         Log.info("reverb", "%d voice(s), %d-IR bank with %d resident slots, "
-                 "engine=fmajor (allk), bank %.1f MB on %s", num_voices,
-                 len(bank), capacity, self.bank_bytes() / 1e6, self.device)
+                 "engine=%s (allk), bank %.1f MB on %s", self.engine.num_voices,
+                 len(bank), capacity, type(self.engine).__name__,
+                 self.bank_bytes() / 1e6, self.device)
 
     def bank_bytes(self) -> int:
         """Bytes of the device bank, placeholders included."""

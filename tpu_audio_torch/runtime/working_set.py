@@ -6,7 +6,8 @@ rhs window is read every block), and past 16 IRs mac_strategy='auto'
 sends a bank to the 'selected' strategy, whose per-voice gather and batched
 MAC run every block. But voices rarely USE more than a handful of IRs at
 once — selections draw from a menu. This module keeps only a small working
-set resident on the device: the engine runs the all-K path (ring_mac) over
+set resident on the device: the engine (fmajor or the cascade) runs the
+all-K path (ring_mac) over
 ``capacity`` slots, the control plane's select events are remapped
 full-index -> slot, and a bank miss uploads ONE time-domain IR and packs it
 into a slot between blocks (``engine.update_bank_slot``: 1.41 MB up for a
@@ -71,8 +72,9 @@ class WorkingSetBank:
 
     Parameters
     ----------
-    engine: an fmajor 'allk' engine (update_bank_slot, pack_bank_slot,
-        write_bank_slot), built with ``num_irs == capacity``.
+    engine: an fmajor 'allk' engine or the cascade (update_bank_slot,
+        pack_bank_slot, write_bank_slot), built with ``num_irs ==
+        capacity``. Either fault uploads the time-domain IR [O, L].
     control: the ControlPlane whose ``select_remap`` hook this installs.
         ``control.select`` then holds SLOT indices; CC scaling and
         per-channel bank windows keep operating on full-bank indices.
