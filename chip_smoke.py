@@ -95,15 +95,34 @@ Phases, in order; any failure raises and the script exits non-zero:
      launches per block, voices 0 and 1023 against the golden before the
      re-select and after the fade, the host ms of each part of its
      session block; its steps and the fmajor ring/allk steady step at 1024
-     voices (swap_snapshot=False) are timed.
+     voices (swap_snapshot=False) are timed;
+ 16. the offline bounce at full width: ConvolutionReverb's defaults (ring,
+     'allk') at 64 voices render 30 s of per-voice noise with the tail,
+     auto segments resolving to 8 (512 virtual voices), twice; every step
+     must launch ring_mac (warm-up + segment length) and none mac_shift,
+     the output must be finite, voices 0 and 63 must match the golden at
+     every segment boundary and over the tail; prints each take's prime,
+     step-loop and collection times, ms per step (CUDA events), x real
+     time and voice-seconds per second, then the steady step at 512
+     virtual voices (device busy, top ops) and at 64, and ring_mac at the
+     bounce's shape (VI = 1024) against plain, einsum and bound;
+ 17. an automated bounce: phase 4's re-select and interrupt and a wet
+     change at 320 as a MidiSchedule over 800 blocks, whole and in chunks
+     of 256 blocks, each equal to the model's session streaming the same
+     timeline on the card within 2e-5 of scale on every block and voice;
+ 18. the other engines' bounces, 10 s at 64 voices: the cascade (ratio 16,
+     auto segments, two ring_mac launches per step) and a roll-mode engine
+     (4 segments, every step on mac_shift), both against the golden, with
+     each kernel first held against its plain version at the shapes these
+     bounces give it.
 
 The line before the last is a JSON object describing each kernel (its
-launches summed over the phases whose path rides it: 4, 11, 12, 14 and 15
-for ring_mac, 7 and 10 for mac_shift; its times and roofline bound at
-KOD=16, under per_kod at KOD 16, 36 and 64, and ring_mac's at the
-cascade's four shapes under cascade); the last line is {"ok": true,
-"device": {...}}. The script imports nothing of JAX and nothing of the JAX
-package.
+launches summed over the phases whose path rides it: 4, 11, 12, 14-17 and
+18's cascade for ring_mac, 7, 10 and 18's roll engine for mac_shift; its
+times and roofline bound at KOD=16, under per_kod at KOD 16, 36 and 64,
+ring_mac's at the cascade's four shapes under cascade and at the bounce's
+shape under bounce); the last line is {"ok": true, "device": {...}}. The
+script imports nothing of JAX and nothing of the JAX package.
 """
 
 import json
@@ -160,6 +179,15 @@ CASCADE_SHAPES = {
                    CAS_PP2)}
 RING_KODS = (16, 36, 64)  # 4, 9 and 16 IRs: the main path, a KOD that is no
                          # multiple of 16, the all-K ceiling
+# the offline bounce (phases 16-18): 30 s of per-voice noise at 0.01 for 64
+# voices, whose auto segment count must resolve to 8 (512 virtual voices),
+# bounced twice (the host's time spreads between calls)
+BOUNCE_SAMPLES, BOUNCE_SEGMENTS, BOUNCE_REPS = 30 * RATE, 8, 2
+# phase 17: phase 4's re-select and interrupt, then a wet change (CC 23 to
+# 100/128) at 320, mid-fade, over 800 blocks; chunks of 256 blocks
+AUTO_WET_CC, AUTO_WET_AT, AUTO_WET_VALUE, AUTO_CHUNK = 23, 320, 100, 256
+# phase 18: 10 s; the cascade at auto segments, roll mode at 4 segments
+ENGINE_SAMPLES, ROLL_SEGMENTS = 10 * RATE, 4
 # published peaks of one H100 SXM (NVIDIA's data sheet): HBM bytes/s and
 # f32 FLOP/s outside the tensor cores, at the full 700 W power limit
 HBM_BYTES_PER_S, F32_FLOPS = 3.35e12, 67e12
@@ -574,11 +602,43 @@ def time_ring_mac(rm, fdl, rhs2, w_host=5):
     return out
 
 
+def check_ring_mac(rm, fdl, rhs2, label):
+    """ring_mac on (fdl, rhs2) against the float64 plain version, and the
+    library yardstick too, at w in {0, 1, Pp/2+1, Pp-1}, within 1e-5 of
+    the output's scale. Returns the largest error; raises beyond it."""
+    import torch
+
+    f, vi, _, pp = fdl.shape
+    kod = rhs2.shape[3]
+    fdl64, rhs64 = fdl.double(), rhs2.double()
+    worst = 0.0
+    for w in sorted({0, 1, pp // 2 + 1, pp - 1}):
+        wt = torch.tensor(w, dtype=torch.int32, device=fdl.device)
+        got = rm.ring_mac(wt, fdl, rhs2)
+        torch.cuda.synchronize()
+        ref64 = rm.ring_mac_reference(w, fdl64, rhs64)
+        scale = ref64.abs().max().item()
+        err = (got.double() - ref64).abs().max().item()
+        err_lib = (ring_mac_library(w, fdl, rhs2).double()
+                   - ref64).abs().max().item()
+        print(f"ring_mac vs plain [{label} F={f} VI={vi} Pp={pp} KOD={kod} "
+              f"w={w}]: max_abs_err {err:.3e} (library {err_lib:.3e}, limit "
+              f"{1e-5 * scale:.3e})")
+        if not err <= 1e-5 * scale:
+            raise AssertionError(f"ring_mac kernel disagrees with the plain "
+                                 f"version at {label} w={w}")
+        if not err_lib <= 1e-5 * scale:
+            raise AssertionError(f"the library yardstick computes another "
+                                 f"function at {label} w={w}")
+        worst = max(worst, err)
+        del got, ref64
+    return worst
+
+
 def check_cascade_shapes(rm, dev, rng):
     """Phase 13: ring_mac at the cascade's four shapes (KOD 16) against the
-    float64 plain version at w in {0, 1, Pp/2+1, Pp-1}, within 1e-5 of
-    the output's scale, then timed (time_ring_mac). Returns (largest
-    error, {shape: timing})."""
+    float64 plain version (check_ring_mac), then timed (time_ring_mac).
+    Returns (largest error, {shape: timing})."""
     import torch
 
     worst, timed = 0.0, {}
@@ -588,28 +648,7 @@ def check_cascade_shapes(rm, dev, rng):
                                                dtype=np.float32), device=dev)
         rhs2 = torch.tensor(rng.standard_normal((f, 2, 2 * pp, kod),
                                                 dtype=np.float32), device=dev)
-        fdl64, rhs64 = fdl.double(), rhs2.double()
-        for w in sorted({0, 1, pp // 2 + 1, pp - 1}):
-            wt = torch.tensor(w, dtype=torch.int32, device=dev)
-            got = rm.ring_mac(wt, fdl, rhs2)
-            torch.cuda.synchronize()
-            ref64 = rm.ring_mac_reference(w, fdl64, rhs64)
-            scale = ref64.abs().max().item()
-            err = (got.double() - ref64).abs().max().item()
-            err_lib = (ring_mac_library(w, fdl, rhs2).double()
-                       - ref64).abs().max().item()
-            print(f"ring_mac vs plain [cascade {name} F={f} VI={vi} Pp={pp} "
-                  f"KOD={kod} w={w}]: max_abs_err {err:.3e} (library "
-                  f"{err_lib:.3e}, limit {1e-5 * scale:.3e})")
-            if not err <= 1e-5 * scale:
-                raise AssertionError(f"ring_mac kernel disagrees with the "
-                                     f"plain version at cascade {name} w={w}")
-            if not err_lib <= 1e-5 * scale:
-                raise AssertionError(f"the library yardstick computes "
-                                     f"another function at {name} w={w}")
-            worst = max(worst, err)
-            del ref64
-        del fdl64, rhs64
+        worst = max(worst, check_ring_mac(rm, fdl, rhs2, f"cascade {name}"))
         t = timed[name] = time_ring_mac(rm, fdl, rhs2)
         gbps = t["bytes"] / (t["kernel"] * 1e-3) / 1e9
         print(f"ring_mac timing [cascade {name}]: kernel "
@@ -858,6 +897,485 @@ def run_cascade_1024(bank, irs, dev, configure, select, keep_sink,
     return {"summary": summary, "launches": launches, "peak_mb": peak_mb,
             "state_mb": state_mb, "build_s": build_s, "run_s": run_s,
             "golden_err": golden_err, "steps": steps_ms, "split": split}
+
+
+def voice_noise(voices, samples, seed):
+    """Per-voice program material [V, 2, T] f32: noise at 0.01 from numpy
+    seed `seed`."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((voices, 2, samples), dtype=np.float32)
+    x *= np.float32(0.01)
+    return x
+
+
+class BounceStages:
+    """Times the stages of render_offline calls by wrapping the renderer's
+    module functions while the context is open: the host input layout
+    (_block_tensor), the prime (host wall and CUDA events), the step loop
+    (host wall of the enqueue, CUDA events from its first step to its last,
+    the steps run) and _collect (host wall: the pinned buffer, the step
+    loop, the wait and the host copy). Summed over every call inside the
+    context (a chunked bounce makes several)."""
+
+    NAMES = ("_block_tensor", "_prime_fast", "_step_loop", "_collect")
+
+    def __init__(self, offline):
+        self.offline = offline
+        self.wall = dict.fromkeys(self.NAMES, 0.0)
+        self.events = {name: [] for name in self.NAMES}
+        self.steps = 0
+
+    def __enter__(self):
+        self.orig = {name: getattr(self.offline, name) for name in self.NAMES}
+        for name in self.NAMES:
+            setattr(self.offline, name, self._wrap(name))
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.orig.items():
+            setattr(self.offline, name, fn)
+
+    def _wrap(self, name):
+        import torch
+
+        fn = self.orig[name]
+
+        def call(*args, **kwargs):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            start.record()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                end.record()
+                self.wall[name] += time.perf_counter() - t0
+                self.events[name].append((start, end))
+                if name == "_step_loop":   # (step, state, warmup, seg_len, ..)
+                    self.steps += args[2] + args[3]
+        return call
+
+    def device_ms(self, name):
+        import torch
+
+        torch.cuda.synchronize()
+        return sum(s.elapsed_time(e) for s, e in self.events[name])
+
+    def report(self, label, wall_s, audio_s, voices):
+        """Prints and returns the stage split of the bounces timed."""
+        loop_ms = self.device_ms("_step_loop")
+        out = {"wall_s": wall_s,
+               "prime_wall_s": self.wall["_prime_fast"],
+               "prime_device_ms": self.device_ms("_prime_fast"),
+               "loop_wall_s": self.wall["_step_loop"],
+               "loop_device_ms": loop_ms,
+               "collect_wall_s": (self.wall["_collect"]
+                                  - self.wall["_step_loop"]),
+               "layout_wall_s": self.wall["_block_tensor"],
+               "steps": self.steps,
+               "ms_per_step": loop_ms / max(self.steps, 1),
+               "x_real_time": audio_s / wall_s,
+               "voice_s_per_s": voices * audio_s / wall_s}
+        out["other_wall_s"] = (wall_s - out["prime_wall_s"]
+                               - self.wall["_collect"]
+                               - out["layout_wall_s"])
+        print(f"{label}: {audio_s:.2f} s of audio x {voices} voices in "
+              f"{wall_s:.3f} s wall = {out['x_real_time']:.2f}x real time, "
+              f"{out['voice_s_per_s']:.1f} voice-seconds per second; input "
+              f"layout {out['layout_wall_s']:.3f} s, prime "
+              f"{out['prime_wall_s']:.3f} s wall ({out['prime_device_ms']:.1f}"
+              f" ms device), step loop {out['loop_wall_s']:.3f} s wall for "
+              f"{self.steps} steps, {out['ms_per_step']:.3f} ms per step "
+              f"(CUDA events), collection {out['collect_wall_s']:.3f} s, "
+              f"the rest (upload, state, step inputs, output layout) "
+              f"{out['other_wall_s']:.3f} s")
+        return out
+
+
+def check_bounce_golden(name, out, x, rows, ir, seg_len, nseg,
+                        limit=1e-4):
+    """Voices `rows` of a static bounce `out` [V, 2, T'] of `x` [V, 2, T]
+    against the golden of IR `ir` (the zero input past T flushing the
+    tail) over four blocks around every segment boundary, the first four
+    blocks, and the last four input blocks with the whole tail. Returns
+    the largest error; raises beyond `limit`."""
+    t_out = out.shape[-1]
+    t_blocks, out_blocks = -(-x.shape[-1] // BLOCK), -(-t_out // BLOCK)
+    bounds = [s * seg_len for s in range(1, nseg) if s * seg_len < out_blocks]
+    windows = ([(0, 4)] + [(b - 2, b + 2) for b in bounds]
+               + [(t_blocks - 4, out_blocks)])
+    worst = 0.0
+    for v in rows:
+        xe = np.zeros((2, t_out), np.float32)
+        xe[:, : x.shape[-1]] = x[v]
+        want = golden(xe, [ir, ir], wet=0.7, dry=0.2, predelay=1024)
+        errs = [float(np.abs(out[v, :, b0 * BLOCK: b1 * BLOCK]
+                             - want[:, b0 * BLOCK: b1 * BLOCK]).max())
+                for b0, b1 in windows]
+        worst = max(worst, *errs)
+        print(f"{name} golden voice {v}: max_abs_err {max(errs):.3e} (limit "
+              f"{limit:.0e}) over {len(windows)} windows: the head, the "
+              f"segment boundaries at blocks {bounds} (worst "
+              f"{max(errs[1:-1], default=0.0):.3e}), the tail from block "
+              f"{t_blocks - 4} ({errs[-1]:.3e})")
+        if not max(errs) <= limit:
+            raise AssertionError(f"{name}: voice {v} disagrees with the golden")
+    return worst
+
+
+def run_bounce_static(bank, irs, dev, configure, reset_counts, rm, ms, rng):
+    """Phase 16: ConvolutionReverb's defaults (ring, 'allk', KOD 16) at 64
+    voices bounce 30 s of per-voice noise with auto segments, which must
+    resolve to 8 (512 virtual voices), twice; every step must launch
+    ring_mac and none mac_shift, the output must be finite and voices 0
+    and 63 must match the golden at every segment boundary and over the
+    tail. Then the bounce's steady step at 512 virtual voices (device busy,
+    top ops) and at 64 (the auto-segment cost model), and ring_mac at the
+    bounce's shape against plain, einsum and bound. Returns the figures."""
+    import torch
+
+    from tpu_audio_torch.engine.params import VoiceParams
+    from tpu_audio_torch.models.reverb import ConvolutionReverb
+    from tpu_audio_torch.runtime import offline
+
+    name = "bounce (static)"
+    model = ConvolutionReverb(bank, num_voices=VOICES, block=BLOCK,
+                              sample_rate=RATE, max_predelay=8192, device=dev)
+    engine, cp = model.engine, model.control
+    if not engine.ring_mode or engine.mac_strategy != "allk":
+        raise AssertionError(f"{name}: ring {engine.ring_mode}, "
+                             f"{engine.mac_strategy}")
+    configure(cp)
+    x = voice_noise(VOICES, BOUNCE_SAMPLES, seed=1)
+    t_blocks = -(-BOUNCE_SAMPLES // BLOCK)
+    total = t_blocks + engine.history_blocks
+    warmup = engine.prime_blocks
+    nseg = offline._auto_segments(total, warmup, VOICES, 512)
+    seg_len = -(-total // nseg)
+    print(f"{name}: {t_blocks} blocks + {engine.history_blocks} of tail, "
+          f"auto segments {nseg} ({VOICES * nseg} virtual voices), "
+          f"{warmup} warm-up steps + {seg_len}")
+    if nseg != BOUNCE_SEGMENTS:
+        raise AssertionError(f"{name}: auto segments resolved to {nseg}")
+    runs, outs = [], []
+    for rep in range(BOUNCE_REPS):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        with BounceStages(offline) as stages:
+            t0 = time.perf_counter()
+            out = model.render_offline(x)
+            wall = time.perf_counter() - t0
+        launches, shifts = rm.ring_mac.launches, ms.mac_shift.launches
+        run = stages.report(f"{name} take {rep + 1}", wall,
+                            BOUNCE_SAMPLES / RATE, VOICES)
+        run.update(launches=launches,
+                   peak_mb=torch.cuda.max_memory_allocated() / 1e6)
+        print(f"{name} take {rep + 1}: ring_mac launches {launches}, "
+              f"mac_shift launches {shifts}, peak allocated "
+              f"{run['peak_mb']:.1f} MB, output {out.shape}")
+        if launches != warmup + seg_len or shifts or stages.steps != launches:
+            raise AssertionError(f"{name}: ring_mac launched {launches} "
+                                 f"times and mac_shift {shifts} in "
+                                 f"{stages.steps} steps")
+        if out.shape != (VOICES, 2, BOUNCE_SAMPLES
+                         + engine.history_blocks * BLOCK):
+            raise AssertionError(f"{name}: output shape {out.shape}")
+        if not np.isfinite(out).all():
+            raise AssertionError(f"{name}: non-finite output")
+        runs.append(run)
+        outs.append(out[[0, VOICES - 1]])
+        del out
+    takes = float(np.abs(outs[0] - outs[1]).max())
+    print(f"{name}: take 1 against take 2, voices 0 and {VOICES - 1}: "
+          f"max_abs_err {takes:.3e}")
+    golden_err = check_bounce_golden(name, outs[0], x[[0, -1]], (0, 1),
+                                     irs[0], seg_len, nseg)
+    del outs
+    torch.cuda.empty_cache()
+
+    # the bounce's steady step at 512 virtual voices and at 64 voices
+    vv = VOICES * nseg
+    seng = offline._virtual_engine(engine, vv)
+    host = cp.snapshot()
+    params = VoiceParams(**{key: np.repeat(np.asarray(arr), nseg, axis=0)
+                            for key, arr in vars(host).items()}).to(dev)
+    state = seng.init_converged(model.spectra, params)
+    xin = torch.randn((vv, 2, BLOCK), device=dev) * 0.01
+    busy, ops, state = device_busy(seng.step_coef_steady, state,
+                                   model.spectra, params, xin,
+                                   label=f"bounce {vv}vv step_coef_steady")
+    p50_vv, p99_vv, state = step_times(seng.step_coef_steady, state,
+                                       model.spectra, params, xin, n=220)
+    del state, xin
+    base_params = cp.snapshot_device()
+    state = engine.init_converged(model.spectra, base_params)
+    xin = torch.randn((VOICES, 2, BLOCK), device=dev) * 0.01
+    p50_64, p99_64, state = step_times(engine.step_coef_steady, state,
+                                       model.spectra, base_params, xin, n=220)
+    slope = (p50_vv - p50_64) / (vv - VOICES)
+    what = "not measured" if busy is None else (
+        f"device busy {busy:.1f} us in {ops:.1f} device ops")
+    print(f"{name}: steady step at {vv} virtual voices p50 / p99 "
+          f"{p50_vv:.3f} / {p99_vv:.3f} ms (CUDA events), {what}; at "
+          f"{VOICES} voices {p50_64:.3f} / {p99_64:.3f} ms; cost model "
+          f"{p50_64 - slope * VOICES:.3f} ms + {slope * 1e3:.3f} us per "
+          f"virtual voice")
+    pp = engine.pp
+    del state, xin, model, engine, seng, params
+    torch.cuda.empty_cache()
+
+    # ring_mac at the bounce's shape: VI = 2 * 512 rows
+    fdl = torch.tensor(rng.standard_normal((BLOCK + 1, 2 * vv, 2, pp),
+                                           dtype=np.float32), device=dev)
+    rhs2 = torch.tensor(rng.standard_normal((BLOCK + 1, 2, 2 * pp,
+                                             4 * NUM_IRS), dtype=np.float32),
+                        device=dev)
+    mac_err = check_ring_mac(rm, fdl, rhs2, f"bounce {vv}vv")
+    t = time_ring_mac(rm, fdl, rhs2)
+    print(f"ring_mac timing [bounce {vv}vv F={BLOCK + 1} VI={2 * vv} "
+          f"Pp={pp} KOD={4 * NUM_IRS}]: kernel {t['kernel'] * 1e3:.2f} us "
+          f"({t['bytes'] / (t['kernel'] * 1e-3) / 1e9:.0f} GB/s, "
+          f"{100 * t['bound'] / t['kernel']:.1f} % of the "
+          f"{t['bound'] * 1e3:.2f} us bound by {t['bound_by']} on "
+          f"{t['bytes'] / 1e9:.3f} GB), plain {t['plain'] * 1e3:.2f} us, "
+          f"library {t['library'] * 1e3:.2f} us")
+    del fdl, rhs2
+    torch.cuda.empty_cache()
+    return {"runs": runs, "golden_err": golden_err, "takes_err": takes,
+            "nseg": nseg, "seg_len": seg_len, "warmup": warmup,
+            "busy_us": busy, "ops": ops, "step_vv": (p50_vv, p99_vv),
+            "step_64": (p50_64, p99_64), "mac_err": mac_err, "mac_ms": t,
+            "launches": sum(r["launches"] for r in runs)}
+
+
+def run_bounce_automated(bank, dev, configure, select, keep_sink,
+                         reset_counts, rm, ms):
+    """Phase 17: ConvolutionReverb's defaults at 64 voices bounce phase 4's
+    re-select and interrupt and a mid-fade wet change, as a MidiSchedule
+    over 800 blocks of per-voice noise (NoiseSource's, seed 0), whole and
+    in chunks of 256 blocks; then the model's session streams the same
+    timeline on the card. Both bounces must launch ring_mac once per step,
+    equal the stream within 2e-5 of scale on every block and voice, and
+    each other. Returns the figures."""
+    import torch
+
+    from tpu_audio_torch.engine.params import CCMapping
+    from tpu_audio_torch.models.reverb import ConvolutionReverb
+    from tpu_audio_torch.runtime import offline
+    from tpu_audio_torch.runtime.backends import WavSource
+    from tpu_audio_torch.runtime.stream import MidiSchedule
+
+    name = "bounce (automated)"
+    model = ConvolutionReverb(bank, num_voices=VOICES, block=BLOCK,
+                              sample_rate=RATE, max_predelay=8192, device=dev)
+    engine, cp = model.engine, model.control
+    configure(cp)
+    for v in range(VOICES):
+        for ch in range(2):
+            cp.set_mapping(v, ch, CCMapping(message=0xB0, select=SELECT_CC,
+                                            predelay=PREDELAY_CC,
+                                            wet=AUTO_WET_CC))
+
+    def timeline():
+        return MidiSchedule([select(SELECT_AT, 32), select(INTERRUPT_AT, 64),
+                             (AUTO_WET_AT, "",
+                              bytes([0xB0, AUTO_WET_CC, AUTO_WET_VALUE]))])
+
+    noise = np.random.default_rng(0)
+    x = np.concatenate([(noise.standard_normal((VOICES, 2, BLOCK)) * 0.01
+                         ).astype(np.float32) for _ in range(BLOCKS)],
+                       axis=-1)
+    total = BLOCKS + engine.history_blocks
+    _, warmup, nseg, seg_len = offline._plan_automated(
+        engine, total, segments=None, warmup_blocks=None,
+        max_virtual_voices=512)
+    hist = engine.history_blocks
+    _, c_warmup, c_nseg, c_seg_len = offline._plan_automated(
+        engine, hist + AUTO_CHUNK, segments=None, warmup_blocks=None,
+        max_virtual_voices=512)
+    chunks = -(-total // AUTO_CHUNK)
+    figures = {}
+    outs = {}
+    for label, kwargs, want in (
+            ("whole", {}, warmup + seg_len),
+            (f"chunks of {AUTO_CHUNK}", {"track_chunk_blocks": AUTO_CHUNK},
+             chunks * (c_warmup + c_seg_len))):
+        reset_counts()
+        with BounceStages(offline) as stages:
+            t0 = time.perf_counter()
+            outs[label] = model.render_offline(x, schedule=timeline(),
+                                               **kwargs)
+            wall = time.perf_counter() - t0
+        launches, shifts = rm.ring_mac.launches, ms.mac_shift.launches
+        figures[label] = stages.report(f"{name}, {label}", wall,
+                                       BLOCKS * BLOCK / RATE, VOICES)
+        figures[label]["launches"] = launches
+        print(f"{name}, {label}: ring_mac launches {launches} (want {want}), "
+              f"mac_shift launches {shifts}")
+        if launches != want or shifts:
+            raise AssertionError(f"{name}, {label}: ring_mac launched "
+                                 f"{launches} times, mac_shift {shifts}")
+        if not np.isfinite(outs[label]).all():
+            raise AssertionError(f"{name}, {label}: non-finite output")
+    print(f"{name}: whole bounce as {nseg} segments x {seg_len} + {warmup} "
+          f"warm-up; chunks as {chunks} x ({c_nseg} segments x {c_seg_len} "
+          f"+ {c_warmup})")
+
+    sink = keep_sink(keep_all=True)
+    session = model.session(WavSource(x, VOICES, BLOCK), sink)
+    reset_counts()
+    t0 = time.perf_counter()
+    session.run(model.init_state(), midi=timeline())
+    torch.cuda.synchronize()
+    stream_s = time.perf_counter() - t0
+    stream_launches = rm.ring_mac.launches
+    streamed = sink.data()
+    print(f"{name}: the session streamed {session.blocks_streamed} blocks in "
+          f"{stream_s:.3f} s (ring_mac launches {stream_launches}, indexed "
+          f"blocks {session.indexed_blocks}), selects {cp.select[0].tolist()},"
+          f" wet {cp.wet[0].tolist()}")
+    if (session.blocks_streamed != BLOCKS or sink.blocks != BLOCKS
+            or session.indexed_blocks < 20 or not sink.finite):
+        raise AssertionError(f"{name}: the session streamed "
+                             f"{session.blocks_streamed} blocks, "
+                             f"{session.indexed_blocks} indexed")
+    scale = float(np.abs(streamed).max())
+    whole, chunked = outs["whole"], outs[f"chunks of {AUTO_CHUNK}"]
+    err = float(np.abs(whole[..., : BLOCKS * BLOCK] - streamed).max())
+    chunk_err = float(np.abs(chunked - whole).max())
+    print(f"{name}: bounce against the session over {BLOCKS} blocks x "
+          f"{VOICES} voices: max_abs_err {err:.3e}; chunked against whole "
+          f"over {whole.shape[-1] // BLOCK} blocks: {chunk_err:.3e} (limit "
+          f"{2e-5 * scale:.3e} = 2e-5 of scale {scale:.3f})")
+    if not err <= 2e-5 * scale:
+        raise AssertionError(f"{name}: the bounce disagrees with the session")
+    if chunked.shape != whole.shape or not chunk_err <= 2e-5 * scale:
+        raise AssertionError(f"{name}: the chunked bounce disagrees with "
+                             f"the whole bounce")
+    del model, session, sink
+    torch.cuda.empty_cache()
+    return {"figures": figures, "stream_err": err, "chunk_err": chunk_err,
+            "stream_s": stream_s,
+            "launches": sum(f["launches"] for f in figures.values())}
+
+
+def run_bounce_engines(bank, irs, dev, configure, reset_counts, rm, ms,
+                       rng):
+    """Phase 18: the cascade (ConvolutionReverb(engine='cascade'), ratio
+    16) bounces 10 s of per-voice noise at 64 voices with auto segments,
+    two ring_mac launches per step, and a roll-mode engine (ring=False,
+    'allk') at 4 segments, every step on mac_shift; both against the
+    golden on voices 0 and 63. mac_shift is first held against its plain
+    version at the roll bounce's shape, ring_mac at the cascade bounce's
+    two. Returns the figures."""
+    import types
+
+    import torch
+
+    from tpu_audio_torch.engine.fmajor import FMajorPartitionedConvolution
+    from tpu_audio_torch.engine.params import ControlPlane
+    from tpu_audio_torch.models.reverb import ConvolutionReverb
+    from tpu_audio_torch.runtime import offline
+
+    x = voice_noise(VOICES, ENGINE_SAMPLES, seed=2)
+    t_blocks = -(-ENGINE_SAMPLES // BLOCK)
+    out = {}
+
+    cas = ConvolutionReverb(bank, num_voices=VOICES, block=BLOCK,
+                            sample_rate=RATE, engine="cascade",
+                            max_predelay=8192, cascade_ratio=CAS_RATIO,
+                            device=dev)
+    roll = FMajorPartitionedConvolution(
+        VOICES, BLOCK, bank.max_partitions(BLOCK), max_predelay=8192,
+        ring=False, mac_strategy="allk", num_irs=NUM_IRS, device=dev)
+    roll_cp = ControlPlane(VOICES, NUM_IRS, 8192, device=dev)
+    roll_model = types.SimpleNamespace(
+        engine=roll, spectra=roll.prepare_bank(bank.partitioned_spectra(BLOCK)),
+        control=roll_cp)
+    for label, model, segments, kernel in (
+            ("cascade", cas, None, "ring_mac"),
+            ("roll", roll_model, ROLL_SEGMENTS, "mac_shift")):
+        name = f"bounce ({label})"
+        engine = model.engine
+        configure(model.control)
+        fast = hasattr(engine, "prime_fdl")
+        warmup = engine.prime_blocks if fast else engine.history_blocks
+        total = t_blocks + engine.history_blocks
+        nseg = segments or offline._auto_segments(total, warmup, VOICES, 512)
+        seg_len = -(-total // nseg)
+        vv = VOICES * nseg
+        # the kernel at the shapes this bounce gives it
+        if label == "cascade":
+            mac_err = 0.0
+            for stage, (f, vi, pp) in (
+                    ("head", (BLOCK + 1, 2 * vv, CAS_PP1)),
+                    ("tail", (CAS_RATIO * BLOCK + 1, 2 * vv // CAS_RATIO,
+                              CAS_PP2))):
+                fdl = torch.tensor(rng.standard_normal(
+                    (f, vi, 2, pp), dtype=np.float32), device=dev)
+                rhs2 = torch.tensor(rng.standard_normal(
+                    (f, 2, 2 * pp, 4 * NUM_IRS), dtype=np.float32), device=dev)
+                mac_err = max(mac_err, check_ring_mac(
+                    rm, fdl, rhs2, f"cascade bounce {vv}vv {stage}"))
+                del fdl, rhs2
+        else:
+            f, vi, pp = BLOCK + 1, 2 * vv, roll.pp
+            fdl = torch.tensor(rng.standard_normal((f, vi, 2, pp),
+                                                   dtype=np.float32),
+                               device=dev)
+            xn = torch.tensor(rng.standard_normal((f, vi, 2, 1),
+                                                  dtype=np.float32),
+                              device=dev)
+            rhs = torch.tensor(rng.standard_normal((f, 2, pp, 4 * NUM_IRS),
+                                                   dtype=np.float32),
+                               device=dev)
+            shift64, ref64 = ms.mac_shift_reference(fdl.double(), xn.double(),
+                                                    rhs.double())
+            got_fdl, got = ms.mac_shift(fdl, xn, rhs)
+            torch.cuda.synchronize()
+            same = torch.equal(got_fdl.double(), shift64)
+            scale = ref64.abs().max().item()
+            mac_err = (got.double() - ref64).abs().max().item()
+            print(f"mac_shift vs plain [roll bounce {vv}vv F={f} VI={vi} "
+                  f"Pp={pp} KOD={4 * NUM_IRS}]: shifted line "
+                  f"{'bit-identical' if same else 'DIFFERS'}, m max_abs_err "
+                  f"{mac_err:.3e} (limit {1e-5 * scale:.3e})")
+            if not same or not mac_err <= 1e-5 * scale:
+                raise AssertionError("mac_shift disagrees with the plain "
+                                     "version at the roll bounce's shape")
+            del fdl, xn, rhs, shift64, ref64, got_fdl, got
+        torch.cuda.empty_cache()
+
+        reset_counts()
+        with BounceStages(offline) as stages:
+            t0 = time.perf_counter()
+            got = offline.render_offline(model, x, segments=segments)
+            wall = time.perf_counter() - t0
+        counts = {"ring_mac": rm.ring_mac.launches,
+                  "mac_shift": ms.mac_shift.launches}
+        figures = stages.report(name, wall, ENGINE_SAMPLES / RATE, VOICES)
+        steps = warmup + seg_len
+        want = {"ring_mac": 2 * steps if label == "cascade" else 0,
+                "mac_shift": steps if label == "roll" else 0}
+        print(f"{name}: {nseg} segments ({vv} virtual voices) x {seg_len} + "
+              f"{warmup} warm-up steps; launches {counts} (want {want})")
+        if counts != want or stages.steps != steps:
+            raise AssertionError(f"{name}: launches {counts} in "
+                                 f"{stages.steps} steps")
+        if not np.isfinite(got).all():
+            raise AssertionError(f"{name}: non-finite output")
+        figures.update(
+            launches=counts[kernel], mac_err=mac_err, nseg=nseg,
+            golden_err=check_bounce_golden(
+                name, got[[0, VOICES - 1]], x[[0, -1]], (0, 1), irs[0],
+                seg_len, nseg))
+        out[label] = figures
+        del got
+        torch.cuda.empty_cache()
+    del cas, roll, roll_model
+    torch.cuda.empty_cache()
+    return out
 
 
 def main() -> int:
@@ -1451,6 +1969,18 @@ def main() -> int:
                            reset_counts, rm, ms)
     torch.cuda.empty_cache()
 
+    # -- 16. the static bounce at full width, 512 virtual voices -------------------
+    bounce = run_bounce_static(bank, irs, dev, configure, reset_counts, rm, ms,
+                               rng)
+
+    # -- 17. an automated bounce against the session ------------------------------------
+    auto = run_bounce_automated(bank, dev, configure, select, KeepSink,
+                                reset_counts, rm, ms)
+
+    # -- 18. the cascade's and roll mode's bounces ---------------------------------------
+    engines = run_bounce_engines(bank, irs, dev, configure, reset_counts, rm,
+                                 ms, rng)
+
     tag = f"[{card}]"
     lines = []
     shorts = {"step_coef_steady": "steady", "step_coef_indexed": "indexed",
@@ -1539,9 +2069,47 @@ def main() -> int:
                max(big["golden_err"],
                    *(r["golden_err"] for r in cas_runs.values()))),
               ("deadline_ms", DEADLINE_MS),
+              ("bounce_segments", bounce["nseg"]),
+              ("bounce_virtual_voices", VOICES * bounce["nseg"]),
+              ("bounce_steps", bounce["warmup"] + bounce["seg_len"]),
+              ("bounce_golden_max_abs_err", bounce["golden_err"]),
+              ("bounce_takes_max_abs_err", bounce["takes_err"]),
+              ("bounce_steady_step_512vv_p50_ms", bounce["step_vv"][0]),
+              ("bounce_steady_step_512vv_p99_ms", bounce["step_vv"][1]),
+              ("bounce_steady_step_512vv_device_busy_us", bounce["busy_us"]),
+              ("bounce_steady_step_512vv_device_ops", bounce["ops"]),
+              ("bounce_steady_step_64v_p50_ms", bounce["step_64"][0]),
+              ("ring_mac_bounce_512vv_kernel_us",
+               bounce["mac_ms"]["kernel"] * 1e3),
+              ("ring_mac_bounce_512vv_plain_us",
+               bounce["mac_ms"]["plain"] * 1e3),
+              ("ring_mac_bounce_512vv_library_us",
+               bounce["mac_ms"]["library"] * 1e3),
+              ("ring_mac_bounce_512vv_bound_us",
+               bounce["mac_ms"]["bound"] * 1e3),
+              ("bounce_automated_stream_max_abs_err", auto["stream_err"]),
+              ("bounce_automated_chunked_max_abs_err", auto["chunk_err"]),
+              ("bounce_automated_session_s", auto["stream_s"]),
+              *((f"bounce_{label}_golden_max_abs_err", f["golden_err"])
+                for label, f in engines.items()),
+              *((f"bounce_{label}_segments", f["nseg"])
+                for label, f in engines.items()),
               ("golden_max_abs_err",
                max(golden_err, roll_err, sel_err, ceil_err, ring16_err,
                    *(r["golden_err"] for r in ws_runs.values())))]
+    takes = [(f"bounce_take{i + 1}", r) for i, r in enumerate(bounce["runs"])]
+    takes += [(f"bounce_automated_{label.split()[0]}", f)
+              for label, f in auto["figures"].items()]
+    takes += [(f"bounce_{label}", f) for label, f in engines.items()]
+    for prefix, r in takes:
+        lines += [(f"{prefix}_{key}", r[key])
+                  for key in ("wall_s", "prime_wall_s", "prime_device_ms",
+                              "loop_wall_s", "collect_wall_s", "layout_wall_s",
+                              "other_wall_s",
+                              "steps", "ms_per_step", "x_real_time",
+                              "voice_s_per_s", "launches")]
+    lines += [(f"bounce_take{i + 1}_peak_allocated_MB", r["peak_mb"])
+              for i, r in enumerate(bounce["runs"])]
     for key, value in lines:
         print(f"{key} {value} {tag}")
 
@@ -1565,11 +2133,16 @@ def main() -> int:
               launches + ring16_launches
               + sum(r["launches"] for r in ws_runs.values())
               + sum(r["launches"] for r in cas_runs.values())
-              + big["launches"],
-              max(max_abs_err, cas_err), ring_ms,
-              cascade={shape: timings(t) for shape, t in cas_ms.items()}),
+              + big["launches"] + bounce["launches"] + auto["launches"]
+              + engines["cascade"]["launches"],
+              max(max_abs_err, cas_err, bounce["mac_err"],
+                  engines["cascade"]["mac_err"]), ring_ms,
+              cascade={shape: timings(t) for shape, t in cas_ms.items()},
+              bounce={f"vi{2 * VOICES * bounce['nseg']}_kod{kod_full}":
+                      timings(bounce["mac_ms"])}),
         entry("mac_shift", "tpu_audio/ops/pallas_mac.py:76",
-              roll_launches + ceil_launches, shift_err, shift_ms)]}))
+              roll_launches + ceil_launches + engines["roll"]["launches"],
+              max(shift_err, engines["roll"]["mac_err"]), shift_ms)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

@@ -432,3 +432,134 @@ def test_cascade_steps_never_sync(cuda, side):
     assert ring_mac.launches - before == 16
     assert state.step == 9 and int(state.t) == 9
     assert bool(torch.isfinite(out).all())
+
+
+def _offline_model(device, kind, automate=False):
+    """A small bounce set-up: 'ring' or 'selected' fmajor (2 voices, 3 IRs
+    of 300 samples), a 'roll' fmajor engine (no model builds one: the
+    (engine, spectra, control) triple render_offline reads), or the
+    'cascade' (4 voices, ratio 4, 1200-sample IRs)."""
+    import types
+
+    from tpu_audio_torch.engine import IRBank
+    from tpu_audio_torch.engine.params import CCMapping
+    from tpu_audio_torch.models.reverb import ConvolutionReverb
+
+    voices = 4 if kind == "cascade" else 2
+    if kind == "roll":
+        rng = np.random.default_rng(3)
+        spectra = (np.fft.rfft(rng.standard_normal((3, 2, 10, 64)), axis=-1)
+                   * 0.1).astype(np.complex64)
+        eng = FMajorPartitionedConvolution(voices, 32, 10, max_predelay=64,
+                                           ring=False, num_irs=3,
+                                           device=device)
+        model = types.SimpleNamespace(
+            engine=eng, spectra=eng.prepare_bank(spectra),
+            control=ControlPlane(voices, 3, 64, device=device))
+    else:
+        bank = IRBank()
+        for ir in _ws_irs(num_irs=3, n=1200 if kind == "cascade" else 300,
+                          seed=9):
+            bank.append(ir)
+        kwargs = ({"engine": "cascade", "cascade_ratio": 4}
+                  if kind == "cascade" else
+                  {"mac_strategy": "selected" if kind == "selected"
+                   else "allk"})
+        model = ConvolutionReverb(bank, num_voices=voices, block=32,
+                                  max_predelay=64, device=device, **kwargs)
+    cp = model.control
+    cp.wet[:] = 0.8
+    cp.predelay[:, 0] = [17, 40, 3, 63][:voices]
+    cp.select[:, 1] = 2
+    if automate:
+        cp.speed[:] = 8
+        for v in range(voices):
+            for c in range(2):
+                cp.set_mapping(v, c, CCMapping(message=0xB0, select=0x15,
+                                               wet=0x16))
+    return model
+
+
+def _bounce_steps(engine, t_blocks, segments, automated=False):
+    """Steps of a whole-track bounce: warm-up plus one segment."""
+    fast = hasattr(engine, "prime_fdl")
+    warmup = engine.prime_blocks if fast else engine.history_blocks
+    ratio = getattr(engine, "ratio", 1) if automated else 1
+    warmup = -(-warmup // ratio) * ratio
+    seg_len = -(-(t_blocks + engine.history_blocks) // segments)
+    return warmup + -(-seg_len // ratio) * ratio
+
+
+@pytest.mark.parametrize("kind", ["ring", "roll", "cascade"])
+def test_offline_bounce_on_the_card_matches_the_cpu(cuda, kind):
+    """A static bounce on the card against the same model's CPU bounce,
+    within 3e-5; every step launches the mode's kernel (twice per step on
+    the cascade) and the CPU bounce none."""
+    from tpu_audio_torch.runtime.offline import render_offline
+
+    x = (np.random.default_rng(11).standard_normal((2, 32 * 60 + 5)) * 0.05
+         ).astype(np.float32)
+    outs, counts = {}, {}
+    for dev in ("cpu", cuda):
+        model = _offline_model(dev, kind)
+        before = (ring_mac.launches, mac_shift.launches)
+        outs[str(dev)] = render_offline(model, x, segments=3)
+        counts[str(dev)] = (ring_mac.launches - before[0],
+                            mac_shift.launches - before[1])
+    np.testing.assert_allclose(outs["cuda"], outs["cpu"], atol=3e-5)
+    assert np.abs(outs["cpu"]).max() > 1e-2
+    steps = _bounce_steps(model.engine, 61, 3)
+    want = {"ring": (steps, 0), "roll": (0, steps),
+            "cascade": (2 * steps, 0)}[kind]
+    assert counts["cuda"] == want and counts["cpu"] == (0, 0)
+
+
+@pytest.mark.parametrize("kind,wire,automated", [
+    ("ring", "pcm16", False), ("ring", "f32", True),
+    ("selected", "f32", True), ("cascade", "pcm16", True)])
+def test_offline_step_loops_never_sync(cuda, monkeypatch, kind, wire,
+                                       automated):
+    """The static and automated step loops run under
+    set_sync_debug_mode("error") up to the final collection: no step
+    uploads or reads back anything (the per-step inputs, parameters and
+    events are laid out on the device before the loop). Re-selects land
+    inside segments; the output equals the CPU bounce's within 3e-5 (one
+    LSB on the pcm16 wire)."""
+    from tpu_audio_torch.runtime import offline
+    from tpu_audio_torch.runtime.stream import MidiSchedule
+
+    strict_calls = []
+    loop = offline._step_loop
+
+    def strict(*args, **kwargs):
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            ok = loop(*args, **kwargs)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        strict_calls.append(1)
+        return ok
+
+    x = (np.random.default_rng(12).standard_normal((2, 32 * 50)) * 0.05
+         ).astype(np.float32)
+    events = [(6, "", bytes([0xB0, 0x15, 64])), (21, "", bytes([0xB0, 0x16,
+                                                               90])),
+              (33, "", bytes([0xB0, 0x15, 127]))]
+    outs = {}
+    for dev in ("cpu", cuda):
+        model = _offline_model(dev, kind, automate=automated)
+        kwargs = {"segments": 3, "wire": wire}
+        if automated:
+            kwargs["schedule"] = MidiSchedule(list(events))
+        if dev == cuda:
+            monkeypatch.setattr(offline, "_step_loop", strict)
+            before = ring_mac.launches
+        outs[str(dev)] = offline.render_offline(model, x, **kwargs)
+    assert strict_calls == [1]
+    # two f32 outputs within 3e-5 (< 1 LSB) quantize at most 1 LSB apart
+    atol = 3e-5 if wire == "f32" else 1.001 / 32767
+    np.testing.assert_allclose(outs["cuda"], outs["cpu"], atol=atol)
+    steps = _bounce_steps(model.engine, 50, 3, automated)
+    per_step = {"ring": 1, "selected": 0, "cascade": 2}[kind]
+    assert ring_mac.launches - before == per_step * steps

@@ -1,0 +1,559 @@
+"""The port's offline bounce (tpu_audio_torch/runtime/offline.py) against the
+JAX renderer and against the port's own stream of the same model.
+
+The same numpy inputs go through tpu_audio.runtime.offline.render_offline
+and the port's, on the CPU (the port's CPU model runs the plain kernel
+versions). Models are tests/test_offline.py's: 2 voices, 32-frame blocks,
+3 IRs of 300 samples; the JAX model is built with backend="fft", so both
+sides run an FFT. Tolerances: static bounces 3e-5 (f32 MACs summed in
+another order, at other ring phases than the stream's), automated bounces
+5e-5, a bounce without its tail against the same bounce's head 1e-6, the
+engine hooks 1e-6, the control-plane replay bit for bit, the pcm16 wire
+half an LSB, CLI WAVs 1 LSB against the JAX CLI (which runs its matmul DFT)
+and 4 LSB against the port's streamed WAV.
+"""
+
+import types
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from tpu_audio.engine import IRBank as JaxIRBank
+from tpu_audio.engine.fmajor import FMajorPartitionedConvolution as JaxFMajor
+from tpu_audio.engine.params import CCMapping as JaxCCMapping
+from tpu_audio.engine.params import ControlPlane as JaxControlPlane
+from tpu_audio.models.reverb import ConvolutionReverb as JaxReverb
+from tpu_audio.runtime import offline as jax_offline
+from tpu_audio.runtime.stream import MidiSchedule as JaxMidiSchedule
+from tpu_audio_torch.engine import IRBank
+from tpu_audio_torch.engine.fmajor import FMajorPartitionedConvolution
+from tpu_audio_torch.engine.params import CCMapping, ControlPlane
+from tpu_audio_torch.models.reverb import ConvolutionReverb
+from tpu_audio_torch.runtime import offline
+from tpu_audio_torch.runtime.backends import WavSource
+from tpu_audio_torch.runtime.stream import MidiSchedule, StreamSession
+
+torch.set_num_threads(1)
+
+CASCADE = {"engine": "cascade", "block": 16, "ir_len": 400,
+           "cascade_ratio": 2}
+
+AUTOMATION = [
+    (8, "", bytes([0xB0, 0x15, 0x40])),   # select IR 1 (crossfade)
+    (30, "", bytes([0xB0, 0x16, 0x46])),  # wet change mid-fade
+    (41, "", bytes([0xB0, 0x15, 0x7F])),  # re-select IR 2 (interrupts)
+    (55, "", bytes([0xB0, 0x17, 0x40])),  # predelay jump
+    (70, "", bytes([0xB0, 0x18, 0x0A])),  # crossfade speed change
+    (85, "", bytes([0xB0, 0x15, 0x20])),  # select IR 0; fade rings into tail
+]
+
+
+def _irs(num_irs=3, ir_len=300, seed=0):
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(num_irs):
+        ir = rng.standard_normal((2, ir_len)).astype(np.float32)
+        out.append(ir * (0.4 / np.abs(ir).max()))
+    return out
+
+
+def _configure(cp, num_voices, num_irs):
+    cp.wet[:] = 0.8
+    cp.dry[:] = 0.3
+    cp.level[:] = 0.9
+    cp.predelay[:] = [[17, 40]] * num_voices
+    cp.pan_wet[:] = [[0.3, -0.4]] * num_voices
+    cp.pan_dry[:] = [[-0.2, 0.1]] * num_voices
+    for v in range(num_voices):
+        cp.select[v] = [v % num_irs, (v + 1) % num_irs]
+
+
+def build_model(side, engine="fmajor", num_voices=2, block=32, ir_len=300,
+                num_irs=3, automate=False, **kwargs):
+    """tests/test_offline.py's model on either package; `automate` maps
+    every CC the AUTOMATION timeline sends and slows the fades to 20."""
+    jax_side = side == "jax"
+    bank = JaxIRBank() if jax_side else IRBank()
+    for ir in _irs(num_irs, ir_len):
+        bank.append(ir)
+    if jax_side:
+        model = JaxReverb(bank, num_voices=num_voices, block=block,
+                          engine=engine, max_predelay=64, backend="fft",
+                          **kwargs)
+    else:
+        model = ConvolutionReverb(bank, num_voices=num_voices, block=block,
+                                  engine=engine, max_predelay=64,
+                                  device="cpu", **kwargs)
+    _configure(model.control, num_voices, num_irs)
+    if automate:
+        model.control.speed[:] = 20
+        _map_all(model.control, JaxCCMapping if jax_side else CCMapping)
+    return model
+
+
+def _map_all(control, mapping=CCMapping):
+    for v in range(control.num_voices):
+        for ch in range(2):
+            control.set_mapping(v, ch, mapping(
+                message=0xB0, select=0x15, wet=0x16, predelay=0x17,
+                speed=0x18, dry=0x19, pan_wet=0x1A, level=0x1B))
+
+
+def roll_model(side, num_voices=2, block=32):
+    """A roll-mode (ring=False) fmajor engine, which no model builds, as
+    the (engine, spectra, control) triple render_offline reads."""
+    rng = np.random.default_rng(3)
+    spectra = (np.fft.rfft(rng.standard_normal((3, 2, 10, 2 * block)),
+                           axis=-1) * 0.1).astype(np.complex64)
+    if side == "jax":
+        eng = JaxFMajor(num_voices, block, 10, max_predelay=64, ring=False,
+                        num_irs=3, backend="fft")
+        cp = JaxControlPlane(num_voices, 3, 64)
+    else:
+        eng = FMajorPartitionedConvolution(num_voices, block, 10,
+                                           max_predelay=64, ring=False,
+                                           num_irs=3, device="cpu")
+        cp = ControlPlane(num_voices, 3, 64, device="cpu")
+    _configure(cp, num_voices, 3)
+    return types.SimpleNamespace(engine=eng, spectra=eng.prepare_bank(spectra),
+                                 control=cp)
+
+
+def program(t_samples, seed=1):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((2, t_samples)) * 0.1).astype(np.float32)
+
+
+def port_stream(model, x, out_samples):
+    """Block-stream the port model's engine at converged params (zero
+    blocks past the input flush the tail); `x` shared or per-voice."""
+    eng, bank = model.engine, model.spectra
+    b, v = eng.block, eng.num_voices
+    params = model.control.snapshot_device()
+    state = eng.init_converged(bank, params)
+    blocks = -(-out_samples // b)
+    xv = np.broadcast_to(x[None], (v,) + x.shape) if x.ndim == 2 else x
+    xb = np.zeros((v, 2, blocks * b), np.float32)
+    xb[..., : xv.shape[-1]] = xv
+    outs = []
+    for t in range(blocks):
+        state, y = eng.step_coef_steady(
+            state, bank, params, torch.tensor(xb[..., t * b: (t + 1) * b]))
+        outs.append(y.numpy())
+    return np.concatenate(outs, axis=-1)[..., :out_samples]
+
+
+class _KeepSink:
+    def __init__(self):
+        self.blocks = []
+
+    def write(self, block):
+        self.blocks.append(np.array(block))
+
+    def close(self):
+        pass
+
+
+def port_stream_automated(model, x, total_blocks, schedule):
+    """The port's StreamSession (collapse_pure, indexed and steady steps,
+    the per-block countdown) driven by the same MIDI schedule."""
+    b = model.engine.block
+    xpad = np.zeros(x.shape[:-1] + (total_blocks * b,), np.float32)
+    xpad[..., : x.shape[-1]] = x
+    sink = _KeepSink()
+    sess = StreamSession(model.engine, model.spectra, model.control,
+                         WavSource(xpad, model.engine.num_voices, b), sink,
+                         warmup=0)
+    sess.run(model.init_state(), midi=schedule)
+    return np.concatenate(sink.blocks, axis=-1)
+
+
+def _close(got, want, atol):
+    assert got.shape == want.shape, (got.shape, want.shape)
+    assert np.abs(want).max() > 1e-2
+    np.testing.assert_allclose(got, want, atol=atol)
+
+
+# -- static bounces ------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("kwargs", [{}, {"mac_strategy": "selected"},
+                                    CASCADE])
+def test_static_bounce_matches_jax_and_the_stream(kwargs):
+    b = kwargs.get("block", 32)
+    x = program(41 * b + 7)                   # non-block-aligned length
+    model = build_model("port", **kwargs)
+    out = offline.render_offline(model, x, segments=4)
+    want = jax_offline.render_offline(build_model("jax", **kwargs), x,
+                                      segments=4)
+    _close(out, want, 3e-5)
+    _close(out, port_stream(model, x, out.shape[-1]), 3e-5)
+    assert out.shape[-1] == x.shape[1] + model.engine.history_blocks * b
+
+
+def test_per_voice_mono_auto_and_no_tail():
+    rng = np.random.default_rng(7)
+    xv = (rng.standard_normal((2, 2, 44 * 32)) * 0.1).astype(np.float32)
+    model = build_model("port")
+    out = offline.render_offline(model, xv, segments=3)
+    _close(out, jax_offline.render_offline(build_model("jax"), xv,
+                                           segments=3), 3e-5)
+    _close(out, port_stream(model, xv, out.shape[-1]), 3e-5)
+    assert np.abs(out[0] - out[1]).max() > 1e-3   # per-voice material
+
+    mono = program(30 * 32)[0]
+    solo = build_model("port", num_voices=1)
+    out = offline.render_offline(solo, mono)       # auto segment count
+    _close(out, jax_offline.render_offline(build_model("jax", num_voices=1),
+                                           mono), 3e-5)
+    _close(out, port_stream(solo, np.stack([mono, mono]), out.shape[-1]),
+           3e-5)
+
+    x = program(10 * 32 + 5)
+    head = offline.render_offline(solo, x, segments=2, include_tail=False)
+    assert head.shape == (1, 2, x.shape[1])
+    full = offline.render_offline(solo, x, segments=2)
+    assert full.shape[-1] > x.shape[1]
+    _close(head, full[..., :x.shape[1]], 1e-6)
+
+
+def test_roll_mode_bounce():
+    x = program(37 * 32 + 3)
+    model = roll_model("port")
+    out = offline.render_offline(model, x, segments=3)
+    _close(out, jax_offline.render_offline(roll_model("jax"), x, segments=3),
+           3e-5)
+    _close(out, port_stream(model, x, out.shape[-1]), 3e-5)
+
+
+def test_chunked_equals_whole():
+    x = program(53 * 32 + 11)
+    model = build_model("port", num_voices=1)
+    whole = offline.render_offline(model, x, segments=3)
+    chunked = offline.render_offline(model, x, segments=3,
+                                     track_chunk_blocks=17)
+    _close(chunked, whole, 3e-5)
+    _close(chunked, jax_offline.render_offline(
+        build_model("jax", num_voices=1), x, segments=3,
+        track_chunk_blocks=17), 3e-5)
+    no_tail = offline.render_offline(model, x, segments=3,
+                                     track_chunk_blocks=17,
+                                     include_tail=False)
+    assert no_tail.shape[-1] == x.shape[1]
+    rng = np.random.default_rng(3)
+    xv = (rng.standard_normal((2, 2, 40 * 32)) * 0.1).astype(np.float32)
+    _close(offline.render_offline(build_model("port"), xv, segments=2,
+                                  track_chunk_blocks=13),
+           offline.render_offline(build_model("port"), xv, segments=2), 3e-5)
+    with pytest.raises(ValueError, match=">= 1"):
+        offline.render_offline(model, x, track_chunk_blocks=0)
+
+
+def test_pcm16_wire_and_bucketing():
+    model = build_model("port")
+    x = program(37 * 32 + 5)
+    ref = offline.render_offline(model, x, segments=4)
+    out16 = offline.render_offline(model, x, segments=4, wire="pcm16")
+    assert out16.dtype == np.float32 and out16.shape == ref.shape
+    np.testing.assert_allclose(out16, np.clip(ref, -1.0, 1.0),
+                               atol=0.51 / 32767)
+    np.testing.assert_array_equal(
+        out16 * np.float32(32767.0), np.round(out16 * np.float32(32767.0)))
+    _close(offline.render_offline(model, x, segments=4, bucket_blocks=64),
+           ref, 3e-5)
+    _close(offline.render_offline(model, x, segments=4, bucket_blocks="auto"),
+           ref, 3e-5)
+    with pytest.raises(ValueError, match="wire"):
+        offline.render_offline(model, x, wire="pcm24")
+    with pytest.raises(ValueError, match="bucket_blocks"):
+        offline.render_offline(model, x, bucket_blocks=0)
+
+
+def test_input_wire():
+    """tests/test_offline.py:265-310 on the port: bit-exact when the input
+    sits on a 16-bit grid, half-LSB quantization otherwise; composes with
+    automation and chunking. The explicit pcm16 upload is held against the
+    JAX renderer's."""
+    model = build_model("port")
+    rng = np.random.default_rng(33)
+    k = rng.integers(-32768, 32768, (2, 31 * 32 + 7)).astype(np.float32)
+    xg = k / np.float32(65536.0)
+    assert offline._detect_input_grid(xg) == ("pcm16", 65536.0)
+    ref = offline.render_offline(model, xg, segments=3)
+    np.testing.assert_allclose(
+        offline.render_offline(model, xg, segments=3, input_wire="auto"),
+        ref, atol=1e-7)
+    np.testing.assert_allclose(
+        offline.render_offline(model, xg, segments=3, input_wire="pcm16",
+                               input_scale=65536.0), ref, atol=1e-7)
+    xf = (rng.standard_normal((2, 31 * 32)) * 0.1).astype(np.float32)
+    ref = offline.render_offline(model, xf, segments=3)
+    np.testing.assert_allclose(
+        offline.render_offline(model, xf, segments=3, input_wire="auto"),
+        ref, atol=1e-7)
+    q = offline.render_offline(model, xf, segments=3, input_wire="pcm16")
+    np.testing.assert_allclose(q, ref, atol=5e-3)
+    assert np.abs(q - ref).max() > 0
+    _close(q, jax_offline.render_offline(build_model("jax"), xf, segments=3,
+                                         input_wire="pcm16"), 3e-5)
+    a_ref = offline.render_offline(
+        build_model("port", automate=True), xg, segments=3,
+        schedule=MidiSchedule(list(AUTOMATION)))
+    np.testing.assert_allclose(
+        offline.render_offline(build_model("port", automate=True), xg,
+                               segments=3, input_wire="auto",
+                               schedule=MidiSchedule(list(AUTOMATION))),
+        a_ref, atol=1e-7)
+    np.testing.assert_allclose(
+        offline.render_offline(model, xg, segments=3, track_chunk_blocks=11,
+                               input_wire="auto"),
+        offline.render_offline(model, xg, segments=3, track_chunk_blocks=11),
+        atol=1e-7)
+    with pytest.raises(ValueError, match="input_wire"):
+        offline.render_offline(model, xg, input_wire="pcm24")
+
+
+# -- automation ----------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("kwargs,segments", [
+    ({}, 5),                              # boundaries straddle fades
+    ({}, 1),                              # pure sequential replay
+    ({"mac_strategy": "selected"}, 5),
+    (CASCADE, 5),
+])
+def test_automated_bounce_matches_jax_and_the_stream(kwargs, segments):
+    b = kwargs.get("block", 32)
+    x = program(115 * b + 9)
+    model = build_model("port", automate=True, **kwargs)
+    out = offline.render_offline(model, x, segments=segments,
+                                 schedule=MidiSchedule(list(AUTOMATION)))
+    want = jax_offline.render_offline(
+        build_model("jax", automate=True, **kwargs), x, segments=segments,
+        schedule=JaxMidiSchedule(list(AUTOMATION)))
+    _close(out, want, 5e-5)
+    total = -(-x.shape[1] // b) + model.engine.history_blocks
+    ref = port_stream_automated(build_model("port", automate=True, **kwargs),
+                                x, total, MidiSchedule(list(AUTOMATION)))
+    n = min(out.shape[-1], ref.shape[-1])
+    _close(out[..., :n], ref[..., :n], 5e-5)
+
+
+@pytest.mark.parametrize("kwargs", [{}, CASCADE])
+def test_chunked_automated_bounce(kwargs):
+    """Chunk boundaries land mid-fade; the cascade's odd chunk size rounds
+    up to the stagger ratio."""
+    b = kwargs.get("block", 32)
+    x = program(115 * b + 9)
+    whole = offline.render_offline(
+        build_model("port", automate=True, **kwargs), x, segments=4,
+        schedule=MidiSchedule(list(AUTOMATION)))
+    chunked = offline.render_offline(
+        build_model("port", automate=True, **kwargs), x, segments=4,
+        track_chunk_blocks=23, schedule=MidiSchedule(list(AUTOMATION)))
+    _close(chunked, whole, 5e-5)
+    _close(chunked, jax_offline.render_offline(
+        build_model("jax", automate=True, **kwargs), x, segments=4,
+        track_chunk_blocks=23, schedule=JaxMidiSchedule(list(AUTOMATION))),
+        5e-5)
+
+
+def test_control_replay_tables_equal_jax_to_the_bit():
+    """_ControlSim's regimes, events and fade snapshots over AUTOMATION and
+    a dense random CC stream, against the JAX replay."""
+    rng = np.random.default_rng(11)
+    events, t = list(AUTOMATION), 0
+    while t < 140:
+        events.append((t, "", bytes([0xB0, int(rng.choice(
+            [0x15, 0x16, 0x17, 0x18, 0x19, 0x1A, 0x1B])),
+            int(rng.integers(0, 128))])))
+        t += int(rng.integers(1, 9))
+    snaps = [0, 7, 8, 40, 41, 99, 150]
+    jsim = jax_offline._ControlSim(
+        build_model("jax", automate=True).control,
+        JaxMidiSchedule(list(events)), 160, snaps)
+    tsim = offline._ControlSim(build_model("port", automate=True).control,
+                               MidiSchedule(list(events)), 160, snaps)
+    assert len(tsim.regimes) == len(jsim.regimes) > 10
+    for got, want in zip(tsim.regimes, jsim.regimes):
+        for name in offline._ControlSim.FIELDS:
+            np.testing.assert_array_equal(got[name], want[name], name)
+            assert got[name].dtype == want[name].dtype, name
+    assert tsim.regime_starts == jsim.regime_starts
+    for name in ("regime_of_block", "event_of_block"):
+        np.testing.assert_array_equal(getattr(tsim, name),
+                                      getattr(jsim, name), name)
+    np.testing.assert_array_equal(np.stack(tsim.ev_changed),
+                                  np.stack(jsim.ev_changed))
+    np.testing.assert_array_equal(np.stack(tsim.ev_old),
+                                  np.stack(jsim.ev_old))
+    assert sorted(tsim.snaps) == sorted(jsim.snaps) == snaps
+    for blk in snaps:
+        for got, want in zip(tsim.snaps[blk], jsim.snaps[blk]):
+            np.testing.assert_array_equal(got, want, f"snapshot {blk}")
+
+
+# -- the engine hooks ----------------------------------------------------------------
+
+
+@pytest.mark.parametrize("ring", [True, False])
+def test_engine_hooks_match_jax(ring):
+    v, b, parts = 3, 32, 10
+    jeng = JaxFMajor(v, b, parts, max_predelay=64, ring=ring, num_irs=2,
+                     backend="fft")
+    teng = FMajorPartitionedConvolution(v, b, parts, max_predelay=64,
+                                        ring=ring, num_irs=2, device="cpu")
+    assert (teng.history_blocks, teng.prime_blocks) == (
+        jeng.history_blocks, jeng.prime_blocks)
+    clone = teng.with_voices(7, swap_snapshot=False)
+    assert (clone.num_voices, clone.ring_mode, clone.swap_snapshot,
+            clone.device) == (7, ring, False, teng.device)
+    rng = np.random.default_rng(5)
+    shared = (rng.standard_normal((20, 2, b)) * 0.1).astype(np.float32)
+    per_voice = (rng.standard_normal((20, 2, 2, b)) * 0.1).astype(np.float32)
+    t0 = np.array([-3, 4, 19], np.int32)       # before the track, mid, end
+    voice_of = np.array([1, 0, 1], np.int32)
+    for xb, vof in ((shared, None), (per_voice, voice_of)):
+        jspec = np.asarray(jeng.input_spectra_bulk(xb))
+        tspec = teng.input_spectra_bulk(torch.tensor(xb))
+        np.testing.assert_allclose(tspec.numpy(), jspec, atol=1e-6)
+        jst = jeng.prime_fdl(jeng.init_state(), jnp.asarray(jspec),
+                             jnp.asarray(t0),
+                             voice_of=None if vof is None else jnp.asarray(vof))
+        tst = teng.prime_fdl(
+            teng.init_state(), tspec, torch.tensor(t0),
+            voice_of=None if vof is None else torch.tensor(vof))
+        assert np.abs(np.asarray(jst.fdl)).max() > 0.1
+        np.testing.assert_allclose(tst.fdl.numpy(), np.asarray(jst.fdl),
+                                   atol=1e-6)
+        # the gather alone, on the JAX spectra: equal to the bit
+        tst = teng.prime_fdl(
+            teng.init_state(), torch.tensor(jspec), torch.tensor(t0),
+            voice_of=None if vof is None else torch.tensor(vof))
+        np.testing.assert_array_equal(tst.fdl.numpy(), np.asarray(jst.fdl))
+
+
+# -- guards --------------------------------------------------------------------------
+
+
+def test_guards():
+    ws = build_model("port", num_irs=6, bank_capacity=3)
+    with pytest.raises(ValueError, match="working-set"):
+        offline.render_offline(ws, program(64), segments=2)
+    ws.working_set.close()
+    model = build_model("port", num_voices=1)
+    with pytest.raises(ValueError, match="segments"):
+        offline.render_offline(model, program(64), segments=0)
+    with pytest.raises(ValueError, match="stereo"):
+        offline.render_offline(model, np.zeros((3, 64), np.float32))
+    with pytest.raises(ValueError, match="per-voice"):
+        offline.render_offline(model, np.zeros((3, 2, 64), np.float32))
+    with pytest.raises(NotImplementedError, match="item 14"):
+        offline.render_offline(model, program(64), mesh=object())
+    sched = MidiSchedule([(2, "", bytes([0xB0, 0x15, 0x40]))])
+    moving = build_model("port", automate=True)
+    moving.control.vsteps[:] = 7
+    with pytest.raises(ValueError, match="converged"):
+        offline.render_offline(moving, program(64), schedule=sched)
+    late = MidiSchedule([(10 ** 6, "", bytes([0xB0, 0x15, 0x40]))])
+    np.testing.assert_allclose(
+        offline.render_offline(build_model("port", num_voices=1,
+                                           automate=True),
+                               program(20 * 32), segments=2, schedule=late),
+        offline.render_offline(model, program(20 * 32), segments=2),
+        atol=1e-6)
+
+
+def test_nonfinite_output_raises_on_every_wire():
+    model = build_model("port", num_voices=1)
+    x = program(10 * 32)
+    x[0, 40] = np.nan
+    for wire in ("f32", "pcm16"):
+        with pytest.raises(RuntimeError, match="non-finite"):
+            offline.render_offline(model, x, segments=2, wire=wire)
+    out = offline.render_offline(model, program(10 * 32), segments=2,
+                                 wire="pcm16")
+    assert np.isfinite(out).all()
+
+
+# -- the model and the CLI -----------------------------------------------------------
+
+SETTINGS = """
+conv.count 2
+conv[0].fftSize 2048
+conv[0].maxPredelay 128
+conv[0].index {index}
+conv[0].cc.select 21
+conv[0].cc.wet 22
+conv[0].cc.speed 24
+conv[0].value.select 1
+conv[0].value.predelay 16
+conv[0].value.dry 0.4
+conv[0].value.wet 0.6
+conv[0].value.level 0.9
+conv[1].fftSize 2048
+conv[1].maxPredelay 128
+conv[1].index {index}
+conv[1].cc.select 21
+conv[1].cc.wet 22
+conv[1].cc.speed 24
+conv[1].value.select 0
+conv[1].value.predelay 16
+conv[1].value.dry 0.4
+conv[1].value.wet 0.6
+conv[1].value.level 0.9
+"""
+
+
+def _pcm16(path):
+    blob = open(path, "rb").read()
+    return np.frombuffer(blob[blob.index(b"data") + 8:], dtype="<i2")
+
+
+def test_model_method_and_cli_match_jax_and_the_stream(tmp_path, capsys):
+    """ConvolutionReverb.render_offline, then --offline 3 --device cpu:
+    the WAV against the JAX CLI's within 1 LSB and against the port's
+    streamed WAV within 4 LSB over the streamed length (the bounce adds
+    the flushed tail)."""
+    from tpu_audio.app.main import main as jax_main
+    from tpu_audio.io.index import write_index
+    from tpu_audio.io.wav import write_wav
+    from tpu_audio_torch.app.main import main as port_main
+
+    model = build_model("port")
+    x = program(20 * 32)
+    np.testing.assert_array_equal(model.render_offline(x, segments=2),
+                                  offline.render_offline(model, x, segments=2))
+
+    rng = np.random.default_rng(0)
+    paths = []
+    for k in range(2):
+        ir = rng.uniform(-0.3, 0.3, (150, 2)).astype(np.float32)
+        write_wav(tmp_path / f"ir{k}.wav", ir, 44100)
+        paths.append(str(tmp_path / f"ir{k}.wav"))
+    write_index(tmp_path / "bank.index", paths)
+    (tmp_path / "settings.txt").write_text(
+        SETTINGS.format(index=tmp_path / "bank.index"))
+    write_wav(tmp_path / "in.wav",
+              rng.uniform(-0.2, 0.2, (41 * 64, 2)).astype(np.float32), 44100,
+              scale="full")
+    base = ["--settings", str(tmp_path / "settings.txt"), "--input",
+            str(tmp_path / "in.wav"), "--block-size", "64", "--quiet"]
+    assert jax_main(base + ["--output", str(tmp_path / "jax.wav"),
+                            "--offline", "3"]) == 0
+    capsys.readouterr()
+    port = base + ["--device", "cpu"]
+    assert port_main(port + ["--output", str(tmp_path / "off.wav"),
+                             "--offline", "3"]) == 0
+    assert "x real time" in capsys.readouterr().out
+    assert port_main(port + ["--output", str(tmp_path / "stream.wav")]) == 0
+    want, got = _pcm16(tmp_path / "jax.wav"), _pcm16(tmp_path / "off.wav")
+    streamed = _pcm16(tmp_path / "stream.wav")
+    assert got.shape == want.shape and got.size > streamed.size
+    assert np.abs(want).max() > 1000
+    assert int(np.abs(got.astype(np.int32) - want).max()) <= 1
+    n = streamed.size
+    assert int(np.abs(got[:n].astype(np.int32) - streamed).max()) <= 4
+    assert port_main(port + ["--offline", "--realtime"]) == 2

@@ -259,7 +259,9 @@ def test_import_leaves_jax_out():
             "tpu_audio_torch.ops.ring_mac, "
             "tpu_audio_torch.engine.device_prep, "
             "tpu_audio_torch.engine.cascade, "
-            "tpu_audio_torch.runtime.working_set; "
+            "tpu_audio_torch.runtime.working_set, "
+            "tpu_audio_torch.runtime.offline, "
+            "tpu_audio_torch.utils.wire; "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'tpu_audio.'))]; "
             "assert not bad, bad")

@@ -1,6 +1,6 @@
 """Application entry point: settings-driven streaming reverb on a GPU (port
-of tpu_audio/app/main.py, the streaming path of the fmajor and cascade
-engines).
+of tpu_audio/app/main.py: the streaming path and the offline bounce of the
+fmajor and cascade engines).
 
 Capability equivalent of the reference's main() (reference src/main.cu:18-116):
 select the GPU, read settings, build IR banks and convolution voices, wire
@@ -14,6 +14,9 @@ backends; ALSA rawmidi becomes a scripted MIDI schedule.
          [--predelay-side write|read]]
         [--voices N] [--blocks N] [--realtime] [--no-swap-snapshot]
         [--bank-capacity N [--async-paging] [--ws-exhausted defer|raise]]
+        [--offline [SEGMENTS] [--offline-chunk-blocks N]
+         [--offline-wire f32|pcm16] [--offline-input-wire auto|f32|pcm16]
+         [--offline-bucket [BLOCKS]]]
         [--device cuda|cpu]
 
 IR banks are always prepared on the engine's device; ``--bank-prep`` and
@@ -135,6 +138,38 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default="cuda",
                    help="'cuda' (best CUDA device; fails without one), "
                         "'cuda:N', or 'cpu' for the plain PyTorch path")
+    p.add_argument("--offline", nargs="?", const="auto", default=None,
+                   metavar="SEGMENTS",
+                   help="time-parallel offline bounce: render the input "
+                        "far faster than real time, write --output, exit "
+                        "(runtime/offline.py). Optional segment count, "
+                        "default auto. A scripted --midi schedule bounces "
+                        "too (matching the live session to float "
+                        "precision); --realtime needs the streaming "
+                        "session")
+    p.add_argument("--offline-chunk-blocks", type=int, default=None,
+                   metavar="N",
+                   help="bound device memory on long --offline bounces: "
+                        "render N blocks at a time, each chunk re-primed "
+                        "from its trailing input history (exact; composes "
+                        "with a --midi schedule)")
+    p.add_argument("--offline-wire", default="pcm16",
+                   choices=["f32", "pcm16"],
+                   help="--offline readback format (default pcm16: the CLI "
+                        "writes 16-bit WAVs anyway; f32 keeps full "
+                        "precision)")
+    p.add_argument("--offline-input-wire", default="auto",
+                   choices=["auto", "f32", "pcm16"],
+                   help="--offline upload format for the program material: "
+                        "'auto' (default) uploads as int16 bit-exactly when "
+                        "the input sits on a 16-bit grid (every 16-bit WAV "
+                        "does) and falls back to f32; 'pcm16' quantizes any "
+                        "input to half an LSB")
+    p.add_argument("--offline-bucket", nargs="?", const="auto",
+                   default=None, metavar="BLOCKS",
+                   help="round --offline track lengths up to a bucket grid "
+                        "(default 'auto' ~= 3%% padding); the zero pad is "
+                        "trimmed from the output")
     p.add_argument("--quiet", action="store_true")
     return p
 
@@ -184,10 +219,82 @@ def main(argv=None) -> int:
         async_paging=args.async_paging, cascade_ratio=args.cascade_ratio,
         predelay_side=args.predelay_side, device=device)
     try:
+        if args.offline is not None:
+            return _offline(args, model)
         return _stream(args, model)
     finally:
         if model.working_set is not None:
             model.working_set.close()
+
+
+def _offline_input(args):
+    """Program material for an offline bounce: the input WAV, or the
+    synthetic --signal (the streaming sources' semantics)."""
+    import numpy as np
+
+    b = args.block_size
+    if args.input:
+        from tpu_audio_torch.io.wav import read_wav
+        wav = read_wav(args.input, verbose=not args.quiet)
+        return wav.stereo().T.astype(np.float32), wav.sample_rate
+    n = args.blocks or 400
+    if args.signal == "noise":
+        rng = np.random.default_rng(0)
+        x = (rng.standard_normal((2, n * b)) * 0.1).astype(np.float32)
+    else:
+        x = np.zeros((2, n * b), np.float32)
+        if args.signal == "impulse":
+            x[:, 0] = 1.0
+    return x, args.sample_rate
+
+
+def _offline(args, model) -> int:
+    """Render the model offline over the input, report throughput, and
+    write --out-voice (an index or 'all') like the streaming WavSink."""
+    import time
+
+    if args.realtime:
+        Log.error("app", "--offline bounces cannot run in real time "
+                  "(--realtime needs the streaming session; a scripted "
+                  "--midi schedule bounces fine)")
+        return 2
+    x, sample_rate = _offline_input(args)
+    segments = None if args.offline == "auto" else int(args.offline)
+    schedule = None
+    if args.midi:
+        with open(args.midi) as fh:
+            schedule = MidiSchedule.parse(fh.read())
+    bucket = args.offline_bucket
+    if bucket not in (None, "auto"):
+        bucket = int(bucket)
+
+    t0 = time.monotonic()
+    try:
+        out = model.render_offline(
+            x, segments=segments, schedule=schedule,
+            track_chunk_blocks=args.offline_chunk_blocks,
+            wire=args.offline_wire, bucket_blocks=bucket,
+            input_wire=args.offline_input_wire)            # [V, 2, T']
+    except ValueError as exc:  # e.g. working-set models
+        Log.error("app", "--offline: %s", exc)
+        return 2
+    wall = time.monotonic() - t0
+    audio_s = out.shape[-1] / sample_rate
+    print(f"offline bounce: {audio_s:.1f} s of audio in {wall:.1f} s wall "
+          f"({audio_s / wall:.1f}x real time)")
+
+    if args.output:
+        from tpu_audio_torch.io.wav import write_wav
+        voice = args.out_voice
+        if voice == "all":
+            root, ext = os.path.splitext(args.output)
+            for v in range(out.shape[0]):
+                write_wav(f"{root}_v{v:03d}{ext or '.wav'}", out[v].T,
+                          sample_rate)
+        else:
+            write_wav(args.output, out[int(voice or 0)].T, sample_rate)
+        Log.info("app", "wrote %s", args.output)
+    return 0
 
 
 def _stream(args, model) -> int:

@@ -293,6 +293,90 @@ class FMajorPartitionedConvolution:
         self.t_modulus = (math.lcm(self.pp, self.ring_slots) if ring
                           else self.ring_slots)
 
+    # -- offline / cloning interface ------------------------------------------------
+
+    def with_voices(self, num_voices: int,
+                    swap_snapshot: bool | None = None
+                    ) -> "FMajorPartitionedConvolution":
+        """Same geometry, strategy and device at another voice count. Banks
+        are voice-independent ([K, ...] tensors), so a bank prepared by this
+        engine serves the clone directly — the seam the offline renderer
+        (runtime/offline.py) builds on. `swap_snapshot` overrides the fade
+        snapshot for 'allk' ('selected' always keeps it)."""
+        if swap_snapshot is None:
+            swap_snapshot = self.swap_snapshot
+        return FMajorPartitionedConvolution(
+            num_voices, self.block, self.partitions,
+            max_predelay=self.max_predelay, ring=self.ring_mode,
+            mac_strategy=self.mac_strategy, num_irs=self.num_irs,
+            swap_snapshot=(swap_snapshot if self.mac_strategy == "allk"
+                           else True),
+            device=self.device)
+
+    @property
+    def history_blocks(self) -> int:
+        """Trailing input blocks that fully determine the next output block
+        at converged params: the delay line's depth plus the deepest
+        wet-ring deferral, with margin. Priming a fresh converged state with
+        this many blocks reproduces the streamed output — the contract the
+        offline renderer's segment warm-up relies on."""
+        return self.pp + self.ring_slots + 2
+
+    @property
+    def prime_blocks(self) -> int:
+        """Streamed warm-up depth when the delay line is primed directly
+        (prime_fdl): only the wet ring still needs streaming."""
+        return self.ring_slots + 2
+
+    def input_spectra_bulk(self, xb: torch.Tensor) -> torch.Tensor:
+        """Planar input spectra of a whole block tensor [T, ..., 2, B]:
+        spec[t] holds _input_spectrum's values for block t (the rfft of the
+        OLS pair [x_{t-1}, x_t], x_{-1} = 0), as f32 [T, ..., 2, F, 2] — one
+        batched transform instead of T chained steps."""
+        b = self.block
+        seg = xb.new_zeros(xb.shape[:-1] + (2 * b,))
+        seg[..., b:] = xb
+        seg[1:, ..., :b] = xb[:-1]
+        return torch.view_as_real(self.xf.rfft(seg))
+
+    def prime_fdl(self, state: FMajorState, spec: torch.Tensor,
+                  t0: torch.Tensor, voice_of: torch.Tensor | None = None
+                  ) -> FMajorState:
+        """Prime the delay line, IN PLACE, as if blocks [t0 - Pp, t0) had
+        been streamed into a fresh state (local wptr 0): the step at local
+        time 0 then processes block t0[v] with its whole input history in
+        place. `spec` is input_spectra_bulk's [T, 2, F, 2] (shared program
+        material) or [T, Vb, 2, F, 2] with `voice_of` [V] mapping each voice
+        onto a base voice; blocks before 0 prime to zero (the
+        stream-from-silence state). prev_in is the caller's to set.
+
+        One gather of [V*Pp] rows, copied into the line through a permuted
+        view: the only full-size temporary is the gathered rows."""
+        pp, f, v = self.pp, self.num_bins, self.num_voices
+        j = torch.arange(pp, device=spec.device)
+        t0 = t0.to(spec.device, torch.long)
+        if self.ring_mode:
+            # at wptr 0 the MAC pairs slot j with bank partition (0 - j) mod
+            # Pp, so slot j holds block t0 - Pp + j (slot 0, the j = Pp
+            # alias, is overwritten by the step-0 write before the MAC reads)
+            blocks = t0[:, None] - pp + j[None, :]               # [V, Pp]
+        else:
+            # roll mode: position j holds block t - 1 - j entering step t
+            blocks = t0[:, None] - 1 - j[None, :]
+        nt = spec.shape[0]
+        rows = blocks.clamp(0, nt - 1)
+        if voice_of is None:
+            table = spec.reshape(nt, 2, f, 2)
+        else:
+            nb = spec.shape[1]
+            table = spec.reshape(nt * nb, 2, f, 2)
+            rows = rows * nb + voice_of.to(spec.device, torch.long)[:, None]
+        g = table.index_select(0, rows.reshape(-1))               # [V*Pp,I,F,d]
+        g.view(v, pp, -1).masked_fill_((blocks < 0)[..., None], 0.0)
+        state.fdl.view(f, v, 2, 2, pp).copy_(
+            g.view(v, pp, 2, f, 2).permute(3, 0, 2, 4, 1))
+        return state
+
     # -- bank ---------------------------------------------------------------------
 
     def prepare_bank(self, spectra: np.ndarray) -> FMajorBank:

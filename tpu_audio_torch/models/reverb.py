@@ -8,7 +8,8 @@ branches).
 (FMajorPartitionedConvolution, or CascadeConvolution for voice scaling)
 and one shared device bank. With ``bank_capacity=N`` the device holds only
 N IR slots and a working set (runtime/working_set.py) pages IRs of the
-full bank in on demand.
+full bank in on demand. ``render_offline`` bounces a whole track time-
+parallel (runtime/offline.py).
 """
 
 from __future__ import annotations
@@ -328,3 +329,15 @@ class ConvolutionReverb:
         state = state if state is not None else self.init_state()
         state = session.run(state, max_blocks=max_blocks, midi=midi)
         return state, session.summary()
+
+    def render_offline(self, samples, **kwargs):
+        """Time-parallel bounce: the time axis is segmented onto virtual
+        voices, so throughput scales with the engine's voice ceiling instead
+        of the per-block step time (runtime/offline.py). Renders the control
+        plane's current (converged) parameters, or a scripted MIDI timeline
+        via ``schedule=MidiSchedule(...)``, which matches the live streaming
+        session to float precision. Returns per-voice output [V, 2, T +
+        tail]."""
+        from tpu_audio_torch.runtime.offline import render_offline
+
+        return render_offline(self, samples, **kwargs)

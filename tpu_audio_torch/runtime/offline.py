@@ -1,0 +1,844 @@
+"""Time-parallel offline rendering (bounce), far faster than real time (port
+of tpu_audio/runtime/offline.py).
+
+The streaming runtime serves one block per step. Offline, the whole input
+is known up front, and partitioned overlap-save has finite memory: at
+converged parameters one output block depends only on the trailing
+``engine.history_blocks`` input blocks. So the track splits into S
+segments, each segment becomes a VIRTUAL VOICE of the same engine
+(``engine.with_voices(V * S)``), every virtual voice is primed with the
+input that precedes its segment (warm-up output discarded), and all
+segments stream at once: the engine's voice axis becomes the time axis.
+The step count drops from T to warm-up + ceil(T / S); each step costs more
+device work, behind the same host launches.
+
+fmajor engines prime their delay line directly (``prime_fdl``: one batched
+rfft of the whole input and one gather), so only the wet ring is streamed
+during warm-up (``prime_blocks``). The cascade has no ``prime_fdl`` and
+streams ``history_blocks`` of warm-up.
+
+Automation (``schedule=``): the host replays the MIDI schedule against a
+replica of the control plane in float32, op for op as the engine's fade
+recursion runs (_ControlSim), and produces per-block parameter regimes,
+re-select event tables and exact fade snapshots at every segment's warm-up
+start. Every virtual voice enters its segment with the stream's fade state
+and replays events at the stream's blocks, so the bounce matches the live
+session to float precision. fmajor ('allk' and 'selected') and the 'allk'
+cascade are automatable, from a converged control plane.
+
+What the port does where the JAX renderer serves XLA:
+
+  - the host knows the step index, so segment indices, parameter regimes and
+    event rows are gathered on the host from _ControlSim's numpy tables, for
+    every step at once, and uploaded before the step loop: a step uploads
+    nothing and reads nothing back from the device;
+  - the 'selected' collapse runs on the blocks the host event table marks,
+    and the 'allk' collapse_pure likewise (on other blocks it is the
+    identity);
+  - each step's output is copied, without waiting, into one pinned host
+    buffer; an isfinite accumulator on the device is read once, after the
+    loop;
+  - no compile cache, no background precompile, and no mesh (multi-GPU
+    sharding is ROADMAP.md Queue 1 item 14).
+
+All paths need a fully resident bank (no working-set paging) and one
+device. A CUDA model launches the engine's kernels on every step; only a
+CPU model takes their plain versions.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import replace
+
+import numpy as np
+import torch
+
+from tpu_audio_torch.engine.params import ControlPlane, VoiceParams
+from tpu_audio_torch.utils.log import Log
+from tpu_audio_torch.utils.wire import decode_pcm16, encode_pcm16
+
+# ms per steady step of the ring/'allk' fmajor engine at 4 s IRs as fixed +
+# per virtual voice, fitted to the CUDA-event p50 at 64 and 512 virtual
+# voices (1.770 and 2.604 ms) on an NVIDIA H100 80GB HBM3 at a 700 W power
+# limit (chip_smoke.py phase 16); only used to CHOOSE the auto segment
+# count, never for correctness
+_STEP_FIXED_MS = 1.65
+_STEP_PER_VOICE_MS = 0.00186
+
+_NO_MESH = ("render_offline on a device mesh is not ported yet (ROADMAP.md, "
+            "Queue 1 item 14: multi-GPU voice sharding)")
+
+
+def _auto_segments(total_blocks: int, warmup: int, base_voices: int,
+                   max_virtual_voices: int) -> int:
+    """Segment count minimizing (warmup + T/S) * (c0 + c1*V*S): the warm-up
+    overhead (W extra steps) trades against the per-step voice cost.
+    d/dS = 0 at S* = sqrt(c0*T / (W*c1*V))."""
+    s = math.sqrt(_STEP_FIXED_MS * total_blocks
+                  / (max(warmup, 1) * _STEP_PER_VOICE_MS
+                     * max(base_voices, 1)))
+    s = int(round(s))
+    return max(1, min(s, max(1, max_virtual_voices // max(base_voices, 1)),
+                      total_blocks))
+
+
+def _check_stereo(samples, num_voices: int) -> tuple[np.ndarray, bool]:
+    """Validate bounce input: shared [2, T] stereo (or [T] mono,
+    duplicated), or per-voice [V, 2, T] program material — the same
+    convention WavSource streams. Returns (x, per_voice)."""
+    x = np.asarray(samples, np.float32)
+    if x.ndim == 1:
+        x = np.stack([x, x])
+    if x.ndim == 3:
+        if x.shape[:2] != (num_voices, 2):
+            raise ValueError(
+                f"per-voice samples must be [{num_voices}, 2, T] "
+                f"(model voices, stereo), got {x.shape}")
+        return x, True
+    if x.ndim != 2 or x.shape[0] != 2:
+        raise ValueError(f"samples must be [2, T] stereo, [T] mono, or "
+                         f"per-voice [V, 2, T], got {x.shape}")
+    return x, False
+
+
+def _check_full_resident(model) -> None:
+    if getattr(model, "working_set", None) is not None:
+        raise ValueError(
+            "render_offline needs a fully-resident bank: working-set "
+            "residency pages IRs on sequential select order, which "
+            "time-parallel segments do not have (build the model without "
+            "bank_capacity for offline bounces)")
+
+
+def _detect_input_grid(x: np.ndarray):
+    """('pcm16', scale) when every sample of `x` sits exactly on a 16-bit
+    integer grid — k/65536 (the reference WAV loader's headroom scaling),
+    k/32768, or k/32767 (the pcm16 wire) — else ('f32', None). Power-of-two
+    grids round-trip bit-exactly; the 32767 grid reproduces the f32
+    division value exactly (the decoder divides)."""
+    for scale in (65536.0, 32768.0, 32767.0):
+        xs = x * np.float32(scale)
+        if (xs.min() >= -32768.0 and xs.max() <= 32767.0
+                and not np.any(xs != np.round(xs))):
+            return "pcm16", scale
+    return "f32", None
+
+
+def _quantize_input(x: np.ndarray, input_wire: str, scale: float):
+    if input_wire != "pcm16":
+        return x
+    return np.clip(np.round(x * np.float32(scale)), -32768, 32767).astype(
+        np.int16)
+
+
+def _input_decoder(input_wire: str, scale):
+    """Decode of the uploaded input tensor on the device (identity for
+    f32). Divides by the scale rather than multiplying by its reciprocal:
+    exact on power-of-two grids and equal to the host's f32 `k/scale` for
+    any scale."""
+    if input_wire != "pcm16":
+        return lambda a: a
+    s = float(np.float32(scale))
+    return lambda a: a.to(torch.float32) / s
+
+
+def render_offline(model, samples, *, segments: int | None = None,
+                   include_tail: bool = True,
+                   warmup_blocks: int | None = None,
+                   max_virtual_voices: int = 512,
+                   schedule=None,
+                   track_chunk_blocks: int | None = None,
+                   mesh=None, wire: str = "f32",
+                   bucket_blocks=None, input_wire: str = "f32",
+                   input_scale: float | None = None) -> np.ndarray:
+    """Render `samples` through `model` (ConvolutionReverb) at the control
+    plane's current converged parameters: stereo [2, T] shared program
+    material (or mono [T], duplicated like the CLI source), or per-voice
+    [V, 2, T]. Returns per-voice output [V, 2, T_out], the streaming
+    sinks' convention; T_out = T plus the reverb tail (`history_blocks` of
+    ring-out) when `include_tail`.
+
+    `segments=None` picks the segment count from the step-cost model
+    (_auto_segments); `max_virtual_voices` caps segments * V (device
+    memory: the f32 fmajor line is ~2.9 MB per virtual voice at 4 s IRs).
+    `warmup_blocks` overrides the priming depth (a testing hook; the
+    default is the exactness contract). `schedule` (a MidiSchedule)
+    bounces a scripted automation timeline instead of static parameters —
+    fmajor (either strategy) or the 'allk' cascade. `track_chunk_blocks`
+    bounds device memory for very long tracks: the track renders in chunks
+    of that many blocks, each re-primed from the trailing input history
+    inside its slice (composable with `schedule=`; on the cascade the
+    chunk grid and history prefix round up to the stagger ratio). `mesh`
+    is not ported (NotImplementedError). `wire='pcm16'` encodes the output
+    to 16-bit PCM on the device and decodes it on the host: f32 [V, 2, T]
+    quantized to 1/32767. `bucket_blocks` rounds the padded track length
+    up to a grid (or ~3 % with 'auto'); the pad is zero input, trimmed
+    from the output. `input_wire='pcm16'` uploads the program material as
+    int16, decoded on the device at `input_scale` (default 32767); 'auto'
+    uploads bit-exactly when the input sits on a 16-bit grid and falls
+    back to f32."""
+    _check_full_resident(model)
+    if wire not in ("f32", "pcm16"):
+        raise ValueError(f"wire must be 'f32' or 'pcm16', got {wire!r}")
+    if input_wire not in ("f32", "pcm16", "auto"):
+        raise ValueError(f"input_wire must be 'f32', 'pcm16', or 'auto', "
+                         f"got {input_wire!r}")
+    if mesh is not None:
+        raise NotImplementedError(_NO_MESH)
+    _bucket_total(1, bucket_blocks)  # validate even where chunking ignores it
+    if input_wire == "auto":
+        input_wire, input_scale = _detect_input_grid(
+            np.asarray(samples, np.float32))
+        if input_wire == "pcm16":
+            Log.info("offline", "input sits on a 16-bit grid (1/%g): "
+                     "uploading as int16, bit-exact", input_scale)
+    elif input_wire == "pcm16" and input_scale is None:
+        input_scale = 32767.0
+    if track_chunk_blocks is not None:
+        return _render_chunked(
+            model, samples, track_chunk_blocks, segments=segments,
+            include_tail=include_tail, warmup_blocks=warmup_blocks,
+            max_virtual_voices=max_virtual_voices, schedule=schedule,
+            wire=wire, input_wire=input_wire, input_scale=input_scale)
+    if schedule is not None:
+        return _render_automated(
+            model, samples, schedule, segments=segments,
+            include_tail=include_tail, warmup_blocks=warmup_blocks,
+            max_virtual_voices=max_virtual_voices, wire=wire,
+            bucket_blocks=bucket_blocks, input_wire=input_wire,
+            input_scale=input_scale)
+    eng = model.engine
+    v, b = eng.num_voices, eng.block
+
+    x, per_voice = _check_stereo(samples, v)
+    x = _quantize_input(x, input_wire, input_scale)
+    dec = _input_decoder(input_wire, input_scale)
+    t_samples = x.shape[-1]
+    t_blocks = -(-t_samples // b)
+
+    fast = hasattr(eng, "prime_fdl")
+    warmup = int(warmup_blocks if warmup_blocks is not None
+                 else (eng.prime_blocks if fast else eng.history_blocks))
+    tail_blocks = eng.history_blocks if include_tail else 0
+    total_blocks = _bucket_total(t_blocks + tail_blocks, bucket_blocks)
+
+    # (the cascade's stagger invariant holds: num_voices % ratio == 0, so
+    # any v * nseg stays divisible)
+    if segments is None:
+        nseg = min(_auto_segments(total_blocks, warmup, v,
+                                  max_virtual_voices), total_blocks)
+    else:
+        nseg = int(segments)
+        if nseg < 1:
+            raise ValueError(f"segments must be >= 1, got {segments}")
+    seg_len = -(-total_blocks // nseg)
+    seng = _virtual_engine(eng, v * nseg)
+    dev, bank = seng.device, model.spectra
+
+    # block tensor [T', 2, B] (shared) or [T', V, 2, B] (per-voice), zero
+    # past the input (the zero tail flushes the ring-out)
+    xb = _block_tensor(x, per_voice, nseg * seg_len, b, t_samples)
+    xb_dev = torch.from_numpy(xb).to(dev)
+
+    # the control plane, replicated voice-major: virtual voice v*nseg + s
+    # carries voice v's parameters over segment s
+    host = model.control.snapshot()
+    vparams = VoiceParams(**{
+        name: np.repeat(np.asarray(arr), nseg, axis=0)
+        for name, arr in vars(host).items()}).to(dev)
+    state = seng.init_converged(bank, vparams)
+    if fast:
+        t0 = np.tile(np.arange(nseg) * seg_len - warmup, v)
+        voice_of = np.repeat(np.arange(v), nseg) if per_voice else None
+        state = _prime_fast(seng, state, xb_dev, t0, voice_of, dec)
+    steps = warmup + seg_len
+    inputs = _step_inputs(xb_dev, per_voice, nseg, seg_len, warmup, steps,
+                          v, dec, voice_major=True)
+    del xb_dev
+
+    Log.info("offline", "bounce: %d blocks as %d segment(s) x %d + %d "
+             "warm-up steps (%d virtual voices)",
+             total_blocks, nseg, seg_len, warmup, v * nseg)
+
+    def step(i, st):
+        return seng.step_coef_steady(st, bank, vparams, inputs(i))
+
+    out = _collect(step, state, warmup, seg_len, (v * nseg, 2, b), wire, dev)
+    # [seg_len, V*nseg, 2, B] -> [V, 2, nseg*seg_len*B]
+    out = (out.reshape(seg_len, v, nseg, 2, b)
+              .transpose(1, 3, 2, 0, 4)
+              .reshape(v, 2, nseg * seg_len * b))
+    out_samples = t_samples + tail_blocks * b if include_tail else t_samples
+    return _decode_wire(out[..., :out_samples], wire)
+
+
+def _bucket_total(total_blocks: int, bucket_blocks) -> int:
+    """Round the padded track length up to the bucket grid (see
+    render_offline's `bucket_blocks`). 'auto' pads at most ~3 %: the grid
+    is 2^(bitlen-5), i.e. 1/32 of the track's magnitude."""
+    if bucket_blocks is None:
+        return total_blocks
+    if bucket_blocks == "auto":
+        g = max(64, 1 << max(int(total_blocks).bit_length() - 5, 0))
+    else:
+        g = int(bucket_blocks)
+        if g < 1:
+            raise ValueError(f"bucket_blocks must be >= 1 or 'auto', "
+                             f"got {bucket_blocks}")
+    return -(-total_blocks // g) * g
+
+
+def _decode_wire(out: np.ndarray, wire: str) -> np.ndarray:
+    return decode_pcm16(out) if wire == "pcm16" else out
+
+
+def _chunk_input(x: np.ndarray, lo: int, hist: int, chunk_blocks: int,
+                 b: int) -> np.ndarray:
+    """Chunk `lo`'s input span: `hist` blocks of history prefix (zeros before
+    the track) and `chunk_blocks` of payload (zeros past its end)."""
+    t_samples = x.shape[-1]
+    xs = np.zeros(x.shape[:-1] + ((hist + chunk_blocks) * b,), np.float32)
+    src_lo = (lo - hist) * b
+    src_hi = min((lo + chunk_blocks) * b, t_samples)
+    if src_hi > max(src_lo, 0):
+        dst = max(src_lo, 0) - src_lo
+        xs[..., dst:dst + (src_hi - max(src_lo, 0))] = \
+            x[..., max(src_lo, 0):src_hi]
+    return xs
+
+
+def _render_chunked(model, samples, chunk_blocks: int, *, segments,
+                    include_tail, warmup_blocks, max_virtual_voices,
+                    schedule, wire: str = "f32", input_wire: str = "f32",
+                    input_scale=None) -> np.ndarray:
+    """Bounded-memory bounce: the track renders in `chunk_blocks`-block
+    chunks, each an independent time-parallel render over its slice plus
+    `history_blocks` of trailing input prefix (output discarded) — the
+    contract that makes segments exact makes chunks exact. With
+    ``schedule=`` see _render_chunked_automated."""
+    chunk_blocks = int(chunk_blocks)
+    if chunk_blocks < 1:
+        raise ValueError(f"track_chunk_blocks must be >= 1, "
+                         f"got {chunk_blocks}")
+    if schedule is not None:
+        return _render_chunked_automated(
+            model, samples, chunk_blocks, schedule, segments=segments,
+            include_tail=include_tail, warmup_blocks=warmup_blocks,
+            max_virtual_voices=max_virtual_voices, wire=wire,
+            input_wire=input_wire, input_scale=input_scale)
+    eng = model.engine
+    b = eng.block
+    x, _ = _check_stereo(samples, eng.num_voices)
+    t_samples = x.shape[-1]
+    hist = eng.history_blocks
+    out_blocks = -(-t_samples // b) + (hist if include_tail else 0)
+    outs = []
+    for lo in range(0, out_blocks, chunk_blocks):
+        out = render_offline(model, _chunk_input(x, lo, hist, chunk_blocks, b),
+                             segments=segments, include_tail=False,
+                             warmup_blocks=warmup_blocks,
+                             max_virtual_voices=max_virtual_voices,
+                             wire=wire, input_wire=input_wire,
+                             input_scale=input_scale)
+        outs.append(out[..., hist * b:])
+    out = np.concatenate(outs, axis=-1)
+    return out[..., :t_samples + (hist * b if include_tail else 0)]
+
+
+def _render_chunked_automated(model, samples, chunk_blocks: int, schedule,
+                              *, segments, include_tail, warmup_blocks,
+                              max_virtual_voices, wire: str = "f32",
+                              input_wire: str = "f32",
+                              input_scale=None) -> np.ndarray:
+    """Bounded-memory bounce of an automation timeline. The host replays
+    the schedule ONCE over the whole (chunk-grid-padded) timeline, with
+    fade snapshots at every chunk's segment warm-up starts in absolute
+    blocks; each chunk renders its local span (history prefix + payload)
+    and reads parameters and events at ``local_block + (chunk_start -
+    hist)``. On the cascade the stagger schedule follows the engine's local
+    block counter, so the chunk grid and the history prefix round up to the
+    ratio: every chunk's start offset then keeps the stream's phase."""
+    eng = model.engine
+    _check_automatable(eng)
+    b = eng.block
+    ratio = int(getattr(eng, "ratio", 1))
+    if chunk_blocks % ratio:
+        chunk_blocks = -(-chunk_blocks // ratio) * ratio
+        Log.info("offline", "chunk grid rounded up to %d blocks (cascade "
+                 "stagger ratio %d alignment)", chunk_blocks, ratio)
+    x, _ = _check_stereo(samples, eng.num_voices)
+    t_samples = x.shape[-1]
+    tail = eng.history_blocks if include_tail else 0
+    hist = -(-eng.history_blocks // ratio) * ratio
+    out_blocks = -(-t_samples // b) + tail
+    span_blocks = hist + chunk_blocks
+    _fast, warmup, nseg, seg_len = _plan_automated(
+        eng, span_blocks, segments=segments, warmup_blocks=warmup_blocks,
+        max_virtual_voices=max_virtual_voices)
+    los = list(range(0, out_blocks, chunk_blocks))
+    tpad_local = nseg * seg_len
+    tpadg = max(los[-1] - hist + tpad_local, tpad_local)
+    snap_points = sorted({max(s * seg_len - warmup + lo - hist, 0)
+                          for lo in los for s in range(nseg)})
+    sim = _ControlSim(model.control, schedule, tpadg, snap_points)
+    outs = []
+    for lo in los:
+        out = _render_automated(
+            model, _chunk_input(x, lo, hist, chunk_blocks, b), schedule,
+            segments=nseg, include_tail=False, warmup_blocks=warmup,
+            max_virtual_voices=max_virtual_voices, wire=wire,
+            input_wire=input_wire, input_scale=input_scale,
+            _chunk_ctx=(sim, lo - hist, tpadg))
+        outs.append(out[..., hist * b:])
+    out = np.concatenate(outs, axis=-1)
+    return out[..., :t_samples + tail * b]
+
+
+class _ControlSim:
+    """Host replay of a MIDI schedule against a control-plane replica.
+
+    Produces, for ``total_blocks`` blocks (padded track + tail):
+
+      - regime-compressed parameter timelines: ``regimes`` (list of field
+        dicts, row 0 = the PRE-schedule initial plane, one more row per
+        event block), ``regime_starts`` (the block each regime began —
+        vsteps decays linearly from there), ``regime_of_block`` [T] i32;
+      - re-select event tables: ``ev_changed``/``ev_old`` (row 0 = the
+        no-event sentinel) and ``event_of_block`` [T] i32, applied by the
+        engine's collapse_pure (or the 'selected' collapse);
+      - ``snaps[block] = (coef_a, coef_c, base_g, select)`` — the exact f32
+        fade state (and clipped selection) ENTERING ``block`` (pre-event),
+        at every requested segment warm-up start.
+
+    The coefficient recursion is the engine's, op for op in float32
+    (a *= 1-r; c = c*(1-r) + wet*r with r = 1/(vsteps+5), vsteps
+    decremented per block — engine/fmajor.py step_coef), and the span
+    collapse is collapse_pure's (g := a*g + c*onehot(old); a=1; c=0), so a
+    segment primed from a snapshot continues the recursion with the values
+    the streaming session's state would hold.
+    """
+
+    FIELDS = ("select", "predelay", "vsteps", "dry", "wet",
+              "pan_dry", "pan_wet", "level")
+
+    def __init__(self, control, schedule, total_blocks: int,
+                 snap_blocks) -> None:
+        v = control.num_voices
+        k = max(control.bank_size, 1)
+        clone = ControlPlane(v, control.bank_size, control.max_predelay,
+                             device="cpu")
+        for name in ("select_base", "select_span", "select", "predelay",
+                     "vsteps", "speed", "dry", "wet", "pan_dry", "pan_wet",
+                     "level"):
+            getattr(clone, name)[:] = getattr(control, name)
+        clone.mappings = dict(control.mappings)
+        if clone.vsteps.any():
+            raise ValueError(
+                "automated bounce requires a converged starting control "
+                "plane (vsteps == 0 everywhere): finish in-flight fades in "
+                "the streaming session, or start the schedule from rest")
+        pending: dict = {}
+        clone.on_select_change = (
+            lambda vo, ch, old, new: pending.setdefault((vo, ch), old))
+
+        a = np.zeros((v, 2), np.float32)
+        c = clone.wet.astype(np.float32).copy()
+        g = np.zeros((v, 2, k), np.float32)
+        one = np.float32(1.0)
+        five = np.float32(5.0)
+
+        want = set(int(s) for s in snap_blocks)
+        self.snaps: dict[int, tuple] = {}
+
+        def regime_row():
+            return {
+                "select": np.clip(clone.select, 0, k - 1).astype(np.int32),
+                "predelay": clone.predelay.astype(np.int32).copy(),
+                "vsteps": clone.vsteps.astype(np.int32).copy(),
+                "dry": clone.dry.copy(), "wet": clone.wet.copy(),
+                "pan_dry": clone.pan_dry.copy(),
+                "pan_wet": clone.pan_wet.copy(),
+                "level": clone.level.copy(),
+            }
+
+        self.regimes = [regime_row()]
+        self.regime_starts = [0]
+        self.regime_of_block = np.zeros(total_blocks, np.int32)
+        self.ev_changed = [np.zeros((v, 2), bool)]
+        self.ev_old = [np.zeros((v, 2), np.int32)]
+        self.event_of_block = np.zeros(total_blocks, np.int32)
+
+        schedule.rewind_to(0)
+        for t in range(total_blocks):
+            if t in want:
+                self.snaps[t] = (a.copy(), c.copy(), g.copy(),
+                                 np.clip(clone.select, 0, k - 1
+                                         ).astype(np.int32))
+            due = schedule.pop_due(t)
+            if due:
+                for device, message in due:
+                    clone.apply_midi_message(message, device)
+                if pending:
+                    changed = np.zeros((v, 2), bool)
+                    old_sel = np.zeros((v, 2), np.int32)
+                    for (vo, ch), old in pending.items():
+                        changed[vo, ch] = True
+                        old_sel[vo, ch] = old
+                    pending.clear()
+                    # collapse_pure's span re-base (one_hot of an
+                    # out-of-range old yields the zero row)
+                    oh = np.zeros((v, 2, k), np.float32)
+                    inr = (old_sel >= 0) & (old_sel < k)
+                    np.put_along_axis(oh, np.clip(old_sel, 0, k - 1)[..., None],
+                                      1.0, axis=2)
+                    oh *= inr[..., None]
+                    gnew = a[..., None] * g + c[..., None] * oh
+                    g = np.where(changed[..., None], gnew, g)
+                    a = np.where(changed, one, a).astype(np.float32)
+                    c = np.where(changed, np.float32(0.0), c).astype(np.float32)
+                    self.ev_changed.append(changed)
+                    self.ev_old.append(old_sel)
+                    self.event_of_block[t] = len(self.ev_changed) - 1
+                self.regimes.append(regime_row())
+                self.regime_starts.append(t)
+            self.regime_of_block[t] = len(self.regimes) - 1
+            r = one / (clone.vsteps.astype(np.float32) + five)
+            a = (a * (one - r)).astype(np.float32)
+            c = (c * (one - r) + clone.wet * r).astype(np.float32)
+            np.maximum(clone.vsteps - 1, 0, out=clone.vsteps)
+        late = schedule.pop_due(1 << 62)
+        if late:
+            Log.warn("offline", "%d scheduled MIDI event(s) fall past the "
+                     "bounce's %d blocks (ignored)", len(late), total_blocks)
+
+
+def _check_automatable(eng) -> bool:
+    """Validate that the engine replays automation (coef fades in the span,
+    or the 'selected' snapshot expansion); returns the 'selected' flag."""
+    strategy = getattr(eng, "mac_strategy", None)
+    selected = (strategy == "selected" and hasattr(eng, "_span_expand")
+                and hasattr(eng, "_gather_selection"))
+    if not (selected or (strategy == "allk"
+                         and hasattr(eng, "collapse_pure")
+                         and hasattr(eng, "step_coef_indexed"))):
+        raise ValueError(
+            "automated bounce requires a coef-fade engine: fmajor (either "
+            "MAC strategy) or the 'allk' cascade — re-selects and "
+            "crossfades replay through collapse(_pure)")
+    return selected
+
+
+def _plan_automated(eng, total_blocks: int, *, segments, warmup_blocks,
+                    max_virtual_voices):
+    """Segment plan for an automated bounce: (fast, warmup, nseg, seg_len).
+
+    The cascade's tail schedule is staggered (group g computes at blocks
+    t % ratio == g): a virtual voice's local block counter starts at 0, so
+    its stagger phase matches the stream's only when every segment's
+    warm-up start falls on a ratio boundary — hence the ratio-rounding of
+    warmup and seg_len. Converged params are phase-invariant (the static
+    path needs no alignment), but an event's fade scattering is not."""
+    fast = hasattr(eng, "prime_fdl")
+    warmup = int(warmup_blocks if warmup_blocks is not None
+                 else (eng.prime_blocks if fast else eng.history_blocks))
+    ratio = int(getattr(eng, "ratio", 1))
+    warmup = -(-warmup // ratio) * ratio
+    v = eng.num_voices
+    if segments is None:
+        nseg = min(_auto_segments(total_blocks, warmup, v,
+                                  max_virtual_voices), total_blocks)
+    else:
+        nseg = int(segments)
+        if nseg < 1:
+            raise ValueError(f"segments must be >= 1, got {segments}")
+    seg_len = -(-(-(-total_blocks // nseg)) // ratio) * ratio
+    return fast, warmup, nseg, seg_len
+
+
+def _schedule_tables(sim: _ControlSim, nseg: int, v: int, seg_len: int,
+                     warmup: int, abs_base: int, tpadg: int) -> dict:
+    """Every step's parameters and re-select events, gathered on the host
+    from the replay's tables: {field: [steps, nseg*V, 2]} for the eight
+    VoiceParams fields plus "old" and "changed" (segment-major: virtual
+    voice s*V + v carries voice v over segment s), and "event" [steps]
+    bool, True where some virtual voice re-selects.
+
+    Pre-roll steps (absolute block < 0: a segment that starts less than one
+    warm-up window into the timeline) read regime row 0, the initial plane,
+    whose converged coefficients make the recursion a no-op before block
+    0, and no event."""
+    steps = warmup + seg_len
+    idx = (np.arange(nseg)[None, :] * seg_len
+           + np.arange(steps)[:, None] - warmup)                # [steps, nseg]
+    aidx = idx + abs_base                                       # absolute block
+    live = aidx >= 0
+    aidxc = np.clip(aidx, 0, tpadg - 1)
+    reg = np.where(live, sim.regime_of_block[aidxc], 0)
+    offs = np.where(live, aidx - np.asarray(sim.regime_starts)[reg], 0)
+    ev = np.where(live, sim.event_of_block[aidxc], 0)
+
+    def gather(rows, tbl):
+        return tbl[rows].reshape(steps, nseg * v, *tbl.shape[2:])
+
+    out = {f: gather(reg, np.stack([r[f] for r in sim.regimes]))
+           for f in _ControlSim.FIELDS}
+    out["vsteps"] = np.maximum(
+        out["vsteps"] - np.repeat(offs, v, axis=1)[..., None], 0
+    ).astype(np.int32)
+    out["changed"] = (gather(ev, np.stack(sim.ev_changed))
+                      & np.repeat(live, v, axis=1)[..., None])
+    out["old"] = gather(ev, np.stack(sim.ev_old))
+    out["event"] = out["changed"].any(axis=(1, 2))
+    return out
+
+
+def _render_automated(model, samples, schedule, *, segments,
+                      include_tail, warmup_blocks, max_virtual_voices,
+                      wire: str = "f32", bucket_blocks=None,
+                      input_wire: str = "f32", input_scale=None,
+                      _chunk_ctx=None) -> np.ndarray:
+    """Time-parallel bounce of a scripted MIDI timeline — render_offline
+    with ``schedule=`` (see the module docstring).
+
+    ``_chunk_ctx = (sim, abs_base, tpad_global)`` is the chunked path's
+    seam (_render_chunked_automated): the replay was built once over the
+    global timeline, this call renders the chunk's local span, and every
+    parameter and event is read at the absolute block ``local +
+    abs_base``."""
+    eng = model.engine
+    selected = _check_automatable(eng)
+    v, b = eng.num_voices, eng.block
+    x, per_voice = _check_stereo(samples, v)
+    x = _quantize_input(x, input_wire, input_scale)
+    dec = _input_decoder(input_wire, input_scale)
+    t_samples = x.shape[-1]
+    t_blocks = -(-t_samples // b)
+    if _chunk_ctx is None:
+        tail_blocks = eng.history_blocks if include_tail else 0
+        total_blocks = _bucket_total(t_blocks + tail_blocks, bucket_blocks)
+    else:
+        sim, abs_base, tpadg = _chunk_ctx
+        tail_blocks = 0
+        total_blocks = t_blocks
+    fast, warmup, nseg, seg_len = _plan_automated(
+        eng, total_blocks, segments=segments, warmup_blocks=warmup_blocks,
+        max_virtual_voices=max_virtual_voices)
+    tpad = nseg * seg_len
+    seng = _virtual_engine(eng, v * nseg)
+    dev, bank = seng.device, model.spectra
+
+    xb = _block_tensor(x, per_voice, tpad, b, t_samples)
+    xb_dev = torch.from_numpy(xb).to(dev)
+    if _chunk_ctx is None:
+        abs_base, tpadg = 0, tpad
+        sim = _ControlSim(model.control, schedule, tpad,
+                          [max(s * seg_len - warmup, 0) for s in range(nseg)])
+    tables = _schedule_tables(sim, nseg, v, seg_len, warmup, abs_base, tpadg)
+    event = tables.pop("event")
+    tbl = {name: torch.from_numpy(np.ascontiguousarray(arr)).to(dev)
+           for name, arr in tables.items()}
+
+    def vm(arr: np.ndarray) -> torch.Tensor:
+        """[nseg, V, 2, ...] -> SEGMENT-major [nseg*V, 2, ...] on the
+        device. Segment-major (not the static path's voice-major) keeps
+        every virtual voice's cascade stagger group, j % ratio == v % ratio
+        (V is ratio-divisible), so with the ratio-aligned warm-up starts
+        each virtual voice computes its tail at the stream's block phases,
+        which the in-flight fade projections are sensitive to."""
+        arr = np.ascontiguousarray(arr)
+        return torch.from_numpy(arr.reshape((nseg * v,) + arr.shape[2:])
+                                ).to(dev)
+
+    host0 = model.control.snapshot()
+    p0 = VoiceParams(**{
+        name: np.tile(np.asarray(arr), (nseg, 1))
+        for name, arr in vars(host0).items()}).to(dev)
+    state = seng.init_converged(bank, p0)
+    snaps = [sim.snaps[max(s * seg_len - warmup + abs_base, 0)]
+             for s in range(nseg)]
+    g0 = vm(np.stack([s[2] for s in snaps]))
+    state = replace(state, coef_a=vm(np.stack([s[0] for s in snaps])),
+                    coef_c=vm(np.stack([s[1] for s in snaps])))
+    if selected:
+        # the 'selected' strategy reads materialized per-voice tensors; the
+        # snapshot is still an affine span of the bank (the stream's
+        # collapse is base := a*base + c*bank[old], the recursion the host
+        # g tracks), so expand g once and gather the pre-event selection
+        sel0 = vm(np.stack([s[3] for s in snaps]))
+        state = replace(
+            state,
+            base=seng._span_expand(bank, g0).to(state.base.dtype).contiguous(),
+            sel_spectra=seng._gather_selection(bank, sel0),
+            base_pure=torch.zeros((v * nseg, 2), dtype=torch.bool,
+                                  device=dev))
+    else:
+        if g0.shape[-1] != state.base_g.shape[-1]:
+            raise ValueError(
+                f"span width mismatch: control plane tracks {g0.shape[-1]} "
+                f"IRs, engine state carries {state.base_g.shape[-1]}")
+        state = replace(state, base_g=g0,
+                        base_pure=torch.ones((v * nseg, 2), dtype=torch.bool,
+                                             device=dev))
+    if fast:
+        # segment-major virtual packing: t0[s*V + v]
+        t0 = np.repeat(np.arange(nseg) * seg_len - warmup, v)
+        voice_of = np.tile(np.arange(v), nseg) if per_voice else None
+        state = _prime_fast(seng, state, xb_dev, t0, voice_of, dec)
+    steps = warmup + seg_len
+    inputs = _step_inputs(xb_dev, per_voice, nseg, seg_len, warmup, steps,
+                          v, dec, voice_major=False)
+    del xb_dev
+
+    Log.info("offline", "automated bounce: %d blocks as %d segment(s) x %d "
+             "+ %d warm-up steps (%d virtual voices, %d regime(s), %d "
+             "re-select block(s))", total_blocks, nseg, seg_len, warmup,
+             v * nseg, len(sim.regimes), len(sim.ev_changed) - 1)
+
+    takes_params = getattr(seng, "collapse_pure_takes_params", False)
+
+    def step(i, st):
+        params = VoiceParams(**{f: tbl[f][i] for f in _ControlSim.FIELDS})
+        if event[i]:
+            old, chg = tbl["old"][i], tbl["changed"][i]
+            if selected:
+                st = seng.collapse(st, bank, old, chg,
+                                   new_select=params.select)
+            else:
+                st = seng.collapse_pure(st, old, chg,
+                                        *((params,) if takes_params else ()))
+        if selected:
+            return seng.step_coef(st, bank, params, inputs(i))
+        return seng.step_coef_indexed(st, bank, params, inputs(i))
+
+    out = _collect(step, state, warmup, seg_len, (v * nseg, 2, b), wire, dev)
+    # [seg_len, nseg*V, 2, B] (segment-major) -> [V, 2, tpad*B]
+    out = (out.reshape(seg_len, nseg, v, 2, b)
+              .transpose(2, 3, 1, 0, 4)
+              .reshape(v, 2, tpad * b))
+    out_samples = t_samples + tail_blocks * b if include_tail else t_samples
+    return _decode_wire(out[..., :out_samples], wire)
+
+
+def _block_tensor(x: np.ndarray, per_voice: bool, t_pad_blocks: int,
+                  b: int, t_samples: int) -> np.ndarray:
+    """Zero-padded block tensor: [T', 2, B] for shared program material,
+    [T', V, 2, B] for per-voice [V, 2, T] input. Keeps x's dtype (int16
+    under the pcm16 input wire; zero pad is exact in any grid)."""
+    if per_voice:
+        v = x.shape[0]
+        flat = np.zeros((v, 2, t_pad_blocks * b), x.dtype)
+        flat[..., :t_samples] = x
+        return np.ascontiguousarray(
+            flat.reshape(v, 2, t_pad_blocks, b).transpose(2, 0, 1, 3))
+    flat = np.zeros((2, t_pad_blocks * b), x.dtype)
+    flat[:, :t_samples] = x
+    return np.ascontiguousarray(
+        flat.reshape(2, t_pad_blocks, b).transpose(1, 0, 2))
+
+
+def _virtual_engine(eng, vv: int):
+    """`eng.with_voices(vv)` memoized on the base engine, so repeated
+    bounces (chunks, takes) reuse one virtual engine and its constants."""
+    cache = eng.__dict__.setdefault("_offline_engines", {})
+    if vv not in cache:
+        if vv == eng.num_voices:
+            cache[vv] = eng
+        elif (getattr(eng, "mac_strategy", None) == "allk"
+              and getattr(eng, "swap_snapshot", False)):
+            # a bounce never swaps banks mid-fade: drop the fmajor fade
+            # snapshot `base`, ~5.7 MB per virtual voice at 4 s IRs in ring
+            # mode
+            cache[vv] = eng.with_voices(vv, swap_snapshot=False)
+        else:
+            cache[vv] = eng.with_voices(vv)
+    return cache[vv]
+
+
+def _prime_fast(seng, state, xb_dev: torch.Tensor, t0: np.ndarray,
+                voice_of: np.ndarray | None, dec):
+    """Prime every virtual voice's input history: one batched rfft over the
+    whole block tensor (input_spectra_bulk), the gather into the delay line
+    (prime_fdl), and prev_in set to block t0-1's samples. `voice_of` maps
+    virtual voices onto a per-voice input's base voices (None for shared
+    program material). The spectra are freed before the step loop."""
+    dev = xb_dev.device
+    t0_dev = torch.from_numpy(t0.astype(np.int64)).to(dev)
+    vof = (None if voice_of is None
+           else torch.from_numpy(voice_of.astype(np.int64)).to(dev))
+    spec = seng.input_spectra_bulk(dec(xb_dev))
+    state = seng.prime_fdl(state, spec, t0_dev, voice_of=vof)
+    del spec
+    prev = (t0_dev - 1).clamp(0, xb_dev.shape[0] - 1)
+    pim = dec(xb_dev[prev] if vof is None else xb_dev[prev, vof])
+    pim = torch.where((t0_dev >= 1)[:, None, None], pim, 0.0)
+    return replace(state, prev_in=pim)
+
+
+def _step_inputs(xb_dev: torch.Tensor, per_voice: bool, nseg: int,
+                 seg_len: int, warmup: int, steps: int, v: int, dec,
+                 voice_major: bool):
+    """Every step's input blocks, laid out on the device before the loop.
+    Returns inputs(i) -> f32 [V*nseg, 2, B], step i's block of every
+    virtual voice: block s*seg_len + i - warmup of segment s, zero before
+    the track. Per-voice input is stored in the virtual order, so inputs(i)
+    is a view; shared input is stored once per segment and expanded to the
+    V voices by one copy per step."""
+    dev = xb_dev.device
+    idx = (np.arange(nseg)[None, :] * seg_len
+           + np.arange(steps)[:, None] - warmup)                # [steps, nseg]
+    rows = torch.from_numpy(np.clip(idx, 0, xb_dev.shape[0] - 1).reshape(-1)
+                            ).to(dev)
+    blocks = dec(xb_dev.index_select(0, rows))
+    blocks = blocks.reshape((steps, nseg) + tuple(xb_dev.shape[1:]))
+    before = torch.from_numpy(idx < 0).to(dev)
+    blocks.view(steps, nseg, -1).masked_fill_(before[..., None], 0.0)
+    b = xb_dev.shape[-1]
+    if per_voice:                                   # [steps, nseg, V, 2, B]
+        if voice_major:
+            blocks = blocks.transpose(1, 2).contiguous()
+        return lambda i: blocks[i].reshape(v * nseg, 2, b)
+    if voice_major:                                 # [steps, nseg, 2, B]
+        return lambda i: blocks[i][None].expand(v, nseg, 2, b).reshape(
+            v * nseg, 2, b)
+    return lambda i: blocks[i][:, None].expand(nseg, v, 2, b).reshape(
+        nseg * v, 2, b)
+
+
+def _step_loop(step, state, warmup: int, seg_len: int, out: torch.Tensor,
+               wire: str, dev: torch.device) -> torch.Tensor:
+    """Run every step, queue each kept output's copy into the host buffer
+    `out` without waiting, and return the isfinite accumulator (a bool
+    tensor on `dev`, not yet read): the loop reads nothing back from the
+    device. The accumulator sees the RAW output: the pcm16 encoder clips
+    NaN into ordinary int16 values, so a check after it could never
+    fail."""
+    ok = torch.ones((), dtype=torch.bool, device=dev)
+    for i in range(warmup + seg_len):
+        state, y = step(i, state)
+        if i < warmup:
+            continue
+        ok &= torch.isfinite(y).all()
+        if wire == "pcm16":
+            y = encode_pcm16(y)
+        out[i - warmup].copy_(y, non_blocking=True)
+    return ok
+
+
+def _collect(step, state, warmup: int, seg_len: int, shape: tuple,
+             wire: str, dev: torch.device) -> np.ndarray:
+    """Drive the step loop and collect [seg_len, *shape] on the host: one
+    pinned buffer (on CUDA) takes every kept step's output as it is
+    produced, and the isfinite accumulator is read once, after the loop;
+    non-finite output raises on every wire."""
+    dtype = torch.int16 if wire == "pcm16" else torch.float32
+    out = torch.empty((seg_len,) + shape, dtype=dtype,
+                      pin_memory=dev.type == "cuda")
+    ok = _step_loop(step, state, warmup, seg_len, out, wire, dev)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    if not bool(ok):
+        raise RuntimeError(
+            "offline bounce produced non-finite output (device isfinite "
+            "accumulator on the raw engine output)")
+    return out.numpy()

@@ -100,6 +100,14 @@ class MidiSchedule:
             self._next += 1
         return due
 
+    def rewind_to(self, block_index: int) -> None:
+        """Reposition so events at blocks >= block_index replay (the offline
+        bounce replays a schedule from block 0 on the host)."""
+        self._next = 0
+        while (self._next < len(self._events)
+               and self._events[self._next][0] < block_index):
+            self._next += 1
+
 
 class StreamSession:
     """Drives (source -> engine step -> sink) to completion."""
