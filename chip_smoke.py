@@ -114,11 +114,45 @@ Phases, in order; any failure raises and the script exits non-zero:
      auto segments, two ring_mac launches per step) and a roll-mode engine
      (4 segments, every step on mac_shift), both against the golden, with
      each kernel first held against its plain version at the shapes these
-     bounces give it.
+     bounces give it;
+ 19. checkpoint and recovery at full width: ConvolutionReverb's defaults at
+     64 voices over phase 4's IRs stream 800 blocks of per-voice noise from
+     a seekable in-memory source with phase 4's re-select and interrupt and
+     a wet change at 350, once uninterrupted and once through run_resilient
+     with a checkpoint every 160 blocks and a sink that fails when blocks
+     400 and 700 are delivered: two rebuilds, resumed from 320 (mid-fade)
+     and 640, the wet change replayed. The recovered output must equal the
+     uninterrupted one within 1e-6 of scale (it prints whether it is
+     bit-identical), voices 0 and 63 must match the golden, and every
+     stepped block, replays included, must launch ring_mac. Prints the
+     checkpoint's size, each save's device-to-host and file-write ms and
+     its block's ms, each rebuild and load;
+ 20. the same for the cascade (ratio 16): 400 blocks, re-selects at 150
+     and 230, a checkpoint every 100 blocks, one failure at block 250
+     (resumed from 200, mid-cycle of the ratio), two ring_mac launches per
+     stepped block;
+ 21. the live path in one process at full width: a producer thread writes
+     1000 noise blocks into a shm NativeRing paced by a NativeBlockClock;
+     the session reads them through RingSource (silence on underrun),
+     realtime on the native clock, writes through RingSink to a ring a
+     consumer thread drains, and takes a select and a wet CC from a FIFO
+     through MidiByteStream. The consumer must get every block in order,
+     voices 0 and 63 must match the golden of the input as read, every
+     block must launch ring_mac, and the native framer and clock must be
+     the ones in use. Prints p50 / p99 per block, RTF, missed deadlines,
+     underruns, the clock's missed ticks and the latency from producer
+     write to consumer read;
+ 22. the CLI behind the C JACK bridge: the stub jackd and the C bridge
+     built into tpu_audio_torch/_build, `python -m tpu_audio_torch.app
+     --voices 1` on shm rings, realtime on the native clock with a MIDI
+     FIFO, for 1000 blocks of 256 frames (periods of 5805 us); the app
+     must exit 0 with its summary, the bridge report its periods and
+     underruns, and the playback be finite and sound without a gap.
 
 The line before the last is a JSON object describing each kernel (its
-launches summed over the phases whose path rides it: 4, 11, 12, 14-17 and
-18's cascade for ring_mac, 7, 10 and 18's roll engine for mac_shift; its
+launches summed over the phases whose path rides it: 4, 11, 12, 14-17,
+18's cascade and 19-21 for ring_mac, 7, 10 and 18's roll engine for
+mac_shift; its
 times and roofline bound at KOD=16, under per_kod at KOD 16, 36 and 64,
 ring_mac's at the cascade's four shapes under cascade and at the bounce's
 shape under bounce); the last line is {"ok": true, "device": {...}}. The
@@ -188,6 +222,22 @@ BOUNCE_SAMPLES, BOUNCE_SEGMENTS, BOUNCE_REPS = 30 * RATE, 8, 2
 AUTO_WET_CC, AUTO_WET_AT, AUTO_WET_VALUE, AUTO_CHUNK = 23, 320, 100, 256
 # phase 18: 10 s; the cascade at auto segments, roll mode at 4 segments
 ENGINE_SAMPLES, ROLL_SEGMENTS = 10 * RATE, 4
+# phase 19: phase 4's timeline plus a wet change (CC 23 to 100/128) at 350,
+# a checkpoint every 160 blocks, the sink failing once when block 400 and
+# once when block 700 is delivered (resumes from 320, mid-fade, and 640)
+REC_EVERY, REC_FAILS, REC_WET_AT = 160, (400, 700), 350
+# phase 20: the cascade, 400 blocks, re-selects at 150 and 230, a
+# checkpoint every 100 blocks (200 % 16 = 8: the restored host counter
+# lands mid-cycle of the ratio-16 tail), the sink failing at block 250
+CAS_REC_BLOCKS, CAS_REC_EVERY, CAS_REC_FAIL = 400, 100, 250
+CAS_REC_SELECTS = ((150, 32), (230, 64))
+# phase 21: 1000 blocks through shm rings of 64 blocks, a select CC once
+# the producer passes block 300 and a wet CC once it passes 600
+LIVE_BLOCKS, LIVE_RING_BLOCKS, LIVE_SELECT_NEAR, LIVE_WET_NEAR = (
+    1000, 64, 300, 600)
+# phase 22: the CLI behind the C bridge, 1000 blocks; the stub jackd runs
+# 1500 periods of 5805 us (the app stops at 1000, the rest underrun)
+CLI_BLOCKS, STUB_PERIODS, STUB_PERIOD_US = 1000, 1500, 5805
 # published peaks of one H100 SXM (NVIDIA's data sheet): HBM bytes/s and
 # f32 FLOP/s outside the tensor cores, at the full 700 W power limit
 HBM_BYTES_PER_S, F32_FLOPS = 3.35e12, 67e12
@@ -236,10 +286,10 @@ def noise_input(blocks, voices=VOICES):
         axis=-1)
 
 
-def golden_error(out, x, i, b0, b1, ir, predelay):
+def golden_error(out, x, i, b0, b1, ir, predelay, wet=0.7):
     """Max abs error of voice row `i` of `out` over blocks b0..b1-1 against
     the golden of IR `ir`."""
-    want = golden(x[i], [ir, ir], wet=0.7, dry=0.2, predelay=predelay)
+    want = golden(x[i], [ir, ir], wet=wet, dry=0.2, predelay=predelay)
     return float(np.abs(out[i, :, b0 * BLOCK: b1 * BLOCK]
                         - want[:, b0 * BLOCK: b1 * BLOCK]).max())
 
@@ -247,12 +297,12 @@ def golden_error(out, x, i, b0, b1, ir, predelay):
 def check_golden(name, out, x, windows, predelay, limit=1e-4,
                  voices=VOICES):
     """out, x [2 voices, 2, T]: the first and last of `voices`; windows:
-    (label, first block, end block, IR [2, L]). Returns the largest error;
-    raises beyond `limit`."""
+    (label, first block, end block, IR [2, L][, wet]) (wet 0.7 unless
+    given). Returns the largest error; raises beyond `limit`."""
     worst = 0.0
     for i, v in enumerate((0, voices - 1)):
-        for label, b0, b1, ir in windows:
-            err = golden_error(out, x, i, b0, b1, ir, predelay)
+        for label, b0, b1, ir, *wet in windows:
+            err = golden_error(out, x, i, b0, b1, ir, predelay, *wet)
             worst = max(worst, err)
             print(f"{name} golden voice {v} blocks {b0}-{b1 - 1} ({label}): "
                   f"max_abs_err {err:.3e} (limit {limit:.0e})")
@@ -1378,6 +1428,554 @@ def run_bounce_engines(bank, irs, dev, configure, reset_counts, rm, ms,
     return out
 
 
+def _model_factory(bank, dev, configure, **kwargs):
+    """A zero-arg factory of phase 19's (or, with engine='cascade', phase
+    20's) model: ConvolutionReverb at 64 voices over `bank`, configured as
+    phase 4, with the wet CC of phase 17 mapped too."""
+    from tpu_audio_torch.engine.params import CCMapping
+    from tpu_audio_torch.models.reverb import ConvolutionReverb
+
+    def build():
+        model = ConvolutionReverb(bank, num_voices=VOICES, block=BLOCK,
+                                  sample_rate=RATE, max_predelay=8192,
+                                  device=dev, **kwargs)
+        configure(model.control)
+        for v in range(VOICES):
+            for ch in range(2):
+                model.control.set_mapping(v, ch, CCMapping(
+                    message=0xB0, select=SELECT_CC, predelay=PREDELAY_CC,
+                    wet=AUTO_WET_CC))
+        return model
+
+    return build
+
+
+def run_recovery(name, build, x, timeline, every, fails, keep_sink,
+                 reset_counts, rm, per_block):
+    """Stream `x` [V, 2, T] through a model of `build()` uninterrupted,
+    then through run_resilient with a checkpoint every `every` blocks and a
+    sink that fails once when each block index of `fails` is delivered.
+    Both runs must launch ring_mac `per_block` times for every block they
+    step (replays included); the recovered output must equal the
+    uninterrupted one within 1e-6 of its scale. Returns the figures and
+    both outputs."""
+    import tempfile
+
+    import torch
+
+    from tpu_audio_torch.runtime.backends import WavSource
+    from tpu_audio_torch.runtime.recovery import run_resilient
+
+    class CountingSource(WavSource):
+        """A seekable in-memory source that counts the blocks it hands
+        out: every one of them is stepped."""
+
+        reads = 0
+
+        def read(self):
+            blk = super().read()
+            self.reads += blk is not None
+            return blk
+
+    class FailingSink(keep_sink):
+        def __init__(self):
+            super().__init__(keep_all=True)
+            self.fails = list(fails)
+
+        def write(self, block):
+            if self.fails and self.blocks == self.fails[0]:
+                self.fails.pop(0)
+                raise RuntimeError(f"simulated transport failure at "
+                                   f"delivered block {self.blocks}")
+            super().write(block)
+
+    blocks = x.shape[-1] // BLOCK
+    src = CountingSource(x, VOICES, BLOCK)
+    want = keep_sink(keep_all=True)
+    model = build()
+    session = model.session(src, want)
+    reset_counts()
+    t0 = time.perf_counter()
+    session.run(model.init_state(), midi=timeline())
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    plain_launches = rm.ring_mac.launches
+    if (plain_launches != per_block * src.reads or src.reads != blocks
+            or want.blocks != blocks):
+        raise AssertionError(f"{name}: uninterrupted run stepped "
+                             f"{src.reads} blocks, delivered {want.blocks}, "
+                             f"ring_mac launches {plain_launches}")
+    del model, session
+    torch.cuda.empty_cache()
+
+    builds = []
+
+    def counting_build():
+        builds.append(1)
+        return build()
+
+    src = CountingSource(x, VOICES, BLOCK)
+    sink = FailingSink()
+    with tempfile.TemporaryDirectory() as tmp:
+        reset_counts()
+        t0 = time.perf_counter()
+        _, summary = run_resilient(counting_build, src, sink,
+                                   f"{tmp}/session.ckpt",
+                                   checkpoint_every=every, midi=timeline())
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = rm.ring_mac.launches
+    resumes = [r["resume_block"] for r in summary["recoveries"]]
+    saves = summary["checkpoint_saves"]
+    print(f"{name}: uninterrupted {blocks} blocks in {plain_s:.3f} s; "
+          f"resilient run {wall:.3f} s wall, {summary['restarts']} restarts "
+          f"(resumed from {resumes}), {len(builds)} model builds, "
+          f"{src.reads} blocks stepped, ring_mac launches {launches} (want "
+          f"{per_block} x {src.reads}), delivered "
+          f"{summary['blocks_delivered']}")
+    for r in summary["recoveries"]:
+        print(f"{name}: failure at delivered block {r['delivered']}: "
+              f"rebuild {r['rebuild_s']:.3f} s, load {r['load_s']:.3f} s, "
+              f"resume from block {r['resume_block']}")
+    missed = 0
+    for s in saves:
+        late = s["block_s"] > BLOCK / RATE
+        missed += late
+        print(f"{name}: save at block {s['block_index']}: "
+              f"{s['bytes'] / 1e6:.1f} MB, device-to-host "
+              f"{s['d2h_s'] * 1e3:.1f} ms, file write "
+              f"{s['write_s'] * 1e3:.1f} ms, its block "
+              f"{s['block_s'] * 1e3:.1f} ms ({'missed' if late else 'met'} "
+              f"the {DEADLINE_MS:.3f} ms deadline)")
+    got, ref = sink.data(), want.data()
+    scale = float(np.abs(ref).max())
+    err = float(np.abs(got - ref).max()) if got.shape == ref.shape else 1e9
+    print(f"{name}: recovered against uninterrupted over {blocks} blocks x "
+          f"{VOICES} voices: max_abs_err {err:.3e} (limit {1e-6 * scale:.3e} "
+          f"= 1e-6 of scale {scale:.3f}); bit-identical: {err == 0.0}")
+    want_resumes = [(f - 1) // every * every for f in fails]
+    if (summary["restarts"] != len(fails) or len(builds) != len(fails) + 1
+            or resumes != want_resumes or sink.blocks != blocks
+            or summary["blocks_delivered"] != blocks):
+        raise AssertionError(f"{name}: restarts {summary['restarts']}, "
+                             f"resumes {resumes} (want {want_resumes}), "
+                             f"delivered {sink.blocks}")
+    if launches != per_block * src.reads or src.reads <= blocks:
+        raise AssertionError(f"{name}: ring_mac launched {launches} times in "
+                             f"{src.reads} stepped blocks")
+    if not sink.finite or not err <= 1e-6 * scale:
+        raise AssertionError(f"{name}: the recovered output disagrees with "
+                             f"the uninterrupted run")
+    figures = {"launches": plain_launches + launches, "err": err,
+               "exact": err == 0.0, "restarts": summary["restarts"],
+               "stepped": src.reads, "wall_s": wall, "plain_s": plain_s,
+               "save_MB": saves[0]["bytes"] / 1e6,
+               "save_d2h_ms": [s["d2h_s"] * 1e3 for s in saves],
+               "save_write_ms": [s["write_s"] * 1e3 for s in saves],
+               "save_block_ms": [s["block_s"] * 1e3 for s in saves],
+               "saves_missed": missed,
+               "rebuild_s": [r["rebuild_s"] for r in summary["recoveries"]],
+               "load_s": [r["load_s"] for r in summary["recoveries"]]}
+    return figures, got
+
+
+def run_checkpoint_phases(bank, irs, dev, configure, select, keep_sink,
+                          reset_counts, rm, ms):
+    """Phases 19 and 20: run_resilient at full width against the
+    uninterrupted run, fmajor ring/allk (two failures) then the cascade
+    (one). Returns the figures."""
+    from tpu_audio_torch.runtime.stream import MidiSchedule
+
+    x = voice_noise(VOICES, BLOCKS * BLOCK, seed=0)
+    wet = AUTO_WET_VALUE / 128
+
+    def timeline():
+        return MidiSchedule([select(SELECT_AT, 32), select(INTERRUPT_AT, 64),
+                             (REC_WET_AT, "",
+                              bytes([0xB0, AUTO_WET_CC, AUTO_WET_VALUE]))])
+
+    out = {}
+    build = _model_factory(bank, dev, configure)
+    out["ring"], got = run_recovery(
+        "recovery (ring)", build, x, timeline, REC_EVERY, REC_FAILS,
+        keep_sink, reset_counts, rm, 1)
+    out["ring"]["golden_err"] = check_golden(
+        "recovery (ring)", got[[0, VOICES - 1]], x[[0, -1]],
+        (("before the re-selects, IR 0", 0, SELECT_AT, irs[0]),
+         (f"after the fades and the wet change, IR 2, wet {wet}", 500,
+          BLOCKS, irs[2], wet)),
+        predelay=1024)
+    if ms.mac_shift.launches:
+        raise AssertionError("recovery: mac_shift launched")
+    del got
+
+    def cas_timeline():
+        return MidiSchedule([select(b, v) for b, v in CAS_REC_SELECTS])
+
+    build = _model_factory(bank, dev, configure, engine="cascade",
+                              cascade_ratio=CAS_RATIO)
+    out["cascade"], _ = run_recovery(
+        "recovery (cascade)", build, x[..., :CAS_REC_BLOCKS * BLOCK],
+        cas_timeline, CAS_REC_EVERY, (CAS_REC_FAIL,), keep_sink,
+        reset_counts, rm, 2)
+    return out
+
+
+def run_live_path(bank, irs, dev, configure, select, reset_counts, rm):
+    """Phase 21: the live path in one process at full width. A producer
+    thread writes LIVE_BLOCKS blocks of per-voice noise into a shm
+    NativeRing, paced by a NativeBlockClock at the block period; the
+    session reads it through RingSource (blocking, underruns silenced),
+    realtime on the native clock, and writes through RingSink into a second
+    ring that a consumer thread drains; MIDI arrives through a FIFO read by
+    MidiByteStream. Returns the figures."""
+    import os
+    import tempfile
+    import threading
+
+    import torch
+
+    from tpu_audio_torch.runtime import native
+    from tpu_audio_torch.runtime.midi_transport import MidiByteStream
+
+    if not native.native_available():
+        raise AssertionError("live path: the native library did not build")
+    period = BLOCK / RATE
+    n = VOICES * 2 * BLOCK
+    noise = np.random.default_rng(5)
+    blocks = (noise.standard_normal((LIVE_BLOCKS, VOICES, 2, BLOCK),
+                                    dtype=np.float32) * 0.01)
+    tag = f"{os.getpid()}_{time.monotonic_ns() % 10 ** 9}"
+    ring_in = native.NativeRing(LIVE_RING_BLOCKS * n,
+                                shm_name=f"/tpuaudio_smoke_in_{tag}")
+    ring_out = native.NativeRing(LIVE_RING_BLOCKS * n,
+                                 shm_name=f"/tpuaudio_smoke_out_{tag}")
+    t_write, t_read, consumed = [], [], []
+    produced = [0]
+
+    done = threading.Event()
+
+    # the producer and the consumer stand in for other processes: they
+    # poll the rings' fill levels (one C call, no allocation) every 0.5 ms
+    # and take the GIL only to move a block
+    def produce():
+        clock = native.NativeBlockClock(period)
+        for blk in blocks:
+            while not ring_in.write(blk):
+                if done.is_set():
+                    return
+                time.sleep(0.0005)
+            t_write.append(time.perf_counter())
+            produced[0] += 1
+            clock.wait()
+        clock.close()
+
+    def consume():
+        while len(consumed) < LIVE_BLOCKS and not done.is_set():
+            data = ring_out.read(n)
+            if data is None:
+                time.sleep(0.0005)
+                continue
+            t_read.append(time.perf_counter())
+            consumed.append(data.reshape(VOICES, 2, BLOCK)[[0, -1]].copy())
+
+    class RecordingSource(native.RingSource):
+        """Keeps voices 0 and 63 of every block the session read (a
+        silenced underrun is read as None and recorded as zeros) and which
+        producer block each session block carried."""
+
+        def __init__(self):
+            super().__init__(ring_in, VOICES, BLOCK, blocking=True)
+            self.rows, self.carried, self.real = [], [], 0
+
+        def read(self):
+            blk = super().read()
+            if blk is None:
+                self.rows.append(np.zeros((2, 2, BLOCK), np.float32))
+                self.carried.append(None)
+            else:
+                self.rows.append(blk[[0, -1]].copy())
+                self.carried.append(self.real)
+                self.real += 1
+            return blk
+
+    class RecordingSink(native.RingSink):
+        """Keeps voices 0 and 63 of every block the session delivered."""
+
+        def __init__(self):
+            super().__init__(ring_out)
+            self.rows = []
+
+        def write(self, block):
+            self.rows.append(block[[0, -1]].copy())
+            super().write(block)
+
+    class RecordingMidi:
+        def __init__(self, stream):
+            self.stream, self.polls, self.applied = stream, 0, []
+
+        def poll(self):
+            events = self.stream.poll()
+            if events:
+                self.applied.append((self.polls, events))
+            self.polls += 1
+            return events
+
+    build = _model_factory(bank, dev, configure)
+    model = build()
+    source, sink = RecordingSource(), RecordingSink()
+    with tempfile.TemporaryDirectory() as tmp:
+        fifo = f"{tmp}/midi.fifo"
+        os.mkfifo(fifo)
+        stream = MidiByteStream(fifo)
+        midi = RecordingMidi(stream)
+        sent = {}
+
+        def send_midi():
+            fd = os.open(fifo, os.O_WRONLY | os.O_NONBLOCK)
+            for near, message in (
+                    (LIVE_SELECT_NEAR, select(0, 32)[2]),
+                    (LIVE_WET_NEAR, bytes([0xB0, AUTO_WET_CC,
+                                           AUTO_WET_VALUE]))):
+                while produced[0] < near and not done.is_set():
+                    time.sleep(0.001)
+                os.write(fd, message)
+                sent[near] = produced[0]
+            os.close(fd)
+
+        threads = [threading.Thread(target=f, daemon=True)
+                   for f in (produce, consume, send_midi)]
+        session = model.session(source, sink, realtime=True, clock="native",
+                                underrun_policy="silence")
+        # host seconds of each part of a live block, per call
+        parts = {}
+
+        def timed(what, fn):
+            def call(*args, **kwargs):
+                t1 = time.perf_counter()
+                try:
+                    return fn(*args, **kwargs)
+                finally:
+                    parts.setdefault(what, []).append(
+                        time.perf_counter() - t1)
+            return call
+
+        for obj, attr, what in (
+                (source, "read", "ring read"), (midi, "poll", "midi poll"),
+                (session, "_maybe_collapse", "collapse"),
+                (session, "_upload", "upload"),
+                (session, "_step_steady", "step"),
+                (session, "_step_indexed", "step"),
+                (session, "_start_fetch", "fetch"),
+                (session, "_deliver", "deliver"),
+                (model.control, "snapshot_device", "params"),
+                (model.control, "end_block", "end_block")):
+            setattr(obj, attr, timed(what, getattr(obj, attr)))
+        open_clock = session._open_clock
+
+        def timed_clock():
+            clock = open_clock()
+            if clock is not None:
+                clock.wait = timed("clock wait", clock.wait)
+            return clock
+
+        session._open_clock = timed_clock
+        # the producer starts with the session's first block
+        session.pre_run_hooks.append(lambda: [t.start() for t in threads])
+        reset_counts()
+        t0 = time.perf_counter()
+        try:
+            session.run(model.init_state(), max_blocks=LIVE_BLOCKS,
+                        live_midi=midi)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            deadline = time.time() + 30
+            while len(consumed) < LIVE_BLOCKS and time.time() < deadline:
+                time.sleep(0.01)
+        finally:
+            done.set()
+            for t in threads:
+                t.join(timeout=30)
+            stream.close()
+            ring_in.close(unlink=True)
+            ring_out.close(unlink=True)
+    launches = rm.ring_mac.launches
+    s = session.summary()
+    native_framer = isinstance(stream.framer, native.NativeMidiFramer)
+    print(f"live path: {session.blocks_streamed} blocks in {wall:.3f} s, "
+          f"consumer got {len(consumed)}, ring_mac launches {launches}, "
+          f"underruns {session.underruns}, dropped {sink.dropped}, clock "
+          f"{session.clock_used} (ticks {session.clock_ticks}, missed "
+          f"{session.clock_missed}), framer "
+          f"{type(stream.framer).__name__}, MIDI sent near {sent}, applied "
+          f"at {[(b, len(e)) for b, e in midi.applied]}")
+    if (session.blocks_streamed != LIVE_BLOCKS or len(consumed) != LIVE_BLOCKS
+            or launches != LIVE_BLOCKS or sink.dropped):
+        raise AssertionError("live path: blocks lost or a block without "
+                             "ring_mac")
+    if session.clock_used != "native" or not native_framer:
+        raise AssertionError("live path: the native clock or framer was not "
+                             "the one in use")
+    if not all(np.array_equal(a, b) for a, b in zip(consumed, sink.rows)):
+        raise AssertionError("live path: the consumer's blocks differ from "
+                             "the session's, or came out of order")
+    if len(midi.applied) != 2:
+        raise AssertionError(f"live path: MIDI applied {midi.applied}")
+    sel_at, wet_at = (b for b, _ in midi.applied)
+    x = np.concatenate(source.rows, axis=-1)
+    out = np.concatenate(consumed, axis=-1)
+    golden_err = check_golden(
+        "live path", out, x,
+        (("before the select, IR 0", 0, sel_at, irs[0]),
+         ("after its fade, IR 1", sel_at + 150, wet_at, irs[1])),
+        predelay=1024)
+    split = {what: 1e3 * float(np.sum(t[10:])) / (len(t) - 10)
+             for what, t in parts.items()}
+    print("live path: host ms per block after warm-up: "
+          + ", ".join(f"{what} {v:.3f}" for what, v in split.items()))
+    # latency: producer write of a block -> consumer read of its output
+    lat = np.array([t_read[b] - t_write[k]
+                    for b, k in enumerate(source.carried) if k is not None])
+    print(f"live path: p50 {s['p50_ms']:.3f} ms, p99 {s['p99_ms']:.3f} ms "
+          f"per block, rtf {s['rtf']:.2f}, missed deadlines "
+          f"{s['missed_deadlines']}; producer write -> consumer read p50 "
+          f"{np.percentile(lat, 50) * 1e3:.3f} ms "
+          f"({np.percentile(lat, 50) / period:.2f} blocks), p99 "
+          f"{np.percentile(lat, 99) * 1e3:.3f} ms "
+          f"({np.percentile(lat, 99) / period:.2f} blocks)")
+    figures = {"launches": launches, "summary": s, "wall_s": wall,
+               "golden_err": golden_err, "underruns": session.underruns,
+               "split": split,
+               "clock_ticks": session.clock_ticks,
+               "clock_missed": session.clock_missed,
+               "select_applied_block": sel_at, "wet_applied_block": wet_at,
+               "latency_p50_ms": float(np.percentile(lat, 50)) * 1e3,
+               "latency_p99_ms": float(np.percentile(lat, 99)) * 1e3,
+               "latency_p50_blocks": float(np.percentile(lat, 50)) / period,
+               "latency_p99_blocks": float(np.percentile(lat, 99)) / period}
+    del model, session
+    torch.cuda.empty_cache()
+    return figures
+
+
+def run_cli_bridge(irs):
+    """Phase 22: the CLI behind the C JACK bridge. The stub jackd
+    (csrc/jackstub.cpp) and the C bridge (csrc/jackbridge.cpp) are built
+    into tpu_audio_torch/_build; `python -m tpu_audio_torch.app --voices 1`
+    serves a 4 s IR from shm rings, realtime on the native clock, with a
+    live MIDI FIFO, while the bridge moves the stub's capture periods in
+    and its playback periods out. Returns the figures."""
+    import os
+    import re
+    import tempfile
+
+    from tpu_audio_torch.io.wav import write_wav
+    from tpu_audio_torch.runtime import native
+
+    stub, bridge = native.jack_stub_path(), native.bridge_path()
+    if stub is None or bridge is None:
+        raise AssertionError("CLI bridge: the stub jackd or the C bridge "
+                             "did not build")
+    tag = f"{os.getpid()}_{time.monotonic_ns() % 10 ** 9}"
+    in_name, out_name = f"/tpuaudio_cli_in_{tag}", f"/tpuaudio_cli_out_{tag}"
+    repo = os.path.dirname(os.path.abspath(__file__))
+    procs = []
+    with tempfile.TemporaryDirectory() as tmp:
+        write_wav(f"{tmp}/ir.wav", irs[0].T, RATE, bits=32)
+        with open(f"{tmp}/bank.index", "w") as fh:
+            fh.write("ir.wav\n")
+        with open(f"{tmp}/settings.txt", "w") as fh:
+            fh.write("conv.count 2\n" + "".join(
+                f"conv[{i}].index bank.index\nconv[{i}].cc.message 176\n"
+                f"conv[{i}].cc.wet {AUTO_WET_CC}\nconv[{i}].value.wet 0.7\n"
+                f"conv[{i}].value.dry 0.2\n" for i in range(2)))
+        fifo, dump = f"{tmp}/midi.fifo", f"{tmp}/playback.f32"
+        os.mkfifo(fifo)
+        env = dict(os.environ, TPU_AUDIO_LOG="warn",
+                   PYTHONPATH=repo + os.pathsep
+                   + os.environ.get("PYTHONPATH", ""))
+        t0 = time.perf_counter()
+        try:
+            app = subprocess.Popen(
+                [sys.executable, "-m", "tpu_audio_torch.app", "--settings",
+                 f"{tmp}/settings.txt", "--root", tmp, "--voices", "1",
+                 "--input-ring", in_name, "--output-ring", out_name,
+                 "--realtime", "--clock", "native", "--midi-fifo", fifo,
+                 "--blocks", str(CLI_BLOCKS), "--max-dry-blocks", "50",
+                 "--block-size", str(BLOCK),
+                 "--sample-rate", str(RATE), "--quiet"],
+                env=env, cwd=tmp, stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True)
+            procs.append(app)
+            deadline = time.time() + 600
+            while True:   # the app creates both rings, then opens the FIFO
+                try:
+                    fd = os.open(fifo, os.O_WRONLY | os.O_NONBLOCK)
+                    break
+                except OSError:
+                    if app.poll() is not None or time.time() > deadline:
+                        raise AssertionError(f"CLI bridge: the app never "
+                                             f"opened its FIFO: "
+                                             f"{app.communicate()}")
+                    time.sleep(0.02)
+            ready_s = time.perf_counter() - t0
+            jack = subprocess.Popen(
+                [bridge, "--in-ring", in_name, "--out-ring", out_name,
+                 "--expect-block", str(BLOCK), "--expect-rate", str(RATE),
+                 "--max-seconds", "120"],
+                env=dict(os.environ, TPU_AUDIO_LIBJACK=stub,
+                         JACK_STUB_BLOCK=str(BLOCK), JACK_STUB_RATE=str(RATE),
+                         JACK_STUB_PERIODS=str(STUB_PERIODS),
+                         JACK_STUB_PERIOD_US=str(STUB_PERIOD_US),
+                         JACK_STUB_DUMP=dump, JACK_STUB_RAISE_ON_DONE="1"),
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            procs.append(jack)
+            time.sleep(1.0)
+            os.write(fd, bytes([0xB0, AUTO_WET_CC, 40]))
+            os.close(fd)
+            app_out, app_err = app.communicate(timeout=300)
+            app_s = time.perf_counter() - t0
+            jack_out, jack_err = jack.communicate(timeout=120)
+        finally:
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.communicate()
+        played = np.fromfile(dump, np.float32)
+    print(f"CLI bridge: app ready (rings and FIFO) after {ready_s:.2f} s, "
+          f"exited {app.returncode} after {app_s:.2f} s: "
+          f"{app_out.strip()} {app_err.strip()[-400:]}")
+    print(f"CLI bridge: C bridge exited {jack.returncode}: "
+          f"{jack_out.strip()} {jack_err.strip()[-300:]}")
+    stats = re.search(r"periods=(\d+) underruns=(\d+) overruns=(\d+)",
+                      jack_out)
+    summary = re.search(r"streamed (\d+) blocks", app_out)
+    if (app.returncode != 0 or not summary
+            or int(summary.group(1)) != CLI_BLOCKS):
+        raise AssertionError("CLI bridge: the app failed")
+    if jack.returncode != 0 or not stats:
+        raise AssertionError("CLI bridge: the C bridge failed")
+    periods, underruns, overruns = map(int, stats.groups())
+    played = played[: periods * 2 * BLOCK].reshape(periods, 2, BLOCK)
+    peak = np.abs(played).max(axis=(1, 2))
+    sounding = np.flatnonzero(peak > 1e-3)
+    first = int(sounding[0]) if sounding.size else periods
+    # from the app's first output period on, its blocks play without a gap
+    body = peak[first: first + CLI_BLOCKS - 100]
+    print(f"CLI bridge: {periods} periods played, {underruns} underruns, "
+          f"{overruns} overruns; playback finite "
+          f"{bool(np.isfinite(played).all())}, first sounding period "
+          f"{first}, the next {body.size} periods non-silent "
+          f"{int((body > 1e-3).sum())}, peak {float(peak.max()):.3f}")
+    if (not np.isfinite(played).all() or first > 300
+            or body.size != CLI_BLOCKS - 100 or not (body > 1e-3).all()):
+        raise AssertionError("CLI bridge: the playback is not finite or has "
+                             "silent periods")
+    return {"periods": periods, "underruns": underruns, "overruns": overruns,
+            "first_sounding_period": first, "app_s": app_s,
+            "ready_s": ready_s, "summary": app_out.strip()}
+
+
 def main() -> int:
     import torch
 
@@ -1981,6 +2579,16 @@ def main() -> int:
     engines = run_bounce_engines(bank, irs, dev, configure, reset_counts, rm,
                                  ms, rng)
 
+    # -- 19-20. checkpoint and recovery at full width -------------------------------------
+    recovery = run_checkpoint_phases(bank, irs, dev, configure, select,
+                                     KeepSink, reset_counts, rm, ms)
+
+    # -- 21. the live path in one process -------------------------------------------------
+    live = run_live_path(bank, irs, dev, configure, select, reset_counts, rm)
+
+    # -- 22. the CLI behind the C JACK bridge ---------------------------------------------
+    cli = run_cli_bridge(irs)
+
     tag = f"[{card}]"
     lines = []
     shorts = {"step_coef_steady": "steady", "step_coef_indexed": "indexed",
@@ -2097,6 +2705,47 @@ def main() -> int:
               ("golden_max_abs_err",
                max(golden_err, roll_err, sel_err, ceil_err, ring16_err,
                    *(r["golden_err"] for r in ws_runs.values())))]
+    for label, r in recovery.items():
+        key = f"recovery_{label}"
+        lines += [(f"{key}_max_abs_err", r["err"]),
+                  (f"{key}_bit_identical", int(r["exact"])),
+                  (f"{key}_restarts", r["restarts"]),
+                  (f"{key}_blocks_stepped", r["stepped"]),
+                  (f"{key}_resilient_wall_s", r["wall_s"]),
+                  (f"{key}_uninterrupted_wall_s", r["plain_s"]),
+                  (f"{key}_checkpoint_MB", r["save_MB"]),
+                  (f"{key}_saves", len(r["save_d2h_ms"])),
+                  (f"{key}_save_d2h_ms_max", max(r["save_d2h_ms"])),
+                  (f"{key}_save_write_ms_max", max(r["save_write_ms"])),
+                  (f"{key}_save_block_ms_max", max(r["save_block_ms"])),
+                  (f"{key}_save_blocks_missed_deadline", r["saves_missed"]),
+                  (f"{key}_rebuild_s_max", max(r["rebuild_s"])),
+                  (f"{key}_load_s_max", max(r["load_s"]))]
+    s = live["summary"]
+    lines += [("recovery_ring_golden_max_abs_err",
+               recovery["ring"]["golden_err"]),
+              ("live_wall_s", live["wall_s"]),
+              ("live_p50_ms_per_block", s["p50_ms"]),
+              ("live_p99_ms_per_block", s["p99_ms"]),
+              ("live_rtf", s["rtf"]),
+              ("live_missed_deadlines", s["missed_deadlines"]),
+              ("live_underruns", live["underruns"]),
+              ("live_clock_ticks", live["clock_ticks"]),
+              ("live_clock_missed", live["clock_missed"]),
+              ("live_select_applied_block", live["select_applied_block"]),
+              ("live_wet_applied_block", live["wet_applied_block"]),
+              ("live_latency_p50_ms", live["latency_p50_ms"]),
+              ("live_latency_p99_ms", live["latency_p99_ms"]),
+              ("live_latency_p50_blocks", live["latency_p50_blocks"]),
+              ("live_latency_p99_blocks", live["latency_p99_blocks"]),
+              ("live_golden_max_abs_err", live["golden_err"]),
+              ("cli_bridge_app_ready_s", cli["ready_s"]),
+              ("cli_bridge_app_wall_s", cli["app_s"]),
+              ("cli_bridge_periods", cli["periods"]),
+              ("cli_bridge_underruns", cli["underruns"]),
+              ("cli_bridge_overruns", cli["overruns"]),
+              ("cli_bridge_first_sounding_period",
+               cli["first_sounding_period"])]
     takes = [(f"bounce_take{i + 1}", r) for i, r in enumerate(bounce["runs"])]
     takes += [(f"bounce_automated_{label.split()[0]}", f)
               for label, f in auto["figures"].items()]
@@ -2134,7 +2783,9 @@ def main() -> int:
               + sum(r["launches"] for r in ws_runs.values())
               + sum(r["launches"] for r in cas_runs.values())
               + big["launches"] + bounce["launches"] + auto["launches"]
-              + engines["cascade"]["launches"],
+              + engines["cascade"]["launches"]
+              + sum(r["launches"] for r in recovery.values())
+              + live["launches"],
               max(max_abs_err, cas_err, bounce["mac_err"],
                   engines["cascade"]["mac_err"]), ring_ms,
               cascade={shape: timings(t) for shape, t in cas_ms.items()},

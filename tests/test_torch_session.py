@@ -261,6 +261,12 @@ def test_import_leaves_jax_out():
             "tpu_audio_torch.engine.cascade, "
             "tpu_audio_torch.runtime.working_set, "
             "tpu_audio_torch.runtime.offline, "
+            "tpu_audio_torch.runtime.checkpoint, "
+            "tpu_audio_torch.runtime.recovery, "
+            "tpu_audio_torch.runtime.native, "
+            "tpu_audio_torch.runtime.midi_transport, "
+            "tpu_audio_torch.runtime.jack_bridge, "
+            "tpu_audio_torch.io.midi, "
             "tpu_audio_torch.utils.wire; "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'tpu_audio.'))]; "

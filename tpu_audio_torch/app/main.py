@@ -1,23 +1,33 @@
 """Application entry point: settings-driven streaming reverb on a GPU (port
-of tpu_audio/app/main.py: the streaming path and the offline bounce of the
-fmajor and cascade engines).
+of tpu_audio/app/main.py: the streaming path, the live path and the offline
+bounce of the fmajor and cascade engines).
 
 Capability equivalent of the reference's main() (reference src/main.cu:18-116):
 select the GPU, read settings, build IR banks and convolution voices, wire
 control mappings and initial values, stream audio, report the average
 per-block runtime at exit. The JACK graph becomes file / synthetic block
-backends; ALSA rawmidi becomes a scripted MIDI schedule.
+backends or shared-memory rings that another process (a JACK bridge,
+runtime/jack_bridge.py) fills and drains; ALSA rawmidi becomes a scripted
+MIDI schedule or live byte FIFOs and device files (--midi-fifo).
 
     python -m tpu_audio_torch.app --settings settings.txt \
         --input in.wav --output out.wav [--midi events.txt] \
         [--engine fmajor|cascade [--cascade-ratio N]
          [--predelay-side write|read]]
-        [--voices N] [--blocks N] [--realtime] [--no-swap-snapshot]
+        [--voices N] [--blocks N] [--realtime [--clock sleep|native]]
+        [--no-swap-snapshot]
         [--bank-capacity N [--async-paging] [--ws-exhausted defer|raise]]
         [--offline [SEGMENTS] [--offline-chunk-blocks N]
          [--offline-wire f32|pcm16] [--offline-input-wire auto|f32|pcm16]
          [--offline-bucket [BLOCKS]]]
         [--device cuda|cpu]
+
+The live path (a server fed by another process, until Enter or EOF):
+
+    python -m tpu_audio_torch.app --settings settings.txt \
+        --input-ring tpu_in --output-ring tpu_out [--ring-blocks 64] \
+        --realtime --clock native [--midi-fifo [DEV=]PATH ...] \
+        [--underrun stop|silence] [--max-dry-blocks N] --until-enter
 
 IR banks are always prepared on the engine's device; ``--bank-prep`` and
 ``--fault-upload td`` are accepted so that the JAX CLI's command lines run
@@ -69,7 +79,32 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["fmajor", "cascade", "partitioned", "monolithic"],
                    help="'fmajor' (uniform partitions) or 'cascade' (two "
                         "stages, the voice-scaling engine); 'partitioned' "
-                        "and 'monolithic' are not ported yet")
+                        "and 'monolithic' are left out of the port and "
+                        "exit 2")
+    p.add_argument("--midi-fifo", action="append", default=None,
+                   metavar="[DEVICE=]PATH",
+                   help="FIFO/device path to read live MIDI bytes from; "
+                        "repeatable, with an optional device id matched "
+                        "against conv[i].cc.device mappings (the reference "
+                        "runs one reader per ALSA device, src/main.cu:47-48)")
+    p.add_argument("--input-ring", default=None, metavar="NAME",
+                   help="read input blocks from this shared-memory ring "
+                        "(created here; another process writes into it — "
+                        "the live path, reference src/jackclient.cu:24-44)")
+    p.add_argument("--output-ring", default=None, metavar="NAME",
+                   help="write output blocks to this shared-memory ring "
+                        "(created here; another process consumes it)")
+    p.add_argument("--ring-blocks", type=int, default=64,
+                   help="shm ring capacity in blocks")
+    p.add_argument("--underrun", default=None, choices=["stop", "silence"],
+                   help="source-dry policy (default: silence when "
+                        "--input-ring is used, else stop)")
+    p.add_argument("--max-dry-blocks", type=int, default=None,
+                   help="end an unbounded live session after this many "
+                        "consecutive silence-substituted blocks")
+    p.add_argument("--until-enter", action="store_true",
+                   help="run until Enter/EOF on stdin (the reference parks "
+                        "its main thread the same way, src/main.cu:95)")
     p.add_argument("--predelay-side", default="write",
                    choices=["write", "read"],
                    help="cascade only: apply block-predelay at ring WRITE "
@@ -133,6 +168,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="which voice to write: index or 'all' (default 0)")
     p.add_argument("--realtime", action="store_true",
                    help="pace blocks at the audio rate")
+    p.add_argument("--clock", default="sleep", choices=["sleep", "native"],
+                   help="realtime pacing source (native = drift-free C++ "
+                        "absolute-deadline clock)")
     p.add_argument("--pipeline-depth", type=int, default=1,
                    help="blocks in flight between step and sink")
     p.add_argument("--device", default="cuda",
@@ -145,8 +183,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "(runtime/offline.py). Optional segment count, "
                         "default auto. A scripted --midi schedule bounces "
                         "too (matching the live session to float "
-                        "precision); --realtime needs the streaming "
-                        "session")
+                        "precision); only live rings, FIFOs and "
+                        "--realtime need the streaming session")
     p.add_argument("--offline-chunk-blocks", type=int, default=None,
                    metavar="N",
                    help="bound device memory on long --offline bounces: "
@@ -218,11 +256,21 @@ def main(argv=None) -> int:
         bank_capacity=args.bank_capacity, ws_exhausted=args.ws_exhausted,
         async_paging=args.async_paging, cascade_ratio=args.cascade_ratio,
         predelay_side=args.predelay_side, device=device)
+    rings = []
     try:
         if args.offline is not None:
             return _offline(args, model)
-        return _stream(args, model)
+        if args.input_ring or args.output_ring:
+            from tpu_audio_torch.runtime.native import native_available
+            if not native_available():
+                Log.error("app", "shm rings need the native runtime (g++)")
+                return 2
+        return _stream(args, model, rings)
     finally:
+        # unlink shm rings even if setup or streaming fails partway — a
+        # crashed server must not strand /dev/shm segments
+        for ring in rings:
+            ring.close(unlink=True)
         if model.working_set is not None:
             model.working_set.close()
 
@@ -253,10 +301,10 @@ def _offline(args, model) -> int:
     write --out-voice (an index or 'all') like the streaming WavSink."""
     import time
 
-    if args.realtime:
-        Log.error("app", "--offline bounces cannot run in real time "
-                  "(--realtime needs the streaming session; a scripted "
-                  "--midi schedule bounces fine)")
+    if args.input_ring or args.output_ring or args.midi_fifo or args.realtime:
+        Log.error("app", "--offline bounces cannot take LIVE input "
+                  "(rings/FIFOs/realtime need the streaming session; a "
+                  "scripted --midi schedule bounces fine)")
         return 2
     x, sample_rate = _offline_input(args)
     segments = None if args.offline == "auto" else int(args.offline)
@@ -297,9 +345,20 @@ def _offline(args, model) -> int:
     return 0
 
 
-def _stream(args, model) -> int:
+def _stream(args, model, rings: list) -> int:
+    """Stream through the session; shm rings opened here are appended to
+    `rings` (the caller unlinks them)."""
     v, b = model.engine.num_voices, model.block
-    if args.input:
+    if args.input_ring:
+        from tpu_audio_torch.runtime.native import NativeRing, RingSource
+        ring_in = NativeRing(args.ring_blocks * v * 2 * b,
+                             shm_name=args.input_ring)
+        rings.append(ring_in)
+        source = RingSource(ring_in, v, b, blocking=True)
+        sample_rate = args.sample_rate
+        Log.info("app", "input ring /dev/shm/%s (%d blocks)",
+                 args.input_ring, args.ring_blocks)
+    elif args.input:
         source = WavSource(args.input, v, b, max_blocks=args.blocks)
         sample_rate = source.sample_rate or args.sample_rate
         if source.sample_rate and source.sample_rate != args.sample_rate:
@@ -314,7 +373,15 @@ def _stream(args, model) -> int:
                   "silence": SilenceSource(v, b, n)}[args.signal]
         sample_rate = args.sample_rate
 
-    if args.output:
+    if args.output_ring:
+        from tpu_audio_torch.runtime.native import NativeRing, RingSink
+        ring_out = NativeRing(args.ring_blocks * v * 2 * b,
+                              shm_name=args.output_ring)
+        rings.append(ring_out)
+        sink = RingSink(ring_out)
+        Log.info("app", "output ring /dev/shm/%s (%d blocks)",
+                 args.output_ring, args.ring_blocks)
+    elif args.output:
         voice = args.out_voice
         if voice is not None and voice != "all":
             voice = int(voice)
@@ -322,14 +389,47 @@ def _stream(args, model) -> int:
     else:
         sink = NullSink()
 
+    underrun = args.underrun or ("silence" if args.input_ring else "stop")
     midi = None
     if args.midi:
         with open(args.midi) as fh:
             midi = MidiSchedule.parse(fh.read())
+    live_midi = None
+    try:
+        if args.midi_fifo:
+            from tpu_audio_torch.runtime.midi_transport import (
+                MidiByteStream, MultiMidiStream,
+            )
+            streams = []
+            for spec in args.midi_fifo:
+                device, _, path = spec.rpartition("=")
+                streams.append(MidiByteStream(path, device=device))
+            live_midi = (streams[0] if len(streams) == 1
+                         else MultiMidiStream(streams))
 
-    session = model.session(source, sink, realtime=args.realtime,
-                            pipeline_depth=args.pipeline_depth)
-    session.run(model.init_state(), max_blocks=args.blocks, midi=midi)
+        session = model.session(source, sink, realtime=args.realtime,
+                                pipeline_depth=args.pipeline_depth,
+                                underrun_policy=underrun,
+                                max_consecutive_underruns=args.max_dry_blocks,
+                                clock=args.clock)
+        if args.until_enter:
+            import sys
+            import threading
+
+            def _watch_stdin():
+                try:
+                    sys.stdin.readline()
+                except Exception:
+                    pass
+                Log.info("app", "stdin: stopping session")
+                session.stop()
+
+            threading.Thread(target=_watch_stdin, daemon=True).start()
+        session.run(model.init_state(), max_blocks=args.blocks, midi=midi,
+                    live_midi=live_midi)
+    finally:
+        if live_midi is not None:
+            live_midi.close()
 
     # reference exit report (src/main.cu:106) + the latency stats it lacked
     s = session.summary()
@@ -341,7 +441,9 @@ def _stream(args, model) -> int:
         print(f"streamed {s['blocks_streamed']} blocks | avg {s['avg_ms']:.3f} ms "
               f"| p50 {s['p50_ms']:.3f} | p99 {s['p99_ms']:.3f} "
               f"| rtf {s.get('rtf', 0):.2f} | missed {s['missed_deadlines']} "
-              f"| underruns {s['underruns']}")
+              f"| underruns {s['underruns']}"
+              + (f" | dropped {sink.dropped}" if hasattr(sink, "dropped")
+                 else ""))
     ws = model.working_set
     if ws is not None:
         print(f"working set: {ws.capacity} slots | misses {ws.misses} "

@@ -309,6 +309,9 @@ class ConvolutionReverb:
 
     def session(self, source: BlockSource, sink: BlockSink,
                 **kwargs) -> StreamSession:
+        """A StreamSession of this model; `kwargs` go to it unchanged
+        (warmup, realtime, clock, pipeline_depth, underrun_policy,
+        max_consecutive_underruns, on_missed_deadline)."""
         sess = StreamSession(self.engine, self.spectra, self.control,
                              source, sink, sample_rate=self.sample_rate,
                              **kwargs)

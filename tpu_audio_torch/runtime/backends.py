@@ -1,5 +1,7 @@
 """Audio block transport: sources and sinks (port of
-tpu_audio/runtime/backends.py: WAV files, synthetic signals, null sink).
+tpu_audio/runtime/backends.py: WAV files, synthetic signals, Python
+callbacks, a loopback buffer, a null sink; the shared-memory rings of live
+processes are runtime/native.py's RingSource and RingSink).
 
 The reference's audio I/O is a JACK client whose RT thread pushes 256-frame
 buffers into ``onProcess`` (reference src/jackclient.h:56, src/jackclient.cu:
@@ -66,6 +68,17 @@ class WavSource(BlockSource):
         self.max_blocks = max_blocks
         self._pos = 0
         self._emitted = 0
+
+    def seek(self, block_index: int) -> None:
+        """Reposition to a block boundary (exact checkpoint resume:
+        run_resilient replays from the last checkpoint; live sources cannot
+        seek and simply continue, accepting the outage gap)."""
+        if self.loop:
+            total = self.data.shape[-1]
+            self._pos = (block_index * self.block) % max(total, 1)
+        else:
+            self._pos = block_index * self.block
+        self._emitted = block_index
 
     def read(self) -> np.ndarray | None:
         if self.max_blocks is not None and self._emitted >= self.max_blocks:
@@ -143,6 +156,22 @@ class ImpulseSource(BlockSource):
         return out
 
 
+class CallbackSource(BlockSource):
+    def __init__(self, fn):
+        self.fn = fn
+
+    def read(self):
+        return self.fn()
+
+
+class CallbackSink(BlockSink):
+    def __init__(self, fn):
+        self.fn = fn
+
+    def write(self, block):
+        self.fn(block)
+
+
 class NullSink(BlockSink):
     def write(self, block):
         pass
@@ -212,3 +241,22 @@ class WavSink(BlockSink):
             self._open(1)
         for _, writer in self._writers or ():
             writer.close()
+
+
+class LoopbackBuffer(BlockSink):
+    """Sink that re-serves written blocks as a source (pipeline tests)."""
+
+    def __init__(self):
+        self._queue: list[np.ndarray] = []
+
+    def write(self, block):
+        self._queue.append(np.asarray(block).copy())
+
+    def as_source(self) -> BlockSource:
+        queue = self._queue
+
+        class _Src(BlockSource):
+            def read(self):
+                return queue.pop(0) if queue else None
+
+        return _Src()
