@@ -147,7 +147,32 @@ Phases, in order; any failure raises and the script exits non-zero:
      --voices 1` on shm rings, realtime on the native clock with a MIDI
      FIFO, for 1000 blocks of 256 frames (periods of 5805 us); the app
      must exit 0 with its summary, the bridge report its periods and
-     underruns, and the playback be finite and sound without a gap.
+     underruns, and the playback be finite and sound without a gap;
+ 23. the monolithic engine (the reference's algorithm: one 131072-point
+     cuFFT forward and one inverse per block): ConvolutionReverb(engine=
+     'monolithic', fft_size=131072) at 64 voices over phase 4's IRs, 600
+     blocks of noise at 0.001 with phase 4's re-select and interrupt;
+     voices 0 and 63 against the golden of IR 0 cut to 130048 samples
+     before the re-select, and through the fades against the exact
+     input-synchronous golden (each input block with the IR mix it met),
+     within 1e-4 of the output's scale; ms per block p50/p99, RTF, missed
+     deadlines, the step's CUDA-event ms, device busy and peak memory; then
+     96 blocks at phase 4's amplitude, where the overlap-add clamps, voices
+     0 and 63 against the same engine on the CPU within 1e-4 of scale;
+ 24. the partitioned engine: the same IRs and timeline on phase 4's input
+     for 600 blocks, variant 'coef' (steady and general steps), then
+     'materialized'; each against the full-IR golden before the re-select
+     and after the fades decay, coef against materialized on every block
+     and voice within 2e-5 of scale, the same figures per step; then a
+     static bounce of 10 s of per-voice noise with the coef engine at auto
+     segments (warm-up history_blocks), the golden at every segment
+     boundary;
+ 25. a settings file whose conv pairs differ (fftSize 131072 and 65536,
+     two 2-IR banks written as WAVs) through `python -m tpu_audio_torch.app
+     --engine monolithic`, streamed and then --offline: the streamed WAV
+     against the sum of the two groups' goldens within 1 LSB, the bounced
+     WAV against the streamed one within 1 LSB. Neither MAC kernel may
+     launch in phases 23-25.
 
 The line before the last is a JSON object describing each kernel (its
 launches summed over the phases whose path rides it: 4, 11, 12, 14-17,
@@ -238,6 +263,19 @@ LIVE_BLOCKS, LIVE_RING_BLOCKS, LIVE_SELECT_NEAR, LIVE_WET_NEAR = (
 # phase 22: the CLI behind the C bridge, 1000 blocks; the stub jackd runs
 # 1500 periods of 5805 us (the app stops at 1000, the rest underrun)
 CLI_BLOCKS, STUB_PERIODS, STUB_PERIOD_US = 1000, 1500, 5805
+# phases 23-24: the reference's own engines over phase 4's IRs and
+# timeline, 600 blocks. The monolithic engine runs the settings default
+# fftSize (IRs truncated to 131072 - 1024 samples, the reference's cap) on
+# noise at 0.001: its overlap-add clamps every partial sum (the reference's
+# f_pointwiseAdd), so a golden that clamps the whole sum holds only where no
+# partial sum reaches +-1. A stretch of MONO_CLAMP_BLOCKS more blocks at
+# phase 4's amplitude reaches the clamp; it is held against the same engine
+# on the CPU instead
+ENG_BLOCKS, ENG_AFTER, MONO_FFT, MONO_AMPLITUDE = 600, 500, 131072, 0.001
+MONO_CLAMP_BLOCKS = 96
+# phase 25: conv pairs at fftSize 131072 and 65536 over two 2-IR banks,
+# 400 blocks of stereo noise through the CLI, streamed and --offline
+HET_FFTS, HET_BLOCKS, HET_AMPLITUDE = (131072, 65536), 400, 0.004
 # published peaks of one H100 SXM (NVIDIA's data sheet): HBM bytes/s and
 # f32 FLOP/s outside the tensor cores, at the full 700 W power limit
 HBM_BYTES_PER_S, F32_FLOPS = 3.35e12, 67e12
@@ -276,12 +314,12 @@ def golden(x, ir_pair, wet, dry, predelay):
     return out
 
 
-def noise_input(blocks, voices=VOICES):
-    """The first and last voice of NoiseSource(voices, BLOCK, blocks, 0.01,
-    seed 0)."""
+def noise_input(blocks, voices=VOICES, amplitude=0.01):
+    """The first and last voice of NoiseSource(voices, BLOCK, blocks,
+    amplitude, seed 0)."""
     noise = np.random.default_rng(0)
     return np.concatenate(
-        [(noise.standard_normal((voices, 2, BLOCK)) * 0.01
+        [(noise.standard_normal((voices, 2, BLOCK)) * amplitude
           ).astype(np.float32)[[0, voices - 1]] for _ in range(blocks)],
         axis=-1)
 
@@ -1976,6 +2014,427 @@ def run_cli_bridge(irs):
             "ready_s": ready_s, "summary": app_out.strip()}
 
 
+def slew_weights(blocks, events, num_irs, wet, speed):
+    """The share of each IR in the monolithic engine's active spectra at
+    every block, [blocks, K] in float64, wet included: the reference's slew
+    (src/conv.cu:15-32) replayed on the host from a settled IR 0, with
+    `events` {block: new IR} reloading the countdown to `speed`."""
+    g = np.zeros(num_irs)
+    g[0] = wet
+    sel, vsteps = 0, 0
+    out = np.zeros((blocks, num_irs))
+    for t in range(blocks):
+        if t in events:
+            sel, vsteps = events[t], speed
+        target = np.zeros(num_irs)
+        target[sel] = wet
+        g = g + (target - g) / (vsteps + 5.0)
+        out[t] = g
+        vsteps = max(vsteps - 1, 0)
+    return out
+
+
+def golden_mixed(x, irs, weights, dry, predelay):
+    """float64 golden of an input-synchronous engine whose IR changes: each
+    input block convolves with the mix sum_k weights[block, k] * irs[k] it
+    met on arrival (wet folded into the weights), the wet sum delayed by
+    `predelay` and clamped, the dry mix added after (centre pans, unit
+    level)."""
+    from scipy.signal import fftconvolve
+
+    t = x.shape[-1]
+    w = np.repeat(weights, BLOCK, axis=0)[:t]                  # [T, K]
+    out = np.zeros((2, t))
+    for o in range(2):
+        acc = np.zeros(t)
+        for k, ir in enumerate(irs):
+            if not w[:, k].any():
+                continue
+            for i in range(2):
+                conv = fftconvolve(x[i].astype(np.float64) * w[:, k],
+                                   ir[o].astype(np.float64))[:t]
+                acc[predelay:] += conv[: t - predelay]
+        out[o] = np.clip(acc, -1.0, 1.0) + (x[0] + x[1]) * dry
+    return out
+
+
+def engine_timings(name, steps, state, bank, params, xt):
+    """CUDA-event p50/p99 ms and device busy per call of each of `steps`
+    ({label: step}), threaded through one state. Returns ({label: (p50,
+    p99, busy_us, ops)}, state)."""
+    out = {}
+    for label, step in steps.items():
+        p50, p99, state = step_times(step, state, bank, params, xt, n=220)
+        busy, ops, state = device_busy(step, state, bank, params, xt,
+                                       label=f"{name} {label}")
+        out[label] = (p50, p99, busy, ops)
+        what = ("device busy not measured" if busy is None else
+                f"device busy {busy:.1f} us in {ops:.1f} device ops")
+        print(f"{name} {label} step: p50 / p99 {p50:.3f} / {p99:.3f} ms "
+              f"(CUDA events), {what}")
+    return out, state
+
+
+def run_engine_session(name, model, configure, select, keep_sink,
+                       reset_counts, rm, ms, amplitude, keep_all=False):
+    """One ENG_BLOCKS-block session of phases 23-24 at 64 voices: phase 4's
+    re-select and interrupt over NoiseSource noise at `amplitude`. Neither
+    MAC kernel may launch; every block must be delivered and finite.
+    Returns (session, sink, state, run seconds, peak MB)."""
+    import torch
+
+    from tpu_audio_torch.runtime.backends import NoiseSource
+    from tpu_audio_torch.runtime.stream import MidiSchedule
+
+    configure(model.control)
+    sink = keep_sink(keep_all=keep_all)
+    session = model.session(NoiseSource(VOICES, BLOCK, ENG_BLOCKS,
+                                        amplitude=amplitude, seed=0), sink)
+    state = model.init_state()
+    reset_counts()
+    t0 = time.perf_counter()
+    state = session.run(state, midi=MidiSchedule([select(SELECT_AT, 32),
+                                                  select(INTERRUPT_AT, 64)]))
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    peak_mb = torch.cuda.max_memory_allocated() / 1e6
+    s = session.summary()
+    print(f"{name}: {session.blocks_streamed} blocks in {run_s:.3f} s, p50 / "
+          f"p99 {s['p50_ms']:.3f} / {s['p99_ms']:.3f} ms per block, RTF "
+          f"{s['rtf']:.2f}, missed {s['missed_deadlines']} of {s['blocks']}, "
+          f"general blocks {session.general_blocks}, ring_mac / mac_shift "
+          f"launches {rm.ring_mac.launches} / {ms.mac_shift.launches}, peak "
+          f"allocated {peak_mb:.1f} MB, selects "
+          f"{model.control.select[0].tolist()}")
+    if session.blocks_streamed != ENG_BLOCKS or sink.blocks != ENG_BLOCKS:
+        raise AssertionError(f"{name}: streamed {session.blocks_streamed}, "
+                             f"delivered {sink.blocks}")
+    if rm.ring_mac.launches or ms.mac_shift.launches:
+        raise AssertionError(f"{name}: a MAC kernel launched")
+    if not sink.finite:
+        raise AssertionError(f"{name}: non-finite output")
+    return session, sink, state, run_s, peak_mb
+
+
+def monolithic_clamped(eng, state, bank, params, dev):
+    """Phase 23's clamped stretch: MONO_CLAMP_BLOCKS blocks of noise at
+    phase 4's amplitude (0.01) through the card's engine from `state`,
+    where the overlap-add clamps its partial sums (which no golden here
+    models): voices 0 and 63 against the same engine on the CPU from the
+    same state, within 1e-4 of the output's scale; some output sample must
+    have been clamped. Returns (max abs error, scale, clamped samples)."""
+    from dataclasses import fields
+
+    import torch
+
+    from tpu_audio_torch.engine.monolithic import (
+        MonolithicConvolution, MonolithicState)
+    from tpu_audio_torch.engine.params import VoiceParams
+
+    rows = [0, eng.num_voices - 1]
+    host = MonolithicConvolution(2, eng.fft_size, eng.block,
+                                 max_predelay=eng.max_predelay, device="cpu")
+    hstate = MonolithicState(active=state.active[rows].cpu(),
+                             residual=state.residual[rows].cpu())
+    hparams = VoiceParams(**{f.name: getattr(params, f.name)[rows].cpu()
+                             for f in fields(params)})
+    hbank = bank.cpu()
+    rng = np.random.default_rng(2)
+    err = scale = 0.0
+    clamped = 0
+    for _ in range(MONO_CLAMP_BLOCKS):
+        x = (rng.standard_normal((eng.num_voices, 2, eng.block)) * 0.01
+             ).astype(np.float32)
+        state, out = eng.step(state, bank, params,
+                              torch.tensor(x, device=dev))
+        hstate, want = host.step(hstate, hbank, hparams,
+                                 torch.tensor(x[rows]))
+        want = want.numpy()
+        err = max(err, float(np.abs(out[rows].cpu().numpy() - want).max()))
+        scale = max(scale, float(np.abs(want).max()))
+        # the wet part (the dry mix at centre pans and unit level removed)
+        wet = want - 0.2 * (x[rows, 0] + x[rows, 1])[:, None]
+        clamped += int((np.abs(wet) >= 1.0 - 1e-6).sum())
+    print(f"monolithic clamped stretch: {MONO_CLAMP_BLOCKS} blocks of noise "
+          f"at 0.01 from the session's state, voices 0 and "
+          f"{eng.num_voices - 1} on the card against the CPU: max_abs_err "
+          f"{err:.3e} (limit {1e-4 * scale:.3e}, scale {scale:.3f}), "
+          f"{clamped} output samples clamped")
+    if not err <= 1e-4 * scale:
+        raise AssertionError("monolithic: the card disagrees with the CPU "
+                             "where the overlap-add clamps")
+    if not clamped:
+        raise AssertionError("monolithic: the clamped stretch never reached "
+                             "the clamp")
+    return err, scale, clamped
+
+
+def run_monolithic(bank, irs, dev, configure, select, keep_sink,
+                   reset_counts, rm, ms):
+    """Phase 23: ConvolutionReverb(engine='monolithic', fft_size=131072)
+    at 64 voices over phase 4's IRs (truncated to 130048 samples, the
+    reference's cap) through its session for 600 blocks of noise at 0.001
+    with phase 4's re-select and interrupt: voices 0 and 63 against the
+    golden of the truncated IR 0 before the re-select, and against the
+    exact input-synchronous golden (each input block convolved with the IR
+    mix it met, slew_weights) through the fades, each within 1e-4 of the
+    output's scale; then the step's CUDA-event ms and device busy, and the
+    clamped stretch (monolithic_clamped). Returns the figures."""
+    import torch
+
+    from tpu_audio_torch.models.reverb import ConvolutionReverb
+
+    name = "monolithic"
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = ConvolutionReverb(bank, num_voices=VOICES, block=BLOCK,
+                              sample_rate=RATE, engine="monolithic",
+                              fft_size=MONO_FFT, max_predelay=8192,
+                              device=dev)
+    build_s = time.perf_counter() - t0
+    session, sink, state, run_s, peak_mb = run_engine_session(
+        name, model, configure, select, keep_sink, reset_counts, rm, ms,
+        MONO_AMPLITUDE)
+    cp = model.control
+    x = noise_input(ENG_BLOCKS, amplitude=MONO_AMPLITUDE)
+    keep = MONO_FFT - max(BLOCK, min(1024, MONO_FFT // 8))
+    cut = [ir[:, :keep] for ir in irs]
+    out = sink.data()
+    scale = float(np.abs(out).max())
+    limit = 1e-4 * scale
+    before = check_golden(name, out, x, (("before the re-select, IR 0 cut "
+                                          f"to {keep} samples", 0, SELECT_AT,
+                                          cut[0]),),
+                          predelay=1024, limit=limit)
+    weights = slew_weights(ENG_BLOCKS, {SELECT_AT: 32 * NUM_IRS // 128,
+                                        INTERRUPT_AT: 64 * NUM_IRS // 128},
+                           NUM_IRS, 0.7, int(cp.speed[0, 0]))
+    fade = 0.0
+    for i, v in enumerate((0, VOICES - 1)):
+        want = golden_mixed(x[i], cut, weights, dry=0.2, predelay=1024)
+        err = float(np.abs(out[i, :, SELECT_AT * BLOCK:]
+                           - want[:, SELECT_AT * BLOCK:]).max())
+        fade = max(fade, err)
+        print(f"{name} golden voice {v} blocks {SELECT_AT}-{ENG_BLOCKS - 1} "
+              f"(through the fades, each input block with the IR mix it "
+              f"met): max_abs_err {err:.3e} (limit {limit:.3e})")
+        if not err <= limit:
+            raise AssertionError(f"{name}: voice {v} disagrees with the "
+                                 f"input-synchronous golden")
+    params = cp.snapshot_device()
+    xt = torch.tensor(np.repeat(x[:, :, :BLOCK], VOICES // 2, axis=0),
+                      device=dev)
+    steps, state = engine_timings(name, {"step": model.engine.step}, state,
+                                  model.spectra, params, xt)
+    clamp_err, clamp_scale, clamped = monolithic_clamped(
+        model.engine, state, model.spectra, params, dev)
+    out_fig = {"build_s": build_s, "run_s": run_s, "peak_mb": peak_mb,
+               "summary": session.summary(), "scale": scale,
+               "golden_err": before, "fade_golden_err": fade,
+               "clamp_err": clamp_err, "clamp_scale": clamp_scale,
+               "clamped": clamped,
+               "steps": steps, "bank_mb": model.bank_bytes() / 1e6}
+    del model, session, state, sink, xt
+    torch.cuda.empty_cache()
+    return out_fig
+
+
+def run_partitioned(bank, irs, dev, configure, select, keep_sink,
+                    reset_counts, rm, ms):
+    """Phase 24: ConvolutionReverb(engine='partitioned') at 64 voices over
+    phase 4's full 4 s IRs, 600 blocks of phase 4's input and timeline,
+    variant 'coef' (steady and general fade steps) then 'materialized';
+    each against the golden before the re-select and after the fades decay,
+    coef against materialized on every block and voice within 2e-5 of
+    scale; each step's CUDA-event ms and device busy. Then the coef model
+    bounces 10 s of per-voice noise statically at auto segments (warm-up
+    history_blocks), the golden held at every segment boundary. Returns the
+    figures."""
+    import torch
+
+    from tpu_audio_torch.models.reverb import ConvolutionReverb
+    from tpu_audio_torch.runtime import offline
+
+    x = noise_input(ENG_BLOCKS)
+    xt = torch.tensor(np.repeat(x[:, :, :BLOCK], VOICES // 2, axis=0),
+                      device=dev)
+    runs, outs = {}, {}
+    for variant in ("coef", "materialized"):
+        name = f"partitioned {variant}"
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        model = ConvolutionReverb(bank, num_voices=VOICES, block=BLOCK,
+                                  sample_rate=RATE, engine="partitioned",
+                                  variant=variant, max_predelay=8192,
+                                  device=dev)
+        build_s = time.perf_counter() - t0
+        session, sink, state, run_s, peak_mb = run_engine_session(
+            name, model, configure, select, keep_sink, reset_counts, rm, ms,
+            0.01, keep_all=True)
+        if (variant == "coef") != (session.general_blocks > 0):
+            raise AssertionError(f"{name}: {session.general_blocks} general "
+                                 f"fade blocks")
+        outs[variant] = sink.data()
+        err = check_golden(
+            name, outs[variant][[0, VOICES - 1]], x,
+            (("before the re-select, IR 0", 0, SELECT_AT, irs[0]),
+             ("after the fades decay, IR 2", ENG_AFTER, ENG_BLOCKS,
+              irs[2])),
+            predelay=1024)
+        eng = model.engine
+        steps = ({"steady": eng.step_coef_steady, "general": eng.step_coef}
+                 if variant == "coef" else {"materialized": eng.step})
+        timed, state = engine_timings(name, steps, state, model.spectra,
+                                      model.control.snapshot_device(), xt)
+        runs[variant] = {"build_s": build_s, "run_s": run_s,
+                         "peak_mb": peak_mb, "summary": session.summary(),
+                         "golden_err": err, "steps": timed,
+                         "general_blocks": session.general_blocks,
+                         "bank_mb": model.bank_bytes() / 1e6,
+                         "partitions": eng.partitions}
+        del model, session, state, sink, eng
+        torch.cuda.empty_cache()
+    scale = float(np.abs(outs["materialized"]).max())
+    agree = float(np.abs(outs["coef"] - outs["materialized"]).max())
+    print(f"partitioned: coef against materialized over all {ENG_BLOCKS} "
+          f"blocks and {VOICES} voices: max_abs_err {agree:.3e} (limit "
+          f"{2e-5 * scale:.3e})")
+    if not agree <= 2e-5 * scale:
+        raise AssertionError("partitioned: the variants disagree")
+    del outs, xt
+
+    name = "bounce (partitioned coef)"
+    model = ConvolutionReverb(bank, num_voices=VOICES, block=BLOCK,
+                              sample_rate=RATE, engine="partitioned",
+                              max_predelay=8192, device=dev)
+    configure(model.control)
+    xb = voice_noise(VOICES, ENGINE_SAMPLES, seed=1)
+    t_blocks = -(-ENGINE_SAMPLES // BLOCK)
+    warmup = model.engine.history_blocks
+    total = t_blocks + warmup
+    nseg = min(offline._auto_segments(total, warmup, VOICES, 512), total)
+    seg_len = -(-total // nseg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    with BounceStages(offline) as stages:
+        t0 = time.perf_counter()
+        out = model.render_offline(xb)
+        wall = time.perf_counter() - t0
+    bounce = stages.report(name, wall, ENGINE_SAMPLES / RATE, VOICES)
+    bounce.update(nseg=nseg, seg_len=seg_len, warmup=warmup,
+                  peak_mb=torch.cuda.max_memory_allocated() / 1e6)
+    print(f"{name}: {nseg} segments ({VOICES * nseg} virtual voices) x "
+          f"{seg_len} + {warmup} warm-up steps, peak allocated "
+          f"{bounce['peak_mb']:.1f} MB, ring_mac / mac_shift launches "
+          f"{rm.ring_mac.launches} / {ms.mac_shift.launches}")
+    if (stages.steps != warmup + seg_len or rm.ring_mac.launches
+            or ms.mac_shift.launches or not np.isfinite(out).all()
+            or out.shape != (VOICES, 2, ENGINE_SAMPLES + warmup * BLOCK)):
+        raise AssertionError(f"{name}: {stages.steps} steps, output "
+                             f"{out.shape}")
+    bounce["golden_err"] = check_bounce_golden(
+        name, out[[0, VOICES - 1]], xb[[0, -1]], (0, 1), irs[0], seg_len,
+        nseg)
+    del model, out, xb
+    torch.cuda.empty_cache()
+    return {"runs": runs, "agree_err": agree, "scale": scale,
+            "bounce": bounce}
+
+
+def run_cli_groups(irs):
+    """Phase 25: a settings file whose conv pairs differ (fftSize 131072
+    and 65536, each over its own 2-IR bank of 4 s IRs written as float
+    WAVs) through `python -m tpu_audio_torch.app --engine monolithic`,
+    streamed and then with --offline: the streamed WAV against the sum of
+    the two groups' goldens (each IR cut to its pair's fftSize - 1024)
+    within 1 LSB, the bounced WAV against the streamed one within 1 LSB.
+    Returns the figures."""
+    import os
+    import tempfile
+
+    from tpu_audio_torch.engine.bank import IRBank
+    from tpu_audio_torch.io.wav import read_wav, write_wav
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, TPU_AUDIO_LOG="warn",
+               PYTHONPATH=repo + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    banks = {"a": irs[:2], "b": [ir * np.float32(0.5) for ir in irs[2:4]]}
+    rng = np.random.default_rng(25)
+    x = (rng.standard_normal((HET_BLOCKS * BLOCK, 2)) * HET_AMPLITUDE
+         ).astype(np.float32)
+    figures = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, bank_irs in banks.items():
+            for k, ir in enumerate(bank_irs):
+                write_wav(f"{tmp}/{name}{k}.wav", ir.T, RATE, bits=32)
+            with open(f"{tmp}/{name}.index", "w") as fh:
+                fh.write("".join(f"{name}{k}.wav\n"
+                                 for k in range(len(bank_irs))))
+        lines = [f"conv.count {2 * len(HET_FFTS)}"]
+        for n, (fft, name) in enumerate(zip(HET_FFTS, banks)):
+            for ch in range(2):
+                c = 2 * n + ch
+                lines += [f"conv[{c}].fftSize {fft}",
+                          f"conv[{c}].maxPredelay 8192",
+                          f"conv[{c}].index {name}.index",
+                          f"conv[{c}].value.select {ch}",
+                          f"conv[{c}].value.predelay 1024",
+                          f"conv[{c}].value.wet 0.7",
+                          f"conv[{c}].value.dry 0.2"]
+        with open(f"{tmp}/het.txt", "w") as fh:
+            fh.write("\n".join(lines) + "\n")
+        write_wav(f"{tmp}/in.wav", x, RATE)
+        # the bounce reads back f32: on the default pcm16 wire each group
+        # is rounded before the sum, which may move the mix by 2 LSB
+        for mode, extra in (("streamed", []),
+                            ("bounced", ["--offline", "--offline-wire",
+                                         "f32"])):
+            t0 = time.perf_counter()
+            run = subprocess.run(
+                [sys.executable, "-m", "tpu_audio_torch.app", "--settings",
+                 f"{tmp}/het.txt", "--root", tmp, "--input", f"{tmp}/in.wav",
+                 "--output", f"{tmp}/{mode}.wav", "--engine", "monolithic",
+                 "--block-size", str(BLOCK), "--quiet", *extra],
+                env=env, cwd=tmp, capture_output=True, text=True,
+                timeout=600)
+            figures[f"{mode}_wall_s"] = time.perf_counter() - t0
+            print(f"CLI groups ({mode}): exited {run.returncode} after "
+                  f"{figures[f'{mode}_wall_s']:.2f} s: {run.stdout.strip()} "
+                  f"{run.stderr.strip()[-600:]}")
+            if run.returncode != 0:
+                raise AssertionError(f"CLI groups: the {mode} app failed")
+        loaded = {name: IRBank.from_index(f"{tmp}/{name}.index",
+                                          verbose=False)
+                  for name in banks}
+        program = read_wav(f"{tmp}/in.wav", verbose=False).stereo().T
+        wavs = {mode: np.round(read_wav(f"{tmp}/{mode}.wav", scale="full",
+                                        verbose=False).stereo().T * 32768.0)
+                for mode in ("streamed", "bounced")}
+    want = 0.0
+    for fft, name in zip(HET_FFTS, banks):
+        keep = fft - max(BLOCK, min(1024, fft // 8))
+        pair = [loaded[name].ir(ch)[:, :keep] for ch in range(2)]
+        want = want + golden(program, pair, wet=0.7, dry=0.2, predelay=1024)
+    streamed, bounced = wavs["streamed"], wavs["bounced"]
+    t = streamed.shape[-1]
+    if t != HET_BLOCKS * BLOCK or bounced.shape[-1] < t:
+        raise AssertionError(f"CLI groups: streamed {streamed.shape}, "
+                             f"bounced {bounced.shape}")
+    golden_lsb = float(np.abs(streamed - want * 32768.0).max())
+    bounce_lsb = float(np.abs(bounced[:, :t] - streamed).max())
+    print(f"CLI groups: streamed WAV against the summed goldens of the "
+          f"{len(HET_FFTS)} groups: {golden_lsb:.3f} LSB (limit 1, peak "
+          f"{float(np.abs(want).max()):.3f}); bounced against streamed over "
+          f"{t} samples: {bounce_lsb:.0f} LSB (limit 1)")
+    if not golden_lsb <= 1.0 or not bounce_lsb <= 1.0:
+        raise AssertionError("CLI groups: the output disagrees")
+    figures.update(golden_lsb=golden_lsb, bounce_lsb=bounce_lsb)
+    return figures
+
+
 def main() -> int:
     import torch
 
@@ -2589,6 +3048,17 @@ def main() -> int:
     # -- 22. the CLI behind the C JACK bridge ---------------------------------------------
     cli = run_cli_bridge(irs)
 
+    # -- 23. the monolithic engine at fftSize 131072 --------------------------------------
+    mono = run_monolithic(bank, irs, dev, configure, select, KeepSink,
+                          reset_counts, rm, ms)
+
+    # -- 24. the partitioned engine, coef and materialized, and its bounce ---------------
+    part = run_partitioned(bank, irs, dev, configure, select, KeepSink,
+                           reset_counts, rm, ms)
+
+    # -- 25. a settings file whose conv pairs differ, through the CLI --------------------
+    groups = run_cli_groups(irs)
+
     tag = f"[{card}]"
     lines = []
     shorts = {"step_coef_steady": "steady", "step_coef_indexed": "indexed",
@@ -2746,10 +3216,46 @@ def main() -> int:
               ("cli_bridge_overruns", cli["overruns"]),
               ("cli_bridge_first_sounding_period",
                cli["first_sounding_period"])]
+    for label, r in (("monolithic", mono),
+                     *((f"partitioned_{variant}", r)
+                       for variant, r in part["runs"].items())):
+        s = r["summary"]
+        lines += [(f"{label}_build_s", r["build_s"]),
+                  (f"{label}_bank_MB", r["bank_mb"]),
+                  (f"{label}_peak_allocated_MB", r["peak_mb"]),
+                  (f"{label}_session_wall_p50_ms_per_block", s["p50_ms"]),
+                  (f"{label}_session_wall_p99_ms_per_block", s["p99_ms"]),
+                  (f"{label}_session_rtf", s["rtf"]),
+                  (f"{label}_session_missed_deadlines", s["missed_deadlines"]),
+                  (f"{label}_golden_max_abs_err", r["golden_err"])]
+        for step, (p50, p99, busy, ops) in r["steps"].items():
+            lines += [(f"{label}_{step}_step_p50_ms", p50),
+                      (f"{label}_{step}_step_p99_ms", p99),
+                      (f"{label}_{step}_step_device_busy_us", busy),
+                      (f"{label}_{step}_step_device_ops", ops)]
+    lines += [("monolithic_fade_golden_max_abs_err", mono["fade_golden_err"]),
+              ("monolithic_output_scale", mono["scale"]),
+              ("monolithic_clamped_vs_cpu_max_abs_err", mono["clamp_err"]),
+              ("monolithic_clamped_output_scale", mono["clamp_scale"]),
+              ("monolithic_clamped_samples", mono["clamped"]),
+              ("partitioned_coef_general_blocks",
+               part["runs"]["coef"]["general_blocks"]),
+              ("partitioned_coef_vs_materialized_max_abs_err",
+               part["agree_err"]),
+              ("bounce_partitioned_segments", part["bounce"]["nseg"]),
+              ("bounce_partitioned_golden_max_abs_err",
+               part["bounce"]["golden_err"]),
+              ("bounce_partitioned_peak_allocated_MB",
+               part["bounce"]["peak_mb"]),
+              ("cli_groups_streamed_wall_s", groups["streamed_wall_s"]),
+              ("cli_groups_bounced_wall_s", groups["bounced_wall_s"]),
+              ("cli_groups_golden_lsb", groups["golden_lsb"]),
+              ("cli_groups_bounced_vs_streamed_lsb", groups["bounce_lsb"])]
     takes = [(f"bounce_take{i + 1}", r) for i, r in enumerate(bounce["runs"])]
     takes += [(f"bounce_automated_{label.split()[0]}", f)
               for label, f in auto["figures"].items()]
     takes += [(f"bounce_{label}", f) for label, f in engines.items()]
+    takes += [("bounce_partitioned", dict(part["bounce"], launches=0))]
     for prefix, r in takes:
         lines += [(f"{prefix}_{key}", r[key])
                   for key in ("wall_s", "prime_wall_s", "prime_device_ms",

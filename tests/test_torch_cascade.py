@@ -441,8 +441,17 @@ def test_cli_cascade_matches_the_jax_cli_within_one_lsb(tmp_path, side):
     assert np.abs(blob["jax"]).max() > 1000
     assert int(np.abs(blob["port"].astype(np.int32) - blob["jax"]).max()) <= 1
     if side == "write":
-        assert port_main(common[:-2] + ["--engine", "partitioned",
-                                        "--device", "cpu"]) == 2
+        # the partitioned engine runs through the same flags since its port
+        part = common[:-2] + ["--engine", "partitioned"]
+        assert jax_main(part + ["--output", str(tmp_path / "jax_p.wav")]) == 0
+        assert port_main(part + ["--output", str(tmp_path / "port_p.wav"),
+                                 "--device", "cpu"]) == 0
+        for name in ("jax_p", "port_p"):
+            raw = (tmp_path / f"{name}.wav").read_bytes()
+            blob[name] = np.frombuffer(raw[raw.index(b"data") + 8:], "<i2")
+        assert blob["port_p"].shape == blob["jax_p"].shape
+        assert int(np.abs(blob["port_p"].astype(np.int32)
+                          - blob["jax_p"]).max()) <= 1
 
 
 def test_model_builds_the_cascade_like_jax():
@@ -598,8 +607,12 @@ def test_guards_match_jax():
         ConvolutionReverb(big, num_voices=V, block=B, max_predelay=MAXPD,
                           engine="cascade", device="cpu")
     for engine in ("partitioned", "monolithic"):
-        with pytest.raises(NotImplementedError, match="item 14"):
-            ConvolutionReverb(tbank_ir, block=B, engine=engine, device="cpu")
+        # ported since: the model builds the JAX model's engine class
+        built = ConvolutionReverb(tbank_ir, block=B, engine=engine,
+                                  fft_size=4096, device="cpu")
+        want = JaxReverb(jbank_ir, block=B, engine=engine, fft_size=4096,
+                         backend="fft")
+        assert type(built.engine).__name__ == type(want.engine).__name__
     with pytest.raises(ValueError, match="init_state"):
         CascadeConvolution(V, B, parts, ratio=M, device="cpu").init_state()
 

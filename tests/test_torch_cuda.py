@@ -692,3 +692,60 @@ def test_run_resilient_on_the_card_equals_the_uninterrupted_run(
     assert summary["recoveries"][0]["resume_block"] == 12
     np.testing.assert_array_equal(np.concatenate(sink.blocks, axis=-1),
                                   want.data)
+
+
+@pytest.mark.parametrize("kind", ["coef", "materialized", "monolithic"])
+def test_partitioned_and_monolithic_steps_on_the_card_match_the_cpu(cuda,
+                                                                   kind):
+    """Steady blocks, a re-select (the coef variant's collapse) and fade
+    blocks through each engine's steps on the card (cuFFT, the elementwise
+    MACs) against the CPU; neither engine launches ring_mac or mac_shift."""
+    from tpu_audio_torch.engine.bank import IRBank
+    from tpu_audio_torch.engine.monolithic import MonolithicConvolution
+    from tpu_audio_torch.engine.partitioned import PartitionedConvolution
+
+    bank = IRBank()
+    for ir in np.random.default_rng(8).standard_normal((3, 2, 600)):
+        bank.append((ir * 0.05).astype(np.float32))
+    if kind == "monolithic":
+        host = bank.monolithic_spectra(2048, reserve=256)
+    else:
+        host = bank.partitioned_spectra(32)
+    runs = {}
+    for dev in ("cpu", cuda):
+        if kind == "monolithic":
+            eng = MonolithicConvolution(2, 2048, 32, max_predelay=64,
+                                        device=dev)
+        else:
+            eng = PartitionedConvolution(2, 32, bank.max_partitions(32),
+                                         max_predelay=64, variant=kind,
+                                         device=dev)
+        spectra = torch.from_numpy(host).to(dev)
+        cp = ControlPlane(2, 3, 64, device=dev)
+        cp.wet[:] = 0.8
+        cp.predelay[:] = [[17, 3], [40, 0]]
+        cp.pan_wet[:] = [[0.3, -0.4], [-1.0, 0.5]]
+        state = eng.init_converged(spectra, cp.snapshot_device())
+        before = (ring_mac.launches, mac_shift.launches)
+        xs = np.random.default_rng(9).standard_normal((30, 2, 2, 32)) * 0.05
+        outs = []
+        for t, x in enumerate(xs.astype(np.float32)):
+            if t == 8:
+                old = cp.select.copy()
+                cp.select[:] = [[1, 2], [2, 1]]
+                cp.vsteps[:] = 8
+                if kind == "coef":
+                    state = eng.collapse(
+                        state, spectra, torch.tensor(old, device=dev),
+                        torch.ones((2, 2), dtype=torch.bool, device=dev))
+            step = eng.step
+            if kind == "coef" and t < 8:
+                step = eng.step_coef_steady
+            state, out = step(state, spectra, cp.snapshot_device(),
+                              torch.tensor(x, device=dev))
+            cp.end_block()
+            outs.append(out.cpu().numpy())
+        runs[str(dev)] = np.stack(outs)
+        assert (ring_mac.launches, mac_shift.launches) == before
+    np.testing.assert_allclose(runs["cuda"], runs["cpu"], atol=2e-5)
+    assert np.abs(runs["cpu"]).max() > 1e-2

@@ -99,8 +99,9 @@ def test_session_matches_the_jax_slice(settings_env):
                                  block=64, num_voices=2, backend="fft",
                                  verbose=False)
     tm = ConvolutionReverb.from_settings(str(base / "settings.txt"),
-                                         block=64, num_voices=2,
-                                         device="cpu", verbose=False)
+                                         engine="fmajor", block=64,
+                                         num_voices=2, device="cpu",
+                                         verbose=False)
     for name in ("select", "predelay", "dry", "wet", "speed", "pan_wet",
                  "level", "select_base", "select_span"):
         np.testing.assert_array_equal(getattr(tm.control, name),
@@ -130,13 +131,13 @@ def test_pipeline_depth_delivers_every_block_in_order(settings_env,
     x = np.zeros((1, 2, 64 * 10), np.float32)
     x[:, :, 0] = 1.0
     tm = ConvolutionReverb.from_settings(str(base / "settings.txt"),
-                                         block=64, device="cpu",
-                                         verbose=False)
+                                         engine="fmajor", block=64,
+                                         device="cpu", verbose=False)
     ref = WavSink(base / "a.wav", keep_data=True)
     tm.process(WavSource(x, 1, 64), ref)
     tm2 = ConvolutionReverb.from_settings(str(base / "settings.txt"),
-                                          block=64, device="cpu",
-                                          verbose=False)
+                                          engine="fmajor", block=64,
+                                          device="cpu", verbose=False)
     got = WavSink(base / "b.wav", keep_data=True)
     tm2.process(WavSource(x, 1, 64), got, pipeline_depth=pipeline_depth)
     np.testing.assert_array_equal(got.data, ref.data)
@@ -158,8 +159,8 @@ def test_underrun_policy_and_realtime_clock_match_jax(settings_env):
     jsess = jm.session(JaxWavSource(x, 1, 64), jsink, **kwargs)
     jsess.run(jm.init_state())
     tm = ConvolutionReverb.from_settings(str(base / "settings.txt"),
-                                         block=64, device="cpu",
-                                         verbose=False)
+                                         engine="fmajor", block=64,
+                                         device="cpu", verbose=False)
     tsink = WavSink(base / "port.wav", keep_data=True)
     tsess = tm.session(WavSource(x, 1, 64), tsink, realtime=True, **kwargs)
     t0 = time.perf_counter()
@@ -259,6 +260,10 @@ def test_import_leaves_jax_out():
             "tpu_audio_torch.ops.ring_mac, "
             "tpu_audio_torch.engine.device_prep, "
             "tpu_audio_torch.engine.cascade, "
+            "tpu_audio_torch.engine.partitioned, "
+            "tpu_audio_torch.engine.monolithic, "
+            "tpu_audio_torch.ops.hermitian, "
+            "tpu_audio_torch.ops.smoother, "
             "tpu_audio_torch.runtime.working_set, "
             "tpu_audio_torch.runtime.offline, "
             "tpu_audio_torch.runtime.checkpoint, "

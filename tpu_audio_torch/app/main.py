@@ -1,6 +1,7 @@
 """Application entry point: settings-driven streaming reverb on a GPU (port
 of tpu_audio/app/main.py: the streaming path, the live path and the offline
-bounce of the fmajor and cascade engines).
+bounce of every engine, and the engine groups of a settings file whose conv
+pairs differ).
 
 Capability equivalent of the reference's main() (reference src/main.cu:18-116):
 select the GPU, read settings, build IR banks and convolution voices, wire
@@ -12,8 +13,8 @@ MIDI schedule or live byte FIFOs and device files (--midi-fifo).
 
     python -m tpu_audio_torch.app --settings settings.txt \
         --input in.wav --output out.wav [--midi events.txt] \
-        [--engine fmajor|cascade [--cascade-ratio N]
-         [--predelay-side write|read]]
+        [--engine fmajor|cascade|partitioned|monolithic [--cascade-ratio N]
+         [--predelay-side write|read] [--variant coef|materialized]]
         [--voices N] [--blocks N] [--realtime [--clock sleep|native]]
         [--no-swap-snapshot]
         [--bank-capacity N [--async-paging] [--ws-exhausted defer|raise]]
@@ -29,9 +30,14 @@ The live path (a server fed by another process, until Enter or EOF):
         --realtime --clock native [--midi-fifo [DEV=]PATH ...] \
         [--underrun stop|silence] [--max-dry-blocks N] --until-enter
 
-IR banks are always prepared on the engine's device; ``--bank-prep`` and
-``--fault-upload td`` are accepted so that the JAX CLI's command lines run
-unchanged.
+A settings file whose conv pairs differ in fftSize, maxPredelay or index
+files runs one engine group per distinct pair geometry over the same input
+and writes their sum (the reference's JACK playback mix), streamed or with
+``--offline``; live rings and FIFOs are refused there.
+
+The fmajor and cascade banks are always prepared on the engine's device;
+``--bank-prep`` and ``--fault-upload td`` are accepted so that the JAX
+CLI's command lines run unchanged.
 """
 
 from __future__ import annotations
@@ -77,10 +83,16 @@ def build_parser() -> argparse.ArgumentParser:
                    help="scripted MIDI schedule file (block hexbytes per line)")
     p.add_argument("--engine", default="fmajor",
                    choices=["fmajor", "cascade", "partitioned", "monolithic"],
-                   help="'fmajor' (uniform partitions) or 'cascade' (two "
-                        "stages, the voice-scaling engine); 'partitioned' "
-                        "and 'monolithic' are left out of the port and "
-                        "exit 2")
+                   help="'fmajor' (uniform partitions, the MAC kernels), "
+                        "'cascade' (two stages, the voice-scaling engine), "
+                        "'partitioned' (complex partition spectra, "
+                        "--variant) or 'monolithic' (the reference's one "
+                        "fftSize-point FFT per block)")
+    p.add_argument("--variant", default="coef",
+                   choices=["coef", "materialized"],
+                   help="partitioned engine only: fades as two scalar "
+                        "coefficients over a frozen snapshot ('coef') or "
+                        "by slewing the full spectra ('materialized')")
     p.add_argument("--midi-fifo", action="append", default=None,
                    metavar="[DEVICE=]PATH",
                    help="FIFO/device path to read live MIDI bytes from; "
@@ -216,10 +228,6 @@ def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     if args.quiet:
         Log.level = 2
-    if args.engine in ("partitioned", "monolithic"):
-        Log.error("app", "engine %r is not ported yet (ROADMAP.md, Queue 1 "
-                  "item 14); use --engine fmajor or cascade", args.engine)
-        return 2
 
     device = (select_gpu(verbose=not args.quiet) if args.device == "cuda"
               else args.device)
@@ -239,19 +247,20 @@ def main(argv=None) -> int:
         else:
             args.sample_rate = 44100
 
+    # pairs with different fftSize / maxPredelay / banks (the reference
+    # builds independent instances, src/main.cu:31-39): one batched engine
+    # per distinct geometry, outputs summed like the JACK playback wiring
     from tpu_audio_torch.io.settings import Settings
     parsed = Settings().open(args.settings, verbose=False)
     if len(set(pair_geometry_keys(parsed, args.root))) > 1:
-        Log.error("app", "heterogeneous conv pairs (engine groups) are not "
-                  "ported yet; split the settings file per geometry")
-        return 2
+        return _run_groups(args, device)
 
     model = ConvolutionReverb.from_settings(
         args.settings, engine=args.engine, root=args.root,
         num_voices=args.voices,
         max_ir_seconds=args.max_ir_seconds,
-        normalize_bank=args.normalize_bank, block=args.block_size,
-        sample_rate=args.sample_rate,
+        normalize_bank=args.normalize_bank, variant=args.variant,
+        block=args.block_size, sample_rate=args.sample_rate,
         swap_snapshot=not args.no_swap_snapshot, verbose=not args.quiet,
         bank_capacity=args.bank_capacity, ws_exhausted=args.ws_exhausted,
         async_paging=args.async_paging, cascade_ratio=args.cascade_ratio,
@@ -259,7 +268,7 @@ def main(argv=None) -> int:
     rings = []
     try:
         if args.offline is not None:
-            return _offline(args, model)
+            return _offline(args, [model], mix=False)
         if args.input_ring or args.output_ring:
             from tpu_audio_torch.runtime.native import native_available
             if not native_available():
@@ -296,9 +305,12 @@ def _offline_input(args):
     return x, args.sample_rate
 
 
-def _offline(args, model) -> int:
-    """Render the model offline over the input, report throughput, and
-    write --out-voice (an index or 'all') like the streaming WavSink."""
+def _offline(args, models, mix: bool) -> int:
+    """Render every model offline over the same input and report
+    throughput. mix=True writes the sum of every voice of every model (the
+    engine groups' path, the reference's JACK playback mix); otherwise
+    --out-voice (an index or 'all') picks what is written, like the
+    streaming WavSink."""
     import time
 
     if args.input_ring or args.output_ring or args.midi_fifo or args.realtime:
@@ -318,29 +330,76 @@ def _offline(args, model) -> int:
 
     t0 = time.monotonic()
     try:
-        out = model.render_offline(
+        # (each replay rewinds the schedule's cursor)
+        outs = [model.render_offline(
             x, segments=segments, schedule=schedule,
             track_chunk_blocks=args.offline_chunk_blocks,
             wire=args.offline_wire, bucket_blocks=bucket,
-            input_wire=args.offline_input_wire)            # [V, 2, T']
+            input_wire=args.offline_input_wire)              # [V, 2, T']
+            for model in models]
     except ValueError as exc:  # e.g. working-set models
         Log.error("app", "--offline: %s", exc)
         return 2
     wall = time.monotonic() - t0
-    audio_s = out.shape[-1] / sample_rate
+    n = min(o.shape[-1] for o in outs)
+    audio_s = n / sample_rate
     print(f"offline bounce: {audio_s:.1f} s of audio in {wall:.1f} s wall "
           f"({audio_s / wall:.1f}x real time)")
 
     if args.output:
         from tpu_audio_torch.io.wav import write_wav
-        voice = args.out_voice
-        if voice == "all":
+        out, voice = outs[0], args.out_voice
+        if mix:
+            total = sum(o[..., :n].sum(axis=0) for o in outs)
+            write_wav(args.output, total.T, sample_rate)
+        elif voice == "all":
             root, ext = os.path.splitext(args.output)
             for v in range(out.shape[0]):
                 write_wav(f"{root}_v{v:03d}{ext or '.wav'}", out[v].T,
                           sample_rate)
         else:
             write_wav(args.output, out[int(voice or 0)].T, sample_rate)
+        Log.info("app", "wrote %s", args.output)
+    return 0
+
+
+def _run_groups(args, device) -> int:
+    """A settings file whose conv pairs differ: the pairs grouped by engine
+    geometry (reference src/main.cu:31-39), every pair fed the same stereo
+    input, the outputs summed (the JACK playback mix, main.cu:86-89),
+    streamed or --offline. Live rings and FIFOs serve one engine group per
+    process: split the settings file and run one app per geometry, the
+    topology of the reference's independent Convolution instances."""
+    from tpu_audio_torch.models.reverb import ReverbGroups
+
+    if args.input_ring or args.output_ring or args.midi_fifo:
+        Log.error("app", "heterogeneous conv pairs run the offline groups "
+                  "path; for live rings start one app process per "
+                  "geometry (split the settings file)")
+        return 2
+    groups = ReverbGroups.from_settings(
+        args.settings, engine=args.engine, root=args.root,
+        max_ir_seconds=args.max_ir_seconds, verbose=not args.quiet,
+        variant=args.variant, block=args.block_size,
+        sample_rate=args.sample_rate, device=device)
+    if args.offline is not None:
+        # every group bounced over the same input and summed, as
+        # ReverbGroups.process sums them
+        return _offline(args, groups.models, mix=True)
+
+    x, sample_rate = _offline_input(args)
+    midi = None
+    if args.midi:
+        with open(args.midi) as fh:
+            midi = MidiSchedule.parse(fh.read())
+    total, summaries = groups.process(x, midi=midi, max_blocks=args.blocks)
+    for pairs, s in zip(groups.pair_ids, summaries):
+        print(f"group pairs {pairs}: {s['blocks_streamed']} blocks | "
+              f"avg {s.get('avg_ms', 0):.3f} ms | "
+              f"p99 {s.get('p99_ms', 0):.3f} | rtf {s.get('rtf', 0):.2f}")
+    if args.output:
+        from tpu_audio_torch.io.wav import write_wav
+        write_wav(args.output, total.T, sample_rate)
         Log.info("app", "wrote %s", args.output)
     return 0
 

@@ -1,11 +1,12 @@
-"""IR bank: host-side loading and partition spectra (port of
+"""IR bank: host-side loading and spectra (port of
 tpu_audio/engine/bank.py:IRBank, without the disk cache).
 
 Capability equivalent of the reference's `_irBuffers` spectra map filled by
 ``Convolution::prepare`` (reference src/conv.cu:207-253, wired from index
 files at src/main.cu:72-81). The bank is numpy at heart: IRs are kept as
-[2, L] float32 arrays and turned into [K, 2, P, F] partition spectra once
-per load, which the engine packs and uploads.
+[2, L] float32 arrays and turned into [K, 2, P, F] partition spectra or
+[K, 2, Fm] monolithic half-spectra once per load, which the engine packs
+and uploads.
 """
 
 from __future__ import annotations
@@ -16,7 +17,9 @@ import numpy as np
 
 from tpu_audio_torch.io.index import load_index
 from tpu_audio_torch.io.wav import WavFile, read_wav
-from tpu_audio_torch.ops.partition import num_partitions, partition_spectra
+from tpu_audio_torch.ops.partition import (
+    monolithic_spectrum, num_partitions, partition_spectra,
+)
 from tpu_audio_torch.utils.log import Log
 
 
@@ -63,6 +66,20 @@ class IRBank:
                max_seconds: float | None = None) -> int:
         """Add one IR (a WavFile, resampled to the bank's rate, or a [2, L]
         / [L] array); returns its index."""
+        idx = len(self._irs)
+        self._insert(idx, wav, path, max_seconds)
+        return idx
+
+    def prepare(self, idx: int, wav: WavFile | np.ndarray, path: str = "",
+                max_seconds: float | None = None) -> None:
+        """Replace or extend slot `idx` (reference prepare, src/conv.cu:
+        207-253); slots between the end and `idx` hold a silent IR."""
+        while len(self._irs) <= idx:
+            self._irs.append(np.zeros((2, 1), np.float32))
+            self._paths.append("")
+        self._insert(idx, wav, path, max_seconds)
+
+    def _insert(self, idx: int, wav, path: str, max_seconds: float | None):
         if isinstance(wav, WavFile):
             ir = np.ascontiguousarray(wav.stereo().T, dtype=np.float32)
             path = path or wav.path
@@ -76,9 +93,12 @@ class IRBank:
                 ir = np.stack([ir, ir])
         if max_seconds is not None:
             ir = ir[:, : int(max_seconds * self.sample_rate)]
-        self._irs.append(ir)
-        self._paths.append(path)
-        return len(self._irs) - 1
+        if idx < len(self._irs):
+            self._irs[idx] = ir
+            self._paths[idx] = path
+        else:
+            self._irs.append(ir)
+            self._paths.append(path)
 
     def extend(self, other: "IRBank") -> int:
         """Concatenate another bank's entries after this one's (the merged-K
@@ -124,6 +144,25 @@ class IRBank:
                 raise ValueError(f"unknown normalize mode {mode!r}")
             self._irs[i] = (ir * np.float32(gain))
 
+    def spectral_taper(self, fft_size: int | None = None) -> None:
+        """Apply the reference's (disabled) cube-root-Hamming spectral taper
+        to every IR (reference f_lowpass, src/conv.cu:76-87, compiled out at
+        src/conv.cu:373-384): H'(f) = H(f) * cbrt(0.54 - 0.46*cos(2*pi*f/N)).
+
+        A fixed linear filter, baked into the time-domain IRs once at load
+        time so every engine gets it. `fft_size` sets the taper resolution
+        (default: next power of two of the longest IR). IRs keep their
+        length: the circular wrap tail of the short taper kernel is dropped
+        (below ~-60 dB); pass fft_size == IR length for exact circular
+        semantics."""
+        n = fft_size or 1 << max(int(np.ceil(np.log2(max(self.max_length, 2)))), 4)
+        freqs = np.arange(n // 2 + 1)
+        taper = np.cbrt(0.54 - 0.46 * np.cos(2.0 * np.pi * freqs / n))
+        for i, ir in enumerate(self._irs):
+            spec = np.fft.rfft(ir, n=n, axis=-1) * taper
+            self._irs[i] = np.fft.irfft(spec, n=n, axis=-1)[
+                ..., : ir.shape[-1]].astype(np.float32)
+
     # -- spectra -----------------------------------------------------------------
 
     def partitioned_spectra(self, block: int,
@@ -138,4 +177,14 @@ class IRBank:
         for i, ir in enumerate(self._irs):
             spec = partition_spectra(ir, block, max_partitions=p)
             out[i, :, : spec.shape[1]] = spec
+        return out
+
+    def monolithic_spectra(self, fft_size: int, reserve: int = 1024
+                           ) -> np.ndarray:
+        """[K, 2, fft_size//2+1] complex64 half-spectra of the IRs truncated
+        to fft_size - reserve samples (reference src/conv.cu:239)."""
+        fm = fft_size // 2 + 1
+        out = np.zeros((len(self._irs), 2, fm), np.complex64)
+        for k, ir in enumerate(self._irs):
+            out[k] = monolithic_spectrum(ir, fft_size, reserve)[..., :fm]
         return out

@@ -171,6 +171,7 @@ class CascadeConvolution:
     signature, where it picks between two TPU lowerings of the tail MAC.
     Here all three run the same sum on the same kernel (ring_mac)."""
 
+    fade_protocol = "spans"          # StreamSession (runtime/stream.py)
     swap_snapshot = False            # span-only: swaps defer (StreamSession)
     collapse_pure_takes_params = True  # the in-flight tail rescale needs
                                        # the post-change vsteps / predelay

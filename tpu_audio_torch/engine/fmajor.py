@@ -243,6 +243,7 @@ class FMajorPartitionedConvolution:
     which raises without CUDA); "cpu" runs the plain PyTorch path."""
 
     ALLK_MAX_COLUMNS = 64  # K <= 16 stereo IRs ride the all-K MAC
+    collapse_pure_takes_params = False  # (the cascade's collapse_pure does)
 
     def __init__(self, num_voices: int, block: int, partitions: int,
                  max_predelay: int = 8192, ring: bool = True,
@@ -277,6 +278,9 @@ class FMajorPartitionedConvolution:
                              "strategy (the 'selected' MAC reads the "
                              "materialized snapshot during fades)")
         self.swap_snapshot = swap_snapshot
+        # StreamSession's fade protocol (runtime/stream.py): the span paths
+        # exist for 'allk' only; 'selected' re-gathers its per-voice spectra
+        self.fade_protocol = "spans" if mac_strategy == "allk" else "selected"
         if pv_mac not in ("dot", "merged"):
             raise ValueError(f"unknown pv_mac {pv_mac!r}")
         if pv_mac != "dot":

@@ -26,6 +26,7 @@ from dataclasses import dataclass, fields, replace
 import numpy as np
 import torch
 
+from tpu_audio_torch.ops.smoother import vsteps_decrement
 from tpu_audio_torch.utils.device import resolve_device
 from tpu_audio_torch.utils.log import Log
 
@@ -305,7 +306,7 @@ class ControlPlane:
                 vsteps=np.maximum(self._host_cache.vsteps - 1, 0))
             self._device_params = replace(
                 self._device_params,
-                vsteps=torch.clamp_min(self._device_params.vsteps - 1, 0))
+                vsteps=vsteps_decrement(self._device_params.vsteps))
         # between-blocks hooks fire LAST (after the countdown advance) so
         # an event they raise — e.g. async paging re-issuing a deferred
         # select with fresh vsteps — is not clobbered by this block's

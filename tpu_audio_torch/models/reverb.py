@@ -1,28 +1,37 @@
-"""Reverb model: engine + bank + control plane bundle (port of
-tpu_audio/models/reverb.py:ConvolutionReverb, the fmajor and cascade
-branches).
+"""Reverb models: engine + bank + control plane bundles (port of
+tpu_audio/models/reverb.py).
 
 ``ConvolutionReverb`` matches the reference's application wiring
 (reference src/main.cu:18-116: settings -> IR bank -> Convolution instance
 -> control mapping -> stream), batched over V stereo voices on one engine
-(FMajorPartitionedConvolution, or CascadeConvolution for voice scaling)
-and one shared device bank. With ``bank_capacity=N`` the device holds only
-N IR slots and a working set (runtime/working_set.py) pages IRs of the
-full bank in on demand. ``render_offline`` bounces a whole track time-
-parallel (runtime/offline.py).
+(FMajorPartitionedConvolution, CascadeConvolution for voice scaling,
+PartitionedConvolution, or the reference's own MonolithicConvolution) and
+one shared device bank. With ``bank_capacity=N`` the device holds only N IR
+slots and a working set (runtime/working_set.py) pages IRs of the full bank
+in on demand. ``render_offline`` bounces a whole track time-parallel
+(runtime/offline.py). ``MultiVoiceReverbServer`` is the 64-voice fmajor
+model; ``ReverbGroups`` serves a settings file whose conv pairs differ, one
+batched model per distinct pair geometry, their outputs summed.
 """
 
 from __future__ import annotations
 
 import os
 
+import numpy as np
+import torch
+
 from tpu_audio_torch.engine import device_prep
 from tpu_audio_torch.engine.bank import IRBank
 from tpu_audio_torch.engine.cascade import CascadeConvolution
 from tpu_audio_torch.engine.fmajor import FMajorPartitionedConvolution
+from tpu_audio_torch.engine.monolithic import MonolithicConvolution
 from tpu_audio_torch.engine.params import CC_MAX_SPEED, CCMapping, ControlPlane
+from tpu_audio_torch.engine.partitioned import PartitionedConvolution
 from tpu_audio_torch.io.settings import Settings
-from tpu_audio_torch.runtime.backends import BlockSink, BlockSource
+from tpu_audio_torch.runtime.backends import (
+    BlockSink, BlockSource, CallbackSink, WavSource,
+)
 from tpu_audio_torch.runtime.stream import MidiSchedule, StreamSession
 from tpu_audio_torch.utils.device import resolve_device
 from tpu_audio_torch.utils.log import Log
@@ -46,7 +55,7 @@ def pair_geometry_keys(settings: Settings, root: str | None) -> list[tuple]:
     index0, index1). The reference builds count/2 independent instances,
     each with its own geometry (src/main.cu:31-39, paired fftSizes asserted
     equal at main.cu:36); one batched ConvolutionReverb serves a file whose
-    keys are all equal."""
+    keys are all equal, ReverbGroups one whose keys differ."""
     count = settings.u32("conv.count", default=2)
     if count % 2:
         raise ValueError("conv.count must be a multiple of 2 (main.cu:26)")
@@ -102,8 +111,8 @@ class ConvolutionReverb:
     `device`: None or "cuda" selects the best CUDA device (select_gpu,
     which raises without CUDA); "cpu" runs the plain PyTorch path.
 
-    The bank is prepared on the engine's device: the time-domain IRs are
-    uploaded and their spectra and packs computed there
+    The fmajor and cascade banks are prepared on the engine's device: the
+    time-domain IRs are uploaded and their spectra and packs computed there
     (engine/device_prep.py, the reference's prepare() architecture,
     src/conv.cu:207-253), so a working set's resident and faulted slots
     come from the same FFT. `bank_capacity=N` keeps N resident IR slots on
@@ -113,10 +122,17 @@ class ConvolutionReverb:
 
     `engine="cascade"` builds the two-stage engine (engine/cascade.py)
     with the largest stagger ratio <= `cascade_ratio` that the voice count
-    and the IR length allow, and its `predelay_side` and `tail_mac`."""
+    and the IR length allow, and its `predelay_side` and `tail_mac`.
+
+    `engine="partitioned"` builds PartitionedConvolution in its `variant`
+    ("coef" or "materialized"), `engine="monolithic"` the reference's
+    MonolithicConvolution at `fft_size`, its IRs truncated to fft_size -
+    max(block, min(1024, fft_size // 8)). Their spectra are computed on the
+    host (numpy) and uploaded; they take no `bank_capacity`."""
 
     def __init__(self, bank: IRBank, num_voices: int = 1, block: int = 256,
                  sample_rate: int = 44100, engine: str = "fmajor",
+                 variant: str = "coef", fft_size: int = 131072,
                  max_predelay: int = 8192,
                  max_partitions: int | None = None,
                  mac_strategy: str = "auto", mac_dtype: str = "f32",
@@ -125,12 +141,11 @@ class ConvolutionReverb:
                  bank_capacity: int | None = None,
                  async_paging: bool = False, ws_exhausted: str = "defer",
                  device=None):
-        if engine in ("partitioned", "monolithic"):
-            raise NotImplementedError(
-                f"engine {engine!r} is not ported yet (ROADMAP.md, Queue 1 "
-                f"item 14); the port serves 'fmajor' and 'cascade'")
-        if engine not in ("fmajor", "cascade"):
+        if engine not in ("fmajor", "cascade", "partitioned", "monolithic"):
             raise ValueError(f"unknown engine {engine!r}")
+        if bank_capacity is not None and engine not in ("fmajor", "cascade"):
+            raise ValueError(f"bank_capacity (working-set residency) needs "
+                             f"engine 'fmajor' or 'cascade', not {engine!r}")
         self.bank = bank
         self.block = block
         self.sample_rate = sample_rate
@@ -169,7 +184,7 @@ class ConvolutionReverb:
                 len(bank), mac_dtype, predelay_side, tail_mac, mac_strategy)
             self.spectra = device_prep.prepare_cascade_bank_device(
                 self.engine, bank)
-        else:
+        elif engine == "fmajor":
             # swap_snapshot=False only composes with the allk strategy;
             # the auto rule would silently pick 'selected' on big banks
             strategy = mac_strategy
@@ -182,10 +197,30 @@ class ConvolutionReverb:
                 device=self.device)
             self.spectra = device_prep.prepare_fmajor_bank_device(
                 self.engine, bank)
+        elif engine == "partitioned":
+            self.engine = PartitionedConvolution(
+                num_voices, block, partitions, max_predelay=max_predelay,
+                variant=variant, device=self.device)
+            self.spectra = self._upload(
+                bank.partitioned_spectra(block, max_partitions=partitions))
+        else:
+            self.engine = MonolithicConvolution(
+                num_voices, fft_size, block, max_predelay=max_predelay,
+                device=self.device)
+            # reserve >= block keeps overlap-add exact; the reference fixes
+            # reserve at 1024 (conv.h:63), which at small fftSize would
+            # truncate the whole IR away
+            self.spectra = self._upload(bank.monolithic_spectra(
+                fft_size, reserve=max(block, min(1024, fft_size // 8))))
         Log.info("reverb", "%d voice(s), %d IRs, engine=%s (%s), bank "
                  "%.1f MB on %s", num_voices, len(bank), engine,
-                 self.engine.mac_strategy, self.bank_bytes() / 1e6,
-                 self.device)
+                 getattr(self.engine, "mac_strategy",
+                         getattr(self.engine, "variant", f"fft {fft_size}")),
+                 self.bank_bytes() / 1e6, self.device)
+
+    def _upload(self, spectra: np.ndarray) -> torch.Tensor:
+        """Host complex64 spectra -> a tensor on the model's device."""
+        return torch.from_numpy(spectra).to(self.device)
 
     def _cascade(self, num_voices, block, partitions, requested, max_predelay,
                  num_irs, mac_dtype, predelay_side, tail_mac, mac_strategy):
@@ -238,8 +273,9 @@ class ConvolutionReverb:
 
     def bank_bytes(self) -> int:
         """Bytes of the device bank, placeholders included."""
-        return sum(leaf.numel() * leaf.element_size()
-                   for leaf in vars(self.spectra).values())
+        leaves = ([self.spectra] if isinstance(self.spectra, torch.Tensor)
+                  else vars(self.spectra).values())
+        return sum(leaf.numel() * leaf.element_size() for leaf in leaves)
 
     def _publish_bank(self, new_bank) -> None:
         self.spectra = new_bank
@@ -251,39 +287,47 @@ class ConvolutionReverb:
     # -- reference-settings construction (src/main.cu:18-116) --------------------
 
     @classmethod
-    def from_settings(cls, settings: Settings | str, engine: str = "fmajor",
+    def from_settings(cls, settings: Settings | str,
+                      engine: str = "partitioned",
                       root: str | None = None, num_voices: int | None = None,
                       max_ir_seconds: float | None = None,
                       normalize_bank: str | None = None,
                       verbose: bool = True, **kwargs) -> "ConvolutionReverb":
-        """Build from a reference-format settings file.
+        """Build from a reference-format settings file (the JAX package's
+        default engine, "partitioned"; the CLI passes its --engine).
 
         conv.count / 2 stereo voices (reference asserts count is even,
         src/main.cu:26); per-channel CC mappings + initial values
         (src/main.cu:54-70); IR banks from BOTH channels' index files
         (src/main.cu:72-81), concatenated along the bank axis when they
-        differ, each engine channel addressing its own window."""
+        differ, each engine channel addressing its own window; fftSize
+        sizes the monolithic engine. A file whose pairs differ raises
+        ValueError: ReverbGroups.from_settings serves it."""
         if not isinstance(settings, Settings):
             settings = Settings().open(settings, verbose=verbose)
         count = settings.u32("conv.count", default=2)
         if count % 2:
             raise ValueError("conv.count must be a multiple of 2 (main.cu:26)")
         v = num_voices if num_voices is not None else count // 2
+        # one batched engine shares one geometry across its voices: a file
+        # whose pairs differ must not collapse silently to pair 0's
         keys = pair_geometry_keys(settings, root)
         if len(set(keys)) > 1:
-            raise NotImplementedError(
+            raise ValueError(
                 f"settings file has {len(set(keys))} distinct conv-pair "
-                f"geometries (fftSize/maxPredelay/index); heterogeneous "
-                f"pairs need ReverbGroups, which is not ported yet")
-        _, max_pd, _, _ = keys[0]  # fftSize sizes the monolithic engine
+                f"geometries (fftSize/maxPredelay/index); a single "
+                f"ConvolutionReverb would silently serve them all with "
+                f"pair 0's — build ReverbGroups.from_settings instead "
+                f"(the CLI routes there automatically)")
+        fft_size, max_pd, _, _ = keys[0]
         bank, windows = _merged_bank(
             _resolve_index(settings, 0, root),
             _resolve_index(settings, 1, root), root, max_ir_seconds, verbose,
             sample_rate=kwargs.get("sample_rate", 44100))
         if normalize_bank:
             bank.normalize(mode=normalize_bank)
-        model = cls(bank, num_voices=v, engine=engine, max_predelay=max_pd,
-                    **kwargs)
+        model = cls(bank, num_voices=v, engine=engine, fft_size=fft_size,
+                    max_predelay=max_pd, **kwargs)
         model.control.set_channel_banks(windows)
         for voice in range(min(v, count // 2)):
             for ch in range(2):
@@ -320,6 +364,9 @@ class ConvolutionReverb:
             # warm the fault path before block 0, so the first real bank
             # miss pays no one-off cost mid-stream
             sess.pre_run_hooks.append(self.working_set.warmup)
+        if isinstance(self.engine, MonolithicConvolution):
+            # build the fft_size-point FFT plans before block 0
+            sess.pre_run_hooks.append(self.engine.warmup)
         return sess
 
     def process(self, source: BlockSource, sink: BlockSink,
@@ -344,3 +391,96 @@ class ConvolutionReverb:
         from tpu_audio_torch.runtime.offline import render_offline
 
         return render_offline(self, samples, **kwargs)
+
+
+class MultiVoiceReverbServer(ConvolutionReverb):
+    """64 concurrent stereo voices on the fmajor engine (the CLI's default
+    engine) unless `engine` says otherwise."""
+
+    def __init__(self, bank: IRBank, num_voices: int = 64, block: int = 256,
+                 **kwargs):
+        kwargs.setdefault("engine", "fmajor")
+        super().__init__(bank, num_voices=num_voices, block=block, **kwargs)
+
+
+class ReverbGroups:
+    """The models of a settings file whose conv pairs differ.
+
+    The reference builds count/2 independent Convolution instances, each
+    pair with its own fftSize and index files (src/main.cu:31-39), all fed
+    the same capture ports and summed into the same playback ports by the
+    JACK graph (main.cu:86-89). Here pairs are grouped by their geometry key
+    (pair_geometry_keys), one batched ConvolutionReverb per distinct key,
+    and ``process`` streams every group over the same input and sums their
+    outputs, as that wiring does."""
+
+    def __init__(self, models: list[ConvolutionReverb],
+                 pair_ids: list[list[int]]):
+        self.models = models
+        self.pair_ids = pair_ids  # settings pair indices per group
+
+    @classmethod
+    def from_settings(cls, settings: Settings | str, engine: str = "fmajor",
+                      root: str | None = None,
+                      max_ir_seconds: float | None = None,
+                      verbose: bool = True, **kwargs) -> "ReverbGroups":
+        """One model per distinct pair geometry; `kwargs` go to every
+        ConvolutionReverb (device, block, variant, ...)."""
+        if not isinstance(settings, Settings):
+            settings = Settings().open(settings, verbose=verbose)
+        count = settings.u32("conv.count", default=2)
+        groups: dict[tuple, list[int]] = {}
+        for n, key in enumerate(pair_geometry_keys(settings, root)):
+            groups.setdefault(key, []).append(n)
+
+        models, pair_ids = [], []
+        for (fft, max_pd, index0, index1), pairs in groups.items():
+            bank, windows = _merged_bank(
+                index0, index1, root, max_ir_seconds, verbose,
+                sample_rate=kwargs.get("sample_rate", 44100))
+            model = ConvolutionReverb(bank, num_voices=len(pairs),
+                                      engine=engine, fft_size=fft,
+                                      max_predelay=max_pd, **kwargs)
+            model.control.set_channel_banks(windows)
+            for voice, n in enumerate(pairs):
+                for ch in range(2):
+                    idx = 2 * n + ch
+                    model.control.set_mapping(
+                        voice, ch, CCMapping.from_settings(settings, idx))
+                    model.control.load_initial_values(settings, voice, ch,
+                                                      idx)
+            models.append(model)
+            pair_ids.append(list(pairs))
+        Log.info("reverb", "%d conv pair(s) in %d engine group(s): %s",
+                 count // 2, len(models),
+                 [(type(m.engine).__name__, len(p))
+                  for m, p in zip(models, pair_ids)])
+        return cls(models, pair_ids)
+
+    def process(self, x: np.ndarray, midi: MidiSchedule | None = None,
+                max_blocks: int | None = None, **session_kwargs):
+        """Stream stereo input [2, T] through every group (the same input
+        to every pair, like the reference's capture wiring) and return the
+        SUMMED stereo output [2, T'] (the JACK playback mix) and the
+        per-group session summaries."""
+        total = None
+        summaries = []
+        for model, pairs in zip(self.models, self.pair_ids):
+            blocks = []
+            source = WavSource(np.asarray(x), num_voices=len(pairs),
+                               block=model.block)
+            midi_copy = (MidiSchedule(list(midi._events))
+                         if midi is not None else None)
+            _, summary = model.process(source, CallbackSink(blocks.append),
+                                       midi=midi_copy, max_blocks=max_blocks,
+                                       **session_kwargs)
+            # this group's pairs summed: [2, T']
+            out = (np.concatenate(blocks, axis=-1) if blocks
+                   else np.zeros((1, 2, 0), np.float32)).sum(axis=0)
+            if total is None:
+                total = out
+            else:
+                n = min(total.shape[-1], out.shape[-1])
+                total = total[..., :n] + out[..., :n]
+            summaries.append(summary)
+        return total, summaries

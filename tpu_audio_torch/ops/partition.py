@@ -1,5 +1,5 @@
 """IR partitioning and spectra precompute (port of tpu_audio/ops/partition.py,
-numpy backend).
+numpy backend), and the monolithic engine's single spectrum.
 
 Uniform partitioned overlap-save: the IR is split into P = ceil(L / B)
 block-sized partitions, each zero-padded to N = 2B and transformed once at
@@ -41,3 +41,15 @@ def partition_spectra(ir: np.ndarray, block: int,
     (one host FFT pass per bank load)."""
     parts = partition_ir(ir, block, max_partitions)
     return np.fft.rfft(parts, axis=-1).astype(np.complex64)
+
+
+def monolithic_spectrum(ir: np.ndarray, fft_size: int, reserve: int = 1024,
+                        ) -> np.ndarray:
+    """Reference-style single spectrum: IR truncated to fft_size - reserve
+    frames (reference src/conv.cu:239, default nframes=1024 src/conv.h:63),
+    zero-padded to fft_size, full complex spectrum [..., fft_size]."""
+    ir = np.asarray(ir, dtype=np.float32)
+    keep = min(ir.shape[-1], fft_size - reserve)
+    padded = np.zeros(ir.shape[:-1] + (fft_size,), np.float32)
+    padded[..., :keep] = ir[..., :keep]
+    return np.fft.fft(padded, axis=-1).astype(np.complex64)

@@ -14,8 +14,11 @@ device work, behind the same host launches.
 
 fmajor engines prime their delay line directly (``prime_fdl``: one batched
 rfft of the whole input and one gather), so only the wet ring is streamed
-during warm-up (``prime_blocks``). The cascade has no ``prime_fdl`` and
-streams ``history_blocks`` of warm-up.
+during warm-up (``prime_blocks``). The cascade, the partitioned and the
+monolithic engines have no ``prime_fdl`` and stream ``history_blocks`` of
+warm-up; the last two bounce static parameters only, as in the JAX package
+(the automated bounce replays fades through collapse_pure or the 'selected'
+expansion, which they lack).
 
 Automation (``schedule=``): the host replays the MIDI schedule against a
 replica of the control plane in float32, op for op as the engine's fade
@@ -55,6 +58,7 @@ import numpy as np
 import torch
 
 from tpu_audio_torch.engine.params import ControlPlane, VoiceParams
+from tpu_audio_torch.runtime.stream import engine_steps
 from tpu_audio_torch.utils.log import Log
 from tpu_audio_torch.utils.wire import decode_pcm16, encode_pcm16
 
@@ -261,8 +265,12 @@ def render_offline(model, samples, *, segments: int | None = None,
              "warm-up steps (%d virtual voices)",
              total_blocks, nseg, seg_len, warmup, v * nseg)
 
+    # converged static params ride the steady step (engine.step where the
+    # engine slews its own spectra: the slew is then a converged no-op)
+    steady, _ = engine_steps(seng)
+
     def step(i, st):
-        return seng.step_coef_steady(st, bank, vparams, inputs(i))
+        return steady(st, bank, vparams, inputs(i))
 
     out = _collect(step, state, warmup, seg_len, (v * nseg, 2, b), wire, dev)
     # [seg_len, V*nseg, 2, B] -> [V, 2, nseg*seg_len*B]
@@ -695,7 +703,7 @@ def _render_automated(model, samples, schedule, *, segments,
              "re-select block(s))", total_blocks, nseg, seg_len, warmup,
              v * nseg, len(sim.regimes), len(sim.ev_changed) - 1)
 
-    takes_params = getattr(seng, "collapse_pure_takes_params", False)
+    takes_params = seng.collapse_pure_takes_params
 
     def step(i, st):
         params = VoiceParams(**{f: tbl[f][i] for f in _ControlSim.FIELDS})

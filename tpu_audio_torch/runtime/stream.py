@@ -38,8 +38,18 @@ Capability equivalent of the reference's JACK process-callback runtime
     from the new one; a span-only engine (fmajor with swap_snapshot=False,
     the cascade) defers the swap until its fades decay.
 
-The engine is the fmajor engine or the cascade (engine/cascade.py), which
-takes the post-change parameters at collapse_pure.
+Each engine names its fade protocol in ``engine.fade_protocol``:
+
+  - "spans": the steady, span-indexed and general coefficient steps, and
+    the span re-base collapse_pure at a re-select (fmajor 'allk'; the
+    cascade, which takes the post-change parameters at collapse_pure);
+  - "selected": the steady and general steps, and the materializing
+    collapse, which also re-gathers the per-voice spectra (fmajor
+    'selected');
+  - "coef": the steady and general steps and the materializing collapse
+    (the partitioned engine's 'coef' variant);
+  - "slew": ``engine.step``, which slews the active spectra itself and
+    needs no collapse (the monolithic engine, partitioned 'materialized').
 
 Left out of this port: chunked dispatch (``chunk_blocks``), batched
 fetches and the pcm16 wire (``fetch_batch``, ``wire``), mesh serving, and,
@@ -127,6 +137,15 @@ class MidiSchedule:
             self._next += 1
 
 
+def engine_steps(engine):
+    """(steady step, general step) of an engine by its fade protocol: a
+    coefficient engine's step_coef_steady and step_coef, or engine.step
+    for both where the engine slews its own spectra."""
+    if engine.fade_protocol == "slew":
+        return engine.step, engine.step
+    return engine.step_coef_steady, engine.step_coef
+
+
 class StreamSession:
     """Drives (source -> engine step -> sink) to completion."""
 
@@ -183,18 +202,26 @@ class StreamSession:
         self.indexed_blocks = 0   # blocks that rode step_coef_indexed
         self.general_blocks = 0   # blocks that rode the general fade step
 
-        allk = engine.mac_strategy == "allk"
-        self._step_steady = engine.step_coef_steady
-        self._step_full = engine.step_coef
-        # the span paths exist for 'allk' only; 'selected' fades run the
-        # general step and its re-selects the materializing collapse, which
-        # also re-gathers the per-voice spectra
-        self._step_indexed = engine.step_coef_indexed if allk else None
-        self._collapse_pure = engine.collapse_pure if allk else None
+        # coefficient engines pick a step from the host mirrors and collapse
+        # on a re-select; "slew" engines only call engine.step
+        protocol = engine.fade_protocol
+        spans = protocol == "spans"
+        self._is_coef = protocol != "slew"
+        self._step_steady, self._step_full = engine_steps(engine)
+        self._step_indexed = engine.step_coef_indexed if spans else None
+        self._collapse_pure = engine.collapse_pure if spans else None
+        # 'selected' re-gathers its per-voice spectra at a collapse (it
+        # takes the new selection) and at a bank swap
+        self._selected = protocol == "selected"
         # the cascade rescales in-flight tail content at a re-select, which
         # needs the post-change parameters (the new fade's vsteps, predelay)
-        self._collapse_pure_params = getattr(
-            engine, "collapse_pure_takes_params", False)
+        self._collapse_pure_params = (spans
+                                      and engine.collapse_pure_takes_params)
+        # span-only engines (swap_snapshot=False) have no materialized
+        # snapshot: a bank swap waits for the fades to decay
+        self._span_only = spans and not engine.swap_snapshot
+        # the state carries span provenance (base_pure)
+        self._has_provenance = spans or self._selected
         # analytic host mirror of coef_a for the step choice, and of span
         # purity (base_pure) for the indexed-step precondition
         self._a_host = np.zeros((engine.num_voices, 2), np.float64)
@@ -207,7 +234,8 @@ class StreamSession:
         # warm-up work (the working set builds its fault path's FFT plan
         # there, models/reverb.py:session)
         self.pre_run_hooks: list = []
-        control.on_select_change = self._note_select_change
+        if self._is_coef:
+            control.on_select_change = self._note_select_change
 
     # -- coef-engine hooks ---------------------------------------------------------
 
@@ -255,8 +283,28 @@ class StreamSession:
         # (virtual snapshots are materialized too), so the general fade
         # step may read state.base for anyone afterwards
         self._pure_host[:] = False
-        return self.engine.collapse(state, self.bank, old_t, changed_t,
-                                    torch.tensor(new_sel, device=self.device))
+        if self._selected:
+            return self.engine.collapse(
+                state, self.bank, old_t, changed_t,
+                torch.tensor(new_sel, device=self.device))
+        return self.engine.collapse(state, self.bank, old_t, changed_t)
+
+    def _pick_coef_step(self):
+        """The coefficient engine's step for this block (steady once every
+        fade has decayed, else the indexed or general fade step), then the
+        analytic coef_a mirror advanced exactly as the device recursion
+        advances it."""
+        vsteps = self.control.vsteps.astype(np.float64)
+        if bool((self._a_host < STEADY_THRESHOLD).all()):
+            step = self._step_steady
+        elif self._step_indexed is not None and self._indexed_valid():
+            step = self._step_indexed
+            self.indexed_blocks += 1
+        else:
+            step = self._step_full
+            self.general_blocks += 1
+        self._a_host *= 1.0 - 1.0 / (vsteps + 5.0)
+        return step
 
     def _materialize_base(self, state):
         """Materialize virtual fade snapshots with NO re-select (bank-swap
@@ -281,8 +329,8 @@ class StreamSession:
     def _apply_pending_bank(self, state):
         if self._pending_bank is None:
             return state
-        if (not self.engine.swap_snapshot
-                and bool((self._a_host >= STEADY_THRESHOLD).any())):
+        if self._span_only and bool((self._a_host
+                                     >= STEADY_THRESHOLD).any()):
             # span-only engine (swap_snapshot=False): there is nothing to
             # materialize the old bank's fade tails into, so the swap
             # waits for in-flight crossfades to decay — bounded by the
@@ -307,16 +355,19 @@ class StreamSession:
         self._swap_wait_logged = False
         new_bank = self._pending_bank
         self._pending_bank = None
-        if not self.engine.swap_snapshot:
+        # (the "coef" and "slew" engines keep their fade snapshots
+        # materialized, base or active, so their fade tails keep the old
+        # bank's sound as they are)
+        if self._span_only:
             # the deferral above guarantees every fade has decayed, so the
             # old-bank span coefficients are inert: zero them so no stale
             # provenance is reinterpreted against the new bank
             state = replace(state, base_g=torch.zeros_like(state.base_g))
-        elif bool(state.base_pure.any()):
+        elif self._has_provenance and bool(state.base_pure.any()):
             # materialize virtual snapshots against the OLD bank: the
             # fade-out tail must keep playing the old bank's sound
             state = self._materialize_base(state)
-        if self.engine.mac_strategy == "selected":
+        if self._selected:
             # the steady MAC reads materialized per-voice spectra —
             # re-gather them from the NEW bank
             state = self.engine.regather_selection(
@@ -406,23 +457,27 @@ class StreamSession:
         accordingly. start_block offsets the block indices of the MIDI
         schedule and of the checkpoints (resume bookkeeping).
 
-        The engine updates the state's delay line and wet ring in place:
-        the state passed in is consumed."""
+        The fmajor engine and the cascade update the state's delay line and
+        wet ring in place: the state passed in is consumed."""
         for hook in self.pre_run_hooks:
             hook()
         # resync the analytic mirrors from the state (one host read, before
         # the loop) so a session started mid-crossfade — a checkpoint
         # restored mid-fade included — keeps the fade step; snapshot
         # provenance is state-carried, so purity survives too
-        self._a_host = state.coef_a.double().cpu().numpy()
-        self._pure_host = state.base_pure.cpu().numpy().copy()
-        if (self._step_indexed is None and self.engine.swap_snapshot
-                and bool((self._pure_host
-                          & (self._a_host >= STEADY_THRESHOLD)).any())):
-            # a span-collapsed fade is in flight but this engine has no
-            # indexed step ('selected'): materialize the virtual snapshots
-            # once so the general fade reads a valid base tensor
-            state = self._materialize_base(state)
+        if self._is_coef:
+            self._a_host = state.coef_a.double().cpu().numpy()
+        if self._has_provenance:
+            self._pure_host = state.base_pure.cpu().numpy().copy()
+            if (self._selected
+                    and bool((self._pure_host
+                              & (self._a_host >= STEADY_THRESHOLD)).any())):
+                # a span-collapsed fade is in flight but this engine has no
+                # indexed step ('selected'): materialize the virtual
+                # snapshots once so the general fade reads a valid base
+                state = self._materialize_base(state)
+        else:
+            self._pure_host[:] = False
 
         pending = collections.deque()
         block_index = 0
@@ -454,19 +509,11 @@ class StreamSession:
 
                 self.timer.start()
                 state = self._apply_pending_bank(state)
-                state = self._maybe_collapse(state)
-                vsteps = self.control.vsteps.astype(np.float64)
-                if bool((self._a_host < STEADY_THRESHOLD).all()):
-                    step = self._step_steady
-                elif self._step_indexed is not None and self._indexed_valid():
-                    step = self._step_indexed
-                    self.indexed_blocks += 1
+                if self._is_coef:
+                    state = self._maybe_collapse(state)
+                    step = self._pick_coef_step()
                 else:
                     step = self._step_full
-                    self.general_blocks += 1
-                # advance the analytic coef_a mirror exactly like the device
-                # recursion does
-                self._a_host *= 1.0 - 1.0 / (vsteps + 5.0)
 
                 params = self.control.snapshot_device()
                 state, out = step(state, self.bank, params, self._upload(x))
