@@ -172,15 +172,45 @@ Phases, in order; any failure raises and the script exits non-zero:
      --engine monolithic`, streamed and then --offline: the streamed WAV
      against the sum of the two groups' goldens within 1 LSB, the bounced
      WAV against the streamed one within 1 LSB. Neither MAC kernel may
-     launch in phases 23-25.
+     launch in phases 23-25;
+ 26. the bf16 kernels (mac_dtype='bf16'): ring_mac and mac_shift on bf16
+     operands against their plain versions (upcast, float64 sums) within
+     1e-5 of scale at the 64-voice shapes of KOD 16, 36 and 64 (the
+     shifted line bit-identical), and ring_mac at the 2048-voice cascade's
+     head and tail shapes; each timed against its plain version, one
+     torch.einsum on the bf16 operands (it rounds m to bf16) and its bound;
+ 27. fmajor in bf16 at 64 voices over phase 4's IRs: the model's session
+     on phase 4's timeline (every block on the bf16 ring_mac) above 40 dB
+     SNR against phase 4's f32 session; a roll-mode session in bf16 and in
+     f32, 600 blocks of the same timeline (every bf16 block on the bf16
+     mac_shift), above 40 dB SNR; a static bounce of 10 s by the bf16
+     model against the f32 model's, above 40 dB SNR; ms per block p50 /
+     p99, RTF, missed deadlines, the steady step's time and device busy,
+     peak memory;
+ 28. the JAX bench's cascade_2048: 2048 voices, bf16, ratio 16,
+     read-side predelay, 4 s IRs, 300 blocks with a re-select at 100; two
+     bf16 ring_mac launches per block, voices 0 and 2047's wet path above
+     40 dB SNR against the float64 golden before the re-select and after
+     the fade; the same figures plus the steps' top device ops; then the
+     CLI (`--engine cascade --mac-dtype bf16 --voices 2048`) for 40
+     blocks;
+ 29. the JAX bench's sel152: 152 synthetic 4 s IRs through the cascade's
+     'selected' strategy in f32 (mac_strategy 'auto'), 64 voices, 600
+     blocks, every voice re-selecting at 300 (a 150-block fade on the
+     general step) and a swap_bank at 450, mid-fade; no MAC kernel
+     launches; voices 0 and 63 against the golden within 2e-5 of scale
+     before the re-select and after the swap; collapse,
+     regather_selection and materialize_base timed at first use and warm;
+     then the CLI over the bank written as 152 WAVs for 40 blocks.
 
 The line before the last is a JSON object describing each kernel (its
 launches summed over the phases whose path rides it: 4, 11, 12, 14-17,
 18's cascade and 19-21 for ring_mac, 7, 10 and 18's roll engine for
-mac_shift; its
+mac_shift, 27-28 for ring_mac_bf16 and 27 for mac_shift_bf16; its
 times and roofline bound at KOD=16, under per_kod at KOD 16, 36 and 64,
 ring_mac's at the cascade's four shapes under cascade and at the bounce's
-shape under bounce); the last line is {"ok": true, "device": {...}}. The
+shape under bounce, ring_mac_bf16's at the 2048-voice cascade's shapes
+under cascade); the last line is {"ok": true, "device": {...}}. The
 script imports nothing of JAX and nothing of the JAX package.
 """
 
@@ -276,6 +306,23 @@ MONO_CLAMP_BLOCKS = 96
 # phase 25: conv pairs at fftSize 131072 and 65536 over two 2-IR banks,
 # 400 blocks of stereo noise through the CLI, streamed and --offline
 HET_FFTS, HET_BLOCKS, HET_AMPLITUDE = (131072, 65536), 400, 0.004
+# phase 27: roll mode in bf16 and in f32, 600 blocks of phase 4's timeline
+ROLL27_BLOCKS = 600
+# phase 28: the JAX bench's cascade_2048 (bench.py:804-811): 2048 voices,
+# bf16, ratio 16, read-side predelay, 300 blocks, a re-select at 100; the
+# CLI then runs it for 40 blocks (phase 29's CLI too)
+HUGE_VOICES, HUGE_BLOCKS, HUGE_SELECT_AT = 2048, 300, 100
+CLI_CASCADE_BLOCKS = 40
+# ring_mac's shapes on the 2048-voice cascade's two stages: (F, VI, Pp)
+CASCADE_2048_SHAPES = {
+    "head_2048v": (BLOCK + 1, 2 * HUGE_VOICES, CAS_PP1),
+    "tail_2048v": (CAS_RATIO * BLOCK + 1, 2 * HUGE_VOICES // CAS_RATIO,
+                   CAS_PP2)}
+# phase 29: the JAX bench's sel152 leg: 152 IRs, 64 voices, 600 blocks, a
+# re-select at 300 (CC 64 -> IR 76) with a 150-block fade, a swap_bank at
+# 450 (mid-fade), the golden against the new bank from 540
+SEL152_IRS, SEL152_BLOCKS, SEL152_SELECT_AT, SEL152_VALUE = 152, 600, 300, 64
+SEL152_SPEED, SEL152_SWAP_AT, SEL152_AFTER = 150, 450, 540
 # published peaks of one H100 SXM (NVIDIA's data sheet): HBM bytes/s and
 # f32 FLOP/s outside the tensor cores, at the full 700 W power limit
 HBM_BYTES_PER_S, F32_FLOPS = 3.35e12, 67e12
@@ -668,10 +715,11 @@ def device_busy(step, state, bank, params, x, n=30, label=None):
 
 def time_ring_mac(rm, fdl, rhs2, w_host=5):
     """ring_mac at one shape against its plain version and one library
-    call, interleaved (plain, library, kernel, kernel, library, plain),
-    with the roofline bound from the bytes each input is read once and m
-    written once. Returns {kernel, plain, library, bound, bound_by,
-    bytes} in ms (bytes in bytes)."""
+    call (in bf16 it rounds m to bf16), interleaved (plain, library,
+    kernel, kernel, library, plain), with the roofline bound from the bytes
+    each input is read once in its dtype and m written once in f32.
+    Returns {kernel, plain, library, bound, bound_by, bytes} in ms (bytes
+    in bytes)."""
     import torch
 
     wt = torch.tensor(w_host, dtype=torch.int32, device=fdl.device)
@@ -683,7 +731,8 @@ def time_ring_mac(rm, fdl, rhs2, w_host=5):
         runs[key].append(cuda_ms(calls[key], 200))
     f, vi, _, pp = fdl.shape
     kod = rhs2.shape[3]
-    nbytes = (fdl.numel() + f * 2 * pp * kod + f * vi * kod) * 4
+    nbytes = ((fdl.numel() + f * 2 * pp * kod) * fdl.element_size()
+              + f * vi * kod * 4)
     bound_ms, bound_by = roofline_ms(nbytes, 2 * f * vi * 2 * pp * kod)
     out = {key: float(np.mean(v)) for key, v in runs.items()}
     out.update(bound=bound_ms, bound_by=bound_by, bytes=nbytes)
@@ -2435,6 +2484,627 @@ def run_cli_groups(irs):
     return figures
 
 
+def snr_db(got, want):
+    """10 log10 of the reference's power over the error's."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    err = float(((got - want) ** 2).sum())
+    return float("inf") if err == 0 else 10.0 * np.log10(
+        float((want ** 2).sum()) / err)
+
+
+def time_mac_shift_bf16(ms, fdl, xn, rhs):
+    """Phase 26: the bf16 mac_shift against its plain version and one
+    torch.einsum of the unshifted line on the same bf16 operands (a
+    yardstick, not the function: no one call shifts the line; it rounds m
+    to bf16), interleaved, with the bound from the line read and written
+    back and rhs read in bf16, m written in f32. Returns {kernel, plain,
+    einsum, bound, bound_by, bytes} in ms."""
+    import torch
+
+    f, vi, _, pp = fdl.shape
+    kod = rhs.shape[3]
+    calls = {"plain": lambda: ms.mac_shift_reference(fdl, xn, rhs),
+             "einsum": lambda: torch.einsum(
+                 "fvq,fqk->fvk", fdl.reshape(f, vi, 2 * pp),
+                 rhs.reshape(f, 2 * pp, kod)),
+             "kernel": lambda: ms.mac_shift(fdl, xn, rhs)}
+    runs = {key: [] for key in calls}
+    for key in ("plain", "einsum", "kernel", "kernel", "einsum", "plain"):
+        runs[key].append(cuda_ms(calls[key], 200))
+    nbytes = ((2 * fdl.numel() + xn.numel() + rhs.numel()) * 2
+              + f * vi * kod * 4)
+    bound_ms, bound_by = roofline_ms(nbytes, 2 * f * vi * 2 * pp * kod)
+    out = {key: float(np.mean(v)) for key, v in runs.items()}
+    out.update(bound=bound_ms, bound_by=bound_by, bytes=nbytes)
+    return out
+
+
+def run_bf16_kernels(dev, rng, pp):
+    """Phase 26: both bf16 kernels against their plain versions (bf16
+    operands upcast, float64 sums) within 1e-5 of scale at the 64-voice
+    shapes (F=257, VI=128, Pp=696) of KOD 16, 36 and 64, and ring_mac at
+    the 2048-voice cascade's head [257, 4096, 2, 32] and tail [4097, 256,
+    2, 48] shapes (KOD 16); each timed against its plain version, one
+    bf16 einsum and its bound; `pp` is the 4 s IRs' padded partition
+    count. Returns (largest error per kernel, timings per kernel and
+    shape)."""
+    import torch
+
+    from tpu_audio_torch.ops import mac_shift as ms
+    from tpu_audio_torch.ops import ring_mac as rm
+
+    def bf16(*shape):
+        return torch.tensor(rng.standard_normal(shape, dtype=np.float32),
+                            device=dev).to(torch.bfloat16)
+
+    f, vi = BLOCK + 1, 2 * VOICES
+    shapes = [("ring_mac", f"kod{kod}", (f, vi, pp, kod)) for kod in RING_KODS]
+    shapes += [("ring_mac", name, (fs, vis, pps, 4 * NUM_IRS))
+               for name, (fs, vis, pps) in CASCADE_2048_SHAPES.items()]
+    shapes += [("mac_shift", f"kod{kod}", (f, vi, pp, kod))
+               for kod in RING_KODS]
+    worst = {"ring_mac": 0.0, "mac_shift": 0.0}
+    timed = {"ring_mac": {}, "mac_shift": {}}
+    for kernel, name, (fs, vis, pps, kod) in shapes:
+        fdl = bf16(fs, vis, 2, pps)
+        label = f"{kernel} bf16 vs plain [{name} F={fs} VI={vis} Pp={pps} " \
+                f"KOD={kod}]"
+        if kernel == "ring_mac":
+            rhs2 = bf16(fs, 2, 2 * pps, kod)
+            inputs = (fdl, rhs2)
+            for w in sorted({0, 1, pps // 2 + 1, pps - 1}):
+                wt = torch.tensor(w, dtype=torch.int32, device=dev)
+                got = rm.ring_mac(wt, fdl, rhs2)
+                torch.cuda.synchronize()
+                ref = rm.ring_mac_reference(w, fdl.double(), rhs2.double())
+                scale = ref.abs().max().item()
+                err = (got.double() - ref).abs().max().item()
+                print(f"{label} w={w}: max_abs_err {err:.3e} (limit "
+                      f"{1e-5 * scale:.3e})")
+                if not err <= 1e-5 * scale:
+                    raise AssertionError(f"bf16 ring_mac disagrees at "
+                                         f"{name} w={w}")
+                worst[kernel] = max(worst[kernel], err)
+                del got, ref
+        else:
+            xn, rhs = bf16(fs, vis, 2, 1), bf16(fs, 2, pps, kod)
+            inputs = (fdl, xn, rhs)
+            want_fdl, _ = ms.mac_shift_reference(fdl, xn, rhs)
+            _, ref = ms.mac_shift_reference(fdl.double(), xn.double(),
+                                            rhs.double())
+            got_fdl, got = ms.mac_shift(fdl, xn, rhs)
+            torch.cuda.synchronize()
+            same = torch.equal(got_fdl.view(torch.int16),
+                               want_fdl.view(torch.int16))
+            scale = ref.abs().max().item()
+            err = (got.double() - ref).abs().max().item()
+            print(f"{label}: shifted line "
+                  f"{'bit-identical' if same else 'DIFFERS'}, m max_abs_err "
+                  f"{err:.3e} (limit {1e-5 * scale:.3e})")
+            if not same or not err <= 1e-5 * scale:
+                raise AssertionError(f"bf16 mac_shift disagrees at {name}")
+            worst[kernel] = max(worst[kernel], err)
+            del want_fdl, ref, got
+        t = timed[kernel][name] = (
+            time_ring_mac(rm, *inputs) if kernel == "ring_mac"
+            else time_mac_shift_bf16(ms, *inputs))
+        gbps = t["bytes"] / (t["kernel"] * 1e-3) / 1e9
+        einsum = t.get("library", t.get("einsum"))
+        print(f"{kernel} bf16 timing [{name}]: kernel {t['kernel'] * 1e3:.2f} "
+              f"us ({gbps:.0f} GB/s, {100 * t['bound'] / t['kernel']:.1f} % of "
+              f"the {t['bound'] * 1e3:.2f} us bound by {t['bound_by']}), "
+              f"plain {t['plain'] * 1e3:.2f} us, bf16 einsum (rounds m to "
+              f"bf16{'; no shift' if kernel == 'mac_shift' else ''}) "
+              f"{einsum * 1e3:.2f} us")
+        del fdl, inputs
+        torch.cuda.empty_cache()
+    return worst, timed
+
+
+def session_figures(name, session, run_s, build_s, peak_mb, step, state, x,
+                    label):
+    """Print and return a session's figures: ms per block p50 / p99, RTF,
+    missed deadlines, build s, peak memory, and its steady step's CUDA-event
+    p50 / p99, device busy and device ops (the top ops under `label`)."""
+    summary = session.summary()
+    params = session.control.snapshot_device()
+    p50, p99, state = step_times(step, state, session.bank, params, x, n=200)
+    busy, ops, state = device_busy(step, state, session.bank, params, x,
+                                   label=label)
+    what = "not measured" if busy is None else (
+        f"device busy {busy:.1f} us in {ops:.1f} device ops")
+    print(f"{name}: {session.blocks_streamed} blocks in {run_s:.3f} s (built "
+          f"in {build_s:.2f} s, peak allocated {peak_mb:.1f} MB), session p50 "
+          f"/ p99 {summary['p50_ms']:.3f} / {summary['p99_ms']:.3f} ms per "
+          f"block, RTF {summary['rtf']:.3f}, missed "
+          f"{summary['missed_deadlines']}; steady step p50 / p99 {p50:.3f} / "
+          f"{p99:.3f} ms (CUDA events), {what}")
+    return {"summary": summary, "build_s": build_s, "peak_mb": peak_mb,
+            "run_s": run_s, "step": (p50, p99, busy, ops)}
+
+
+def run_fmajor_bf16(bank, dev, configure, select, keep_sink, reset_counts,
+                    rm, ms, ring_f32_out):
+    """Phase 27: mac_dtype='bf16' on the fmajor engine at 64 voices over
+    phase 4's 4 IRs. (a) ConvolutionReverb(mac_dtype='bf16') through its
+    session on phase 4's timeline (800 blocks, a re-select at 300, an
+    interrupt at 306): every block must launch the bf16 ring_mac, and
+    voices 0 and 63 must track phase 4's f32 session above 40 dB SNR.
+    (b) roll mode in bf16 and in f32 through StreamSession, 600 blocks of
+    the same timeline: every bf16 block on the bf16 mac_shift, the two
+    above 40 dB SNR. (c) a static bounce of 10 s of per-voice noise by the
+    bf16 model against the f32 model's, above 40 dB SNR, every step on the
+    bf16 ring_mac. Returns the figures."""
+    import torch
+
+    from tpu_audio_torch.engine.fmajor import FMajorPartitionedConvolution
+    from tpu_audio_torch.engine.params import ControlPlane
+    from tpu_audio_torch.models.reverb import ConvolutionReverb
+    from tpu_audio_torch.runtime.backends import NoiseSource
+    from tpu_audio_torch.runtime.offline import render_offline
+    from tpu_audio_torch.runtime.stream import MidiSchedule, StreamSession
+
+    figures = {}
+    timeline = [select(SELECT_AT, 32), select(INTERRUPT_AT, 64)]
+    xt = torch.randn((VOICES, 2, BLOCK), device=dev) * 0.01
+
+    # (a) ring mode through the model's session
+    name = "fmajor ring bf16"
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = ConvolutionReverb(bank, num_voices=VOICES, block=BLOCK,
+                              sample_rate=RATE, engine="fmajor",
+                              max_predelay=8192, mac_dtype="bf16",
+                              device=dev)
+    build_s = time.perf_counter() - t0
+    eng = model.engine
+    if (eng.mac_strategy != "allk" or not eng.ring_mode
+            or model.spectra.rhs2.dtype != torch.bfloat16):
+        raise AssertionError(f"{name}: {eng.mac_strategy}, ring "
+                             f"{eng.ring_mode}, rhs2 {model.spectra.rhs2.dtype}")
+    configure(model.control)
+    sink = keep_sink()
+    session = model.session(NoiseSource(VOICES, BLOCK, BLOCKS, amplitude=0.01,
+                                        seed=0), sink)
+    state = model.init_state()
+    reset_counts()
+    t0 = time.perf_counter()
+    state = session.run(state, midi=MidiSchedule(list(timeline)))
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = (rm.ring_mac.launches, rm.ring_mac.launches_bf16,
+                ms.mac_shift.launches)
+    peak_mb = torch.cuda.max_memory_allocated() / 1e6
+    steps = session.blocks_streamed
+    print(f"{name}: ring_mac launches {launches[0]} ({launches[1]} bf16), "
+          f"mac_shift {launches[2]}, indexed blocks {session.indexed_blocks},"
+          f" general {session.general_blocks}, line {state.fdl.dtype}")
+    if steps != BLOCKS or sink.blocks != BLOCKS or not sink.finite:
+        raise AssertionError(f"{name}: {steps} blocks streamed, "
+                             f"{sink.blocks} delivered, finite {sink.finite}")
+    if launches != (steps, steps, 0) or state.fdl.dtype != torch.bfloat16:
+        raise AssertionError(f"{name}: launches {launches} in {steps} steps")
+    if session.indexed_blocks < 20 or session.general_blocks:
+        raise AssertionError(f"{name}: {session.indexed_blocks} indexed, "
+                             f"{session.general_blocks} general blocks")
+    snr = snr_db(sink.data(), ring_f32_out)
+    print(f"{name}: voices 0 and {VOICES - 1} against phase 4's f32 session, "
+          f"all {BLOCKS} blocks: SNR {snr:.2f} dB (limit 40)")
+    if not snr > 40.0:
+        raise AssertionError(f"{name}: SNR {snr:.2f} dB against f32")
+    figures["ring"] = session_figures(
+        name, session, run_s, build_s, peak_mb, eng.step_coef_steady, state,
+        xt, "fmajor ring bf16 step_coef_steady")
+    figures["ring"].update(snr=snr, launches=launches[1])
+    del session, state
+
+    # (c) the static bounce, bf16 against f32
+    xb = voice_noise(VOICES, ENGINE_SAMPLES, seed=27)
+    f32_model = ConvolutionReverb(bank, num_voices=VOICES, block=BLOCK,
+                                  sample_rate=RATE, engine="fmajor",
+                                  max_predelay=8192, device=dev)
+    configure(f32_model.control)
+    f32_model.control.select[:] = model.control.select   # after the session
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = render_offline(model, xb, wire="f32")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    bounce_launches = (rm.ring_mac.launches, rm.ring_mac.launches_bf16)
+    want = render_offline(f32_model, xb, wire="f32")
+    bsnr = snr_db(got, want)
+    x_rt = ENGINE_SAMPLES / RATE / wall
+    print(f"{name} bounce: 10 s of {VOICES} per-voice voices in {wall:.3f} s "
+          f"({x_rt:.2f}x real time), ring_mac launches {bounce_launches[0]} "
+          f"({bounce_launches[1]} bf16); against the f32 model's bounce: SNR "
+          f"{bsnr:.2f} dB (limit 40)")
+    if (not np.isfinite(got).all() or not bounce_launches[1]
+            or bounce_launches[0] != bounce_launches[1]):
+        raise AssertionError(f"{name} bounce: launches {bounce_launches}")
+    if not bsnr > 40.0:
+        raise AssertionError(f"{name} bounce: SNR {bsnr:.2f} dB")
+    figures["bounce"] = {"wall_s": wall, "x_real_time": x_rt, "snr": bsnr,
+                         "launches": bounce_launches[1]}
+    del model, f32_model, got, want
+    torch.cuda.empty_cache()
+
+    # (b) roll mode, bf16 and f32
+    outs = {}
+    for dtype in ("f32", "bf16"):
+        rname = f"fmajor roll {dtype}"
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        roll = FMajorPartitionedConvolution(
+            VOICES, BLOCK, bank.max_partitions(BLOCK), max_predelay=8192,
+            ring=False, mac_strategy="allk", num_irs=NUM_IRS,
+            mac_dtype=dtype, device=dev)
+        roll_bank = roll.prepare_bank(bank.partitioned_spectra(BLOCK))
+        build_s = time.perf_counter() - t0
+        cp = ControlPlane(VOICES, NUM_IRS, 8192, device=dev)
+        configure(cp)
+        rsink = keep_sink()
+        rsession = StreamSession(
+            roll, roll_bank, cp,
+            NoiseSource(VOICES, BLOCK, ROLL27_BLOCKS, amplitude=0.01, seed=0),
+            rsink, sample_rate=RATE)
+        state = roll.init_converged(roll_bank, cp.snapshot_device())
+        reset_counts()
+        t0 = time.perf_counter()
+        state = rsession.run(state, midi=MidiSchedule(list(timeline)))
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches = (ms.mac_shift.launches, ms.mac_shift.launches_bf16,
+                    rm.ring_mac.launches)
+        steps = rsession.blocks_streamed
+        print(f"{rname}: mac_shift launches {launches[0]} ({launches[1]} "
+              f"bf16), ring_mac {launches[2]}, indexed blocks "
+              f"{rsession.indexed_blocks}")
+        want_bf16 = steps if dtype == "bf16" else 0
+        if (steps != ROLL27_BLOCKS or launches != (steps, want_bf16, 0)
+                or not rsink.finite or rsession.indexed_blocks < 20):
+            raise AssertionError(f"{rname}: {steps} blocks, launches "
+                                 f"{launches}, finite {rsink.finite}")
+        outs[dtype] = rsink.data()
+        if dtype == "bf16":
+            peak_mb = torch.cuda.max_memory_allocated() / 1e6
+            figures["roll"] = session_figures(
+                rname, rsession, run_s, build_s, peak_mb,
+                roll.step_coef_steady, state, xt,
+                "fmajor roll bf16 step_coef_steady")
+            figures["roll"]["launches"] = launches[1]
+        del roll, roll_bank, rsession, state
+        torch.cuda.empty_cache()
+    rsnr = snr_db(outs["bf16"], outs["f32"])
+    print(f"fmajor roll bf16: voices 0 and {VOICES - 1} against the f32 roll "
+          f"session, all {ROLL27_BLOCKS} blocks: SNR {rsnr:.2f} dB (limit 40)")
+    if not rsnr > 40.0:
+        raise AssertionError(f"fmajor roll bf16: SNR {rsnr:.2f} dB")
+    figures["roll"]["snr"] = rsnr
+    return figures
+
+
+def wet_snr(out, x, windows, predelay, voices):
+    """SNR of the wet path of voice rows 0 and 1 of `out` (voices 0 and
+    voices - 1; the dry mix taken off) against the float64 golden of each
+    (label, first block, end block, IR) window, over all windows."""
+    sig = err = 0.0
+    for i in range(2):
+        dry = (x[i][0] + x[i][1]) * 0.2
+        for _, b0, b1, ir in windows:
+            want = golden(x[i], [ir, ir], wet=0.7, dry=0.0,
+                          predelay=predelay)[:, b0 * BLOCK: b1 * BLOCK]
+            got = (out[i] - dry)[:, b0 * BLOCK: b1 * BLOCK]
+            sig += float((want ** 2).sum())
+            err += float(((got - want) ** 2).sum())
+    return 10.0 * np.log10(sig / err)
+
+
+def write_settings(tmp, irs, name, voices_note=""):
+    """A settings file `tmp`/`name`.txt over an index of `irs` written as
+    float WAVs (one conv pair, maxPredelay 8192, wet 0.7, dry 0.2,
+    predelay 1024, a select CC 21)."""
+    from tpu_audio_torch.io.wav import write_wav
+
+    for k, ir in enumerate(irs):
+        write_wav(f"{tmp}/{name}{k}.wav", ir.T, RATE, bits=32)
+    with open(f"{tmp}/{name}.index", "w") as fh:
+        fh.write("".join(f"{name}{k}.wav\n" for k in range(len(irs))))
+    lines = ["conv.count 2"]
+    for c in range(2):
+        lines += [f"conv[{c}].maxPredelay 8192",
+                  f"conv[{c}].index {name}.index",
+                  f"conv[{c}].cc.message 176",
+                  f"conv[{c}].cc.select {SELECT_CC}",
+                  f"conv[{c}].value.predelay 1024",
+                  f"conv[{c}].value.wet 0.7",
+                  f"conv[{c}].value.dry 0.2"]
+    path = f"{tmp}/{name}.txt"
+    with open(path, "w") as fh:
+        fh.write("\n".join(lines) + "\n")
+    return path
+
+
+def run_cli(args, tmp, label, rm, ms, reset_counts):
+    """`python -m tpu_audio_torch.app ARGS` in this process (the CLI's own
+    main, as __main__ calls it): returns (exit code, wall s, ring_mac
+    launches, of them bf16, mac_shift launches)."""
+    from tpu_audio_torch.app.main import main as app_main
+
+    reset_counts()
+    t0 = time.perf_counter()
+    rc = app_main([*args, "--root", tmp, "--block-size", str(BLOCK),
+                   "--device", "cuda", "--quiet"])
+    wall = time.perf_counter() - t0
+    counts = (rm.ring_mac.launches, rm.ring_mac.launches_bf16,
+              ms.mac_shift.launches)
+    print(f"CLI {label}: exited {rc} after {wall:.2f} s, ring_mac launches "
+          f"{counts[0]} ({counts[1]} bf16), mac_shift {counts[2]}")
+    return rc, wall, counts
+
+
+def run_cascade_2048(bank, irs, dev, configure, select, keep_sink,
+                     reset_counts, rm, ms):
+    """Phase 28: the JAX bench's cascade_2048 (bench.py:804-811): 2048
+    voices, bf16, ratio 16, read-side predelay, 4 s IRs, through the
+    model's session for 300 blocks with a re-select at 100. Every block
+    launches the bf16 ring_mac twice; voices 0 and 2047's wet path must
+    track the float64 golden above 40 dB SNR before the re-select and
+    after the fade; then the steps are timed with their top device ops,
+    and the CLI runs the same configuration for a few blocks. Returns the
+    figures."""
+    import tempfile
+
+    import torch
+
+    from tpu_audio_torch.models.reverb import ConvolutionReverb
+    from tpu_audio_torch.runtime.backends import NoiseSource
+    from tpu_audio_torch.runtime.stream import MidiSchedule
+
+    name = f"cascade {HUGE_VOICES} voices bf16"
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = ConvolutionReverb(bank, num_voices=HUGE_VOICES, block=BLOCK,
+                              sample_rate=RATE, engine="cascade",
+                              max_predelay=8192, cascade_ratio=CAS_RATIO,
+                              predelay_side="read", mac_dtype="bf16",
+                              device=dev)
+    engine, cp = model.engine, model.control
+    configure(cp)
+    state = model.init_state()
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    if ((engine.ratio, engine.pp2, engine.predelay_side) != (
+            CAS_RATIO, CAS_PP2, "read") or state.fdl2.dtype != torch.bfloat16
+            or model.spectra.tail_rhs2.dtype != torch.bfloat16):
+        raise AssertionError(f"{name}: ratio {engine.ratio}, P2p "
+                             f"{engine.pp2}, {state.fdl2.dtype}")
+    state_mb = sum(v.numel() * v.element_size() for v in vars(state).values()
+                   if isinstance(v, torch.Tensor)) / 1e6
+    sink = keep_sink()
+    session = model.session(NoiseSource(HUGE_VOICES, BLOCK, HUGE_BLOCKS,
+                                        amplitude=0.01, seed=0), sink)
+    reset_counts()
+    t0 = time.perf_counter()
+    state = session.run(state, midi=MidiSchedule(
+        [select(HUGE_SELECT_AT, 32)]))
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = (rm.ring_mac.launches, rm.ring_mac.launches_bf16,
+                ms.mac_shift.launches)
+    steps = session.blocks_streamed
+    peak_mb = torch.cuda.max_memory_allocated() / 1e6
+    print(f"{name}: state {state_mb:.1f} MB, bank "
+          f"{model.bank_bytes() / 1e6:.1f} MB, ring_mac launches "
+          f"{launches[0]} ({launches[1]} bf16), mac_shift {launches[2]}, "
+          f"indexed blocks {session.indexed_blocks}, general "
+          f"{session.general_blocks}")
+    if steps != HUGE_BLOCKS or sink.blocks != HUGE_BLOCKS or not sink.finite:
+        raise AssertionError(f"{name}: {steps} blocks streamed, "
+                             f"{sink.blocks} delivered, finite {sink.finite}")
+    if launches != (2 * steps, 2 * steps, 0):
+        raise AssertionError(f"{name}: launches {launches} in {steps} steps")
+    if session.indexed_blocks < 20 or session.general_blocks:
+        raise AssertionError(f"{name}: {session.indexed_blocks} indexed, "
+                             f"{session.general_blocks} general blocks")
+    if not float(state.coef_a.max()) < 1e-6:
+        raise AssertionError(f"{name}: the crossfade did not decay")
+    snr = wet_snr(sink.data(), noise_input(HUGE_BLOCKS, HUGE_VOICES),
+                  (("before the re-select, IR 0", 0, HUGE_SELECT_AT, irs[0]),
+                   ("after the fade and the tail's lag, IR 1", BIG_AFTER,
+                    HUGE_BLOCKS, irs[1])),
+                  int(cp.predelay[0, 0]), HUGE_VOICES)
+    print(f"{name}: voices 0 and {HUGE_VOICES - 1}, wet path against the "
+          f"float64 golden over blocks 0-{HUGE_SELECT_AT - 1} and "
+          f"{BIG_AFTER}-{HUGE_BLOCKS - 1}: SNR {snr:.2f} dB (limit 40)")
+    if not snr > 40.0:
+        raise AssertionError(f"{name}: SNR {snr:.2f} dB against the golden")
+    x = torch.randn((HUGE_VOICES, 2, BLOCK), device=dev) * 0.01
+    figures = session_figures(name, session, run_s, build_s, peak_mb,
+                              engine.step_coef_steady, state, x,
+                              "cascade2048 bf16 step_coef_steady")
+    params = cp.snapshot_device()
+    p50, p99, state = step_times(engine.step_coef_indexed, state,
+                                 model.spectra, params, x, n=200)
+    busy, ops, state = device_busy(engine.step_coef_indexed, state,
+                                   model.spectra, params, x)
+    print(f"{name}: step_coef_indexed p50 / p99 {p50:.3f} / {p99:.3f} ms "
+          f"(CUDA events), device busy {busy} us in {ops} device ops")
+    figures.update(snr=snr, launches=launches[1], state_mb=state_mb,
+                   indexed=(p50, p99, busy, ops))
+    del model, session, state, engine
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        settings = write_settings(tmp, irs, "cas")
+        rc, wall, counts = run_cli(
+            ["--settings", settings, "--engine", "cascade", "--mac-dtype",
+             "bf16", "--predelay-side", "read", "--voices",
+             str(HUGE_VOICES), "--signal", "noise", "--blocks",
+             str(CLI_CASCADE_BLOCKS)], tmp, f"--engine cascade --mac-dtype "
+            f"bf16 --voices {HUGE_VOICES}", rm, ms, reset_counts)
+    if rc != 0 or counts[1] != 2 * CLI_CASCADE_BLOCKS or counts[1] != counts[0]:
+        raise AssertionError(f"CLI cascade bf16: exit {rc}, launches {counts}")
+    figures.update(cli_wall_s=wall, cli_launches=counts[1])
+    torch.cuda.empty_cache()
+    return figures
+
+
+def run_sel152(dev, configure, select, keep_sink, reset_counts, rm, ms):
+    """Phase 29: the JAX bench's sel152 leg (benchlib/legs.py:356-393): 152
+    synthetic 4 s IRs through the cascade's 'selected' strategy (ratio 16,
+    f32, no residency manager), 64 voices, 600 blocks; at 300 every voice
+    re-selects and the fade runs the general step; at 450, mid-fade, a
+    swap_bank to new[k] = 0.5 * irs[(k + 1) % 152] (regather_selection;
+    the snapshot the collapse materialized keeps the old bank's fade-out). No MAC kernel launches on this path. Voices 0 and
+    63 against the golden before the re-select and after the swap's fades
+    and the tail's lag, within 2e-5 of scale (the fade speed is 150 blocks,
+    so the swap lands mid-fade and the fade is over before the last
+    window); collapse, materialize_base and
+    regather_selection timed at first use (in the session) and warm; then
+    the CLI serves the bank written as 152 WAVs for a few blocks. Returns
+    the figures."""
+    import tempfile
+
+    import torch
+
+    from tpu_audio_torch.engine import device_prep
+    from tpu_audio_torch.engine.bank import IRBank
+    from tpu_audio_torch.models.reverb import ConvolutionReverb
+    from tpu_audio_torch.runtime.backends import NoiseSource
+    from tpu_audio_torch.runtime.stream import MidiSchedule
+
+    name = f"sel{SEL152_IRS} cascade 'selected'"
+    irs = synthetic_bank(SEL152_IRS, IR_SECONDS, RATE)
+    bank, new_bank = IRBank(sample_rate=RATE), IRBank(sample_rate=RATE)
+    new_irs = [irs[(k + 1) % SEL152_IRS] * np.float32(0.5)
+               for k in range(SEL152_IRS)]
+    for ir, new in zip(irs, new_irs):
+        bank.append(ir)
+        new_bank.append(new)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = ConvolutionReverb(bank, num_voices=VOICES, block=BLOCK,
+                              sample_rate=RATE, engine="cascade",
+                              max_predelay=8192, cascade_ratio=CAS_RATIO,
+                              device=dev)
+    engine, cp = model.engine, model.control
+    configure(cp)
+    cp.speed[:] = SEL152_SPEED
+    state = model.init_state()
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    if engine.mac_strategy != "selected" or engine.ratio != CAS_RATIO:
+        raise AssertionError(f"{name}: {engine.mac_strategy}, ratio "
+                             f"{engine.ratio}")
+    swap_to = device_prep.prepare_cascade_bank_device(engine, new_bank)
+    calls = {}
+
+    def timed(what, fn):
+        def call(*args, **kwargs):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            calls.setdefault(what, []).append(
+                1e3 * (time.perf_counter() - t1))
+            return out
+        return call
+
+    for what in ("collapse", "materialize_base", "regather_selection"):
+        setattr(engine, what, timed(what, getattr(engine, what)))
+    sink = keep_sink()
+    session = model.session(NoiseSource(VOICES, BLOCK, SEL152_BLOCKS,
+                                        amplitude=0.01, seed=0), sink)
+    reset_counts()
+    t0 = time.perf_counter()
+    state = session.run(state, max_blocks=SEL152_SWAP_AT, midi=MidiSchedule(
+        [select(SEL152_SELECT_AT, 64)]))
+    session.swap_bank(swap_to)
+    state = session.run(state)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = (rm.ring_mac.launches, ms.mac_shift.launches)
+    steps = session.blocks_streamed
+    peak_mb = torch.cuda.max_memory_allocated() / 1e6
+    print(f"{name}: general blocks {session.general_blocks}, indexed "
+          f"{session.indexed_blocks}, ring_mac / mac_shift launches "
+          f"{launches}, selects {cp.select[0].tolist()}, swap applied "
+          f"{session.bank is swap_to}; first use ms: "
+          + ", ".join(f"{w} {t[0]:.2f}" for w, t in calls.items()))
+    if steps != SEL152_BLOCKS or sink.blocks != SEL152_BLOCKS \
+            or not sink.finite:
+        raise AssertionError(f"{name}: {steps} blocks streamed, "
+                             f"{sink.blocks} delivered, finite {sink.finite}")
+    if launches != (0, 0) or session.indexed_blocks \
+            or session.general_blocks < 60 or session.bank is not swap_to:
+        raise AssertionError(f"{name}: launches {launches}, step mix or swap")
+    if {"collapse", "regather_selection"} - set(calls):
+        raise AssertionError(f"{name}: rare paths run {sorted(calls)}")
+    sel = SEL152_VALUE * SEL152_IRS // 128
+    x = noise_input(SEL152_BLOCKS, VOICES)
+    out = sink.data()
+    worst = 0.0
+    for i, v in enumerate((0, VOICES - 1)):
+        for label, b0, b1, ir in (
+                ("before the re-select, IR 0", 0, SEL152_SELECT_AT, irs[0]),
+                (f"after the swap's fades, new IR {sel}", SEL152_AFTER,
+                 SEL152_BLOCKS, new_irs[sel])):
+            want = golden(x[i], [ir, ir], wet=0.7, dry=0.2,
+                          predelay=int(cp.predelay[0, 0]))
+            want = want[:, b0 * BLOCK: b1 * BLOCK]
+            err = float(np.abs(out[i, :, b0 * BLOCK: b1 * BLOCK]
+                               - want).max())
+            limit = 2e-5 * float(np.abs(want).max())
+            print(f"{name} golden voice {v} blocks {b0}-{b1 - 1} ({label}): "
+                  f"max_abs_err {err:.3e} (limit {limit:.3e})")
+            if not err <= limit:
+                raise AssertionError(f"{name}: voice {v} {label}")
+            worst = max(worst, err)
+    xt = torch.randn((VOICES, 2, BLOCK), device=dev) * 0.01
+    figures = session_figures(name, session, run_s, build_s, peak_mb,
+                              engine.step_coef_steady, state, xt,
+                              "sel152 step_coef_steady")
+    params = cp.snapshot_device()
+    p50, p99, state = step_times(engine.step_coef, state, model.spectra,
+                                 params, xt, n=200)
+    busy, ops, state = device_busy(engine.step_coef, state, model.spectra,
+                                   params, xt, label="sel152 step_coef")
+    changed = torch.ones((VOICES, 2), dtype=torch.bool, device=dev)
+    sel_t = torch.tensor(cp.select, device=dev)
+    for _ in range(3):
+        state = engine.collapse(state, swap_to, sel_t, changed, sel_t, params)
+        state = engine.regather_selection(state, swap_to, sel_t)
+        state = engine.materialize_base(state, swap_to)
+    warm = {what: float(np.median(t[1:])) for what, t in calls.items()
+            if len(t) > 1}
+    print(f"{name}: general step p50 / p99 {p50:.3f} / {p99:.3f} ms, device "
+          f"busy {busy} us in {ops} ops; warm ms: "
+          + ", ".join(f"{w} {t:.2f}" for w, t in warm.items()))
+    figures.update(golden_err=worst, general=(p50, p99, busy, ops),
+                   first_ms={w: t[0] for w, t in calls.items()}, warm_ms=warm)
+    del model, session, state, engine, swap_to
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        settings = write_settings(tmp, irs, "sel")
+        rc, wall, counts = run_cli(
+            ["--settings", settings, "--engine", "cascade", "--voices",
+             str(VOICES), "--signal", "noise", "--blocks",
+             str(CLI_CASCADE_BLOCKS)], tmp,
+            f"--engine cascade over the {SEL152_IRS}-IR index", rm, ms,
+            reset_counts)
+    if rc != 0 or counts != (0, 0, 0):
+        raise AssertionError(f"CLI sel152: exit {rc}, launches {counts}")
+    figures["cli_wall_s"] = wall
+    torch.cuda.empty_cache()
+    return figures
+
+
 def main() -> int:
     import torch
 
@@ -2484,8 +3154,8 @@ def main() -> int:
                 print(f"    {line.strip()}")
 
     def reset_counts():
-        rm.ring_mac.launches = 0
-        ms.mac_shift.launches = 0
+        rm.ring_mac.launches = rm.ring_mac.launches_bf16 = 0
+        ms.mac_shift.launches = ms.mac_shift.launches_bf16 = 0
 
     # -- 3. ring_mac vs plain ---------------------------------------------------------
     engine_pp = -(-num_partitions(int(IR_SECONDS * RATE), BLOCK) // 8) * 8
@@ -2614,6 +3284,7 @@ def main() -> int:
          ("after the fades decay, IR 2", 500, BLOCKS, irs[2])),
         predelay=int(cp.predelay[0, 0]))
     summary = session.summary()
+    ring_f32_out = sink.data()      # phase 27's f32 reference
 
     # -- 5. ring-mode timing on the card ------------------------------------------------
     engine, bank_t = model.engine, model.spectra
@@ -3059,6 +3730,21 @@ def main() -> int:
     # -- 25. a settings file whose conv pairs differ, through the CLI --------------------
     groups = run_cli_groups(irs)
 
+    # -- 26. the bf16 kernels against their plain versions ---------------------------------
+    bf16_err, bf16_ms = run_bf16_kernels(dev, rng, engine_pp)
+
+    # -- 27. fmajor in bf16: ring and roll sessions, a bounce ------------------------------
+    fm16 = run_fmajor_bf16(bank, dev, configure, select, KeepSink,
+                           reset_counts, rm, ms, ring_f32_out)
+
+    # -- 28. the JAX bench's cascade_2048: 2048 voices in bf16 -----------------------------
+    huge = run_cascade_2048(bank, irs, dev, configure, select, KeepSink,
+                            reset_counts, rm, ms)
+
+    # -- 29. the JAX bench's sel152: 152 IRs on the cascade's 'selected' -------------------
+    sel152 = run_sel152(dev, configure, select, KeepSink, reset_counts, rm,
+                        ms)
+
     tag = f"[{card}]"
     lines = []
     shorts = {"step_coef_steady": "steady", "step_coef_indexed": "indexed",
@@ -3265,6 +3951,58 @@ def main() -> int:
                               "voice_s_per_s", "launches")]
     lines += [(f"bounce_take{i + 1}_peak_allocated_MB", r["peak_mb"])
               for i, r in enumerate(bounce["runs"])]
+    for kernel, timed in bf16_ms.items():
+        for shape, t in timed.items():
+            key = f"{kernel}_bf16_{shape}"
+            lines += [(f"{key}_kernel_us", t["kernel"] * 1e3),
+                      (f"{key}_kernel_GBps",
+                       t["bytes"] / (t["kernel"] * 1e-3) / 1e9),
+                      (f"{key}_plain_us", t["plain"] * 1e3),
+                      (f"{key}_einsum_bf16_us",
+                       t.get("library", t.get("einsum")) * 1e3),
+                      (f"{key}_bound_us", t["bound"] * 1e3)]
+    for label, r in (("fmajor_ring_bf16", fm16["ring"]),
+                     ("fmajor_roll_bf16", fm16["roll"]),
+                     (f"cascade{HUGE_VOICES}_bf16", huge),
+                     (f"sel{SEL152_IRS}", sel152)):
+        s = r["summary"]
+        p50, p99, busy, ops = r["step"]
+        lines += [(f"{label}_build_s", r["build_s"]),
+                  (f"{label}_peak_allocated_MB", r["peak_mb"]),
+                  (f"{label}_session_wall_p50_ms_per_block", s["p50_ms"]),
+                  (f"{label}_session_wall_p99_ms_per_block", s["p99_ms"]),
+                  (f"{label}_session_rtf", s["rtf"]),
+                  (f"{label}_session_missed_deadlines", s["missed_deadlines"]),
+                  (f"{label}_steady_step_p50_ms", p50),
+                  (f"{label}_steady_step_p99_ms", p99),
+                  (f"{label}_steady_step_device_busy_us", busy),
+                  (f"{label}_steady_step_device_ops", ops)]
+    p50, p99, busy, ops = huge["indexed"]
+    gp50, gp99, gbusy, gops = sel152["general"]
+    lines += [("fmajor_ring_bf16_snr_vs_f32_db", fm16["ring"]["snr"]),
+              ("fmajor_roll_bf16_snr_vs_f32_db", fm16["roll"]["snr"]),
+              ("bounce_fmajor_bf16_snr_vs_f32_db", fm16["bounce"]["snr"]),
+              ("bounce_fmajor_bf16_wall_s", fm16["bounce"]["wall_s"]),
+              ("bounce_fmajor_bf16_x_real_time",
+               fm16["bounce"]["x_real_time"]),
+              (f"cascade{HUGE_VOICES}_bf16_golden_snr_db", huge["snr"]),
+              (f"cascade{HUGE_VOICES}_bf16_state_MB", huge["state_mb"]),
+              (f"cascade{HUGE_VOICES}_bf16_indexed_step_p50_ms", p50),
+              (f"cascade{HUGE_VOICES}_bf16_indexed_step_p99_ms", p99),
+              (f"cascade{HUGE_VOICES}_bf16_indexed_step_device_busy_us",
+               busy),
+              (f"cascade{HUGE_VOICES}_bf16_indexed_step_device_ops", ops),
+              (f"cascade{HUGE_VOICES}_bf16_cli_wall_s", huge["cli_wall_s"]),
+              (f"sel{SEL152_IRS}_golden_max_abs_err", sel152["golden_err"]),
+              (f"sel{SEL152_IRS}_general_step_p50_ms", gp50),
+              (f"sel{SEL152_IRS}_general_step_p99_ms", gp99),
+              (f"sel{SEL152_IRS}_general_step_device_busy_us", gbusy),
+              (f"sel{SEL152_IRS}_general_step_device_ops", gops),
+              (f"sel{SEL152_IRS}_cli_wall_s", sel152["cli_wall_s"]),
+              *((f"sel{SEL152_IRS}_{what}_first_use_ms", t)
+                for what, t in sel152["first_ms"].items()),
+              *((f"sel{SEL152_IRS}_{what}_warm_ms", t)
+                for what, t in sel152["warm_ms"].items())]
     for key, value in lines:
         print(f"{key} {value} {tag}")
 
@@ -3273,15 +4011,18 @@ def main() -> int:
                 "library_ms": t.get("library"), "bound_ms": t["bound"],
                 "bound_by": t["bound_by"]}
 
-    def entry(name, replaces, launches, err, timed, **extra):
+    def entry(name, replaces, launches, err, timed, source=None, **extra):
         """The kernel's line entry at the 4-IR sessions' shapes (KOD=16),
         with every timed 64-voice KOD (4, 9 and 16 IRs) under per_kod."""
         per_kod = {kod: timings(t) for kod, t in timed.items()}
         return {"name": name, "route": "cuda",
-                "source": f"tpu_audio_torch/csrc/{name}.cu",
+                "source": source or f"tpu_audio_torch/csrc/{name}.cu",
                 "replaces": replaces, "launches": launches,
                 "max_abs_err": err, **per_kod[kod_full], "per_kod": per_kod,
                 **extra}
+
+    def bf16_kods(kernel):
+        return {kod: bf16_ms[kernel][f"kod{kod}"] for kod in RING_KODS}
 
     print(json.dumps({"kernels": [
         entry("ring_mac", "tpu_audio/ops/pallas_mac.py:160",
@@ -3299,7 +4040,21 @@ def main() -> int:
                       timings(bounce["mac_ms"])}),
         entry("mac_shift", "tpu_audio/ops/pallas_mac.py:76",
               roll_launches + ceil_launches + engines["roll"]["launches"],
-              max(shift_err, engines["roll"]["mac_err"]), shift_ms)]}))
+              max(shift_err, engines["roll"]["mac_err"]), shift_ms),
+        # the bf16 instantiations (mac_dtype='bf16'): library_ms is one
+        # torch.einsum on the same bf16 operands, which rounds m to bf16
+        entry("ring_mac_bf16", "tpu_audio/ops/pallas_mac.py:160",
+              fm16["ring"]["launches"] + fm16["bounce"]["launches"]
+              + huge["launches"] + huge["cli_launches"],
+              bf16_err["ring_mac"], bf16_kods("ring_mac"),
+              source="tpu_audio_torch/csrc/ring_mac.cu",
+              cascade={shape: timings(t) for shape, t
+                       in bf16_ms["ring_mac"].items()
+                       if not shape.startswith("kod")}),
+        entry("mac_shift_bf16", "tpu_audio/ops/pallas_mac.py:76",
+              fm16["roll"]["launches"], bf16_err["mac_shift"],
+              bf16_kods("mac_shift"),
+              source="tpu_audio_torch/csrc/mac_shift.cu")]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

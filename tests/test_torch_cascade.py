@@ -91,6 +91,17 @@ def _jax_fdl2(fdl2):
     return fdl2.reshape(m, f2, rows // 2, 2, d, pp2).permute(0, 2, 3, 4, 5, 1)
 
 
+def _jax_tail_cols(cols):
+    """A 'selected' tail column leaf of the port [M, F2, 2*Vg, d, 2P2p, OD]
+    in the JAX layout [M, Vg, I, d, 2P2p, OD, F2] (the 'allk' size-1
+    placeholder as the JAX one)."""
+    if cols.numel() == 1:
+        return cols.reshape((1,) * 7)
+    m, f2, rows, d, q, od = cols.shape
+    return cols.reshape(m, f2, rows // 2, 2, d, q, od).permute(
+        0, 2, 3, 4, 5, 6, 1)
+
+
 def _assert_states_close(jst, tst, tol):
     assert tst.step == int(jst.t) == int(tst.t)
     for f in fields(tst):
@@ -99,9 +110,15 @@ def _assert_states_close(jst, tst, tol):
             continue
         got = getattr(tst, name)
         got = _jax_fdl2(got) if name == "fdl2" else got
+        got = _jax_tail_cols(got) if name in ("sel_tail", "base_tail") else got
         want = np.asarray(getattr(jst, name))
+        assert str(got.dtype).split(".")[-1] == want.dtype.name, name
         if got.dtype in (torch.bool, torch.int32):
             np.testing.assert_array_equal(got.numpy(), want, err_msg=name)
+        elif got.dtype == torch.bfloat16:
+            np.testing.assert_allclose(got.float().numpy(),
+                                       want.astype(np.float32), atol=tol,
+                                       err_msg=name)
         else:
             np.testing.assert_allclose(got.numpy(), want, atol=tol,
                                        err_msg=name)
@@ -596,16 +613,30 @@ def test_guards_match_jax():
             JaxCascade(V, B, parts, ratio=M, **kwargs)
         with pytest.raises(ValueError):
             CascadeConvolution(V, B, parts, ratio=M, device="cpu", **kwargs)
+    # bf16 and 'selected' (refused before they were ported) build as the
+    # JAX engine does: the same resolved strategy, fade protocol and state
+    # leaves (tests/test_torch_bf16.py and test_torch_cascade_selected.py
+    # hold their steps to it)
     for kwargs in ({"mac_dtype": "bf16"}, {"mac_strategy": "selected"},
                    {"mac_strategy": "auto", "num_irs": 17}):
-        with pytest.raises(NotImplementedError, match="item 12"):
-            CascadeConvolution(V, B, parts, ratio=M, device="cpu", **kwargs)
-    big = IRBank()
-    for k in range(17):
-        big.append(irs[k % K])
-    with pytest.raises(NotImplementedError, match="item 12"):
-        ConvolutionReverb(big, num_voices=V, block=B, max_predelay=MAXPD,
-                          engine="cascade", device="cpu")
+        built = CascadeConvolution(V, B, parts, ratio=M, device="cpu",
+                                   **kwargs)
+        want = JaxCascade(V, B, parts, ratio=M, **kwargs)
+        assert built.mac_strategy == want.mac_strategy
+        assert built.swap_snapshot == want.swap_snapshot
+        assert built.fade_protocol == ("selected" if kwargs.get(
+            "mac_strategy") else "spans")
+        if built.num_irs is None:
+            built.num_irs = want.num_irs = K
+        _assert_states_close(want.init_state(), built.init_state(), 0.0)
+    big_irs = [irs[k % K] for k in range(17)]
+    jbig, big = _banks(big_irs)
+    built = ConvolutionReverb(big, num_voices=V, block=B, max_predelay=MAXPD,
+                              engine="cascade", cascade_ratio=M,
+                              device="cpu")
+    want = JaxReverb(jbig, num_voices=V, block=B, max_predelay=MAXPD,
+                     engine="cascade", backend="fft", cascade_ratio=M)
+    assert built.engine.mac_strategy == want.engine.mac_strategy == "selected"
     for engine in ("partitioned", "monolithic"):
         # ported since: the model builds the JAX model's engine class
         built = ConvolutionReverb(tbank_ir, block=B, engine=engine,
@@ -631,6 +662,11 @@ def test_guards_match_jax():
                                                  params.select)):
         with pytest.raises(ValueError, match="span-only"):
             call()
-    with pytest.raises(NotImplementedError, match="item 12"):
-        cascade_bank_from_numpy(teng, np.zeros((1, 1, 1, 4), jnp.bfloat16),
-                                np.zeros((1, 1, 4, 1), np.float32))
+    # a JAX bf16 bank leaf carries across bit for bit
+    head = np.arange(8, dtype=np.float32).reshape(1, 1, 2, 4) * 0.3
+    carried = cascade_bank_from_numpy(teng, head.astype(jnp.bfloat16),
+                                      np.zeros((1, 1, 4, 1), np.float32))
+    assert carried.head_rhs2.dtype == torch.bfloat16
+    np.testing.assert_array_equal(
+        carried.head_rhs2.view(torch.int16).numpy(),
+        head.astype(jnp.bfloat16).view(np.int16))

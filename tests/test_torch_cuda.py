@@ -568,10 +568,10 @@ def test_offline_step_loops_never_sync(cuda, monkeypatch, kind, wire,
 # -- checkpoints and recovery on the card ---------------------------------------------
 
 
-def _ckpt_model(device, voices=64):
-    """ConvolutionReverb's defaults (ring, 'allk') at `voices` voices over
-    2 short IRs, a select CC (0x15) and a wet CC (0x18) mapped, a
-    12-block fade speed."""
+def _ckpt_model(device, voices=64, **kwargs):
+    """ConvolutionReverb's defaults (ring, 'allk'; `kwargs` override them)
+    at `voices` voices over 2 short IRs, a select CC (0x15) and a wet CC
+    (0x18) mapped, a 12-block fade speed."""
     from tpu_audio_torch.engine import IRBank
     from tpu_audio_torch.engine.params import CCMapping
     from tpu_audio_torch.models.reverb import ConvolutionReverb
@@ -582,7 +582,7 @@ def _ckpt_model(device, voices=64):
         ir = rng.standard_normal((2, 900)).astype(np.float32)
         bank.append(ir * (0.4 / np.abs(ir).max()))
     model = ConvolutionReverb(bank, num_voices=voices, block=64,
-                              max_predelay=128, device=device)
+                              max_predelay=128, device=device, **kwargs)
     cp = model.control
     cp.wet[:], cp.dry[:], cp.speed[:], cp.predelay[:] = 0.8, 0.2, 12, 40
     for v in range(voices):
@@ -749,3 +749,174 @@ def test_partitioned_and_monolithic_steps_on_the_card_match_the_cpu(cuda,
         assert (ring_mac.launches, mac_shift.launches) == before
     np.testing.assert_allclose(runs["cuda"], runs["cpu"], atol=2e-5)
     assert np.abs(runs["cpu"]).max() > 1e-2
+
+
+# -- bf16 and the 'selected' cascade ---------------------------------------------------
+
+
+@pytest.mark.parametrize("kod", [4, 16, 36, 64, 68])
+@pytest.mark.parametrize("pp", [20, 44, 136])
+@pytest.mark.parametrize("kernel", ["ring_mac", "mac_shift"])
+def test_bf16_kernels_match_plain_version(cuda, kernel, pp, kod):
+    """The bf16 instantiations against their plain versions (bf16 operands
+    upcast, float64 sums) at Pp no multiple of 32 (a chunk across the plane
+    boundary), KOD 4 to 68 (every column tile; 68 takes two column groups)
+    and VI 130 (a ragged second row tile): m within 1e-5 of scale, the
+    shifted line bit for bit, one launch each."""
+    rng = np.random.default_rng(pp * 100 + kod)
+
+    def bf16(*shape):
+        return torch.tensor(rng.standard_normal(shape, dtype=np.float32),
+                            device=cuda).to(torch.bfloat16)
+
+    f, vi = 3, 130
+    fdl = bf16(f, vi, 2, pp)
+    if kernel == "ring_mac":
+        rhs2 = bf16(f, 2, 2 * pp, kod)
+        for phase in (0, 1, -1):
+            w = phase % pp
+            before = ring_mac.launches
+            got = ring_mac(torch.tensor(w, dtype=torch.int32, device=cuda),
+                           fdl, rhs2)
+            torch.cuda.synchronize()
+            assert ring_mac.launches == before + 1
+            want = ring_mac_reference(w, fdl.double(), rhs2.double())
+            err = (got.double() - want).abs().max().item()
+            assert err <= 1e-5 * want.abs().max().item()
+        return
+    x_new, rhs = bf16(f, vi, 2, 1), bf16(f, 2, pp, kod)
+    want_fdl, _ = mac_shift_reference(fdl, x_new, rhs)
+    _, want = mac_shift_reference(fdl.double(), x_new.double(), rhs.double())
+    before = mac_shift.launches
+    got_fdl, got = mac_shift(fdl, x_new, rhs)
+    torch.cuda.synchronize()
+    assert got_fdl is fdl and mac_shift.launches == before + 1
+    assert torch.equal(got_fdl.view(torch.int16), want_fdl.view(torch.int16))
+    err = (got.double() - want).abs().max().item()
+    assert err <= 1e-5 * want.abs().max().item()
+
+
+def test_bf16_kernel_refuses_a_pp_not_divisible_by_4(cuda):
+    """A bf16 row of Q = 2*Pp values starts on 16 bytes only when Pp % 4 ==
+    0: Pp 18 raises on the card (the CPU path takes it)."""
+    fdl = torch.zeros((1, 2, 2, 18), dtype=torch.bfloat16, device=cuda)
+    rhs2 = torch.zeros((1, 2, 36, 4), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        ring_mac(torch.zeros((), dtype=torch.int32, device=cuda), fdl, rhs2)
+
+
+@pytest.mark.parametrize("kind", ["ring_bf16", "roll_bf16", "cascade_bf16",
+                                  "cascade_selected"])
+def test_bf16_and_selected_engines_on_the_card_match_the_cpu(cuda, kind):
+    """Steady blocks, a re-select and fade blocks on the card against the
+    CPU: bf16 within 2e-3 of scale (cuFFT and pocketfft round a few values
+    to neighbouring bf16 values), the f32 'selected' cascade within 2e-5
+    of scale. The bf16 engines launch their kernel's bf16 instantiation
+    on every block (the cascade twice); the 'selected' cascade launches
+    none."""
+    from tpu_audio_torch.engine import IRBank
+    from tpu_audio_torch.engine.cascade import CascadeConvolution
+
+    rng = np.random.default_rng(9)
+    bank = IRBank()
+    for _ in range(3):
+        bank.append((rng.standard_normal((2, 1200)) * 0.05).astype(np.float32))
+    runs = {}
+    for dev in ("cpu", cuda):
+        if kind.startswith("cascade"):
+            eng = CascadeConvolution(
+                4, 32, bank.max_partitions(32), ratio=4, max_predelay=64,
+                num_irs=3, device=dev,
+                **({"mac_dtype": "bf16"} if kind == "cascade_bf16"
+                   else {"mac_strategy": "selected"}))
+            spectra = eng.prepare_bank(bank)
+        else:
+            eng = FMajorPartitionedConvolution(
+                4, 32, bank.max_partitions(32), max_predelay=64,
+                ring=kind == "ring_bf16", num_irs=3, mac_dtype="bf16",
+                device=dev)
+            spectra = eng.prepare_bank(bank.partitioned_spectra(32))
+        cp = ControlPlane(4, 3, 64, device=dev)
+        cp.wet[:] = 0.8
+        cp.speed[:] = 6
+        cp.predelay[:, 0] = [0, 9, 37, 63]
+        state = eng.init_converged(spectra, cp.snapshot_device())
+        before = (ring_mac.launches, mac_shift.launches)
+        xs = np.random.default_rng(6).standard_normal((30, 4, 2, 32)) * 0.05
+        outs = []
+        for t, x in enumerate(xs.astype(np.float32)):
+            if t == 8:
+                old = cp.select.copy()
+                cp.select[:] = (old + 1) % 3
+                cp.vsteps[:] = cp.speed
+                args = (torch.tensor(old, device=dev),
+                        torch.ones((4, 2), dtype=torch.bool, device=dev))
+                if kind == "cascade_selected":
+                    state = eng.collapse(state, spectra, *args,
+                                         torch.tensor(cp.select, device=dev),
+                                         cp.snapshot_device())
+                elif kind == "cascade_bf16":
+                    state = eng.collapse_pure(state, *args,
+                                              cp.snapshot_device())
+                else:
+                    state = eng.collapse_pure(state, *args)
+            if t < 8:
+                step = eng.step_coef_steady
+            elif kind == "cascade_selected":
+                step = eng.step_coef
+            else:
+                step = eng.step_coef_indexed
+            state, out = step(state, spectra, cp.snapshot_device(),
+                              torch.tensor(x, device=dev))
+            cp.end_block()
+            outs.append(out.cpu().numpy())
+        runs[str(dev)] = (np.stack(outs), ring_mac.launches - before[0],
+                          mac_shift.launches - before[1])
+    got, want = runs["cuda"][0], runs["cpu"][0]
+    rel = 2e-5 if kind == "cascade_selected" else 2e-3
+    assert np.abs(got - want).max() <= rel * np.abs(want).max()
+    launches = {"ring_bf16": (30, 0), "roll_bf16": (0, 30),
+                "cascade_bf16": (60, 0), "cascade_selected": (0, 0)}[kind]
+    assert runs["cuda"][1:] == launches and runs["cpu"][1:] == (0, 0)
+
+
+@pytest.mark.parametrize("kind", ["ring_bf16", "cascade_selected"])
+def test_run_resilient_of_the_later_paths_on_the_card(cuda, tmp_path, kind):
+    """run_resilient at 64 voices on the card over a bf16 ring model and a
+    'selected' cascade: a sink failure at delivered block 14 resumes from
+    the checkpoint at 12 (mid-fade) and delivers the uninterrupted run's
+    blocks to the bit."""
+    from tpu_audio_torch.runtime.backends import WavSink, WavSource
+    from tpu_audio_torch.runtime.recovery import run_resilient
+
+    kwargs = ({"mac_dtype": "bf16"} if kind == "ring_bf16"
+              else {"engine": "cascade", "mac_strategy": "selected"})
+    x = (np.random.default_rng(15).standard_normal((64, 2, 64 * 24)) * 0.05
+         ).astype(np.float32)
+    want = WavSink("/dev/null", keep_data=True)
+    _ckpt_model(cuda, **kwargs).process(WavSource(x, 64, 64), want,
+                                        midi=_ckpt_midi(), warmup=0)
+
+    class CrashOnce:
+        def __init__(self):
+            self.blocks, self.failed = [], False
+
+        def write(self, block):
+            if not self.failed and len(self.blocks) == 14:
+                self.failed = True
+                raise RuntimeError("simulated transport failure")
+            self.blocks.append(np.array(block))
+
+        def close(self):
+            pass
+
+    sink = CrashOnce()
+    _, summary = run_resilient(lambda: _ckpt_model(cuda, **kwargs),
+                               WavSource(x, 64, 64), sink,
+                               tmp_path / "r.ckpt", checkpoint_every=6,
+                               midi=_ckpt_midi(),
+                               session_kwargs=dict(warmup=0))
+    assert summary["restarts"] == 1
+    assert summary["recoveries"][0]["resume_block"] == 12
+    np.testing.assert_array_equal(np.concatenate(sink.blocks, axis=-1),
+                                  want.data)

@@ -321,26 +321,42 @@ def test_port_matches_fftconvolve_golden():
 
 
 def test_paths_outside_the_slice_raise():
-    """What the port still leaves out raises where it is reached: bf16 MAC
-    tensors (engine and carried bank), the 'merged' per-voice MAC, and
-    working-set slot updates from a spectra payload (the port's faults
-    carry the time-domain IR only)."""
+    """bf16 MAC tensors (engine and carried bank) and the 'merged'
+    per-voice MAC, refused before they were ported, now build as the JAX
+    engine does and carry a JAX bf16 bank bit for bit (their steps are
+    held to the JAX engine in tests/test_torch_bf16.py); working-set slot
+    updates from a spectra payload still raise (the port's faults carry
+    the time-domain IR only)."""
     pair = Pair()
+    p = pair.port.partitions
     for kwargs in ({"mac_dtype": "bf16", "num_irs": 3},
                    {"mac_dtype": "bf16", "mac_strategy": "selected"},
                    {"pv_mac": "merged", "num_irs": 3}):
-        with pytest.raises(NotImplementedError):
-            fmajor.FMajorPartitionedConvolution(2, 32, 10, device="cpu",
-                                                **kwargs)
+        built = fmajor.FMajorPartitionedConvolution(2, 32, p, device="cpu",
+                                                    **kwargs)
+        want = jax_fmajor.FMajorPartitionedConvolution(2, 32, p, **kwargs)
+        assert built.mac_strategy == want.mac_strategy
+        assert built.pv_mac == want.pv_mac
+        assert str(built.mac_dtype).split(".")[-1] == \
+            jnp.dtype(want.mac_dtype).name
+        clone = built.with_voices(4)
+        assert (clone.mac_dtype, clone.pv_mac) == (built.mac_dtype,
+                                                   built.pv_mac)
     with pytest.raises(ValueError, match="time-domain"):
         pair.port.update_bank_slot(pair.tbank, 1, pair.spectra[:1])
     jbf16 = jax_fmajor.FMajorPartitionedConvolution(
         2, 32, pair.port.partitions, max_predelay=64, num_irs=3,
         mac_dtype="bf16").prepare_bank(pair.spectra)
-    with pytest.raises(NotImplementedError):
-        fmajor.bank_from_numpy(
-            device="cpu", **{f_.name: np.asarray(getattr(jbf16, f_.name))
-                             for f_ in fields(jbf16)})
+    carried = fmajor.bank_from_numpy(
+        device="cpu", **{f_.name: np.asarray(getattr(jbf16, f_.name))
+                         for f_ in fields(jbf16)})
+    for f_ in fields(jbf16):
+        want = np.asarray(getattr(jbf16, f_.name))
+        got = getattr(carried, f_.name)
+        assert str(got.dtype).split(".")[-1] == want.dtype.name, f_.name
+        if want.dtype.name == "bfloat16":
+            got, want = got.view(torch.int16), want.view(np.int16)
+        np.testing.assert_array_equal(got.numpy(), want, err_msg=f_.name)
     # what the JAX engine rejects, the port rejects the same way
     for kwargs in ({"mac_strategy": "nope"}, {"pv_mac": "nope"},
                    {"mac_strategy": "selected", "swap_snapshot": False},

@@ -88,6 +88,11 @@ def build_parser() -> argparse.ArgumentParser:
                         "'partitioned' (complex partition spectra, "
                         "--variant) or 'monolithic' (the reference's one "
                         "fftSize-point FFT per block)")
+    p.add_argument("--mac-dtype", default="f32", choices=["f32", "bf16"],
+                   help="fmajor and cascade: store the delay lines and MAC "
+                        "tensors in bf16 (half the bytes the MAC kernels "
+                        "read; exact products summed in f32, ~-48 dB "
+                        "wet-path floor)")
     p.add_argument("--variant", default="coef",
                    choices=["coef", "materialized"],
                    help="partitioned engine only: fades as two scalar "
@@ -264,7 +269,8 @@ def main(argv=None) -> int:
         swap_snapshot=not args.no_swap_snapshot, verbose=not args.quiet,
         bank_capacity=args.bank_capacity, ws_exhausted=args.ws_exhausted,
         async_paging=args.async_paging, cascade_ratio=args.cascade_ratio,
-        predelay_side=args.predelay_side, device=device)
+        predelay_side=args.predelay_side, mac_dtype=args.mac_dtype,
+        device=device)
     rings = []
     try:
         if args.offline is not None:
@@ -381,7 +387,8 @@ def _run_groups(args, device) -> int:
         args.settings, engine=args.engine, root=args.root,
         max_ir_seconds=args.max_ir_seconds, verbose=not args.quiet,
         variant=args.variant, block=args.block_size,
-        sample_rate=args.sample_rate, device=device)
+        sample_rate=args.sample_rate, mac_dtype=args.mac_dtype,
+        device=device)
     if args.offline is not None:
         # every group bounced over the same input and summed, as
         # ReverbGroups.process sums them

@@ -81,14 +81,38 @@
 // over column groups of 64, re-reading the line per group, and writes the
 // shifted line in the last group only. KOD <= 64 reads the line once.
 //
-// Alignment: fdl rows start on 16 bytes only if Q is a multiple of 4, so
-// the launch refuses an odd Pp (the engine pads Pp to a multiple of 8).
+// bf16 operands (mac_dtype='bf16'): the kernel is a template on the
+// operand type T, float or __nv_bfloat16. With T = bf16 the line, x_new and
+// rhs are bf16 (JAX casts the new block spectrum to bf16 before it enters
+// the line, tpu_audio/engine/fmajor.py:730) and the shifted line is
+// written back in bf16, bit for bit the values it read; each value becomes
+// an f32 as it leaves shared memory, and products, sums and m are f32 as
+// in the f32 form (bf16 x bf16 products are exact in f32). The Pallas
+// kernel declares its aliased line f32, so JAX runs bf16 roll mode as the
+// roll plus the einsum at fmajor.py:920-923; this kernel stands for that
+// pair. A stage holds 8 values per 16-byte copy, half the shared memory;
+// the rhs tile moves in 8-byte vectors of 4 columns (a row of rhs starts
+// on 8 bytes, not 16, when KOD % 8 == 4); the write-back moves 16-byte
+// runs of 8 slots, each lane taking the slot before its run from the lane
+// to its left (__shfl_up_sync within the row's 4 lanes) or, for the first
+// lane, from the chunk below, as in the f32 form. The race guard is
+// unchanged: the tail-first walk writes chunk i - 1 only once chunks i - 1
+// and i have landed, and every lane of a warp takes part in each shuffle.
+// The bound: the line is read and written in half the bytes, 58.5 / 63.1 /
+// 69.7 us at KOD 16 / 36 / 64, under the f32 FMAs at KOD 36 and 64.
+//
+// Alignment: fdl rows start on 16 bytes only if Q * sizeof(T) is a
+// multiple of 16, so the launch refuses an odd Pp for f32 and a Pp that is
+// not a multiple of 4 for bf16 (the engine pads Pp to a multiple of 8).
 // The launch allocates nothing and does not synchronise; it returns a
 // cudaError_t so the caller can raise.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "cp_async.cuh"
 
@@ -97,27 +121,37 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kRows = 128;                  // delay-line rows per block
 constexpr int kQC = 32;                     // q per chunk
-constexpr int kAStride = kQC + 4;           // fdl tile row stride, floats
 constexpr int kStages = 4;                  // depth of the cp.async ring
 constexpr int kAhead = kStages - 2;         // chunks in flight
 
-template <int KT>
-__host__ __device__ constexpr int stage_floats() {
-  return kRows * kAStride + kQC * KT;
+// fdl tile row stride in elements: the chunk plus one 16-byte vector, so a
+// warp's rows fall in distinct banks (36 floats; 40 bf16 = 20 words)
+template <typename T>
+__host__ __device__ constexpr int a_stride() {
+  return kQC + 16 / static_cast<int>(sizeof(T));
 }
 
-template <int KT>
+template <typename T, int KT>
+__host__ __device__ constexpr int stage_elems() {
+  return kRows * a_stride<T>() + kQC * KT;
+}
+
+template <typename T, int KT>
 __global__ void __launch_bounds__(kThreads, 2)
-mac_shift_kernel(float* __restrict__ fdl, const float* __restrict__ x_new,
-                 const float* __restrict__ rhs, float* __restrict__ m,
+mac_shift_kernel(T* __restrict__ fdl, const T* __restrict__ x_new,
+                 const T* __restrict__ rhs, float* __restrict__ m,
                  int vi_count, int pp, int kod) {
   constexpr int kCG = KT == 64 ? 8 : 4;     // column groups of the tile
-  constexpr int kNV = KT / (4 * kCG);       // float4 columns per thread
+  constexpr int kNV = KT / (4 * kCG);       // 4-column vectors per thread
   constexpr int kTN = 4 * kNV;              // columns per thread
   constexpr int kRG = kThreads / kCG;       // row groups of the tile
   constexpr int kTM = kRows / kRG;          // rows per thread
-  constexpr int kVecs = kQC / 4;            // float4 per row of a chunk
-  extern __shared__ __align__(16) float smem[];
+  constexpr int kAStride = a_stride<T>();
+  constexpr int kVecLen = 16 / static_cast<int>(sizeof(T));  // per 16 B
+  constexpr int kVecs = kQC / kVecLen;      // 16-byte vectors per row of a
+                                            // chunk
+  extern __shared__ __align__(16) float smem_raw[];
+  T* smem = reinterpret_cast<T*>(smem_raw);
 
   const int row_tiles = (vi_count + kRows - 1) / kRows;
   const int f = blockIdx.x / row_tiles;
@@ -129,9 +163,9 @@ mac_shift_kernel(float* __restrict__ fdl, const float* __restrict__ x_new,
   const int cg = tid % kCG;                 // a warp's lanes: kCG column
   const int rg = tid / kCG;                 // groups x consecutive rows
 
-  float* line = fdl + ((size_t)f * vi_count + row0) * q_total;
-  const float* xn = x_new + ((size_t)f * vi_count + row0) * 2;
-  const float* rhs_f = rhs + (size_t)f * q_total * kod;
+  T* line = fdl + ((size_t)f * vi_count + row0) * q_total;
+  const T* xn = x_new + ((size_t)f * vi_count + row0) * 2;
+  const T* rhs_f = rhs + (size_t)f * q_total * kod;
 
   for (int col0 = 0; col0 < kod; col0 += KT) {
     const int cols = min(KT, kod - col0);
@@ -142,11 +176,11 @@ mac_shift_kernel(float* __restrict__ fdl, const float* __restrict__ x_new,
     // into stage i % kStages
     auto load = [&](int i) {
       const int a = (chunks - 1 - i) * kQC;
-      float* as = smem + (i % kStages) * stage_floats<KT>();
-      float* bs = as + kRows * kAStride;
+      T* as = smem + (i % kStages) * stage_elems<T, KT>();
+      T* bs = as + kRows * kAStride;
       for (int e = tid; e < kRows * kVecs; e += kThreads) {
         const int r = e / kVecs;
-        const int qq = 4 * (e % kVecs);
+        const int qq = kVecLen * (e % kVecs);
         const bool ok = r < rows && a + qq < q_total;
         copy16(as + r * kAStride + qq,
                ok ? line + (size_t)r * q_total + a + qq : fdl, ok);
@@ -157,8 +191,9 @@ mac_shift_kernel(float* __restrict__ fdl, const float* __restrict__ x_new,
         const int q = a + j;
         const int s = q >= pp ? q - pp : q;
         const bool ok = q < q_total && s + 1 < pp && col < cols;
-        copy16(bs + j * KT + col,
-               ok ? rhs_f + (size_t)(q + 1) * kod + col0 + col : rhs, ok);
+        copy_vec<4 * static_cast<int>(sizeof(T))>(
+            bs + j * KT + col,
+            ok ? rhs_f + (size_t)(q + 1) * kod + col0 + col : rhs, ok);
       }
     };
 
@@ -167,28 +202,61 @@ mac_shift_kernel(float* __restrict__ fdl, const float* __restrict__ x_new,
     // float4 of a row x kThreads / kVecs rows
     auto write_back = [&](int i) {
       const int a = (chunks - 1 - i) * kQC;
-      const float* cur = smem + (i % kStages) * stage_floats<KT>();
-      const float* below = smem + ((i + 1) % kStages) * stage_floats<KT>();
+      const T* cur = smem + (i % kStages) * stage_elems<T, KT>();
+      const T* below = smem + ((i + 1) % kStages) * stage_elems<T, KT>();
       const int v = tid % kVecs;
-      const int q0 = a + 4 * v;
+      const int q0 = a + kVecLen * v;
       for (int r0 = 0; r0 < rows; r0 += kThreads / kVecs) {
         const int r = r0 + tid / kVecs;
         const bool live = r < rows && q0 < q_total;
-        const float4 x = live ? *reinterpret_cast<const float4*>(
-                                    cur + r * kAStride + 4 * v)
-                              : make_float4(0.f, 0.f, 0.f, 0.f);
-        // old[q0 - 1] is the last value of the lane to the left
-        float prev = __shfl_up_sync(0xffffffffu, x.w, 1, kVecs);
-        if (!live) continue;
-        if (v == 0 && a > 0) prev = below[r * kAStride + kQC - 1];
-        float o[4] = {prev, x.x, x.y, x.z};
+        if constexpr (std::is_same_v<T, float>) {
+          const float4 x = live ? *reinterpret_cast<const float4*>(
+                                      cur + r * kAStride + 4 * v)
+                                : make_float4(0.f, 0.f, 0.f, 0.f);
+          // old[q0 - 1] is the last value of the lane to the left
+          float prev = __shfl_up_sync(0xffffffffu, x.w, 1, kVecs);
+          if (!live) continue;
+          if (v == 0 && a > 0) prev = below[r * kAStride + kQC - 1];
+          float o[4] = {prev, x.x, x.y, x.z};
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int c = q0 + e >= pp ? 1 : 0;
-          if (q0 + e == c * pp) o[e] = xn[2 * r + c];   // a plane's slot 0
+          for (int e = 0; e < 4; ++e) {
+            const int c = q0 + e >= pp ? 1 : 0;
+            if (q0 + e == c * pp) o[e] = xn[2 * r + c];   // a plane's slot 0
+          }
+          *reinterpret_cast<float4*>(line + (size_t)r * q_total + q0) =
+              make_float4(o[0], o[1], o[2], o[3]);
+        } else {
+          // 8 slots as 4 words of 2 bf16; the low half of a word is the
+          // lower slot
+          const uint4 x = live ? *reinterpret_cast<const uint4*>(
+                                     cur + r * kAStride + kVecLen * v)
+                               : make_uint4(0u, 0u, 0u, 0u);
+          // old[q0 - 1] is the last value of the lane to the left
+          unsigned prev = __shfl_up_sync(0xffffffffu, x.w >> 16, 1, kVecs);
+          if (!live) continue;
+          if (v == 0 && a > 0)
+            prev = *reinterpret_cast<const unsigned short*>(
+                below + r * kAStride + kQC - 1);
+          const unsigned in[4] = {x.x, x.y, x.z, x.w};
+          unsigned short o[8];
+          o[0] = static_cast<unsigned short>(prev);
+#pragma unroll
+          for (int e = 1; e < 8; ++e)
+            o[e] = static_cast<unsigned short>(
+                (e % 2 ? in[(e - 1) / 2] : in[(e - 1) / 2] >> 16) & 0xffffu);
+#pragma unroll
+          for (int e = 0; e < 8; ++e) {
+            const int c = q0 + e >= pp ? 1 : 0;
+            if (q0 + e == c * pp)                        // a plane's slot 0
+              o[e] = *reinterpret_cast<const unsigned short*>(xn + 2 * r + c);
+          }
+          uint4 out;
+          out.x = o[0] | (static_cast<unsigned>(o[1]) << 16);
+          out.y = o[2] | (static_cast<unsigned>(o[3]) << 16);
+          out.z = o[4] | (static_cast<unsigned>(o[5]) << 16);
+          out.w = o[6] | (static_cast<unsigned>(o[7]) << 16);
+          *reinterpret_cast<uint4*>(line + (size_t)r * q_total + q0) = out;
         }
-        *reinterpret_cast<float4*>(line + (size_t)r * q_total + q0) =
-            make_float4(o[0], o[1], o[2], o[3]);
       }
     };
 
@@ -209,23 +277,62 @@ mac_shift_kernel(float* __restrict__ fdl, const float* __restrict__ x_new,
       if (i + kAhead < chunks) load(i + kAhead);
       commit();
       if (last && i > 0) write_back(i - 1);
-      const float* as = smem + (i % kStages) * stage_floats<KT>();
-      const float* bs = as + kRows * kAStride;
+      const T* as = smem + (i % kStages) * stage_elems<T, KT>();
+      const T* bs = as + kRows * kAStride;
+      if constexpr (std::is_same_v<T, float>) {
 #pragma unroll 16
-      for (int j = 0; j < kQC; ++j) {
-        float av[kTM];
+        for (int j = 0; j < kQC; ++j) {
+          float av[kTM];
 #pragma unroll
-        for (int t = 0; t < kTM; ++t) av[t] = as[(rg + kRG * t) * kAStride + j];
+          for (int t = 0; t < kTM; ++t)
+            av[t] = as[(rg + kRG * t) * kAStride + j];
 #pragma unroll
-        for (int v = 0; v < kNV; ++v) {
-          const float4 b = *reinterpret_cast<const float4*>(
-              bs + j * KT + 4 * (cg + kCG * v));
+          for (int v = 0; v < kNV; ++v) {
+            const float4 b = *reinterpret_cast<const float4*>(
+                bs + j * KT + 4 * (cg + kCG * v));
+#pragma unroll
+            for (int t = 0; t < kTM; ++t) {
+              acc[t][4 * v + 0] = fmaf(av[t], b.x, acc[t][4 * v + 0]);
+              acc[t][4 * v + 1] = fmaf(av[t], b.y, acc[t][4 * v + 1]);
+              acc[t][4 * v + 2] = fmaf(av[t], b.z, acc[t][4 * v + 2]);
+              acc[t][4 * v + 3] = fmaf(av[t], b.w, acc[t][4 * v + 3]);
+            }
+          }
+        }
+      } else {
+        // bf16: two q per step (one 32-bit load per row), summed in the
+        // same order
+#pragma unroll 8
+        for (int j = 0; j < kQC; j += 2) {
+          float a0[kTM], a1[kTM];
 #pragma unroll
           for (int t = 0; t < kTM; ++t) {
-            acc[t][4 * v + 0] = fmaf(av[t], b.x, acc[t][4 * v + 0]);
-            acc[t][4 * v + 1] = fmaf(av[t], b.y, acc[t][4 * v + 1]);
-            acc[t][4 * v + 2] = fmaf(av[t], b.z, acc[t][4 * v + 2]);
-            acc[t][4 * v + 3] = fmaf(av[t], b.w, acc[t][4 * v + 3]);
+            const unsigned u = *reinterpret_cast<const unsigned*>(
+                as + (rg + kRG * t) * kAStride + j);
+            a0[t] = bf16_lo(u);
+            a1[t] = bf16_hi(u);
+          }
+#pragma unroll
+          for (int v = 0; v < kNV; ++v) {
+            const int col = 4 * (cg + kCG * v);
+            const float4 b0 = bf16x4(*reinterpret_cast<const uint2*>(
+                bs + j * KT + col));
+            const float4 b1 = bf16x4(*reinterpret_cast<const uint2*>(
+                bs + (j + 1) * KT + col));
+#pragma unroll
+            for (int t = 0; t < kTM; ++t) {
+              acc[t][4 * v + 0] = fmaf(a0[t], b0.x, acc[t][4 * v + 0]);
+              acc[t][4 * v + 1] = fmaf(a0[t], b0.y, acc[t][4 * v + 1]);
+              acc[t][4 * v + 2] = fmaf(a0[t], b0.z, acc[t][4 * v + 2]);
+              acc[t][4 * v + 3] = fmaf(a0[t], b0.w, acc[t][4 * v + 3]);
+            }
+#pragma unroll
+            for (int t = 0; t < kTM; ++t) {
+              acc[t][4 * v + 0] = fmaf(a1[t], b1.x, acc[t][4 * v + 0]);
+              acc[t][4 * v + 1] = fmaf(a1[t], b1.y, acc[t][4 * v + 1]);
+              acc[t][4 * v + 2] = fmaf(a1[t], b1.z, acc[t][4 * v + 2]);
+              acc[t][4 * v + 3] = fmaf(a1[t], b1.w, acc[t][4 * v + 3]);
+            }
           }
         }
       }
@@ -237,17 +344,31 @@ mac_shift_kernel(float* __restrict__ fdl, const float* __restrict__ x_new,
     for (int t = 0; t < kTM; ++t) {
       const int r = rg + kRG * t;
       if (r >= rows) continue;
-      const float x0 = xn[2 * r];
-      const float x1 = xn[2 * r + 1];
       float* out = m + ((size_t)f * vi_count + row0 + r) * kod + col0;
+      float x0, x1;
+      if constexpr (std::is_same_v<T, float>) {
+        x0 = xn[2 * r];
+        x1 = xn[2 * r + 1];
+      } else {
+        const unsigned u = *reinterpret_cast<const unsigned*>(xn + 2 * r);
+        x0 = bf16_lo(u);
+        x1 = bf16_hi(u);
+      }
 #pragma unroll
       for (int v = 0; v < kNV; ++v) {
         const int col = 4 * (cg + kCG * v);
         if (col >= cols) continue;
-        const float4 h0 = __ldg(
-            reinterpret_cast<const float4*>(rhs_f + col0 + col));
-        const float4 h1 = __ldg(reinterpret_cast<const float4*>(
-            rhs_f + (size_t)pp * kod + col0 + col));
+        float4 h0, h1;
+        if constexpr (std::is_same_v<T, float>) {
+          h0 = __ldg(reinterpret_cast<const float4*>(rhs_f + col0 + col));
+          h1 = __ldg(reinterpret_cast<const float4*>(
+              rhs_f + (size_t)pp * kod + col0 + col));
+        } else {
+          h0 = bf16x4(__ldg(reinterpret_cast<const uint2*>(
+              rhs_f + col0 + col)));
+          h1 = bf16x4(__ldg(reinterpret_cast<const uint2*>(
+              rhs_f + (size_t)pp * kod + col0 + col)));
+        }
         float4 o;
         o.x = fmaf(x1, h1.x, fmaf(x0, h0.x, acc[t][4 * v + 0]));
         o.y = fmaf(x1, h1.y, fmaf(x0, h0.y, acc[t][4 * v + 1]));
@@ -259,23 +380,47 @@ mac_shift_kernel(float* __restrict__ fdl, const float* __restrict__ x_new,
   }
 }
 
-template <int KT>
-cudaError_t launch(float* a, const float* xn, const float* b, float* out,
-                   int f, int vi, int pp, int kod, cudaStream_t s) {
-  constexpr size_t smem = kStages * stage_floats<KT>() * sizeof(float);
+template <typename T, int KT>
+cudaError_t launch(T* a, const T* xn, const T* b, float* out, int f, int vi,
+                   int pp, int kod, cudaStream_t s) {
+  constexpr size_t smem = kStages * stage_elems<T, KT>() * sizeof(T);
   cudaError_t err = cudaFuncSetAttribute(
-      mac_shift_kernel<KT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      mac_shift_kernel<T, KT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const unsigned blocks =
       static_cast<unsigned>(f) * static_cast<unsigned>((vi + kRows - 1) / kRows);
-  mac_shift_kernel<KT><<<blocks, kThreads, smem, s>>>(a, xn, b, out, vi, pp,
-                                                      kod);
+  mac_shift_kernel<T, KT><<<blocks, kThreads, smem, s>>>(a, xn, b, out, vi,
+                                                         pp, kod);
   return cudaGetLastError();
 }
 
 bool aligned16(const void* p) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
+template <typename T>
+int dispatch(void* fdl, const void* x_new, const void* rhs, void* m, int f,
+             int vi, int pp, int kod, void* stream) {
+  // a row of fdl is Q = 2 * pp values: 16-byte aligned rows; a bf16
+  // x_new row of 2 values is read as one 32-bit word
+  constexpr int kPpMultiple = 8 / static_cast<int>(sizeof(T));
+  if (f <= 0 || vi <= 0 || pp <= 0 || kod <= 0 || pp % kPpMultiple ||
+      kod % 4 || !aligned16(fdl) || !aligned16(rhs) || !aligned16(m) ||
+      (sizeof(T) == 2 && reinterpret_cast<uintptr_t>(x_new) % 4))
+    return static_cast<int>(cudaErrorInvalidValue);
+  T* a = static_cast<T*>(fdl);
+  const T* xn = static_cast<const T*>(x_new);
+  const T* b = static_cast<const T*>(rhs);
+  float* out = static_cast<float*>(m);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (kod <= 16)
+    return static_cast<int>(launch<T, 16>(a, xn, b, out, f, vi, pp, kod, s));
+  if (kod <= 32)
+    return static_cast<int>(launch<T, 32>(a, xn, b, out, f, vi, pp, kod, s));
+  if (kod <= 48)
+    return static_cast<int>(launch<T, 48>(a, xn, b, out, f, vi, pp, kod, s));
+  return static_cast<int>(launch<T, 64>(a, xn, b, out, f, vi, pp, kod, s));
 }
 
 }  // namespace
@@ -288,21 +433,14 @@ bool aligned16(const void* p) {
 extern "C" int mac_shift_launch(void* fdl, const void* x_new, const void* rhs,
                                 void* m, int f, int vi, int pp, int kod,
                                 void* stream) {
-  if (f <= 0 || vi <= 0 || pp <= 0 || kod <= 0 || pp % 2 || kod % 4 ||
-      !aligned16(fdl) || !aligned16(rhs) || !aligned16(m))
-    return static_cast<int>(cudaErrorInvalidValue);
-  float* a = static_cast<float*>(fdl);
-  const float* xn = static_cast<const float*>(x_new);
-  const float* b = static_cast<const float*>(rhs);
-  float* out = static_cast<float*>(m);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (kod <= 16)
-    return static_cast<int>(launch<16>(a, xn, b, out, f, vi, pp, kod, s));
-  if (kod <= 32)
-    return static_cast<int>(launch<32>(a, xn, b, out, f, vi, pp, kod, s));
-  if (kod <= 48)
-    return static_cast<int>(launch<48>(a, xn, b, out, f, vi, pp, kod, s));
-  return static_cast<int>(launch<64>(a, xn, b, out, f, vi, pp, kod, s));
+  return dispatch<float>(fdl, x_new, rhs, m, f, vi, pp, kod, stream);
+}
+
+// The same with fdl, x_new and rhs bf16 (m f32): pp must be a multiple of 4.
+extern "C" int mac_shift_bf16_launch(void* fdl, const void* x_new,
+                                     const void* rhs, void* m, int f, int vi,
+                                     int pp, int kod, void* stream) {
+  return dispatch<__nv_bfloat16>(fdl, x_new, rhs, m, f, vi, pp, kod, stream);
 }
 
 extern "C" const char* mac_shift_error_string(int err) {

@@ -75,14 +75,36 @@
 // of 64 go to separate blocks (grid y), each re-reading the line. That is
 // race-free, since nothing is written in place.
 //
-// Alignment: fdl rows start on 16 bytes only if Q is a multiple of 4, so
-// the launch refuses an odd Pp (the engine pads Pp to a multiple of 8).
+// bf16 operands (mac_dtype='bf16'; JAX runs that MAC as the einsum the
+// Pallas kernel stands for, bf16 operands with preferred_element_type f32,
+// tpu_audio/engine/fmajor.py:908-923): the kernel is a template on the
+// operand type T, float or __nv_bfloat16. With T = bf16 the line and the
+// window are bf16 in device memory and in shared memory (a 16-byte copy
+// carries 8 values, so a stage takes half the shared memory: 56 KB at KT =
+// 64), each value becomes an f32 as it leaves shared memory (exact: a bf16
+// is the top half of a float), and the products, sums and m stay f32 as in
+// the f32 form: bf16 x bf16 products are exact in f32, so m differs from
+// the f32 MAC of the upcast operands only in the order of the sums. A
+// thread reads two q of a row in one 32-bit load and four window columns
+// in one 8-byte load. The window is copied in 8-byte vectors of 4 columns
+// (a row of rhs2 starts on 8 bytes, not 16, when KOD % 8 == 4). The bound:
+// the line is half the bytes (91.6 MB at 64 voices), so at KOD 36 and 64
+// the f32 FMAs (49.2 and 87.5 us at 67 TFLOP/s) bound it, not the bytes
+// (36.5 and 43.5 us); tensor-core MMA (bf16 in, f32 accumulate) is left
+// for a later design.
+//
+// Alignment: fdl rows start on 16 bytes only if Q * sizeof(T) is a
+// multiple of 16, so the launch refuses an odd Pp for f32 and a Pp that is
+// not a multiple of 4 for bf16 (the engine pads Pp to a multiple of 8).
 // The launch allocates nothing and does not synchronise; it returns a
 // cudaError_t so the caller can raise.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "cp_async.cuh"
 
@@ -92,27 +114,37 @@ constexpr int kThreads = 256;
 constexpr int kGroup = 128;                 // threads of one q group
 constexpr int kRows = 128;                  // delay-line rows per block
 constexpr int kQC = 32;                     // q per chunk
-constexpr int kAStride = kQC + 4;           // fdl tile row stride, floats
 constexpr int kStages = 4;                  // depth of the cp.async ring
 
-template <int KT>
-__host__ __device__ constexpr int stage_floats() {
-  return kRows * kAStride + kQC * KT;
+// fdl tile row stride in elements: the chunk plus one 16-byte vector, so a
+// warp's rows fall in distinct banks (36 floats; 40 bf16 = 20 words)
+template <typename T>
+__host__ __device__ constexpr int a_stride() {
+  return kQC + 16 / static_cast<int>(sizeof(T));
 }
 
-template <int KT>
+template <typename T, int KT>
+__host__ __device__ constexpr int stage_elems() {
+  return kRows * a_stride<T>() + kQC * KT;
+}
+
+template <typename T, int KT>
 __global__ void __launch_bounds__(kThreads, 2)
-ring_mac_kernel(const int* __restrict__ wptr, const float* __restrict__ fdl,
-                const float* __restrict__ rhs2, float* __restrict__ m,
+ring_mac_kernel(const int* __restrict__ wptr, const T* __restrict__ fdl,
+                const T* __restrict__ rhs2, float* __restrict__ m,
                 int vi_count, int pp, int kod) {
   constexpr int kCG = KT == 64 ? 8 : 4;     // column groups of the tile
-  constexpr int kNV = KT / (4 * kCG);       // float4 columns per thread
+  constexpr int kNV = KT / (4 * kCG);       // 4-column vectors per thread
   constexpr int kTN = 4 * kNV;              // columns per thread
   constexpr int kRG = kGroup / kCG;         // row groups of the tile
   constexpr int kTM = kRows / kRG;          // rows per thread
-  constexpr int kVecs = kQC / 4;            // float4 per row of a chunk
+  constexpr int kAStride = a_stride<T>();
+  constexpr int kVecLen = 16 / static_cast<int>(sizeof(T));  // per 16 B
+  constexpr int kVecs = kQC / kVecLen;      // 16-byte vectors per row of a
+                                            // chunk
   constexpr int kHalf = kQC / 2;            // q of a chunk per group
-  extern __shared__ __align__(16) float smem[];
+  extern __shared__ __align__(16) float smem_raw[];
+  T* smem = reinterpret_cast<T*>(smem_raw);
 
   const int row_tiles = (vi_count + kRows - 1) / kRows;
   const int f = blockIdx.x / row_tiles;
@@ -132,8 +164,8 @@ ring_mac_kernel(const int* __restrict__ wptr, const float* __restrict__ fdl,
   if (w < 0) w += pp;
   const int start = pp - w;                 // window row of slot 0
 
-  const float* line = fdl + ((size_t)f * vi_count + row0) * q_total;
-  const float* rhs_f = rhs2 + (size_t)f * 2 * q_total * kod + col0;
+  const T* line = fdl + ((size_t)f * vi_count + row0) * q_total;
+  const T* rhs_f = rhs2 + (size_t)f * 2 * q_total * kod + col0;
 
   // copy k of this thread for chunk i, q in [i * kQC, (i + 1) * kQC), into
   // stage i % kStages: the chunk's kFdlCopies fdl vectors, then its window
@@ -143,11 +175,11 @@ ring_mac_kernel(const int* __restrict__ wptr, const float* __restrict__ fdl,
       (kFdlCopies + kQC * KT / 4 + kThreads - 1) / kThreads;
   auto copy = [&](int i, int k) {
     const int a = i * kQC;
-    float* as = smem + (i % kStages) * stage_floats<KT>();
+    T* as = smem + (i % kStages) * stage_elems<T, KT>();
     const int e = tid + k * kThreads;
     if (e < kFdlCopies) {
       const int r = e / kVecs;
-      const int qq = 4 * (e % kVecs);
+      const int qq = kVecLen * (e % kVecs);
       const bool ok = r < rows && a + qq < q_total;
       copy16(as + r * kAStride + qq,
              ok ? line + (size_t)r * q_total + a + qq : fdl, ok);
@@ -158,8 +190,9 @@ ring_mac_kernel(const int* __restrict__ wptr, const float* __restrict__ fdl,
       const int c = q >= pp ? 1 : 0;
       const bool ok = q < q_total && col < cols;
       const size_t row = (size_t)c * q_total + start + (q - c * pp);
-      copy16(as + kRows * kAStride + j * KT + col,
-             ok ? rhs_f + row * kod + col : rhs2, ok);
+      copy_vec<4 * static_cast<int>(sizeof(T))>(
+          as + kRows * kAStride + j * KT + col,
+          ok ? rhs_f + row * kod + col : rhs2, ok);
     }
   };
 
@@ -180,27 +213,67 @@ ring_mac_kernel(const int* __restrict__ wptr, const float* __restrict__ fdl,
     wait_pending<kStages - 2>();            // this thread's copies of chunk i
     __syncthreads();                        // everyone's; stage i-1 is free
     const bool ahead = i + kStages - 1 < chunks;
-    const float* as = smem + (i % kStages) * stage_floats<KT>();
-    const float* bs = as + kRows * kAStride;
+    const T* as = smem + (i % kStages) * stage_elems<T, KT>();
+    const T* bs = as + kRows * kAStride;
+    if constexpr (std::is_same_v<T, float>) {
 #pragma unroll 8                            // a full unroll spills at KT 48, 64
-    for (int jj = 0; jj < kHalf; ++jj) {
-      // the next chunk's copies, two steps apart
-      if (jj % 2 == 0 && jj / 2 < kCopies && ahead)
-        copy(i + kStages - 1, jj / 2);
-      const int j = group * kHalf + jj;
-      float x[kTM];
+      for (int jj = 0; jj < kHalf; ++jj) {
+        // the next chunk's copies, two steps apart
+        if (jj % 2 == 0 && jj / 2 < kCopies && ahead)
+          copy(i + kStages - 1, jj / 2);
+        const int j = group * kHalf + jj;
+        float x[kTM];
 #pragma unroll
-      for (int t = 0; t < kTM; ++t) x[t] = as[(rg + kRG * t) * kAStride + j];
+        for (int t = 0; t < kTM; ++t) x[t] = as[(rg + kRG * t) * kAStride + j];
 #pragma unroll
-      for (int v = 0; v < kNV; ++v) {
-        const float4 b = *reinterpret_cast<const float4*>(
-            bs + j * KT + 4 * (cg + kCG * v));
+        for (int v = 0; v < kNV; ++v) {
+          const float4 b = *reinterpret_cast<const float4*>(
+              bs + j * KT + 4 * (cg + kCG * v));
+#pragma unroll
+          for (int t = 0; t < kTM; ++t) {
+            acc[t][4 * v + 0] = fmaf(x[t], b.x, acc[t][4 * v + 0]);
+            acc[t][4 * v + 1] = fmaf(x[t], b.y, acc[t][4 * v + 1]);
+            acc[t][4 * v + 2] = fmaf(x[t], b.z, acc[t][4 * v + 2]);
+            acc[t][4 * v + 3] = fmaf(x[t], b.w, acc[t][4 * v + 3]);
+          }
+        }
+      }
+    } else {
+      // bf16: two q per step (one 32-bit load per row), the copies one
+      // step (two q) apart, as above; q is summed in the same order
+#pragma unroll 4
+      for (int jp = 0; jp < kHalf / 2; ++jp) {
+        if (jp < kCopies && ahead) copy(i + kStages - 1, jp);
+        const int j = group * kHalf + 2 * jp;
+        float x0[kTM], x1[kTM];
 #pragma unroll
         for (int t = 0; t < kTM; ++t) {
-          acc[t][4 * v + 0] = fmaf(x[t], b.x, acc[t][4 * v + 0]);
-          acc[t][4 * v + 1] = fmaf(x[t], b.y, acc[t][4 * v + 1]);
-          acc[t][4 * v + 2] = fmaf(x[t], b.z, acc[t][4 * v + 2]);
-          acc[t][4 * v + 3] = fmaf(x[t], b.w, acc[t][4 * v + 3]);
+          const unsigned u = *reinterpret_cast<const unsigned*>(
+              as + (rg + kRG * t) * kAStride + j);
+          x0[t] = bf16_lo(u);
+          x1[t] = bf16_hi(u);
+        }
+#pragma unroll
+        for (int v = 0; v < kNV; ++v) {
+          const int col = 4 * (cg + kCG * v);
+          const float4 b0 = bf16x4(*reinterpret_cast<const uint2*>(
+              bs + j * KT + col));
+          const float4 b1 = bf16x4(*reinterpret_cast<const uint2*>(
+              bs + (j + 1) * KT + col));
+#pragma unroll
+          for (int t = 0; t < kTM; ++t) {
+            acc[t][4 * v + 0] = fmaf(x0[t], b0.x, acc[t][4 * v + 0]);
+            acc[t][4 * v + 1] = fmaf(x0[t], b0.y, acc[t][4 * v + 1]);
+            acc[t][4 * v + 2] = fmaf(x0[t], b0.z, acc[t][4 * v + 2]);
+            acc[t][4 * v + 3] = fmaf(x0[t], b0.w, acc[t][4 * v + 3]);
+          }
+#pragma unroll
+          for (int t = 0; t < kTM; ++t) {
+            acc[t][4 * v + 0] = fmaf(x1[t], b1.x, acc[t][4 * v + 0]);
+            acc[t][4 * v + 1] = fmaf(x1[t], b1.y, acc[t][4 * v + 1]);
+            acc[t][4 * v + 2] = fmaf(x1[t], b1.z, acc[t][4 * v + 2]);
+            acc[t][4 * v + 3] = fmaf(x1[t], b1.w, acc[t][4 * v + 3]);
+          }
         }
       }
     }
@@ -211,7 +284,7 @@ ring_mac_kernel(const int* __restrict__ wptr, const float* __restrict__ fdl,
   // stages, thread by thread, and group 0 adds it and stores m
   wait_pending<0>();
   __syncthreads();
-  float4* park = reinterpret_cast<float4*>(smem);
+  float4* park = reinterpret_cast<float4*>(smem_raw);
   if (group == 1) {
 #pragma unroll
     for (int t = 0; t < kTM; ++t)
@@ -240,23 +313,48 @@ ring_mac_kernel(const int* __restrict__ wptr, const float* __restrict__ fdl,
   }
 }
 
-template <int KT>
-cudaError_t launch(const int* w, const float* a, const float* b, float* out,
-                   int f, int vi, int pp, int kod, cudaStream_t s) {
-  constexpr size_t smem = kStages * stage_floats<KT>() * sizeof(float);
+template <typename T, int KT>
+cudaError_t launch(const int* w, const T* a, const T* b, float* out, int f,
+                   int vi, int pp, int kod, cudaStream_t s) {
+  constexpr size_t smem = kStages * stage_elems<T, KT>() * sizeof(T);
+  static_assert(smem >= KT * kRows * sizeof(float),
+                "the stages must hold group 1's parked sums");
   cudaError_t err = cudaFuncSetAttribute(
-      ring_mac_kernel<KT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      ring_mac_kernel<T, KT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const unsigned row_tiles = static_cast<unsigned>((vi + kRows - 1) / kRows);
   const dim3 grid(static_cast<unsigned>(f) * row_tiles,
                   static_cast<unsigned>((kod + KT - 1) / KT));
-  ring_mac_kernel<KT><<<grid, kThreads, smem, s>>>(w, a, b, out, vi, pp, kod);
+  ring_mac_kernel<T, KT><<<grid, kThreads, smem, s>>>(w, a, b, out, vi, pp,
+                                                      kod);
   return cudaGetLastError();
 }
 
 bool aligned16(const void* p) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
+template <typename T>
+int dispatch(const void* wptr, const void* fdl, const void* rhs2, void* m,
+             int f, int vi, int pp, int kod, void* stream) {
+  // a row of fdl is Q = 2 * pp values: 16-byte aligned rows
+  constexpr int kPpMultiple = 8 / static_cast<int>(sizeof(T));
+  if (f <= 0 || vi <= 0 || pp <= 0 || kod <= 0 || pp % kPpMultiple ||
+      kod % 4 || !aligned16(fdl) || !aligned16(rhs2) || !aligned16(m))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int* w = static_cast<const int*>(wptr);
+  const T* a = static_cast<const T*>(fdl);
+  const T* b = static_cast<const T*>(rhs2);
+  float* out = static_cast<float*>(m);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (kod <= 16)
+    return static_cast<int>(launch<T, 16>(w, a, b, out, f, vi, pp, kod, s));
+  if (kod <= 32)
+    return static_cast<int>(launch<T, 32>(w, a, b, out, f, vi, pp, kod, s));
+  if (kod <= 48)
+    return static_cast<int>(launch<T, 48>(w, a, b, out, f, vi, pp, kod, s));
+  return static_cast<int>(launch<T, 64>(w, a, b, out, f, vi, pp, kod, s));
 }
 
 }  // namespace
@@ -269,21 +367,14 @@ bool aligned16(const void* p) {
 extern "C" int ring_mac_launch(const void* wptr, const void* fdl,
                                const void* rhs2, void* m, int f, int vi,
                                int pp, int kod, void* stream) {
-  if (f <= 0 || vi <= 0 || pp <= 0 || kod <= 0 || pp % 2 || kod % 4 ||
-      !aligned16(fdl) || !aligned16(rhs2) || !aligned16(m))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const int* w = static_cast<const int*>(wptr);
-  const float* a = static_cast<const float*>(fdl);
-  const float* b = static_cast<const float*>(rhs2);
-  float* out = static_cast<float*>(m);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (kod <= 16)
-    return static_cast<int>(launch<16>(w, a, b, out, f, vi, pp, kod, s));
-  if (kod <= 32)
-    return static_cast<int>(launch<32>(w, a, b, out, f, vi, pp, kod, s));
-  if (kod <= 48)
-    return static_cast<int>(launch<48>(w, a, b, out, f, vi, pp, kod, s));
-  return static_cast<int>(launch<64>(w, a, b, out, f, vi, pp, kod, s));
+  return dispatch<float>(wptr, fdl, rhs2, m, f, vi, pp, kod, stream);
+}
+
+// The same with fdl and rhs2 bf16 (m f32): pp must be a multiple of 4.
+extern "C" int ring_mac_bf16_launch(const void* wptr, const void* fdl,
+                                    const void* rhs2, void* m, int f, int vi,
+                                    int pp, int kod, void* stream) {
+  return dispatch<__nv_bfloat16>(wptr, fdl, rhs2, m, f, vi, pp, kod, stream);
 }
 
 extern "C" const char* ring_mac_error_string(int err) {

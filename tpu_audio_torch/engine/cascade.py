@@ -1,5 +1,6 @@
 """Two-stage non-uniform partitioned convolution, the voice-scaling engine
-(port of tpu_audio/engine/cascade.py, the 'allk' strategy in f32).
+(port of tpu_audio/engine/cascade.py: the 'allk' and 'selected' strategies,
+in f32 or bf16).
 
 The uniform fmajor engine reads its whole frequency-domain delay line every
 block. The cascade (Gardner 1995) splits each IR in two:
@@ -15,10 +16,33 @@ block. The cascade (Gardner 1995) splits each IR in two:
 
 A tail chunk completing at block t lands ``ratio + 1 .. 2*ratio + 1``
 blocks later (plus predelay) in a modular tail ring; every block emits head
-and tail together before the clamp. Fades ride the span representation
-only (``base_g``; there is no materialized snapshot, so a ``swap_bank``
-waits until fades decay), and a tail chunk's fade weights are projected
-over the blocks it spans. Steady-state output equals the uniform engine's.
+and tail together before the clamp. A tail chunk's fade weights are
+projected over the blocks it spans. Steady-state output equals the uniform
+engine's.
+
+Two MAC strategies (``mac_strategy``, fmajor's semantics):
+
+  - ``allk``: both stages run the all-K ``ring_mac`` and fades ride the
+    span representation only (``base_g``; there is no materialized
+    snapshot, so a ``swap_bank`` waits until fades decay);
+  - ``selected`` (banks of more than 16 IRs under 'auto', the reference's
+    152-IR ``all.index``): each voice's selected MAC columns of both stages
+    stay materialized in state (``sel_head``, ``sel_tail``), and so does
+    the fade snapshot (``base_head``, ``base_tail``): the MAC is linear in
+    its rhs, so the affine crossfade a*base + c*sel rides the materialized
+    tensors. The hot loop contracts the delay lines against them per voice
+    (a batched ``bmm`` over each voice's window; the tail reads only the
+    current group's slice), so a step's cost does not grow with K; the
+    bank is read only at a re-select (``collapse``) or a bank swap
+    (``regather_selection``). ``ring_mac`` does not launch on this path.
+
+``mac_dtype='bf16'`` stores both delay lines, the bank and the 'selected'
+tensors in bfloat16 (the input rings and the wet rings stay f32). Both
+MAC stages launch the bf16 ``ring_mac``: exact bf16 products summed in
+f32, which is the JAX engine's ``tail_mac='mxu'``; its ``'vpu'`` form
+rounds each tail product to bf16 before the sum, which the port does not
+copy. The 'selected' per-voice MACs upcast their bf16 windows and take
+exact products too, where the JAX engine's rounds each product to bf16.
 
 Layouts that differ from the JAX engine's, where F2 is minor only to ride
 the TPU's 128 lanes:
@@ -26,7 +50,11 @@ the TPU's 128 lanes:
   - ``fdl2 [M, F2, 2*Vg, 2, P2p]`` (M = ratio, Vg = V / ratio), group-major
     and frequency-major: row ``2*j + i`` of group g is input channel i of
     voice ``j*ratio + g``;
-  - ``tail_rhs2 [F2, 2, 2*P2p, KOD]``, fmajor's doubled, time-reversed pack.
+  - ``tail_rhs2 [F2, 2, 2*P2p, KOD]``, fmajor's doubled, time-reversed pack;
+  - ``sel_tail`` and ``base_tail [M, F2, 2*Vg, d, 2*P2p, OD]`` ('selected'),
+    row ``2*j + i`` as in fdl2 (the JAX leaf is [M, Vg, I, d, 2P2p, OD,
+    F2]); ``sel_head`` and ``base_head [F1, V, I, d, 2*P1p, OD]`` are the
+    JAX layout.
 
 Group g's tail MAC is then ``ring_mac(w2, fdl2[g], tail_rhs2)`` with
 ``w2 = (t // ratio) mod P2p``: the kernel's own contract, so both MAC stages
@@ -44,7 +72,8 @@ graph therefore bakes in one group phase.
 
 Like the port's fmajor engine, a step updates ``fdl1``, ``fdl2``,
 ``inbuf2``, ``tail_ring`` and (write side) ``wet_ring`` IN PLACE and returns
-a new CascadeState sharing them: the state passed in is consumed.
+a new CascadeState sharing them, and ``collapse`` rescales ``tail_ring`` in
+place: the state passed in is consumed.
 """
 
 from __future__ import annotations
@@ -57,7 +86,7 @@ import torch
 
 from tpu_audio_torch.engine import device_prep
 from tpu_audio_torch.engine.fmajor import (
-    _pad_p, _tensor, double_reversed, pack_mac_rhs,
+    MAC_DTYPES, _pad_p, _tensor, double_reversed, pack_mac_rhs,
 )
 from tpu_audio_torch.engine.params import VoiceParams
 from tpu_audio_torch.ops.fft import SpectralTransform
@@ -67,8 +96,6 @@ from tpu_audio_torch.ops.ring_mac import ring_mac
 from tpu_audio_torch.utils.device import resolve_device
 from tpu_audio_torch.utils.log import Log
 
-_LATER = ("is not ported yet (ROADMAP.md, Queue 1 item 12: the rest of "
-          "the cascade engine)")
 _SPAN_ONLY = ("the 'allk' cascade is span-only: collapse in the span "
               "(collapse_pure); bank swaps defer until fades decay")
 
@@ -78,8 +105,8 @@ class CascadeBank:
     """Device bank: the doubled, time-reversed MAC tensors of both stages,
     both in fmajor's ring-mode layout."""
 
-    head_rhs2: torch.Tensor  # f32 [F1, 2, 2*P1p, KOD]
-    tail_rhs2: torch.Tensor  # f32 [F2, 2, 2*P2p, KOD]
+    head_rhs2: torch.Tensor  # mac [F1, 2, 2*P1p, KOD]
+    tail_rhs2: torch.Tensor  # mac [F2, 2, 2*P2p, KOD] (mac: the mac_dtype)
 
     @property
     def num_irs(self) -> int:
@@ -90,17 +117,26 @@ class CascadeBank:
 class CascadeState:
     t: torch.Tensor          # i32 [] block counter (mod t_modulus)
     step: int                # the same counter on the host
-    fdl1: torch.Tensor       # f32 [F1, VI, 2, P1p] head delay line
+    fdl1: torch.Tensor       # mac [F1, VI, 2, P1p] head delay line
     prev_in: torch.Tensor    # f32 [V, 2, B]
     inbuf2: torch.Tensor     # f32 [M, Vg, 2, 4*M, B] doubled input ring
-    fdl2: torch.Tensor       # f32 [M, F2, 2*Vg, 2, P2p] tail delay line
+    fdl2: torch.Tensor       # mac [M, F2, 2*Vg, 2, P2p] tail delay line
     wet_ring: torch.Tensor   # f32 [V, NH, 2, B] head block-slot ring
     tail_ring: torch.Tensor  # f32 [M, Vg, I, O, NB, B] tail accumulator,
                              # input-channel-resolved for collapse_pure
     coef_a: torch.Tensor     # f32 [V, 2]
     coef_c: torch.Tensor     # f32 [V, 2]
     base_g: torch.Tensor     # f32 [V, 2, K] span fade provenance
-    base_pure: torch.Tensor  # bool [V, 2] (always True: span-only)
+                             # ('selected': [V, 2, 1] placeholder)
+    base_pure: torch.Tensor  # bool [V, 2] ('allk': always True, span-only;
+                             # 'selected': True = the zero snapshot, False
+                             # after the first materializing collapse)
+    # 'selected' only (size-1 placeholders under 'allk'): each voice's
+    # selected MAC columns and its materialized fade snapshot, in mac
+    sel_head: torch.Tensor   # [F1, V, I, d, 2*P1p, OD]
+    sel_tail: torch.Tensor   # [M, F2, 2*Vg, d, 2*P2p, OD]
+    base_head: torch.Tensor  # [F1, V, I, d, 2*P1p, OD]
+    base_tail: torch.Tensor  # [M, F2, 2*Vg, d, 2*P2p, OD]
     pd_q: torch.Tensor       # i32 [V] last block's block-granular predelay
     pd_m: torch.Tensor       # i32 [V] live margin of the read-side FIFO
 
@@ -112,8 +148,8 @@ class CascadeSlot:
     `done` (CUDA only) marks the end of that work; `host` is the pinned
     staging buffer of the upload, kept alive until the slot is written."""
 
-    head: torch.Tensor      # f32 [F1, 2, 2*P1p, 4]
-    tail: torch.Tensor      # f32 [F2, 2, 2*P2p, 4]
+    head: torch.Tensor      # mac [F1, 2, 2*P1p, 4]
+    tail: torch.Tensor      # mac [F2, 2, 2*P2p, 4]
     host: torch.Tensor      # f32 [O, 2*B2 + tail_parts*B2]
     done: torch.cuda.Event | None = None
 
@@ -122,40 +158,49 @@ def cascade_bank_from_numpy(engine: "CascadeConvolution", head_rhs2,
                             tail_rhs2) -> CascadeBank:
     """The port's bank from a JAX CascadeBank's leaves as numpy arrays: the
     head as it is, the frequency-minor tail [2, 2P2p, KOD, F2] moved to
-    [F2, 2, 2P2p, KOD]."""
-    for name, arr in (("head_rhs2", head_rhs2), ("tail_rhs2", tail_rhs2)):
-        if np.asarray(arr).dtype.name == "bfloat16":
-            raise NotImplementedError(
-                f"a bfloat16 bank leaf ({name}, mac_dtype='bf16') " + _LATER)
+    [F2, 2, 2P2p, KOD]; bf16 leaves bit for bit."""
     tail = np.ascontiguousarray(np.transpose(np.asarray(tail_rhs2),
                                              (3, 0, 1, 2)))
-    return CascadeBank(
-        head_rhs2=_tensor(head_rhs2, engine.device, torch.float32),
-        tail_rhs2=_tensor(tail, engine.device, torch.float32))
+    return CascadeBank(head_rhs2=_tensor(head_rhs2, engine.device),
+                       tail_rhs2=_tensor(tail, engine.device))
 
 
 def cascade_state_from_numpy(engine: "CascadeConvolution", leaves
                              ) -> CascadeState:
     """The port's state from a JAX CascadeState's leaves, a mapping of
-    field name -> numpy array. The JAX fdl2 [M, Vg, I, d, P2p, F2] moves to
-    [M, F2, 2*Vg, d, P2p]; the host counter is set from ``t``. The
-    'selected' leaves must be the 'allk' size-1 placeholders."""
-    for name in ("sel_head", "sel_tail", "base_head", "base_tail"):
-        if np.asarray(leaves[name]).size != 1:
-            raise NotImplementedError(
-                f"a 'selected' cascade state ({name}) " + _LATER)
+    field name -> numpy array, in either strategy and MAC dtype (bf16
+    leaves bit for bit). The JAX fdl2 [M, Vg, I, d, P2p, F2] moves to
+    [M, F2, 2*Vg, d, P2p] and a 'selected' sel_tail / base_tail [M, Vg, I,
+    d, 2P2p, OD, F2] to [M, F2, 2*Vg, d, 2P2p, OD]; the host counter is
+    set from ``t``."""
     dev = engine.device
     fdl2 = np.asarray(leaves["fdl2"])
     m, vg, i, d, pp2, f2 = fdl2.shape
     fdl2 = np.ascontiguousarray(np.transpose(fdl2, (0, 5, 1, 2, 3, 4))
                                 ).reshape(m, f2, vg * i, d, pp2)
+
+    def tail_leaf(arr):
+        arr = np.asarray(arr)
+        if arr.size > 1:
+            m_, vg_, i_, d_, q_, od_, f_ = arr.shape
+            arr = np.ascontiguousarray(np.transpose(
+                arr, (0, 6, 1, 2, 3, 4, 5))).reshape(m_, f_, vg_ * i_, d_,
+                                                     q_, od_)
+        else:
+            arr = arr.reshape((1,) * 6)
+        return _tensor(arr, dev)
+
     t = int(np.asarray(leaves["t"]))
     f32 = {name: _tensor(leaves[name], dev, torch.float32)
-           for name in ("fdl1", "prev_in", "inbuf2", "wet_ring", "tail_ring",
+           for name in ("prev_in", "inbuf2", "wet_ring", "tail_ring",
                         "coef_a", "coef_c", "base_g")}
     return CascadeState(
         t=_tensor(t, dev, torch.int32).reshape(()), step=t,
-        fdl2=_tensor(fdl2, dev, torch.float32),
+        fdl1=_tensor(leaves["fdl1"], dev), fdl2=_tensor(fdl2, dev),
+        sel_head=_tensor(leaves["sel_head"], dev),
+        base_head=_tensor(leaves["base_head"], dev),
+        sel_tail=tail_leaf(leaves["sel_tail"]),
+        base_tail=tail_leaf(leaves["base_tail"]),
         base_pure=_tensor(leaves["base_pure"], dev, torch.bool),
         pd_q=_tensor(leaves["pd_q"], dev, torch.int32),
         pd_m=_tensor(leaves["pd_m"], dev, torch.int32), **f32)
@@ -169,12 +214,13 @@ class CascadeConvolution:
 
     `tail_mac` ("auto", "vpu" or "mxu") is kept for the JAX engine's
     signature, where it picks between two TPU lowerings of the tail MAC.
-    Here all three run the same sum on the same kernel (ring_mac)."""
+    Here all three run the same sum on the same kernel (ring_mac), with
+    exact products in bf16: the JAX "mxu" form."""
 
-    fade_protocol = "spans"          # StreamSession (runtime/stream.py)
-    swap_snapshot = False            # span-only: swaps defer (StreamSession)
-    collapse_pure_takes_params = True  # the in-flight tail rescale needs
-                                       # the post-change vsteps / predelay
+    # the in-flight tail rescale of both collapses needs the post-change
+    # vsteps / predelay (StreamSession passes them)
+    collapse_pure_takes_params = True
+    collapse_takes_params = True
     ALLK_MAX_COLUMNS = 64            # K <= 16 stereo IRs (fmajor threshold)
 
     def __init__(self, num_voices: int, block: int, partitions: int,
@@ -201,8 +247,10 @@ class CascadeConvolution:
         self.pp2 = -(-self.tail_parts // 8) * 8
         self.max_predelay = max_predelay
         self.num_irs = num_irs
-        if mac_dtype not in ("f32", "bf16"):
+        if mac_dtype not in MAC_DTYPES:
             raise ValueError(f"unknown mac_dtype {mac_dtype!r}")
+        self.mac_dtype_name = mac_dtype
+        self.mac_dtype = MAC_DTYPES[mac_dtype]
         # predelay_side="read": the head ring is a FIFO written at two slots
         # per block and read at slot (t - q) per voice; a predelay edit
         # re-times the buffered wet so that both sides give the same output
@@ -222,14 +270,12 @@ class CascadeConvolution:
                             else "selected")
         if mac_strategy not in ("allk", "selected"):
             raise ValueError(f"unknown mac_strategy {mac_strategy!r}")
-        if mac_strategy != "allk":
-            raise NotImplementedError(
-                "the cascade's 'selected' strategy (banks of more than 16 "
-                "IRs; a working set, bank_capacity=16, serves them on "
-                "'allk') " + _LATER)
-        if mac_dtype != "f32":
-            raise NotImplementedError(f"mac_dtype={mac_dtype!r} " + _LATER)
         self.mac_strategy = mac_strategy
+        # StreamSession (runtime/stream.py): 'allk' fades ride the span and
+        # its swaps defer until they decay; 'selected' materializes its fade
+        # snapshot, so a swap mid-fade keeps the old bank's tail
+        self.fade_protocol = "spans" if mac_strategy == "allk" else "selected"
+        self.swap_snapshot = mac_strategy == "selected"
         self.device = resolve_device(device)
         self.xf1 = SpectralTransform(2 * block)
         self.xf2 = SpectralTransform(2 * self.b2)
@@ -285,7 +331,7 @@ class CascadeConvolution:
         clone = CascadeConvolution(
             num_voices, self.block, self.partitions, ratio=self.ratio,
             max_predelay=self.max_predelay, num_irs=self.num_irs,
-            predelay_side=self.predelay_side,
+            mac_dtype=self.mac_dtype_name, predelay_side=self.predelay_side,
             tail_mac=self._tail_mac_requested,
             mac_strategy=self.mac_strategy, device=self.device)
         clone.xf1, clone.xf2 = self.xf1, self.xf2
@@ -329,15 +375,18 @@ class CascadeConvolution:
                                    max_partitions=self.tail_parts)
             tail_spec[i, :, : sp.shape[1]] = sp
         head_rhs2, tail_rhs2 = self._pack_bank_host(head_spec, tail_spec)
-        return CascadeBank(head_rhs2=_tensor(head_rhs2, self.device),
-                           tail_rhs2=_tensor(tail_rhs2, self.device))
+        dt = self.mac_dtype
+        return CascadeBank(head_rhs2=_tensor(head_rhs2, self.device).to(dt),
+                           tail_rhs2=_tensor(tail_rhs2, self.device).to(dt))
 
     def update_bank_slot(self, bank: CascadeBank, slot: int,
                          ir: np.ndarray) -> CascadeBank:
         """Replace ONE IR slot of a device bank (working-set residency) with
         the time-domain IR `ir` [O, L]: both stages' partition FFTs and
         packs run on the device (pack_bank_slot) and the slot's columns are
-        written in place (write_bank_slot). Returns the same bank object."""
+        written in place (write_bank_slot). Returns the same bank object.
+        'allk' only: the 'selected' strategy reads per-voice materialized
+        columns, which a bank-slot write would silently miss."""
         return self.write_bank_slot(bank, slot, self.pack_bank_slot(ir))
 
     def pack_bank_slot(self, ir: np.ndarray) -> CascadeSlot:
@@ -346,6 +395,7 @@ class CascadeConvolution:
         (through a pinned buffer on CUDA), then the partition FFTs and
         packs on the current stream. Reads no bank, so it may run on a
         side stream while blocks stream."""
+        self._require_allk()
         ir = np.asarray(ir)
         if ir.ndim != 2 or np.iscomplexobj(ir):
             raise ValueError(f"a slot update takes a time-domain [O, L] "
@@ -358,6 +408,7 @@ class CascadeConvolution:
             host = host.pin_memory()
         td = host.to(self.device, non_blocking=True)[None]
         head, tail = device_prep.cascade_columns(self, td)
+        head, tail = head.to(self.mac_dtype), tail.to(self.mac_dtype)
         done = None
         if self.device.type == "cuda":
             done = torch.cuda.Event()
@@ -370,6 +421,7 @@ class CascadeConvolution:
         (columns 4k:4k+4 of both stages). On CUDA the current stream first
         waits for the stream that packed the slot, and the packed tensors
         are marked in use by it until the copies ran."""
+        self._require_allk()
         col0 = 4 * int(slot)
         if self.device.type == "cuda":
             stream = torch.cuda.current_stream(self.device)
@@ -381,7 +433,23 @@ class CascadeConvolution:
         bank.tail_rhs2[..., col0: col0 + 4].copy_(packed.tail)
         return bank
 
+    def _require_allk(self) -> None:
+        if self.mac_strategy != "allk":
+            raise ValueError("working-set slot updates require the 'allk' "
+                             "MAC strategy (the 'selected' MAC reads "
+                             "per-voice materialized columns, not bank "
+                             "slots)")
+
     # -- state ---------------------------------------------------------------------
+
+    def _sel_shapes(self):
+        """(head, tail) shapes of the 'selected' strategy's per-voice
+        columns; size-1 placeholders under 'allk'."""
+        if self.mac_strategy != "selected":
+            return (1,) * 6, (1,) * 6
+        v, m = self.num_voices, self.ratio
+        return ((self.f1, v, 2, 2, 2 * self.pp1, 4),
+                (m, self.f2, 2 * (v // m), 2, 2 * self.pp2, 4))
 
     def init_state(self) -> CascadeState:
         if self.num_irs is None:
@@ -389,29 +457,61 @@ class CascadeConvolution:
                              "init_state (base_g is bank-sized)")
         v, b, m = self.num_voices, self.block, self.ratio
         vg = v // m
+        dt = self.mac_dtype
+        kg = self.num_irs if self.mac_strategy == "allk" else 1
+        hsh, tsh = self._sel_shapes()
 
         def zeros(*shape, dtype=torch.float32):
             return torch.zeros(shape, dtype=dtype, device=self.device)
 
         return CascadeState(
             t=zeros(dtype=torch.int32), step=0,
-            fdl1=zeros(self.f1, v * 2, 2, self.pp1),
+            fdl1=zeros(self.f1, v * 2, 2, self.pp1, dtype=dt),
             prev_in=zeros(v, 2, b),
             inbuf2=zeros(m, vg, 2, 4 * m, b),
-            fdl2=zeros(m, self.f2, vg * 2, 2, self.pp2),
+            fdl2=zeros(m, self.f2, vg * 2, 2, self.pp2, dtype=dt),
             wet_ring=zeros(v, self.head_slots, 2, b),
             tail_ring=zeros(m, vg, 2, 2, self.ring_slots, b),
             coef_a=zeros(v, 2), coef_c=zeros(v, 2),
-            base_g=zeros(v, 2, self.num_irs),
+            base_g=zeros(v, 2, kg),
             base_pure=torch.ones((v, 2), dtype=torch.bool, device=self.device),
+            sel_head=zeros(*hsh, dtype=dt), sel_tail=zeros(*tsh, dtype=dt),
+            base_head=zeros(*hsh, dtype=dt), base_tail=zeros(*tsh, dtype=dt),
             # pd_q = pd_m = 0 is safe at any predelay: the first read-side
             # step then re-times an all-zero ring
             pd_q=zeros(v, dtype=torch.int32), pd_m=zeros(v, dtype=torch.int32))
 
     def init_converged(self, bank: CascadeBank, params: VoiceParams
                        ) -> CascadeState:
-        return replace(self.init_state(),
-                       coef_c=params.wet.to(torch.float32).clone())
+        state = replace(self.init_state(),
+                        coef_c=params.wet.to(torch.float32).clone())
+        if self.mac_strategy == "selected":
+            state = replace(state,
+                            sel_head=self._gather_head(bank, params.select),
+                            sel_tail=self._gather_tail(bank, params.select))
+        return state
+
+    def _gather_head(self, bank: CascadeBank, select: torch.Tensor
+                     ) -> torch.Tensor:
+        """Per-voice head columns [F1, V, I, d, 2*P1p, OD] gathered from the
+        all-K tensor by each (voice, channel)'s selection."""
+        k = bank.num_irs
+        r = bank.head_rhs2.reshape(self.f1, 2, 2 * self.pp1, k, 4)
+        g = r.index_select(3, select.reshape(-1).long())  # [F1,d,2P1p,VI,OD]
+        g = g.reshape(self.f1, 2, 2 * self.pp1, self.num_voices, 2, 4)
+        return g.permute(0, 3, 4, 1, 2, 5).to(self.mac_dtype).contiguous()
+
+    def _gather_tail(self, bank: CascadeBank, select: torch.Tensor
+                     ) -> torch.Tensor:
+        """Per-voice tail columns [M, F2, 2*Vg, d, 2*P2p, OD], group-major
+        (voice j*ratio + g at [g, row 2*j + i], as fdl2)."""
+        k, m = bank.num_irs, self.ratio
+        vg = self.num_voices // m
+        r = bank.tail_rhs2.reshape(self.f2, 2, 2 * self.pp2, k, 4)
+        order = select.reshape(vg, m, 2).transpose(0, 1).reshape(-1)
+        g = r.index_select(3, order.long())               # [F2,d,2P2p,M*2Vg,OD]
+        g = g.reshape(self.f2, 2, 2 * self.pp2, m, 2 * vg, 4)
+        return g.permute(3, 0, 4, 1, 2, 5).to(self.mac_dtype).contiguous()
 
     # -- shared pieces ---------------------------------------------------------------
 
@@ -419,6 +519,21 @@ class CascadeConvolution:
         """[V, ...] -> group g's [Vg, ...] (voice j*ratio + g at row j): a
         strided view."""
         return arr.reshape((-1, self.ratio) + arr.shape[1:])[:, g]
+
+    @staticmethod
+    def _per_voice(fdl: torch.Tensor, cols: torch.Tensor, w: int
+                   ) -> torch.Tensor:
+        """The 'selected' MAC of one stage: the line fdl [F, R, d, Pp]
+        against each row's own doubled, reversed columns cols [F, R, d,
+        2Pp, OD] over the window [Pp - w, 2Pp - w) (a strided view), both
+        upcast to f32: a batched [1, Pp] x [Pp, OD] product per (f, row, d),
+        summed over d. -> [F, R // 2, I, O, d]."""
+        f, rows, _, pp = fdl.shape
+        win = cols[..., pp - w: 2 * pp - w, :].float()      # [F,R,d,Pp,OD]
+        lhs = fdl.float().reshape(f * rows * 2, 1, pp)
+        mv = torch.bmm(lhs, win.reshape(f * rows * 2, pp, 4))
+        mv = mv.reshape(f, rows, 2, 4).sum(dim=2)           # [F, R, OD]
+        return mv.reshape(f, rows // 2, 2, 2, 2)
 
     @staticmethod
     def _allk_terms(m: torch.Tensor, select: torch.Tensor,
@@ -487,9 +602,17 @@ class CascadeConvolution:
         w1 = h % self.pp1
         fdl1 = state.fdl1
         fdl1[..., w1] = xn1.reshape(v * 2, f1, 2).permute(1, 0, 2)
-        m1 = ring_mac(self._w[w1], fdl1, bank.head_rhs2)          # [F1,VI,KOD]
-        y_sel, y_base = self._allk_terms(m1, params.select, state.base_g,
-                                         with_base)
+        if self.mac_strategy == "selected":
+            def head(cols):                          # [F1, 2V, d, 2P1p, OD]
+                return self._per_voice(fdl1, cols.reshape(f1, v * 2, 2, -1,
+                                                          4), w1)
+
+            y_sel = head(state.sel_head)
+            y_base = head(state.base_head) if with_base else None
+        else:
+            m1 = ring_mac(self._w[w1], fdl1, bank.head_rhs2)      # [F1,VI,KOD]
+            y_sel, y_base = self._allk_terms(m1, params.select, state.base_g,
+                                             with_base)
         y = torch.einsum("fviod,vio->fvod", y_sel, c[..., None] * scale)
         if with_base:
             y = y + torch.einsum("fviod,vio->fvod", y_base,
@@ -596,10 +719,16 @@ class CascadeConvolution:
         w2 = (h // m) % self.pp2
         fdl2 = state.fdl2[g]                                      # view
         fdl2[..., w2] = xn2.reshape(vg * 2, f2, 2).permute(1, 0, 2)
-        m2 = ring_mac(self._w[w2], fdl2, bank.tail_rhs2)          # [F2,2Vg,KOD]
-        y_sel, y_base = self._allk_terms(
-            m2, self._group(params.select, g), self._group(state.base_g, g),
-            with_base)
+        if self.mac_strategy == "selected":
+            # the current group's slice of the per-voice columns only
+            y_sel = self._per_voice(fdl2, state.sel_tail[g], w2)
+            y_base = (self._per_voice(fdl2, state.base_tail[g], w2)
+                      if with_base else None)
+        else:
+            m2 = ring_mac(self._w[w2], fdl2, bank.tail_rhs2)      # [F2,2Vg,KOD]
+            y_sel, y_base = self._allk_terms(
+                m2, self._group(params.select, g),
+                self._group(state.base_g, g), with_base)
         ys = torch.stack([y_sel] + ([y_base] if with_base else []))
         ys = ys * self._group(scale, g)[:, :, :, None]          # [S,F2,Vg,I,O,d]
 
@@ -648,7 +777,10 @@ class CascadeConvolution:
 
     def step_coef(self, state, bank, params, x, with_base: bool = True,
                   indexed_base: bool = False):
-        if with_base and not indexed_base:
+        """One block, fade-capable: 'allk' takes the span fade term
+        (indexed_base), 'selected' the materialized snapshot's."""
+        if (with_base and not indexed_base
+                and self.mac_strategy != "selected"):
             raise ValueError(
                 "the 'allk' cascade is span-only (no materialized fade "
                 "snapshot); fades ride step_coef_indexed")
@@ -660,22 +792,97 @@ class CascadeConvolution:
 
     def step_coef_indexed(self, state, bank, params, x):
         """The crossfading step: the span snapshot's term comes from the
-        same all-K MAC outputs of both stages."""
+        same all-K MAC outputs of both stages ('allk' only)."""
+        if self.mac_strategy != "allk":
+            raise ValueError("indexed fade requires the 'allk' MAC strategy "
+                             "('selected' fades read the materialized "
+                             "snapshot through step_coef)")
         return self._step(state, bank, params, x, with_base=True)
 
     def step(self, state, bank, params, x):
         return self._step(state, bank, params, x, with_base=True)
 
-    def collapse(self, state, bank, old_select, changed, new_select=None,
-                 params=None):
-        raise ValueError(_SPAN_ONLY)
+    def collapse(self, state: CascadeState, bank: CascadeBank,
+                 old_select: torch.Tensor, changed: torch.Tensor,
+                 new_select: torch.Tensor | None = None,
+                 params: VoiceParams | None = None) -> CascadeState:
+        """'selected' re-base (fmajor.collapse's semantics): the MAC is
+        linear in its columns, so the affine snapshot materializes directly
+        on them, base := a*base_eff + c*sel for changed voices (the OLD
+        selection's columns are exactly sel_*), base := base_eff for the
+        others, then sel_* re-gathers `new_select` for changed voices.
+        base_eff honours purity (pure: the zero snapshot). The in-flight
+        tail rescale is collapse_pure's and needs `params`, the post-change
+        snapshot. The 'allk' cascade stays span-only: collapse_pure."""
+        if self.mac_strategy != "selected":
+            raise ValueError(_SPAN_ONLY)
+        if new_select is None:
+            raise ValueError("'selected' strategy collapse needs new_select")
+        if params is None:
+            raise ValueError("cascade collapse needs params (the post-"
+                             "change snapshot) for the in-flight tail "
+                             "rescale")
+        a, c = state.coef_a, state.coef_c
 
-    def materialize_base(self, state, bank):
-        raise ValueError("the 'allk' cascade is span-only: snapshots cannot "
-                         "materialize — defer bank swaps until fades decay")
+        def mix(base, sel, brd):
+            base_eff = torch.where(brd(state.base_pure), 0.0, base.float())
+            out = brd(a) * base_eff + brd(c) * sel.float()
+            return torch.where(brd(changed), out, base_eff).to(base.dtype)
 
-    def regather_selection(self, state, bank, select):
-        raise ValueError(_SPAN_ONLY)
+        new_head = self._gather_head(bank, new_select)
+        new_tail = self._gather_tail(bank, new_select)
+        return replace(
+            state,
+            base_head=mix(state.base_head, state.sel_head, self._bh),
+            base_tail=mix(state.base_tail, state.sel_tail, self._bt),
+            sel_head=torch.where(self._bh(changed), new_head, state.sel_head),
+            sel_tail=torch.where(self._bt(changed), new_tail, state.sel_tail),
+            tail_ring=self._rescale_inflight(state, changed, params),
+            base_pure=torch.zeros_like(state.base_pure),
+            coef_a=torch.where(changed, 1.0, state.coef_a),
+            coef_c=torch.where(changed, 0.0, state.coef_c),
+        )
+
+    @staticmethod
+    def _bh(x2: torch.Tensor) -> torch.Tensor:
+        """[V, 2] -> broadcast over a head column leaf [F1,V,I,d,2P1p,OD]."""
+        return x2[None, :, :, None, None, None]
+
+    def _bt(self, x2: torch.Tensor) -> torch.Tensor:
+        """[V, 2] -> broadcast over a tail column leaf [M,F2,2Vg,d,2P2p,OD]
+        (voice j*ratio + g at [g, row 2*j + i])."""
+        m = self.ratio
+        g2 = x2.reshape(-1, m, 2).transpose(0, 1).reshape(m, -1)
+        return g2[:, None, :, None, None, None]
+
+    def materialize_base(self, state: CascadeState, bank: CascadeBank
+                         ) -> CascadeState:
+        """'selected': materialize purity with no re-select, base_* :=
+        base_eff (purity only ever holds the zero snapshot, so no bank
+        read), purity cleared; selection, coefficients and the tail ring
+        untouched."""
+        if self.mac_strategy != "selected":
+            raise ValueError("the 'allk' cascade is span-only: snapshots "
+                             "cannot materialize — defer bank swaps until "
+                             "fades decay")
+
+        def eff(base, brd):
+            return torch.where(brd(state.base_pure), 0.0,
+                               base.float()).to(base.dtype)
+
+        return replace(state,
+                       base_head=eff(state.base_head, self._bh),
+                       base_tail=eff(state.base_tail, self._bt),
+                       base_pure=torch.zeros_like(state.base_pure))
+
+    def regather_selection(self, state: CascadeState, bank: CascadeBank,
+                           select: torch.Tensor) -> CascadeState:
+        """'selected': re-point the per-voice columns at a (new) bank's
+        content for the current selection (StreamSession's bank swap)."""
+        if self.mac_strategy != "selected":
+            raise ValueError(_SPAN_ONLY)
+        return replace(state, sel_head=self._gather_head(bank, select),
+                       sel_tail=self._gather_tail(bank, select))
 
     def collapse_pure(self, state: CascadeState, old_select: torch.Tensor,
                       changed: torch.Tensor, params: VoiceParams
@@ -686,6 +893,10 @@ class CascadeConvolution:
         trajectory (_rescale_inflight). `params` is the post-change
         snapshot (the new fade's vsteps and the predelay that maps ring
         slots to compute blocks)."""
+        if self.mac_strategy != "allk":
+            raise ValueError("span collapse requires the 'allk' MAC "
+                             "strategy ('selected' collapses materialize: "
+                             "collapse)")
         k = state.base_g.shape[-1]
         oh = (old_select.long()[..., None]
               == torch.arange(k, device=old_select.device)).to(torch.float32)

@@ -120,21 +120,23 @@ def _fmajor_bank(engine, td: torch.Tensor) -> FMajorBank:
     spec = pad_parts(
         partition_fd(td, engine.block, engine.partitions, 0, engine.xf),
         engine.pp)                                         # [K, O, Pp, F]
+    dt = engine.mac_dtype
 
-    def placeholder(ndim):
-        return torch.zeros((1,) * ndim, dtype=torch.float32,
-                           device=engine.device)
+    def placeholder(ndim, dtype=dt):
+        return torch.zeros((1,) * ndim, dtype=dtype, device=engine.device)
 
+    # the MAC packs in the MAC dtype (tpu_audio/engine/device_prep.py:
+    # 197-221); roll mode's planar spectra stay f32
     allk = engine.mac_strategy == "allk"
     if engine.ring_mode:
         dbl = double_reversed_j(spec, axis=2)              # [K, O, 2Pp, F]
         return FMajorBank(
             mac_rhs=placeholder(4),
-            rhs2=pack_mac_rhs_j(dbl) if allk else placeholder(4),
-            spectra=placeholder(5),
-            spectra_rev2=pack_rev2_j(dbl))
+            rhs2=pack_mac_rhs_j(dbl).to(dt) if allk else placeholder(4),
+            spectra=placeholder(5, torch.float32),
+            spectra_rev2=pack_rev2_j(dbl).to(dt))
     return FMajorBank(
-        mac_rhs=pack_mac_rhs_j(spec) if allk else placeholder(4),
+        mac_rhs=pack_mac_rhs_j(spec).to(dt) if allk else placeholder(4),
         rhs2=placeholder(4),
         spectra=pack_planar_j(spec),
         spectra_rev2=placeholder(5))
@@ -185,4 +187,5 @@ def prepare_cascade_bank_device(engine, td) -> CascadeBank:
     from tpu_audio_torch.engine.cascade import CascadeBank
 
     head, tail = cascade_columns(engine, _upload(engine, td))
-    return CascadeBank(head_rhs2=head, tail_rhs2=tail)
+    return CascadeBank(head_rhs2=head.to(engine.mac_dtype),
+                       tail_rhs2=tail.to(engine.mac_dtype))

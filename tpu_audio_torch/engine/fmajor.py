@@ -1,5 +1,5 @@
 """Production engine: f-major planar partitioned overlap-save (port of
-tpu_audio/engine/fmajor.py, f32, the 'dot' per-voice MAC).
+tpu_audio/engine/fmajor.py, in f32 or bf16, either per-voice MAC form).
 
 Layouts are the JAX engine's, so the two compare like with like:
 
@@ -46,8 +46,20 @@ and fades run the general step, which contracts the delay line against
 ``base`` per voice. ``swap_snapshot=False`` ('allk' only) drops ``base``
 altogether and keeps every fade in the span.
 
+``mac_dtype='bf16'`` stores the delay line and the MAC tensors (``rhs2``,
+``mac_rhs``, ``spectra_rev2``, ``sel_spectra``) in bfloat16: half the bytes
+the MAC reads. The new block spectrum is rounded to bf16 as it enters the
+line, as JAX casts it; the MAC kernels take bf16 operands and write f32
+sums of exact products; the transforms, the mixing, the crossfade
+coefficients and the roll mode's planar spectra and snapshot stay f32.
+
 The per-voice contractions and span expansions are plain f32 PyTorch
-(TF32 off), as they are XLA einsums in the JAX package.
+(TF32 off), as they are XLA einsums in the JAX package; a bf16 operand is
+upcast first (its products are exact in f32, as the JAX einsum's
+preferred_element_type=float32 takes them). ``pv_mac`` picks the per-voice
+MAC's form: "dot", a [2, Pp] x [Pp, 4] product per (f, v, i), or
+"merged", a [4, Pp] x [Pp, 8] product per (f, v) whose i == i' diagonal is
+kept (the JAX ``per_voice_mac_merged``).
 
 Unlike the JAX engine, whose state buffers are donated to each jitted
 step, the steps here update ``state.fdl`` (ring slot write or roll shift)
@@ -71,8 +83,7 @@ from tpu_audio_torch.ops.mix import add_dry, wet_scale
 from tpu_audio_torch.ops.ring_mac import ring_mac
 from tpu_audio_torch.utils.device import resolve_device
 
-_LATER = ("is not ported yet (ROADMAP.md, Queue 1 item 9: the rest of "
-          "the fmajor engine)")
+MAC_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
 
 
 @dataclass
@@ -81,12 +92,14 @@ class FMajorBank:
     reads some of the leaves; the others are size-1 placeholders, as in the
     JAX engine."""
 
-    mac_rhs: torch.Tensor       # f32 [F, 2, Pp, KOD] plane-major (roll, allk)
-    rhs2: torch.Tensor          # f32 [F, 2, 2*Pp, KOD] doubled+reversed
+    mac_rhs: torch.Tensor       # mac [F, 2, Pp, KOD] plane-major (roll,
+                                # allk)
+    rhs2: torch.Tensor          # mac [F, 2, 2*Pp, KOD] doubled+reversed
                                 # (ring, allk)
     spectra: torch.Tensor       # f32 [K, O, Pp, F, 2] planar (roll)
-    spectra_rev2: torch.Tensor  # f32 [K, F, O, 2, 2*Pp] doubled+reversed
+    spectra_rev2: torch.Tensor  # mac [K, F, O, 2, 2*Pp] doubled+reversed
                                 # planar (ring)
+                                # (mac: the engine's mac_dtype)
 
     @property
     def num_irs(self) -> int:
@@ -97,7 +110,7 @@ class FMajorBank:
 
 @dataclass
 class FMajorState:
-    fdl: torch.Tensor       # f32 [F, VI, 2, Pp] planar freq delay line
+    fdl: torch.Tensor       # mac [F, VI, 2, Pp] planar freq delay line
     prev_in: torch.Tensor   # f32 [V, 2, B]
     wet_ring: torch.Tensor  # f32 [V, 2, NB, B] MODULAR block-slot output
                             # accumulator: slot (t + d) mod NB holds wet due
@@ -109,7 +122,7 @@ class FMajorState:
     coef_c: torch.Tensor    # f32 [V, 2]
     wptr: torch.Tensor      # i32 [] block counter (mod t_modulus): drives the
                             # ring slot (t mod Pp) and wet-ring slots
-    sel_spectra: torch.Tensor  # 'selected' only: f32, base's layout — each
+    sel_spectra: torch.Tensor  # 'selected' only: mac, base's layout — each
                                # voice's selected spectra; [.,.,.,.,.,1]
                                # placeholder for 'allk'
     base_g: torch.Tensor    # f32 [V, 2, K] span coefficients of the snapshot
@@ -126,8 +139,8 @@ class BankSlot:
     (CUDA only) marks the end of that work; `host` is the pinned staging
     buffer of the upload, kept alive with the slot until it is written."""
 
-    columns: torch.Tensor   # f32 [F, 2, 2Pp, 4] (ring) or [F, 2, Pp, 4]
-    row: torch.Tensor       # f32 [F, O, 2, 2Pp] (ring) or [O, Pp, F, 2]
+    columns: torch.Tensor   # mac [F, 2, 2Pp, 4] (ring) or [F, 2, Pp, 4]
+    row: torch.Tensor       # mac [F, O, 2, 2Pp] (ring) or f32 [O, Pp, F, 2]
     host: torch.Tensor      # f32 [O, partitions * block]
     done: torch.cuda.Event | None = None
 
@@ -199,33 +212,30 @@ def _tensor(arr, device, dtype=None) -> torch.Tensor:
 def bank_from_numpy(*, device, mac_rhs, rhs2, spectra, spectra_rev2
                     ) -> FMajorBank:
     """The port's bank from every field of a JAX FMajorBank as numpy arrays
-    (``np.asarray(leaf)`` per field), placeholders included, in either mode
-    and strategy."""
-    leaves = {"mac_rhs": mac_rhs, "rhs2": rhs2, "spectra": spectra,
-              "spectra_rev2": spectra_rev2}
-    for name, arr in leaves.items():
-        if np.asarray(arr).dtype.name == "bfloat16":
-            raise NotImplementedError(
-                f"a bfloat16 bank leaf ({name}, mac_dtype='bf16') " + _LATER)
-    return FMajorBank(**{name: _tensor(arr, device, torch.float32)
-                         for name, arr in leaves.items()})
+    (``np.asarray(leaf)`` per field), placeholders included, in either mode,
+    strategy and MAC dtype (bf16 leaves bit for bit)."""
+    return FMajorBank(mac_rhs=_tensor(mac_rhs, device),
+                      rhs2=_tensor(rhs2, device),
+                      spectra=_tensor(spectra, device),
+                      spectra_rev2=_tensor(spectra_rev2, device))
 
 
 def state_from_numpy(*, device, fdl, prev_in, wet_ring, base, coef_a, coef_c,
                      wptr, sel_spectra, base_g, base_pure) -> FMajorState:
     """The port's state from every field of a JAX FMajorState as numpy
-    arrays (``np.asarray(leaf)`` per field), in either mode and strategy,
-    mid-fade states with a materialized snapshot included. The ring mode's
-    bfloat16 ``base`` is carried bit for bit."""
+    arrays (``np.asarray(leaf)`` per field), in either mode, strategy and
+    MAC dtype, mid-fade states with a materialized snapshot included. The
+    bfloat16 leaves (the ring mode's ``base``; ``fdl`` and ``sel_spectra``
+    under bf16) are carried bit for bit."""
     return FMajorState(
-        fdl=_tensor(fdl, device, torch.float32),
+        fdl=_tensor(fdl, device),
         prev_in=_tensor(prev_in, device, torch.float32),
         wet_ring=_tensor(wet_ring, device, torch.float32),
         base=_tensor(base, device),
         coef_a=_tensor(coef_a, device, torch.float32),
         coef_c=_tensor(coef_c, device, torch.float32),
         wptr=_tensor(wptr, device, torch.int32).reshape(()),
-        sel_spectra=_tensor(sel_spectra, device, torch.float32),
+        sel_spectra=_tensor(sel_spectra, device),
         base_g=_tensor(base_g, device, torch.float32),
         base_pure=_tensor(base_pure, device, torch.bool),
     )
@@ -243,7 +253,8 @@ class FMajorPartitionedConvolution:
     which raises without CUDA); "cpu" runs the plain PyTorch path."""
 
     ALLK_MAX_COLUMNS = 64  # K <= 16 stereo IRs ride the all-K MAC
-    collapse_pure_takes_params = False  # (the cascade's collapse_pure does)
+    # (the cascade's collapses take the post-change parameters)
+    collapse_pure_takes_params = collapse_takes_params = False
 
     def __init__(self, num_voices: int, block: int, partitions: int,
                  max_predelay: int = 8192, ring: bool = True,
@@ -266,10 +277,10 @@ class FMajorPartitionedConvolution:
         if mac_strategy not in ("allk", "selected"):
             raise ValueError(f"unknown mac_strategy {mac_strategy!r}")
         self.mac_strategy = mac_strategy
-        if mac_dtype not in ("f32", "bf16"):
+        if mac_dtype not in MAC_DTYPES:
             raise ValueError(f"unknown mac_dtype {mac_dtype!r}")
-        if mac_dtype != "f32":
-            raise NotImplementedError(f"mac_dtype={mac_dtype!r} " + _LATER)
+        self.mac_dtype_name = mac_dtype
+        self.mac_dtype = MAC_DTYPES[mac_dtype]
         # swap_snapshot=False ('allk' only) drops the materialized fade
         # snapshot `base`, the largest state tensor; swap_bank mid-fade then
         # waits for in-flight fades to decay (StreamSession)
@@ -283,8 +294,7 @@ class FMajorPartitionedConvolution:
         self.fade_protocol = "spans" if mac_strategy == "allk" else "selected"
         if pv_mac not in ("dot", "merged"):
             raise ValueError(f"unknown pv_mac {pv_mac!r}")
-        if pv_mac != "dot":
-            raise NotImplementedError(f"pv_mac={pv_mac!r} " + _LATER)
+        self.pv_mac = pv_mac
         self.num_irs = num_irs
         self.device = resolve_device(device)
         self.xf = SpectralTransform(2 * block)
@@ -313,9 +323,10 @@ class FMajorPartitionedConvolution:
             num_voices, self.block, self.partitions,
             max_predelay=self.max_predelay, ring=self.ring_mode,
             mac_strategy=self.mac_strategy, num_irs=self.num_irs,
+            mac_dtype=self.mac_dtype_name,
             swap_snapshot=(swap_snapshot if self.mac_strategy == "allk"
                            else True),
-            device=self.device)
+            pv_mac=self.pv_mac, device=self.device)
 
     @property
     def history_blocks(self) -> int:
@@ -385,8 +396,9 @@ class FMajorPartitionedConvolution:
 
     def prepare_bank(self, spectra: np.ndarray) -> FMajorBank:
         """Host [K, 2, P, F] complex spectra -> device FMajorBank, packing
-        what this mode and strategy read. Doubling and reversal happen on
-        the complex spectra BEFORE packing (see double_reversed)."""
+        what this mode and strategy read, in the MAC dtype (roll mode's
+        planar spectra stay f32). Doubling and reversal happen on the
+        complex spectra BEFORE packing (see double_reversed)."""
         spectra = np.asarray(spectra)
         if spectra.shape[2] != self.partitions or spectra.shape[3] != self.num_bins:
             raise ValueError(f"bank geometry {spectra.shape} != engine "
@@ -396,21 +408,24 @@ class FMajorPartitionedConvolution:
                              f"built for num_irs={self.num_irs} (base_g "
                              f"state is K-shaped)")
         self.num_irs = spectra.shape[0]
-        pp, dev = self.pp, self.device
+        pp, dev, dt = self.pp, self.device, self.mac_dtype
 
-        def placeholder(ndim):
-            return torch.zeros((1,) * ndim, dtype=torch.float32, device=dev)
+        def placeholder(ndim, dtype=dt):
+            return torch.zeros((1,) * ndim, dtype=dtype, device=dev)
+
+        def mac(arr):
+            return _tensor(arr, dev).to(dt)
 
         mac_rhs = rhs2 = placeholder(4)
         if self.mac_strategy == "allk":
             if self.ring_mode:
                 dbl = double_reversed(_pad_p(spectra, 2, pp), 2)
-                rhs2 = _tensor(pack_mac_rhs(dbl, 2 * pp), dev)
+                rhs2 = mac(pack_mac_rhs(dbl, 2 * pp))
             else:
-                mac_rhs = _tensor(pack_mac_rhs(spectra, pp), dev)
+                mac_rhs = mac(pack_mac_rhs(spectra, pp))
         if self.ring_mode:
-            planar = placeholder(5)
-            rev2 = _tensor(pack_spectra_rev2(spectra, pp), dev)
+            planar = placeholder(5, torch.float32)
+            rev2 = mac(pack_spectra_rev2(spectra, pp))
         else:
             planar = _tensor(pack_planar_spectra(spectra, pp), dev)
             rev2 = placeholder(5)
@@ -450,12 +465,13 @@ class FMajorPartitionedConvolution:
         spec = device_prep.pad_parts(
             device_prep.partition_fd(td[None], self.block, self.partitions,
                                      0, self.xf), self.pp)   # [1, O, Pp, F]
+        dt = self.mac_dtype
         if self.ring_mode:
             dbl = device_prep.double_reversed_j(spec, axis=2)
-            columns = device_prep.pack_mac_rhs_j(dbl)
-            row = device_prep.pack_rev2_j(dbl)[0]
+            columns = device_prep.pack_mac_rhs_j(dbl).to(dt)
+            row = device_prep.pack_rev2_j(dbl)[0].to(dt)
         else:
-            columns = device_prep.pack_mac_rhs_j(spec)
+            columns = device_prep.pack_mac_rhs_j(spec).to(dt)
             row = device_prep.pack_planar_j(spec)[0]
         done = None
         if self.device.type == "cuda":
@@ -526,14 +542,14 @@ class FMajorPartitionedConvolution:
             return torch.zeros(shape, dtype=dtype, device=self.device)
 
         return FMajorState(
-            fdl=zeros(f, v * 2, 2, pp),
+            fdl=zeros(f, v * 2, 2, pp, dtype=self.mac_dtype),
             prev_in=zeros(v, 2, b),
             wet_ring=zeros(v, 2, self.ring_slots, b),
             base=zeros(*base_shape, dtype=base_dtype),
             coef_a=zeros(v, 2),
             coef_c=zeros(v, 2),
             wptr=zeros(dtype=torch.int32),
-            sel_spectra=zeros(*self._sel_shape()),
+            sel_spectra=zeros(*self._sel_shape(), dtype=self.mac_dtype),
             base_g=zeros(v, 2, self._base_g_width()),  # the zero snapshot
             base_pure=torch.ones((v, 2), dtype=torch.bool, device=self.device),
         )
@@ -550,7 +566,7 @@ class FMajorPartitionedConvolution:
     def _gather_selection(self, bank: FMajorBank, select: torch.Tensor
                           ) -> torch.Tensor:
         """Per-voice selected spectra in the snapshot layout
-        [F, V, I, O, 2, (2)Pp], f32."""
+        [F, V, I, O, 2, (2)Pp], in the MAC dtype (sel_spectra's)."""
         v = self.num_voices
         idx = select.reshape(-1).long()
         if self.ring_mode:
@@ -559,7 +575,7 @@ class FMajorPartitionedConvolution:
         else:
             g = bank.spectra.index_select(0, idx)          # [VI, O, Pp, F, d]
             g = g.reshape(v, 2, *g.shape[1:]).permute(4, 0, 1, 2, 5, 3)
-        return g.contiguous()
+        return g.to(self.mac_dtype).contiguous()
 
     def regather_selection(self, state: FMajorState, bank: FMajorBank,
                            select: torch.Tensor) -> FMajorState:
@@ -574,7 +590,7 @@ class FMajorPartitionedConvolution:
         collapse and bank swaps only)."""
         v, k = self.num_voices, g.shape[-1]
         leaf = bank.spectra_rev2 if self.ring_mode else bank.spectra
-        out = torch.matmul(g.reshape(v * 2, k), leaf.reshape(k, -1))
+        out = torch.matmul(g.reshape(v * 2, k), leaf.reshape(k, -1).float())
         out = out.reshape(v, 2, *leaf.shape[1:])
         if self.ring_mode:
             return out.permute(2, 0, 1, 3, 4, 5)           # from [V,I,F,O,e,2Pp]
@@ -584,33 +600,49 @@ class FMajorPartitionedConvolution:
 
     def _input_spectrum(self, state: FMajorState, x: torch.Tensor
                         ) -> torch.Tensor:
-        """OLS segment rfft -> planar [F, VI, 2, 1] f32 (contiguous)."""
+        """OLS segment rfft -> planar [F, VI, 2, 1] in the MAC dtype
+        (contiguous)."""
         seg = torch.cat([state.prev_in, x], dim=-1)               # [V, 2, 2B]
         spec = self.xf.rfft(seg)                                  # [V, 2, F]
         xn = torch.stack([spec.real, spec.imag], dim=-1)          # [V, 2, F, 2]
         return xn.reshape(self.num_voices * 2, self.num_bins, 2
-                          ).permute(1, 0, 2)[..., None].contiguous()
+                          ).permute(1, 0, 2)[..., None].to(
+                              self.mac_dtype).contiguous()
 
     def _window(self, arr: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
-        """The last axis' MAC window of a snapshot-layout tensor, in f32.
-        Ring: rows [Pp - w, 2Pp - w) of the doubled, reversed tensor, w = t
-        mod Pp taken on the device (index_select: no host read of the block
-        counter, no sync); roll: the tensor itself (natural order)."""
+        """The last axis' MAC window of a snapshot-layout tensor, rounded to
+        the MAC dtype (as JAX casts it: roll mode's f32 snapshot under bf16)
+        and then in f32. Ring: rows [Pp - w, 2Pp - w) of the doubled,
+        reversed tensor, w = t mod Pp taken on the device (index_select: no
+        host read of the block counter, no sync); roll: the tensor itself
+        (natural order)."""
         if self.ring_mode:
             pp = self.pp
             idx = (pp - t.long() % pp) + torch.arange(pp, device=arr.device)
             arr = arr.index_select(5, idx.reshape(-1))
-        return arr.float()
+        return arr.to(self.mac_dtype).float()
 
     def _per_voice_mac(self, fdl: torch.Tensor, spectra: torch.Tensor
                        ) -> torch.Tensor:
-        """fdl against one per-voice spectra tensor [F, V, I, O, 2, Pp] ->
-        complex products [F, V, I, O, 2]: a batched [2, Pp] x [Pp, 4] matvec
-        per (f, v, i) — the JAX engine's 'dot' form (one voice, one rhs)."""
+        """fdl (upcast to f32) against one per-voice f32 spectra tensor
+        [F, V, I, O, 2, Pp] -> complex products [F, V, I, O, 2]. 'dot': a
+        batched [2, Pp] x [Pp, 4] matvec per (f, v, i) (one voice, one
+        rhs); 'merged': a [4, Pp] x [Pp, 8] product per (f, v), (i, c) on
+        its rows and (i', o, e) on its columns, of which the i == i'
+        diagonal is kept (twice the FLOPs, half the products)."""
         f, v, pp = self.num_bins, self.num_voices, self.pp
-        lhs = fdl.reshape(f * v * 2, 2, pp)                       # [B, c, p]
-        rhs = spectra.reshape(f * v * 2, 4, pp)                   # [B, oe, p]
-        mb = torch.bmm(lhs, rhs.transpose(1, 2)).reshape(f, v, 2, 2, 2, 2)
+        fdl = fdl.float()
+        if self.pv_mac == "merged":
+            lhs = fdl.reshape(f * v, 4, pp)                       # [B, ic, p]
+            rhs = spectra.reshape(f * v, 8, pp)                   # [B, i'oe, p]
+            prod = torch.bmm(lhs, rhs.transpose(1, 2)).reshape(
+                f, v, 2, 2, 2, 2, 2)                              # [F,V,i,c,i',o,e]
+            mb = torch.diagonal(prod, dim1=2, dim2=4).permute(
+                0, 1, 5, 2, 3, 4)                                 # [F,V,i,c,o,e]
+        else:
+            lhs = fdl.reshape(f * v * 2, 2, pp)                   # [B, c, p]
+            rhs = spectra.reshape(f * v * 2, 4, pp)               # [B, oe, p]
+            mb = torch.bmm(lhs, rhs.transpose(1, 2)).reshape(f, v, 2, 2, 2, 2)
         yre = mb[..., 0, :, 0] - mb[..., 1, :, 1]                 # [F,V,I,O]
         yim = mb[..., 0, :, 1] + mb[..., 1, :, 0]
         return torch.stack([yre, yim], dim=-1)
@@ -767,9 +799,9 @@ class FMajorPartitionedConvolution:
         if self.mac_strategy == "selected":
             if new_select is None:
                 raise ValueError("'selected' strategy collapse needs new_select")
-            gathered = state.sel_spectra
+            gathered = state.sel_spectra.float()
         else:
-            gathered = self._gather_selection(bank, old_select)
+            gathered = self._gather_selection(bank, old_select).float()
         base_eff = self._effective_base(state, bank)
         collapsed = (_bcast(state.coef_a) * base_eff
                      + _bcast(state.coef_c) * gathered)

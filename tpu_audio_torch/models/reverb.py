@@ -225,9 +225,8 @@ class ConvolutionReverb:
     def _cascade(self, num_voices, block, partitions, requested, max_predelay,
                  num_irs, mac_dtype, predelay_side, tail_mac, mac_strategy):
         """The cascade engine at the largest stagger ratio <= `requested`
-        that fits (a warning says when it shrank). A bank that
-        mac_strategy='auto' sends to 'selected' raises NotImplementedError
-        (the engine's)."""
+        that fits (a warning says when it shrank); mac_strategy='auto'
+        sends a bank of more than 16 IRs to 'selected'."""
         ratio = _fit_cascade_ratio(requested, num_voices, partitions)
         if ratio != requested:
             Log.warn("reverb", "cascade ratio %d adjusted to %d (voices=%d "

@@ -2,7 +2,9 @@
 
 Each kernel lives in ``tpu_audio_torch/csrc/<name>.cu`` behind a plain C
 interface: ``int <name>_launch(...)`` returns a cudaError_t and
-``const char* <name>_error_string(int)`` names it. The source is compiled
+``const char* <name>_error_string(int)`` names it; a kernel with another
+instantiation exports it beside, as ``int <name>_<entry>(...)`` with the
+same parameters (``ring_mac_bf16_launch``). The source is compiled
 with ``nvcc`` for ``sm_90a`` into a shared library under
 ``tpu_audio_torch/_build/``, keyed by a hash of the source, the shared
 headers ``csrc/*.cuh`` and the flags (a stale build is never loaded), and
@@ -52,6 +54,7 @@ class CudaLibrary:
         self.argtypes = list(argtypes)
         self._lock = threading.Lock()
         self._lib = None
+        self._entries = {}
 
     def digest(self) -> str:
         """Hash of the source, every shared header and the flags: what a
@@ -87,21 +90,28 @@ class CudaLibrary:
             if self._lib is None:
                 path, _, _ = self.build()
                 lib = ctypes.CDLL(str(path))
-                fn = getattr(lib, f"{self.name}_launch")
-                fn.argtypes = self.argtypes
-                fn.restype = ctypes.c_int
                 err = getattr(lib, f"{self.name}_error_string")
                 err.argtypes = [ctypes.c_int]
                 err.restype = ctypes.c_char_p
                 self._lib = lib
         return self._lib
 
-    def launch(self, *args, context: str = "") -> None:
-        """Call ``<name>_launch(*args)``; raise RuntimeError on a nonzero
-        cudaError_t (a refused launch never runs, and a later synchronize
-        would not report it)."""
-        lib = self._load()
-        err = getattr(lib, f"{self.name}_launch")(*args)
+    def _entry(self, entry: str):
+        """The bound ``<name>_<entry>`` function of the loaded library."""
+        fn = self._entries.get(entry)
+        if fn is None:
+            fn = getattr(self._load(), f"{self.name}_{entry}")
+            fn.argtypes = self.argtypes
+            fn.restype = ctypes.c_int
+            self._entries[entry] = fn
+        return fn
+
+    def launch(self, *args, context: str = "", entry: str = "launch") -> None:
+        """Call ``<name>_<entry>(*args)`` (``<name>_launch`` by default);
+        raise RuntimeError on a nonzero cudaError_t (a refused launch never
+        runs, and a later synchronize would not report it)."""
+        err = self._entry(entry)(*args)
+        lib = self._lib
         if err != 0:
             what = getattr(lib, f"{self.name}_error_string")(err).decode()
             raise RuntimeError(f"{self.name} kernel launch failed: CUDA "

@@ -11,11 +11,19 @@ with ``w = wptr mod Pp`` the newest ring slot. ``fdl`` keeps the engine's
 layout ``[F, VI, 2, Pp]`` (the Pallas kernel took ``[F, 2, VI, Pp]``);
 ``rhs2`` is the doubled, time-reversed bank ``[F, 2, 2*Pp, KOD]``.
 
-``ring_mac`` launches the CUDA kernel (``csrc/ring_mac.cu``: one pass over
-the delay line at every KOD <= 64, whatever the line's length) for a CUDA
-tensor and takes the plain version only for a CPU tensor. The kernel is
-compiled at first use and bound with ``ctypes`` (ops/cuda_build.py);
-nothing CUDA-specific happens at import time.
+``fdl`` and ``rhs2`` are both float32 or both bfloat16 (the engines'
+``mac_dtype='bf16'``); m is float32 either way. The JAX engine runs the
+bf16 MAC as an einsum on bf16 operands with ``preferred_element_type=
+float32`` (``tpu_audio/engine/fmajor.py:908-923``): the products of two
+bf16 values are exact in f32, so the bf16 form is the f32 MAC of the
+operands upcast, which is what the plain version computes.
+
+``ring_mac`` launches the CUDA kernel (``csrc/ring_mac.cu``, instantiated
+for the operands' dtype: one pass over the delay line at every KOD <= 64,
+whatever the line's length) for a CUDA tensor and takes the plain version
+only for a CPU tensor. The kernel is compiled at first use and bound with
+``ctypes`` (ops/cuda_build.py); nothing CUDA-specific happens at import
+time.
 """
 
 from __future__ import annotations
@@ -28,6 +36,8 @@ from tpu_audio_torch.ops.cuda_build import CudaLibrary
 
 LIBRARY = CudaLibrary(
     "ring_mac", [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+# the kernel's instantiation per operand dtype, and the Pp it must divide
+ENTRIES = {torch.float32: ("launch", 2), torch.bfloat16: ("bf16_launch", 4)}
 
 
 def _check(w, fdl: torch.Tensor, rhs2: torch.Tensor) -> None:
@@ -35,9 +45,9 @@ def _check(w, fdl: torch.Tensor, rhs2: torch.Tensor) -> None:
     if not isinstance(w, torch.Tensor) or w.dtype != torch.int32 \
             or w.numel() != 1:
         raise TypeError("w must be a one-element int32 tensor")
-    if fdl.dtype != torch.float32 or rhs2.dtype != torch.float32:
-        raise TypeError(f"fdl and rhs2 must be float32, got {fdl.dtype} "
-                        f"and {rhs2.dtype}")
+    if fdl.dtype not in ENTRIES or rhs2.dtype != fdl.dtype:
+        raise TypeError(f"fdl and rhs2 must be both float32 or both "
+                        f"bfloat16, got {fdl.dtype} and {rhs2.dtype}")
     if not (fdl.device == rhs2.device == w.device):
         raise ValueError(f"w, fdl and rhs2 must share a device, got "
                          f"{w.device}, {fdl.device}, {rhs2.device}")
@@ -60,11 +70,16 @@ def _check(w, fdl: torch.Tensor, rhs2: torch.Tensor) -> None:
 def ring_mac_reference(w, fdl: torch.Tensor, rhs2: torch.Tensor
                        ) -> torch.Tensor:
     """Plain PyTorch version: gather the window rows [Pp - w, 2Pp - w) of
-    both planes, then one batched-per-bin contraction over q = c*Pp + s in
-    the inputs' dtype. `w` is an int or a one-element integer tensor."""
+    both planes, then one batched-per-bin contraction over q = c*Pp + s,
+    in float64 for float64 inputs and in float32 otherwise: bf16 operands
+    are upcast first (their products are exact in f32, as the JAX
+    engine's preferred_element_type=float32 einsum takes them). `w` is an
+    int or a one-element integer tensor."""
     f, vi, _, pp = fdl.shape
     idx = (pp - w % pp) + torch.arange(pp, device=fdl.device)
     rhs = rhs2.index_select(2, idx.reshape(-1))            # [F, 2, Pp, KOD]
+    if fdl.dtype == torch.bfloat16:
+        fdl, rhs = fdl.float(), rhs.float()
     return torch.einsum("fvq,fqk->fvk", fdl.reshape(f, vi, 2 * pp),
                         rhs.reshape(f, 2 * pp, rhs2.shape[3]))
 
@@ -74,8 +89,9 @@ def ring_mac(w: torch.Tensor, fdl: torch.Tensor, rhs2: torch.Tensor
     """m [F, VI, KOD] f32. `w` is a one-element int32 tensor holding the
     ring slot (any integer; reduced mod Pp) on the tensors' device.
 
-    A CUDA tensor launches the kernel on the current stream (no sync) or
-    raises (the kernel also needs an even Pp); a CPU tensor takes
+    A CUDA tensor launches the kernel's instantiation for its dtype on the
+    current stream (no sync) or raises (the kernel also needs an even Pp
+    in f32, a Pp divisible by 4 in bf16); a CPU tensor takes
     ring_mac_reference, at any Pp."""
     _check(w, fdl, rhs2)
     if fdl.device.type == "cpu":
@@ -86,16 +102,24 @@ def ring_mac(w: torch.Tensor, fdl: torch.Tensor, rhs2: torch.Tensor
     kod = rhs2.shape[3]
     # the kernel copies 16-byte vectors of each fdl row: rows must start on
     # 16 bytes (the engine pads Pp to a multiple of 8)
-    if pp % 2:
-        raise ValueError(f"the ring_mac kernel needs an even Pp, got Pp={pp}")
+    entry, multiple = ENTRIES[fdl.dtype]
+    if pp % multiple:
+        raise ValueError(f"the ring_mac kernel needs an even Pp (a "
+                         f"multiple of 4 in bf16), got Pp={pp} in "
+                         f"{fdl.dtype}")
     m = torch.empty((f, vi, kod), dtype=torch.float32, device=fdl.device)
     with torch.cuda.device(fdl.device):
         stream = torch.cuda.current_stream().cuda_stream
         LIBRARY.launch(w.data_ptr(), fdl.data_ptr(), rhs2.data_ptr(),
-                       m.data_ptr(), f, vi, pp, kod, stream,
-                       context=f"F={f} VI={vi} Pp={pp} KOD={kod}")
+                       m.data_ptr(), f, vi, pp, kod, stream, entry=entry,
+                       context=f"{fdl.dtype} F={f} VI={vi} Pp={pp} "
+                               f"KOD={kod}")
     ring_mac.launches += 1
+    if fdl.dtype == torch.bfloat16:
+        ring_mac.launches_bf16 += 1
     return m
 
 
+# launches of the kernel, and of its bf16 instantiation among them
 ring_mac.launches = 0
+ring_mac.launches_bf16 = 0

@@ -16,9 +16,10 @@ fmajor engines prime their delay line directly (``prime_fdl``: one batched
 rfft of the whole input and one gather), so only the wet ring is streamed
 during warm-up (``prime_blocks``). The cascade, the partitioned and the
 monolithic engines have no ``prime_fdl`` and stream ``history_blocks`` of
-warm-up; the last two bounce static parameters only, as in the JAX package
-(the automated bounce replays fades through collapse_pure or the 'selected'
-expansion, which they lack).
+warm-up; the last two and the cascade's 'selected' strategy bounce static
+parameters only, as in the JAX package (the automated bounce replays fades
+through collapse_pure or fmajor's 'selected' expansion, which they lack).
+Every engine bounces in its MAC dtype (``with_voices`` carries it).
 
 Automation (``schedule=``): the host replays the MIDI schedule against a
 replica of the control plane in float32, op for op as the engine's fade

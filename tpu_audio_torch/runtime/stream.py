@@ -217,6 +217,9 @@ class StreamSession:
         # needs the post-change parameters (the new fade's vsteps, predelay)
         self._collapse_pure_params = (spans
                                       and engine.collapse_pure_takes_params)
+        # and so does the 'selected' cascade's materializing collapse
+        self._collapse_params = getattr(engine, "collapse_takes_params",
+                                        False)
         # span-only engines (swap_snapshot=False) have no materialized
         # snapshot: a bank swap waits for the fades to decay
         self._span_only = spans and not engine.swap_snapshot
@@ -283,11 +286,12 @@ class StreamSession:
         # (virtual snapshots are materialized too), so the general fade
         # step may read state.base for anyone afterwards
         self._pure_host[:] = False
+        args = (state, self.bank, old_t, changed_t)
         if self._selected:
-            return self.engine.collapse(
-                state, self.bank, old_t, changed_t,
-                torch.tensor(new_sel, device=self.device))
-        return self.engine.collapse(state, self.bank, old_t, changed_t)
+            args += (torch.tensor(new_sel, device=self.device),)
+        if self._collapse_params:
+            args += (self.control.snapshot_device(),)
+        return self.engine.collapse(*args)
 
     def _pick_coef_step(self):
         """The coefficient engine's step for this block (steady once every
