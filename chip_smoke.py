@@ -44,8 +44,8 @@ Phases, in order; any failure raises and the script exits non-zero:
      interrupt (the materializing collapse, the general step), against
      the same golden;
   9. roll and 'selected' timing: per-step steady, indexed and general
-     (CUDA events), mac_shift alone against its plain version at KOD 16, 36
-     and 64, interleaved;
+     (CUDA events), mac_shift alone against its plain version and one
+     torch.einsum of the unshifted line at KOD 16, 36 and 64, interleaved;
  10. roll mode at the all-K ceiling: 64 voices, 16 synthetic 4 s IRs,
      mac_strategy='auto' (which must resolve to 'allk': KOD=64), through
      StreamSession for 400 blocks with a re-select and an interrupting
@@ -178,7 +178,8 @@ Phases, in order; any failure raises and the script exits non-zero:
      1e-5 of scale at the 64-voice shapes of KOD 16, 36 and 64 (the
      shifted line bit-identical), and ring_mac at the 2048-voice cascade's
      head and tail shapes; each timed against its plain version, one
-     torch.einsum on the bf16 operands (it rounds m to bf16) and its bound;
+     torch.einsum on the bf16 operands (it rounds m to bf16) and its bound
+     (bf16 operations over the card's bf16 tensor-core peak);
  27. fmajor in bf16 at 64 voices over phase 4's IRs: the model's session
      on phase 4's timeline (every block on the bf16 ring_mac) above 40 dB
      SNR against phase 4's f32 session; a roll-mode session in bf16 and in
@@ -186,7 +187,9 @@ Phases, in order; any failure raises and the script exits non-zero:
      mac_shift), above 40 dB SNR; a static bounce of 10 s by the bf16
      model against the f32 model's, above 40 dB SNR; ms per block p50 /
      p99, RTF, missed deadlines, the steady step's time and device busy,
-     peak memory;
+     peak memory; then the 'selected' steps (per-voice products on bf16
+     operands, no f32 copy of them), fmajor ring and the cascade, steady
+     and general, in f32 and in bf16;
  28. the JAX bench's cascade_2048: 2048 voices, bf16, ratio 16,
      read-side predelay, 4 s IRs, 300 blocks with a re-select at 100; two
      bf16 ring_mac launches per block, voices 0 and 2047's wet path above
@@ -323,9 +326,11 @@ CASCADE_2048_SHAPES = {
 # 450 (mid-fade), the golden against the new bank from 540
 SEL152_IRS, SEL152_BLOCKS, SEL152_SELECT_AT, SEL152_VALUE = 152, 600, 300, 64
 SEL152_SPEED, SEL152_SWAP_AT, SEL152_AFTER = 150, 450, 540
-# published peaks of one H100 SXM (NVIDIA's data sheet): HBM bytes/s and
-# f32 FLOP/s outside the tensor cores, at the full 700 W power limit
-HBM_BYTES_PER_S, F32_FLOPS = 3.35e12, 67e12
+# published peaks of one H100 SXM (NVIDIA's data sheet, dense), at the full
+# 700 W power limit: HBM bytes/s, and FLOP/s by operand type: f32 outside
+# the tensor cores, bf16 on them (bf16 products, f32 sums)
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
 
 
 def synthetic_bank(num_irs, ir_seconds, sample_rate):
@@ -397,11 +402,12 @@ def check_golden(name, out, x, windows, predelay, limit=1e-4,
     return worst
 
 
-def roofline_ms(nbytes, flops):
+def roofline_ms(nbytes, flops, dtype):
     """The least time the card could take: the larger of `nbytes` over the
-    HBM rate and `flops` f32 operations over the f32 peak. Returns (ms,
-    "bytes" or "operations")."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS
+    HBM rate and `flops` operations on operands of torch `dtype` over the
+    card's peak for that type. Returns (ms, "bytes" or "operations")."""
+    peak = PEAK_FLOPS[str(dtype).removeprefix("torch.")]
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -733,7 +739,8 @@ def time_ring_mac(rm, fdl, rhs2, w_host=5):
     kod = rhs2.shape[3]
     nbytes = ((fdl.numel() + f * 2 * pp * kod) * fdl.element_size()
               + f * vi * kod * 4)
-    bound_ms, bound_by = roofline_ms(nbytes, 2 * f * vi * 2 * pp * kod)
+    bound_ms, bound_by = roofline_ms(nbytes, 2 * f * vi * 2 * pp * kod,
+                                     fdl.dtype)
     out = {key: float(np.mean(v)) for key, v in runs.items()}
     out.update(bound=bound_ms, bound_by=bound_by, bytes=nbytes)
     return out
@@ -2492,13 +2499,14 @@ def snr_db(got, want):
         float((want ** 2).sum()) / err)
 
 
-def time_mac_shift_bf16(ms, fdl, xn, rhs):
-    """Phase 26: the bf16 mac_shift against its plain version and one
-    torch.einsum of the unshifted line on the same bf16 operands (a
-    yardstick, not the function: no one call shifts the line; it rounds m
-    to bf16), interleaved, with the bound from the line read and written
-    back and rhs read in bf16, m written in f32. Returns {kernel, plain,
-    einsum, bound, bound_by, bytes} in ms."""
+def time_mac_shift(ms, fdl, xn, rhs):
+    """mac_shift at one shape against its plain version and one torch.einsum
+    of the unshifted line on the same operands (a yardstick, not the
+    function: no one call shifts the line; in bf16 it rounds m to bf16),
+    interleaved (plain, einsum, kernel, kernel, einsum, plain), with the
+    bound from the line read and written back, x_new and rhs read in their
+    dtype and m written in f32. Returns {kernel, plain, einsum, bound,
+    bound_by, bytes} in ms (bytes in bytes)."""
     import torch
 
     f, vi, _, pp = fdl.shape
@@ -2511,9 +2519,10 @@ def time_mac_shift_bf16(ms, fdl, xn, rhs):
     runs = {key: [] for key in calls}
     for key in ("plain", "einsum", "kernel", "kernel", "einsum", "plain"):
         runs[key].append(cuda_ms(calls[key], 200))
-    nbytes = ((2 * fdl.numel() + xn.numel() + rhs.numel()) * 2
-              + f * vi * kod * 4)
-    bound_ms, bound_by = roofline_ms(nbytes, 2 * f * vi * 2 * pp * kod)
+    nbytes = ((2 * fdl.numel() + xn.numel() + rhs.numel())
+              * fdl.element_size() + f * vi * kod * 4)
+    bound_ms, bound_by = roofline_ms(nbytes, 2 * f * vi * 2 * pp * kod,
+                                     fdl.dtype)
     out = {key: float(np.mean(v)) for key, v in runs.items()}
     out.update(bound=bound_ms, bound_by=bound_by, bytes=nbytes)
     return out
@@ -2587,7 +2596,7 @@ def run_bf16_kernels(dev, rng, pp):
             del want_fdl, ref, got
         t = timed[kernel][name] = (
             time_ring_mac(rm, *inputs) if kernel == "ring_mac"
-            else time_mac_shift_bf16(ms, *inputs))
+            else time_mac_shift(ms, *inputs))
         gbps = t["bytes"] / (t["kernel"] * 1e-3) / 1e9
         einsum = t.get("library", t.get("einsum"))
         print(f"{kernel} bf16 timing [{name}]: kernel {t['kernel'] * 1e3:.2f} "
@@ -2634,7 +2643,9 @@ def run_fmajor_bf16(bank, dev, configure, select, keep_sink, reset_counts,
     the same timeline: every bf16 block on the bf16 mac_shift, the two
     above 40 dB SNR. (c) a static bounce of 10 s of per-voice noise by the
     bf16 model against the f32 model's, above 40 dB SNR, every step on the
-    bf16 ring_mac. Returns the figures."""
+    bf16 ring_mac. (d) the 'selected' steps, whose per-voice products
+    take bf16 operands with no f32 copy: fmajor ring and the cascade,
+    steady and general, f32 beside bf16. Returns the figures."""
     import torch
 
     from tpu_audio_torch.engine.fmajor import FMajorPartitionedConvolution
@@ -2783,6 +2794,35 @@ def run_fmajor_bf16(bank, dev, configure, select, keep_sink, reset_counts,
     if not rsnr > 40.0:
         raise AssertionError(f"fmajor roll bf16: SNR {rsnr:.2f} dB")
     figures["roll"]["snr"] = rsnr
+
+    # (d) the steps of the per-voice product ('selected', fmajor ring and
+    # the cascade), steady and general, in f32 and in bf16
+    figures["selected"] = {}
+    for engine in ("fmajor", "cascade"):
+        for dtype in ("f32", "bf16"):
+            smodel = ConvolutionReverb(
+                bank, num_voices=VOICES, block=BLOCK, sample_rate=RATE,
+                engine=engine, max_predelay=8192, mac_strategy="selected",
+                mac_dtype=dtype, device=dev)
+            configure(smodel.control)
+            params = smodel.control.snapshot_device()
+            state = smodel.engine.init_converged(smodel.spectra, params)
+            for kind, step in (("steady", smodel.engine.step_coef_steady),
+                               ("general", smodel.engine.step_coef)):
+                label = f"{engine} 'selected' {dtype} {kind} step"
+                p50, p99, state = step_times(step, state, smodel.spectra,
+                                             params, xt, n=120)
+                busy, ops, state = device_busy(
+                    step, state, smodel.spectra, params, xt,
+                    label=label if kind == "general" else None)
+                figures["selected"][(engine, dtype, kind)] = (p50, p99, busy,
+                                                              ops)
+                what = "not measured" if busy is None else (
+                    f"device busy {busy:.1f} us in {ops:.1f} device ops")
+                print(f"{label}: p50 / p99 {p50:.3f} / {p99:.3f} ms (CUDA "
+                      f"events), {what}")
+            del smodel, state
+            torch.cuda.empty_cache()
     return figures
 
 
@@ -3300,31 +3340,17 @@ def main() -> int:
     step_ms[("ring", "step_coef")] = (p50, p99)
     del model, session, state, engine, bank_t
     torch.cuda.empty_cache()
-    w_host = 5
-    wt = torch.tensor(w_host, dtype=torch.int32, device=dev)
     ring_ms = {}
     for kod in RING_KODS:
         fdl, rhs2 = ring_inputs[kod]
-        calls = {"plain": lambda: rm.ring_mac_reference(wt, fdl, rhs2),
-                 "library": lambda: ring_mac_library(w_host, fdl, rhs2),
-                 "kernel": lambda: rm.ring_mac(wt, fdl, rhs2)}
-        runs = {key: [] for key in calls}
-        # interleaved: plain, library, kernel, kernel, library, plain
-        for key in ("plain", "library", "kernel", "kernel", "library",
-                    "plain"):
-            runs[key].append(cuda_ms(calls[key], 200))
-        f, vi, _, pp = fdl.shape
-        nbytes = (fdl.numel() + f * 2 * pp * kod + f * vi * kod) * 4
-        bound_ms, bound_by = roofline_ms(nbytes, 2 * f * vi * 2 * pp * kod)
-        ring_ms[kod] = {key: float(np.mean(v)) for key, v in runs.items()}
-        ring_ms[kod].update(bound=bound_ms, bound_by=bound_by, bytes=nbytes)
-        k_ms = ring_ms[kod]["kernel"]
+        t = ring_ms[kod] = time_ring_mac(rm, fdl, rhs2)
+        k_ms = t["kernel"]
         print(f"ring_mac timing [64-voice KOD={kod}]: kernel {k_ms * 1e3:.2f} "
-              f"us ({nbytes / (k_ms * 1e-3) / 1e9:.0f} GB/s, "
-              f"{100 * bound_ms / k_ms:.1f} % of the {bound_ms * 1e3:.2f} us "
-              f"bound by {bound_by}), plain {ring_ms[kod]['plain'] * 1e3:.2f}"
-              f" us, library {ring_ms[kod]['library'] * 1e3:.2f} us")
-    del ring_inputs, fdl_full, fdl, rhs2, calls
+              f"us ({t['bytes'] / (k_ms * 1e-3) / 1e9:.0f} GB/s, "
+              f"{100 * t['bound'] / k_ms:.1f} % of the {t['bound'] * 1e3:.2f} "
+              f"us bound by {t['bound_by']}), plain {t['plain'] * 1e3:.2f}"
+              f" us, library {t['library'] * 1e3:.2f} us")
+    del ring_inputs, fdl_full, fdl, rhs2
     torch.cuda.empty_cache()
 
     # -- 6. mac_shift vs plain ---------------------------------------------------------
@@ -3505,20 +3531,7 @@ def main() -> int:
     shift_ms = {}
     for name in ("64-voice", "64-voice KOD=36", "64-voice KOD=64"):
         fdl, xn, rhs = shift_tensors[name]
-        kernel_runs, plain_runs = [], []
-        for _ in range(2):  # interleaved: plain, kernel, kernel, plain
-            plain_runs.append(cuda_ms(
-                lambda: ms.mac_shift_reference(fdl, xn, rhs), 200))
-            kernel_runs.append(cuda_ms(lambda: ms.mac_shift(fdl, xn, rhs),
-                                       200))
-        f, vi, _, pp = fdl.shape
-        kod = rhs.shape[3]
-        nbytes = (2 * fdl.numel() + xn.numel() + rhs.numel()
-                  + f * vi * kod) * 4
-        bound_ms, bound_by = roofline_ms(nbytes, 2 * f * vi * 2 * pp * kod)
-        shift_ms[kod] = {"kernel": float(np.mean(kernel_runs)),
-                         "plain": float(np.mean(plain_runs)), "bytes": nbytes,
-                         "bound": bound_ms, "bound_by": bound_by}
+        shift_ms[rhs.shape[3]] = time_mac_shift(ms, fdl, xn, rhs)
     del shift_tensors, fdl, xn, rhs, roll, roll_bank, roll_bank2, state
     torch.cuda.empty_cache()
 
@@ -3781,8 +3794,9 @@ def main() -> int:
                        t["bytes"] / (t["kernel"] * 1e-3) / 1e9),
                       (f"{key}_plain_us", t["plain"] * 1e3),
                       (f"{key}_bound_us", t["bound"] * 1e3)]
-            if "library" in t:
-                lines.append((f"{key}_library_us", t["library"] * 1e3))
+            for lib in ("library", "einsum"):
+                if lib in t:
+                    lines.append((f"{key}_{lib}_us", t[lib] * 1e3))
     for mode, s in (("ring", summary), ("roll", roll_summary),
                     ("selected", sel_summary), ("roll16", ceil_summary),
                     ("ring16", ring16_summary),
@@ -3979,6 +3993,10 @@ def main() -> int:
                   (f"{label}_steady_step_device_ops", ops)]
     p50, p99, busy, ops = huge["indexed"]
     gp50, gp99, gbusy, gops = sel152["general"]
+    for (engine, dtype, step), figs in fm16["selected"].items():
+        key = f"{engine}_selected_{dtype}_{step}_step"
+        lines += [(f"{key}_{what}", value) for what, value in zip(
+            ("p50_ms", "p99_ms", "device_busy_us", "device_ops"), figs)]
     lines += [("fmajor_ring_bf16_snr_vs_f32_db", fm16["ring"]["snr"]),
               ("fmajor_roll_bf16_snr_vs_f32_db", fm16["roll"]["snr"]),
               ("bounce_fmajor_bf16_snr_vs_f32_db", fm16["bounce"]["snr"]),

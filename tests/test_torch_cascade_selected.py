@@ -5,7 +5,7 @@ steps (steady and the general fade step), the materializing collapse through
 an interrupt, materialize_base, regather_selection, a session with a
 re-select, an interrupted fade and a swap_bank, the static bounce, the CLI
 on a 17-IR bank, and the automated bounce's refusal; then bf16 against the
-port's own f32 engine.
+JAX engine's bf16 and the port's own f32 engine.
 
 Shapes are tests/test_cascade.py's (B=32, ratio 4, V=4, 1200-sample IRs).
 The JAX engine is built with backend="fft", so both sides run an FFT.
@@ -13,8 +13,10 @@ Tolerances: gathers bit for bit (axis moves of the same bank); steps,
 states, sessions and bounces within 2e-5 of the output's scale (f32 sums in
 another order: the port writes the fresh column before the per-voice MAC,
 JAX adds a correction for it); the CLI WAVs within 1 LSB of 16-bit PCM; the
-bf16 engine above 40 dB SNR against f32 (tests/test_fmajor.py:226-259),
-its state dtypes unchanged by a collapse.
+bf16 engine within 2e-3 of scale of the JAX bf16 engine (the ring
+bf16-snapshot precedent, tests/test_fmajor.py:319) and above 40 dB SNR
+against f32 (tests/test_fmajor.py:226-259), its state dtypes unchanged by a
+collapse.
 """
 
 from dataclasses import fields
@@ -50,6 +52,7 @@ torch.set_num_threads(1)
 
 B, M, V, K, IR_LEN, MAXPD = 32, 4, 4, 3, 1200, 64
 REL = 2e-5
+ENGINE_REL = 2e-3   # bf16 against the JAX bf16 engine
 
 
 def _irs(num_irs=K, ir_len=IR_LEN, seed=0):
@@ -328,16 +331,14 @@ def test_state_carries_from_a_jax_mid_fade_state():
 # -- the session, the bounce, the CLI --------------------------------------------------
 
 
-def test_session_with_reselects_and_swap_matches_jax():
+def _session_runs(mac_dtype="f32"):
     """StreamSession over a 'selected' cascade in both packages: a MIDI
-    re-select, an interrupt, and a swap_bank applied mid-fade (the virtual
-    snapshots materialized against the old bank, the columns re-gathered
-    from the new one); the same general blocks and the sink data within
-    2e-5 of scale."""
+    re-select, an interrupt, and a swap_bank applied mid-fade. Returns the
+    JAX sink data, the port's, and the port's general blocks."""
     irs = _irs()
     jbank_ir, tbank_ir = _banks(irs)
     jnew_ir, tnew_ir = _banks([0.5 * irs[k] for k in (2, 0, 1)])
-    jeng, teng = _engines(tbank_ir.max_partitions(B))
+    jeng, teng = _engines(tbank_ir.max_partitions(B), mac_dtype=mac_dtype)
     x = (np.random.default_rng(4).standard_normal((V, 2, B * 70))
          * 0.05).astype(np.float32)
     midi = [(5, "", bytes([0xB0, 0x15, 64])), (9, "", bytes([0xB0, 0x15, 127]))]
@@ -372,9 +373,19 @@ def test_session_with_reselects_and_swap_matches_jax():
         assert sess._pending_bank is None
         runs[side] = (sink.data, getattr(sess, "general_blocks", None))
     (want, _), (got, general) = runs["jax"], runs["port"]
-    assert general >= 20
     assert got.shape == want.shape == (V, 2, B * 70)
     assert np.abs(want).max() > 0.1
+    return want, got, general
+
+
+def test_session_with_reselects_and_swap_matches_jax():
+    """StreamSession over a 'selected' cascade in both packages: a MIDI
+    re-select, an interrupt, and a swap_bank applied mid-fade (the virtual
+    snapshots materialized against the old bank, the columns re-gathered
+    from the new one); the same general blocks and the sink data within
+    2e-5 of scale."""
+    want, got, general = _session_runs()
+    assert general >= 20
     _close(got, want, "session")
 
 
@@ -527,3 +538,72 @@ def test_bf16_selected_tracks_f32_and_keeps_its_dtypes():
     err = outs["bf16"] - outs["f32"]
     snr = 10 * np.log10((outs["f32"] ** 2).mean() / (err ** 2).mean())
     assert snr > 40.0, snr
+
+
+def _bits(t):
+    return t.view(torch.int16).numpy()
+
+
+def test_bf16_selected_matches_jax():
+    """The bf16 'selected' cascade against the JAX one on the same inputs:
+    the JAX bf16 bank carried bit for bit, then steady blocks, a re-select
+    and an interrupt (the materializing collapse), the general step,
+    materialize_base, regather_selection onto another bank and a re-select
+    there, block for block within 2e-3 of scale, the re-gathered columns
+    bit for bit; then a session through a re-select, an interrupt and a
+    swap_bank within the same limit. The two differ by design: JAX's
+    pv_head / pv_tail multiply in bf16 before the f32 sum
+    (tpu_audio/engine/cascade.py:677, 880-884), and its tail adds the fresh
+    column as a correction delta = new - old taken in bf16 (:866), which
+    rounds once the tail ring has wrapped; the port writes the column and
+    takes exact products (JAX's 'mxu' form of its 'allk' tail). Measured
+    worst case (CPU, numpy seed 12): at most 2.2e-5 of scale until the
+    tail ring wraps (block 37), then 1.35e-3 in the steps; 7.1e-4 in the
+    session."""
+    pair = _Pair(mac_dtype="bf16")
+    np.testing.assert_array_equal(
+        _bits(pair.tbank.head_rhs2),
+        np.asarray(pair.jbank.head_rhs2).view(np.int16))
+    np.testing.assert_array_equal(        # JAX's tail is frequency-last
+        _bits(pair.tbank.tail_rhs2),
+        np.moveaxis(np.asarray(pair.jbank.tail_rhs2).view(np.int16), -1, 0))
+    jst, tst = pair.init()
+    dtypes = {f.name: getattr(getattr(tst, f.name), "dtype", None)
+              for f in fields(tst)}
+    assert dtypes["fdl1"] == dtypes["sel_tail"] == torch.bfloat16
+    rng = np.random.default_rng(12)
+    events = {6: [[1, 1], [2, 2], [0, 1], [1, 0]],
+              9: [[2, 0], [0, 1], [0, 1], [2, 2]]}
+    worst = 0.0
+    for t in range(60):
+        if t in events:
+            jst, tst = pair.reselect(jst, tst, events[t])
+        if t == 40:
+            jst = pair.jeng.materialize_base(jst, pair.jbank)
+            tst = pair.teng.materialize_base(tst, pair.tbank)
+            jnew_ir, _ = _banks([0.5 * pair.irs[k] for k in (2, 0, 1)])
+            jnew = pair.jeng.prepare_bank(jnew_ir)
+            tnew = cascade_bank_from_numpy(
+                pair.teng, np.asarray(jnew.head_rhs2),
+                np.asarray(jnew.tail_rhs2))
+            jst = pair.jeng.regather_selection(
+                jst, jnew, jnp.asarray(pair.jcp.select))
+            tst = pair.teng.regather_selection(
+                tst, tnew, torch.tensor(pair.tcp.select))
+            for name in ("sel_head", "sel_tail"):
+                np.testing.assert_array_equal(
+                    _bits(_to_jax(name, getattr(tst, name))),
+                    np.asarray(getattr(jst, name)).view(np.int16))
+            pair.jbank, pair.tbank = jnew, tnew
+            jst, tst = pair.reselect(jst, tst, [[1, 1]] * V)
+        kind = "general" if t >= 6 else "steady"
+        jst, tst, jo, to = pair.step(jst, tst, _x(rng), kind)
+        worst = max(worst, _close(to, jo, f"block {t}", ENGINE_REL))
+    assert {f.name: getattr(getattr(tst, f.name), "dtype", None)
+            for f in fields(tst)} == dtypes
+    want, got, general = _session_runs("bf16")
+    assert general >= 20
+    session = _close(got, want, "session", ENGINE_REL)
+    print(f"bf16 'selected' vs JAX: steps {worst:.2e}, session "
+          f"{session:.2e} of scale")
+    assert worst > 0.0 and session > 0.0

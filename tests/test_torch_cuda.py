@@ -805,15 +805,48 @@ def test_bf16_kernel_refuses_a_pp_not_divisible_by_4(cuda):
         ring_mac(torch.zeros((), dtype=torch.int32, device=cuda), fdl, rhs2)
 
 
+def test_bmm_f32_takes_bf16_operands_on_the_card(cuda):
+    """The per-voice MACs' product (engine/fmajor.py:bmm_f32) on bf16
+    operands on the card: f32 out, within 1e-5 of scale of the float64
+    product of the operands, on a transposed view and on a strided window
+    view as the engines pass them, with no f32 copy of the operands made
+    (the peak allocation grows by less than one)."""
+    from tpu_audio_torch.engine.fmajor import bmm_f32
+
+    rng = np.random.default_rng(13)
+    batch, pp = 4096, 136
+    a = torch.tensor(rng.standard_normal((batch, 2, pp), dtype=np.float32),
+                     device=cuda).to(torch.bfloat16)
+    cols = torch.tensor(rng.standard_normal((batch, 2 * pp, 4),
+                                            dtype=np.float32),
+                        device=cuda).to(torch.bfloat16)
+    rhs = torch.tensor(rng.standard_normal((batch, 4, pp), dtype=np.float32),
+                       device=cuda).to(torch.bfloat16)
+    for b in (rhs.transpose(1, 2), cols[:, pp - 5: 2 * pp - 5]):
+        bmm_f32(a, b)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        got = bmm_f32(a, b)
+        torch.cuda.synchronize()
+        grown = torch.cuda.max_memory_allocated() - base
+        want = torch.bmm(a.double(), b.double())
+        assert got.dtype == torch.float32
+        err = (got.double() - want).abs().max().item()
+        assert err <= 1e-5 * want.abs().max().item()
+        assert grown < a.numel() * 4, grown
+
+
 @pytest.mark.parametrize("kind", ["ring_bf16", "roll_bf16", "cascade_bf16",
-                                  "cascade_selected"])
+                                  "cascade_selected", "selected_bf16",
+                                  "cascade_selected_bf16"])
 def test_bf16_and_selected_engines_on_the_card_match_the_cpu(cuda, kind):
     """Steady blocks, a re-select and fade blocks on the card against the
     CPU: bf16 within 2e-3 of scale (cuFFT and pocketfft round a few values
     to neighbouring bf16 values), the f32 'selected' cascade within 2e-5
     of scale. The bf16 engines launch their kernel's bf16 instantiation
-    on every block (the cascade twice); the 'selected' cascade launches
-    none."""
+    on every block (the cascade twice); the 'selected' engines (fmajor
+    ring and the cascade) launch none."""
     from tpu_audio_torch.engine import IRBank
     from tpu_audio_torch.engine.cascade import CascadeConvolution
 
@@ -823,18 +856,18 @@ def test_bf16_and_selected_engines_on_the_card_match_the_cpu(cuda, kind):
         bank.append((rng.standard_normal((2, 1200)) * 0.05).astype(np.float32))
     runs = {}
     for dev in ("cpu", cuda):
+        selected = "selected" in kind
+        options = {"mac_dtype": "bf16" if "bf16" in kind else "f32",
+                   "mac_strategy": "selected" if selected else "allk"}
         if kind.startswith("cascade"):
             eng = CascadeConvolution(
                 4, 32, bank.max_partitions(32), ratio=4, max_predelay=64,
-                num_irs=3, device=dev,
-                **({"mac_dtype": "bf16"} if kind == "cascade_bf16"
-                   else {"mac_strategy": "selected"}))
+                num_irs=3, device=dev, **options)
             spectra = eng.prepare_bank(bank)
         else:
             eng = FMajorPartitionedConvolution(
                 4, 32, bank.max_partitions(32), max_predelay=64,
-                ring=kind == "ring_bf16", num_irs=3, mac_dtype="bf16",
-                device=dev)
+                ring=kind != "roll_bf16", num_irs=3, device=dev, **options)
             spectra = eng.prepare_bank(bank.partitioned_spectra(32))
         cp = ControlPlane(4, 3, 64, device=dev)
         cp.wet[:] = 0.8
@@ -851,7 +884,7 @@ def test_bf16_and_selected_engines_on_the_card_match_the_cpu(cuda, kind):
                 cp.vsteps[:] = cp.speed
                 args = (torch.tensor(old, device=dev),
                         torch.ones((4, 2), dtype=torch.bool, device=dev))
-                if kind == "cascade_selected":
+                if selected:
                     state = eng.collapse(state, spectra, *args,
                                          torch.tensor(cp.select, device=dev),
                                          cp.snapshot_device())
@@ -862,7 +895,7 @@ def test_bf16_and_selected_engines_on_the_card_match_the_cpu(cuda, kind):
                     state = eng.collapse_pure(state, *args)
             if t < 8:
                 step = eng.step_coef_steady
-            elif kind == "cascade_selected":
+            elif selected:
                 step = eng.step_coef
             else:
                 step = eng.step_coef_indexed
@@ -876,7 +909,7 @@ def test_bf16_and_selected_engines_on_the_card_match_the_cpu(cuda, kind):
     rel = 2e-5 if kind == "cascade_selected" else 2e-3
     assert np.abs(got - want).max() <= rel * np.abs(want).max()
     launches = {"ring_bf16": (30, 0), "roll_bf16": (0, 30),
-                "cascade_bf16": (60, 0), "cascade_selected": (0, 0)}[kind]
+                "cascade_bf16": (60, 0)}.get(kind, (0, 0))
     assert runs["cuda"][1:] == launches and runs["cpu"][1:] == (0, 0)
 
 

@@ -86,7 +86,7 @@ import torch
 
 from tpu_audio_torch.engine import device_prep
 from tpu_audio_torch.engine.fmajor import (
-    MAC_DTYPES, _pad_p, _tensor, double_reversed, pack_mac_rhs,
+    MAC_DTYPES, _pad_p, _tensor, bmm_f32, double_reversed, pack_mac_rhs,
 )
 from tpu_audio_torch.engine.params import VoiceParams
 from tpu_audio_torch.ops.fft import SpectralTransform
@@ -220,7 +220,6 @@ class CascadeConvolution:
     # the in-flight tail rescale of both collapses needs the post-change
     # vsteps / predelay (StreamSession passes them)
     collapse_pure_takes_params = True
-    collapse_takes_params = True
     ALLK_MAX_COLUMNS = 64            # K <= 16 stereo IRs (fmajor threshold)
 
     def __init__(self, num_voices: int, block: int, partitions: int,
@@ -526,12 +525,12 @@ class CascadeConvolution:
         """The 'selected' MAC of one stage: the line fdl [F, R, d, Pp]
         against each row's own doubled, reversed columns cols [F, R, d,
         2Pp, OD] over the window [Pp - w, 2Pp - w) (a strided view), both
-        upcast to f32: a batched [1, Pp] x [Pp, OD] product per (f, row, d),
-        summed over d. -> [F, R // 2, I, O, d]."""
+        in the MAC dtype: a batched [1, Pp] x [Pp, OD] product per (f, row,
+        d) summed in f32 (bmm_f32), then over d. -> [F, R // 2, I, O, d]."""
         f, rows, _, pp = fdl.shape
-        win = cols[..., pp - w: 2 * pp - w, :].float()      # [F,R,d,Pp,OD]
-        lhs = fdl.float().reshape(f * rows * 2, 1, pp)
-        mv = torch.bmm(lhs, win.reshape(f * rows * 2, pp, 4))
+        win = cols[..., pp - w: 2 * pp - w, :]              # [F,R,d,Pp,OD]
+        lhs = fdl.reshape(f * rows * 2, 1, pp)
+        mv = bmm_f32(lhs, win.reshape(f * rows * 2, pp, 4))
         mv = mv.reshape(f, rows, 2, 4).sum(dim=2)           # [F, R, OD]
         return mv.reshape(f, rows // 2, 2, 2, 2)
 

@@ -86,6 +86,17 @@ from tpu_audio_torch.utils.device import resolve_device
 MAC_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
 
 
+def bmm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """torch.bmm of two f32 or two bf16 operands, summed and returned in
+    f32: the JAX per-voice MACs' preferred_element_type=float32 (bf16
+    products are exact in f32). On the card bf16 operands go to cuBLAS as
+    they are (out_dtype), so no f32 copy of them is made; the CPU, which
+    has no such product, upcasts them."""
+    if a.dtype == torch.bfloat16 and a.is_cuda:
+        return torch.bmm(a, b, out_dtype=torch.float32)
+    return torch.bmm(a.float(), b.float())
+
+
 @dataclass
 class FMajorBank:
     """Device-side bank in MAC-ready real layouts. Each mode and strategy
@@ -253,8 +264,8 @@ class FMajorPartitionedConvolution:
     which raises without CUDA); "cpu" runs the plain PyTorch path."""
 
     ALLK_MAX_COLUMNS = 64  # K <= 16 stereo IRs ride the all-K MAC
-    # (the cascade's collapses take the post-change parameters)
-    collapse_pure_takes_params = collapse_takes_params = False
+    # (the cascade's collapse_pure takes the post-change parameters)
+    collapse_pure_takes_params = False
 
     def __init__(self, num_voices: int, block: int, partitions: int,
                  max_predelay: int = 8192, ring: bool = True,
@@ -611,8 +622,8 @@ class FMajorPartitionedConvolution:
 
     def _window(self, arr: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
         """The last axis' MAC window of a snapshot-layout tensor, rounded to
-        the MAC dtype (as JAX casts it: roll mode's f32 snapshot under bf16)
-        and then in f32. Ring: rows [Pp - w, 2Pp - w) of the doubled,
+        the MAC dtype (as JAX casts it: roll mode's f32 snapshot under
+        bf16). Ring: rows [Pp - w, 2Pp - w) of the doubled,
         reversed tensor, w = t mod Pp taken on the device (index_select: no
         host read of the block counter, no sync); roll: the tensor itself
         (natural order)."""
@@ -620,29 +631,29 @@ class FMajorPartitionedConvolution:
             pp = self.pp
             idx = (pp - t.long() % pp) + torch.arange(pp, device=arr.device)
             arr = arr.index_select(5, idx.reshape(-1))
-        return arr.to(self.mac_dtype).float()
+        return arr.to(self.mac_dtype)
 
     def _per_voice_mac(self, fdl: torch.Tensor, spectra: torch.Tensor
                        ) -> torch.Tensor:
-        """fdl (upcast to f32) against one per-voice f32 spectra tensor
-        [F, V, I, O, 2, Pp] -> complex products [F, V, I, O, 2]. 'dot': a
+        """fdl against one per-voice spectra window [F, V, I, O, 2, Pp],
+        both in the MAC dtype, products summed in f32 (bmm_f32) -> complex
+        products [F, V, I, O, 2]. 'dot': a
         batched [2, Pp] x [Pp, 4] matvec per (f, v, i) (one voice, one
         rhs); 'merged': a [4, Pp] x [Pp, 8] product per (f, v), (i, c) on
         its rows and (i', o, e) on its columns, of which the i == i'
         diagonal is kept (twice the FLOPs, half the products)."""
         f, v, pp = self.num_bins, self.num_voices, self.pp
-        fdl = fdl.float()
         if self.pv_mac == "merged":
             lhs = fdl.reshape(f * v, 4, pp)                       # [B, ic, p]
             rhs = spectra.reshape(f * v, 8, pp)                   # [B, i'oe, p]
-            prod = torch.bmm(lhs, rhs.transpose(1, 2)).reshape(
+            prod = bmm_f32(lhs, rhs.transpose(1, 2)).reshape(
                 f, v, 2, 2, 2, 2, 2)                              # [F,V,i,c,i',o,e]
             mb = torch.diagonal(prod, dim1=2, dim2=4).permute(
                 0, 1, 5, 2, 3, 4)                                 # [F,V,i,c,o,e]
         else:
             lhs = fdl.reshape(f * v * 2, 2, pp)                   # [B, c, p]
             rhs = spectra.reshape(f * v * 2, 4, pp)               # [B, oe, p]
-            mb = torch.bmm(lhs, rhs.transpose(1, 2)).reshape(f, v, 2, 2, 2, 2)
+            mb = bmm_f32(lhs, rhs.transpose(1, 2)).reshape(f, v, 2, 2, 2, 2)
         yre = mb[..., 0, :, 0] - mb[..., 1, :, 1]                 # [F,V,I,O]
         yim = mb[..., 0, :, 1] + mb[..., 1, :, 0]
         return torch.stack([yre, yim], dim=-1)
@@ -784,13 +795,15 @@ class FMajorPartitionedConvolution:
 
     def collapse(self, state: FMajorState, bank: FMajorBank,
                  old_select: torch.Tensor, changed: torch.Tensor,
-                 new_select: torch.Tensor | None = None) -> FMajorState:
+                 new_select: torch.Tensor | None = None,
+                 params: VoiceParams | None = None) -> FMajorState:
         """Re-base the affine form after an IR re-select, MATERIALIZING the
         snapshot: base := a*base_eff + c*bank[old] for changed voices, and
         base := base_eff for the others (virtual snapshots are materialized
         for everyone, so the general step may read `base` afterwards). The
         'selected' strategy also re-gathers the per-voice selected spectra
-        (pass `new_select`, the post-change selection)."""
+        (pass `new_select`, the post-change selection). `params` is taken
+        for the cascade's signature and not read."""
         if not self.swap_snapshot:
             raise ValueError(
                 "engine was built with swap_snapshot=False: snapshots "

@@ -216,12 +216,14 @@ class PartitionedConvolution:
     # -- rare path ------------------------------------------------------------------------
 
     def collapse(self, state: PartitionedState, bank: torch.Tensor,
-                 old_select: torch.Tensor, changed: torch.Tensor
-                 ) -> PartitionedState:
+                 old_select: torch.Tensor, changed: torch.Tensor,
+                 new_select: torch.Tensor | None = None,
+                 params: VoiceParams | None = None) -> PartitionedState:
         """Re-base the affine form after an IR re-select (host-triggered,
         between blocks): base := a*base + c*bank[old_select] where
         `changed` [V, 2], so the scalar recursion continues from the exact
-        current spectrum; a := 1, c := 0 there."""
+        current spectrum; a := 1, c := 0 there. `new_select` and `params`
+        are taken for the engines' shared signature and not read."""
         collapsed = (state.coef_a[..., None, None, None] * state.base
                      + state.coef_c[..., None, None, None]
                      * gather_spectra(bank, old_select))

@@ -217,9 +217,6 @@ class StreamSession:
         # needs the post-change parameters (the new fade's vsteps, predelay)
         self._collapse_pure_params = (spans
                                       and engine.collapse_pure_takes_params)
-        # and so does the 'selected' cascade's materializing collapse
-        self._collapse_params = getattr(engine, "collapse_takes_params",
-                                        False)
         # span-only engines (swap_snapshot=False) have no materialized
         # snapshot: a bank swap waits for the fades to decay
         self._span_only = spans and not engine.swap_snapshot
@@ -286,12 +283,13 @@ class StreamSession:
         # (virtual snapshots are materialized too), so the general fade
         # step may read state.base for anyone afterwards
         self._pure_host[:] = False
-        args = (state, self.bank, old_t, changed_t)
-        if self._selected:
-            args += (torch.tensor(new_sel, device=self.device),)
-        if self._collapse_params:
-            args += (self.control.snapshot_device(),)
-        return self.engine.collapse(*args)
+        new_t = (torch.tensor(new_sel, device=self.device)
+                 if self._selected else None)
+        # the post-change parameters: the 'selected' cascade's in-flight
+        # tail rescale reads them, the other engines take and ignore them
+        return self.engine.collapse(state, self.bank, old_t, changed_t,
+                                    new_select=new_t,
+                                    params=self.control.snapshot_device())
 
     def _pick_coef_step(self):
         """The coefficient engine's step for this block (steady once every
