@@ -177,9 +177,11 @@ Phases, in order; any failure raises and the script exits non-zero:
      operands against their plain versions (upcast, float64 sums) within
      1e-5 of scale at the 64-voice shapes of KOD 16, 36 and 64 (the
      shifted line bit-identical), and ring_mac at the 2048-voice cascade's
-     head and tail shapes; each timed against its plain version, one
+     head and tail shapes, and ring_mac's library yardstick (torch.bmm on
+     the bf16 operands over the gathered window, f32 out) held to the same
+     limit; each timed against its plain version, that yardstick, one
      torch.einsum on the bf16 operands (it rounds m to bf16) and its bound
-     (bf16 operations over the card's bf16 tensor-core peak);
+     (bytes, or bf16 operations over the card's bf16 tensor-core peak);
  27. fmajor in bf16 at 64 voices over phase 4's IRs: the model's session
      on phase 4's timeline (every block on the bf16 ring_mac) above 40 dB
      SNR against phase 4's f32 session; a roll-mode session in bf16 and in
@@ -415,7 +417,28 @@ def roofline_ms(nbytes, flops, dtype):
 def ring_mac_library(w, fdl, rhs2):
     """One PyTorch call computing ring_mac's function with a host-side ring
     slot `w`: the yardstick chip_smoke.py times beside the kernel
-    (library_ms). The port never calls it."""
+    (library_ms). The port never calls it. f32: an einsum over the sliced
+    window. bf16: torch.bmm of the bf16 line by the gathered bf16 window
+    (the reshape of the two planes' windows gathers them) with f32 out,
+    exact products summed in f32 as the kernel does (an einsum on bf16
+    operands would round m to bf16: ring_mac_einsum_bf16)."""
+    import torch
+
+    pp = fdl.shape[3]
+    w = w % pp
+    window = rhs2[:, :, pp - w: 2 * pp - w]
+    if fdl.dtype == torch.bfloat16:
+        f, vi = fdl.shape[:2]
+        return torch.bmm(fdl.reshape(f, vi, 2 * pp),
+                         window.reshape(f, 2 * pp, rhs2.shape[3]),
+                         out_dtype=torch.float32)
+    return torch.einsum("fvcs,fcsk->fvk", fdl, window)
+
+
+def ring_mac_einsum_bf16(w, fdl, rhs2):
+    """torch.einsum of the bf16 line by the sliced bf16 window: m rounded
+    to bf16, so not ring_mac's function; a yardstick printed on its own
+    line."""
     import torch
 
     pp = fdl.shape[3]
@@ -721,10 +744,11 @@ def device_busy(step, state, bank, params, x, n=30, label=None):
 
 def time_ring_mac(rm, fdl, rhs2, w_host=5):
     """ring_mac at one shape against its plain version and one library
-    call (in bf16 it rounds m to bf16), interleaved (plain, library,
-    kernel, kernel, library, plain), with the roofline bound from the bytes
-    each input is read once in its dtype and m written once in f32.
-    Returns {kernel, plain, library, bound, bound_by, bytes} in ms (bytes
+    call (ring_mac_library), and in bf16 also the bf16 einsum (it rounds m
+    to bf16), interleaved (plain, [einsum,] library, kernel, kernel,
+    library, [einsum,] plain), with the roofline bound from the bytes each
+    input is read once in its dtype and m written once in f32. Returns
+    {kernel, plain, library, [einsum,] bound, bound_by, bytes} in ms (bytes
     in bytes)."""
     import torch
 
@@ -732,8 +756,12 @@ def time_ring_mac(rm, fdl, rhs2, w_host=5):
     calls = {"plain": lambda: rm.ring_mac_reference(wt, fdl, rhs2),
              "library": lambda: ring_mac_library(w_host, fdl, rhs2),
              "kernel": lambda: rm.ring_mac(wt, fdl, rhs2)}
+    order = ["plain", "library", "kernel"]
+    if fdl.dtype == torch.bfloat16:
+        calls["einsum"] = lambda: ring_mac_einsum_bf16(w_host, fdl, rhs2)
+        order.insert(1, "einsum")
     runs = {key: [] for key in calls}
-    for key in ("plain", "library", "kernel", "kernel", "library", "plain"):
+    for key in order + order[::-1]:
         runs[key].append(cuda_ms(calls[key], 200))
     f, vi, _, pp = fdl.shape
     kod = rhs2.shape[3]
@@ -2533,10 +2561,10 @@ def run_bf16_kernels(dev, rng, pp):
     operands upcast, float64 sums) within 1e-5 of scale at the 64-voice
     shapes (F=257, VI=128, Pp=696) of KOD 16, 36 and 64, and ring_mac at
     the 2048-voice cascade's head [257, 4096, 2, 32] and tail [4097, 256,
-    2, 48] shapes (KOD 16); each timed against its plain version, one
-    bf16 einsum and its bound; `pp` is the 4 s IRs' padded partition
-    count. Returns (largest error per kernel, timings per kernel and
-    shape)."""
+    2, 48] shapes (KOD 16), ring_mac's bmm yardstick too; each timed
+    against its plain version, that yardstick, one bf16 einsum and its
+    bound; `pp` is the 4 s IRs' padded partition count. Returns (largest
+    error per kernel, timings per kernel and shape)."""
     import torch
 
     from tpu_audio_torch.ops import mac_shift as ms
@@ -2568,10 +2596,16 @@ def run_bf16_kernels(dev, rng, pp):
                 ref = rm.ring_mac_reference(w, fdl.double(), rhs2.double())
                 scale = ref.abs().max().item()
                 err = (got.double() - ref).abs().max().item()
-                print(f"{label} w={w}: max_abs_err {err:.3e} (limit "
-                      f"{1e-5 * scale:.3e})")
+                err_lib = (ring_mac_library(w, fdl, rhs2).double()
+                           - ref).abs().max().item()
+                print(f"{label} w={w}: max_abs_err {err:.3e} (library bmm "
+                      f"{err_lib:.3e}, limit {1e-5 * scale:.3e})")
                 if not err <= 1e-5 * scale:
                     raise AssertionError(f"bf16 ring_mac disagrees at "
+                                         f"{name} w={w}")
+                if not err_lib <= 1e-5 * scale:
+                    raise AssertionError(f"the bf16 library yardstick "
+                                         f"computes another function at "
                                          f"{name} w={w}")
                 worst[kernel] = max(worst[kernel], err)
                 del got, ref
@@ -2598,13 +2632,16 @@ def run_bf16_kernels(dev, rng, pp):
             time_ring_mac(rm, *inputs) if kernel == "ring_mac"
             else time_mac_shift(ms, *inputs))
         gbps = t["bytes"] / (t["kernel"] * 1e-3) / 1e9
-        einsum = t.get("library", t.get("einsum"))
+        library = (f", library (bmm, f32 out) {t['library'] * 1e3:.2f} us "
+                   f"({t['library'] / t['kernel']:.2f}x the kernel's time)"
+                   if "library" in t else "")
         print(f"{kernel} bf16 timing [{name}]: kernel {t['kernel'] * 1e3:.2f} "
               f"us ({gbps:.0f} GB/s, {100 * t['bound'] / t['kernel']:.1f} % of "
               f"the {t['bound'] * 1e3:.2f} us bound by {t['bound_by']}), "
-              f"plain {t['plain'] * 1e3:.2f} us, bf16 einsum (rounds m to "
-              f"bf16{'; no shift' if kernel == 'mac_shift' else ''}) "
-              f"{einsum * 1e3:.2f} us")
+              f"plain {t['plain'] * 1e3:.2f} us{library}")
+        print(f"{kernel} bf16 einsum [{name}] (rounds m to bf16"
+              f"{'; no shift' if kernel == 'mac_shift' else ''}): "
+              f"{t['einsum'] * 1e3:.2f} us")
         del fdl, inputs
         torch.cuda.empty_cache()
     return worst, timed
@@ -3972,9 +4009,10 @@ def main() -> int:
                       (f"{key}_kernel_GBps",
                        t["bytes"] / (t["kernel"] * 1e-3) / 1e9),
                       (f"{key}_plain_us", t["plain"] * 1e3),
-                      (f"{key}_einsum_bf16_us",
-                       t.get("library", t.get("einsum")) * 1e3),
+                      (f"{key}_einsum_bf16_us", t["einsum"] * 1e3),
                       (f"{key}_bound_us", t["bound"] * 1e3)]
+            if "library" in t:
+                lines.append((f"{key}_library_bmm_us", t["library"] * 1e3))
     for label, r in (("fmajor_ring_bf16", fm16["ring"]),
                      ("fmajor_roll_bf16", fm16["roll"]),
                      (f"cascade{HUGE_VOICES}_bf16", huge),
@@ -4059,8 +4097,10 @@ def main() -> int:
         entry("mac_shift", "tpu_audio/ops/pallas_mac.py:76",
               roll_launches + ceil_launches + engines["roll"]["launches"],
               max(shift_err, engines["roll"]["mac_err"]), shift_ms),
-        # the bf16 instantiations (mac_dtype='bf16'): library_ms is one
-        # torch.einsum on the same bf16 operands, which rounds m to bf16
+        # the bf16 kernels (mac_dtype='bf16'): ring_mac's library_ms is
+        # torch.bmm on the same bf16 operands with f32 out (the bf16
+        # einsum, which rounds m to bf16, is printed on its own lines);
+        # mac_shift has none
         entry("ring_mac_bf16", "tpu_audio/ops/pallas_mac.py:160",
               fm16["ring"]["launches"] + fm16["bounce"]["launches"]
               + huge["launches"] + huge["cli_launches"],

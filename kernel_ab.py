@@ -2,20 +2,30 @@
 """Time another source of a port kernel against the checkout's, on one GPU.
 
     python3 kernel_ab.py ring_mac=OLD/ring_mac.cu [mac_shift=OLD/mac_shift.cu]
-        [--rounds 3] [--time-only]
+        [--dtype f32|bf16] [--rounds 3] [--time-only]
 
 Each KERNEL=PATH names a kernel of tpu_audio_torch/csrc and another source
-exporting the same C interface (an earlier version of it, say, unpacked from
-git into a git-ignored directory). Both are built (one nvcc per source, all
-started together), checked once against the float64 plain version at every
-64-voice shape, and timed there with CUDA events, interleaved other, this,
-this, other, `--rounds` times, 200 launches a run. The shapes are the
-main path's at 64 voices, 4 s IRs and 256-frame blocks (F=257, VI=128,
-Pp=696) at KOD 16, 36 and 64 (4, 9 and 16 IRs). Prints every run, the
-medians, and the card's name and power limit; exits non-zero without a
-card or when a build disagrees with the plain version. --time-only skips
-the check of the other source, for diagnostic builds that leave out part
-of the work on purpose (the copies, say, or the FMAs).
+exporting the same C interface (an earlier version of it, say: unpack the
+earlier csrc/ directory whole into a git-ignored directory, so that the
+source finds its own headers beside it). Both are built (one nvcc per
+source, all started together), checked once against the float64 plain
+version at every shape, within 1e-5 of the output's scale (mac_shift's
+shifted line bit for bit), and timed there with CUDA events, interleaved
+other, this, this, other, `--rounds` times, 200 launches a run.
+
+`--dtype` picks the instantiation: f32 (`<name>_launch`, the default) or
+bf16 (`<name>_bf16_launch`, bf16 operands, f32 m). The shapes are the main
+path's at 64 voices, 4 s IRs and 256-frame blocks (F=257, VI=128, Pp=696)
+at KOD 16, 36 and 64 (4, 9 and 16 IRs) and, for ring_mac in bf16, the
+2048-voice cascade's head and tail (chip_smoke.py's CASCADE_2048_SHAPES,
+KOD 16). Every shape also reports whether the two sources' outputs are
+bit-identical, and in f32 a difference is an error: the f32 kernels keep
+their results bit for bit (`tests/test_torch_cuda.py::
+test_f32_kernels_are_unchanged_at_a_fixed_seed`). Prints every run, the
+medians and the card's name and power limit; exits non-zero without a card
+or when a build disagrees with the plain version. `--time-only` skips both
+checks of the other source, for diagnostic builds that leave out part of
+the work on purpose (the copies, say, or the product).
 """
 
 import argparse
@@ -25,69 +35,90 @@ from pathlib import Path
 
 import numpy as np
 
-from chip_smoke import cuda_ms
+from chip_smoke import CASCADE_2048_SHAPES, NUM_IRS, cuda_ms
 
 F, VI, PP = 257, 128, 696
 KODS = (16, 36, 64)
 W = 5
 REPS = 200
+ENTRIES = {"f32": "launch", "bf16": "bf16_launch"}
 
 
-def ring_mac_case(dev, kod, rng):
-    """(launch(library), check(library) -> error / scale) for ring_mac."""
+def shapes(name, dtype):
+    """(label, F, VI, Pp, KOD) for one kernel and dtype."""
+    out = [(f"kod{kod}", F, VI, PP, kod) for kod in KODS]
+    if name == "ring_mac" and dtype == "bf16":
+        out += [(label, f, vi, pp, 4 * NUM_IRS)
+                for label, (f, vi, pp) in CASCADE_2048_SHAPES.items()]
+    return out
+
+
+def operand(rng, shape, dtype, dev):
+    import torch
+
+    t = torch.tensor(rng.standard_normal(shape, dtype=np.float32), device=dev)
+    return t.to(torch.bfloat16) if dtype == "bf16" else t
+
+
+def ring_mac_case(dev, dtype, f, vi, pp, kod, rng):
+    """(launch(library), check(library) -> (error / scale, outputs)) for
+    ring_mac."""
     import torch
 
     from tpu_audio_torch.ops.ring_mac import ring_mac_reference
 
-    fdl = torch.tensor(rng.standard_normal((F, VI, 2, PP), dtype=np.float32),
-                       device=dev)
-    rhs2 = torch.tensor(rng.standard_normal((F, 2, 2 * PP, kod),
-                                            dtype=np.float32), device=dev)
+    fdl = operand(rng, (f, vi, 2, pp), dtype, dev)
+    rhs2 = operand(rng, (f, 2, 2 * pp, kod), dtype, dev)
     w = torch.tensor(W, dtype=torch.int32, device=dev)
-    m = torch.empty((F, VI, kod), device=dev)
+    m = torch.empty((f, vi, kod), device=dev)
     want = ring_mac_reference(W, fdl.double(), rhs2.double())
+    entry = ENTRIES[dtype]
 
     def launch(lib):
         lib.launch(w.data_ptr(), fdl.data_ptr(), rhs2.data_ptr(), m.data_ptr(),
-                   F, VI, PP, kod, torch.cuda.current_stream().cuda_stream)
+                   f, vi, pp, kod, torch.cuda.current_stream().cuda_stream,
+                   entry=entry)
 
     def check(lib):
         launch(lib)
         torch.cuda.synchronize()
-        return ((m.double() - want).abs().max() / want.abs().max()).item()
+        err = ((m.double() - want).abs().max() / want.abs().max()).item()
+        return err, (m.clone(),)
 
     return launch, check
 
 
-def mac_shift_case(dev, kod, rng):
-    """(launch(library), check(library) -> error / scale) for mac_shift; the
-    check restores the line first, since every launch shifts it."""
+def mac_shift_case(dev, dtype, f, vi, pp, kod, rng):
+    """(launch(library), check(library) -> (error / scale, outputs)) for
+    mac_shift; the check restores the line first, since every launch
+    shifts it, and returns an infinite error for a shifted line that is
+    not the plain version's bit for bit."""
     import torch
 
     from tpu_audio_torch.ops.mac_shift import mac_shift_reference
 
-    fdl0 = torch.tensor(rng.standard_normal((F, VI, 2, PP), dtype=np.float32),
-                        device=dev)
+    fdl0 = operand(rng, (f, vi, 2, pp), dtype, dev)
     fdl = fdl0.clone()
-    xn = torch.tensor(rng.standard_normal((F, VI, 2, 1), dtype=np.float32),
-                      device=dev)
-    rhs = torch.tensor(rng.standard_normal((F, 2, PP, kod), dtype=np.float32),
-                       device=dev)
-    m = torch.empty((F, VI, kod), device=dev)
-    want_fdl, want = mac_shift_reference(fdl0.double(), xn.double(),
-                                         rhs.double())
+    xn = operand(rng, (f, vi, 2, 1), dtype, dev)
+    rhs = operand(rng, (f, 2, pp, kod), dtype, dev)
+    m = torch.empty((f, vi, kod), device=dev)
+    want_fdl, _ = mac_shift_reference(fdl0, xn, rhs)
+    _, want = mac_shift_reference(fdl0.double(), xn.double(), rhs.double())
+    entry = ENTRIES[dtype]
 
     def launch(lib):
         lib.launch(fdl.data_ptr(), xn.data_ptr(), rhs.data_ptr(), m.data_ptr(),
-                   F, VI, PP, kod, torch.cuda.current_stream().cuda_stream)
+                   f, vi, pp, kod, torch.cuda.current_stream().cuda_stream,
+                   entry=entry)
 
     def check(lib):
         fdl.copy_(fdl0)
         launch(lib)
         torch.cuda.synchronize()
-        if not torch.equal(fdl.double(), want_fdl):
-            return float("inf")
-        return ((m.double() - want).abs().max() / want.abs().max()).item()
+        if not torch.equal(fdl, want_fdl):
+            return float("inf"), ()
+        err = ((m.double() - want).abs().max() / want.abs().max()).item()
+        return err, (m.clone(), fdl.clone())
 
     return launch, check
 
@@ -95,9 +126,19 @@ def mac_shift_case(dev, kod, rng):
 CASES = {"ring_mac": ring_mac_case, "mac_shift": mac_shift_case}
 
 
+def same_bits(a, b):
+    """Whether two tuples of tensors hold the same bits."""
+    import torch
+
+    return len(a) == len(b) and all(
+        torch.equal(x.view(torch.uint8), y.view(torch.uint8))
+        for x, y in zip(a, b))
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("pairs", nargs="+", metavar="KERNEL=PATH")
+    parser.add_argument("--dtype", choices=sorted(ENTRIES), default="f32")
     parser.add_argument("--rounds", type=int, default=3)
     parser.add_argument("--time-only", action="store_true",
                         help="do not check the other source's results")
@@ -135,18 +176,26 @@ def main() -> int:
                                            "registers", "spill")):
                 print(f"    {line.strip()}")
     rng = np.random.default_rng(0)
+    failed = []
     for name, other, this_lib in pairs:
-        for kod in KODS:
-            launch, check = CASES[name](dev, kod, rng)
+        for label, f, vi, pp, kod in shapes(name, args.dtype):
+            tag = f"{name} {args.dtype} {label} [F={f} VI={vi} Pp={pp} " \
+                  f"KOD={kod}]"
+            launch, check = CASES[name](dev, args.dtype, f, vi, pp, kod, rng)
+            outs = {}
             for role, lib in (("other", other), ("this", this_lib)):
+                err, outs[role] = check(lib)
                 if role == "other" and args.time_only:
                     continue
-                err = check(lib)
-                print(f"{name} KOD={kod} {role}: max_abs_err / scale "
-                      f"{err:.3e} (limit 1e-5)")
+                print(f"{tag} {role}: max_abs_err / scale {err:.3e} "
+                      f"(limit 1e-5)")
                 if not err <= 1e-5:
-                    raise AssertionError(f"{name} {role} disagrees with the "
-                                         f"plain version at KOD={kod}")
+                    failed.append(f"{tag} {role} disagrees with the plain "
+                                  f"version")
+            same = same_bits(outs["other"], outs["this"])
+            print(f"{tag}: outputs {'bit-identical' if same else 'differ'}")
+            if args.dtype == "f32" and not same and not args.time_only:
+                failed.append(f"{tag}: outputs differ")
             runs = {"other": [], "this": []}
             for _ in range(args.rounds):
                 for role in ("other", "this", "this", "other"):
@@ -154,10 +203,13 @@ def main() -> int:
                     runs[role].append(
                         cuda_ms(lambda: launch(lib), REPS) * 1e3)
             for role, times in runs.items():
-                print(f"{name} KOD={kod} {role} us: median "
-                      f"{np.median(times):.2f}, runs "
+                print(f"{tag} {role} us: median {np.median(times):.2f}, runs "
                       f"{' '.join(f'{t:.2f}' for t in times)} [{card}]")
-    return 0
+            del launch, check, outs
+            torch.cuda.empty_cache()
+    for line in failed:
+        print(f"kernel_ab: {line}", file=sys.stderr)
+    return 1 if failed else 0
 
 
 if __name__ == "__main__":

@@ -96,19 +96,28 @@ def _f32_einsum(spec, *ops):
 
 
 F, VI, P = 8, 6, 20
+# the card kernels' tensor-core tile edges, (VI, Pp, KOD): Pp 4 (Q = 8, less
+# than one k16 step), KOD 12 and 20 (half an n8 tile), 68 (two column
+# groups), VI 1 and 17 (below and across one m16 tile)
+MMA_EDGES = [(VI, 4, 16), (VI, P, 12), (VI, P, 20), (VI, P, 68), (1, P, 16),
+             (17, P, 36), (17, 4, 12)]
 
 
-@pytest.mark.parametrize("kod", [4, 16, 36])
-@pytest.mark.parametrize("w", [0, 1, P - 1])
-def test_bf16_ring_mac_matches_the_jax_bf16_mac(w, kod):
-    rng = np.random.default_rng(w * 100 + kod)
-    fdl_j, _ = _bf16(rng, (F, 2, VI, P))                   # Pallas layout
-    rhs2_j, rhs2_t = _bf16(rng, (F, 2, 2 * P, kod))
+@pytest.mark.parametrize("w,kod,vi,p", [
+    *(pytest.param(w, kod, VI, P, id=f"{w}-{kod}")
+      for w in (0, 1, P - 1) for kod in (4, 16, 36)),
+    *(pytest.param(w, kod, vi, p, id=f"vi{vi}-p{p}-{w}-{kod}")
+      for vi, p, kod in MMA_EDGES for w in (0, 1, p - 1))])
+def test_bf16_ring_mac_matches_the_jax_bf16_mac(w, kod, vi, p):
+    rng = np.random.default_rng(w * 100 + kod if (vi, p) == (VI, P)
+                                else [vi, p, w, kod])
+    fdl_j, _ = _bf16(rng, (F, 2, vi, p))                   # Pallas layout
+    rhs2_j, rhs2_t = _bf16(rng, (F, 2, 2 * p, kod))
     fdl_t = torch.tensor(np.asarray(fdl_j).astype(np.float32)).to(
         torch.bfloat16).transpose(1, 2).contiguous()       # [F, VI, 2, P]
     want_kernel = np.asarray(pallas_ring_mac(w, fdl_j, rhs2_j, f_tile=2,
                                              interpret=True))
-    window = jax.lax.dynamic_slice_in_dim(rhs2_j, P - w, P, axis=2)
+    window = jax.lax.dynamic_slice_in_dim(rhs2_j, p - w, p, axis=2)
     want = _f32_einsum("fcvp,fcpk->fvk", fdl_j, window)
     got = ring_mac(torch.tensor(w, dtype=torch.int32), fdl_t, rhs2_t)
     assert got.dtype == torch.float32
@@ -116,15 +125,18 @@ def test_bf16_ring_mac_matches_the_jax_bf16_mac(w, kod):
     _close(got.numpy(), want_kernel, "pallas", KERNEL_REL)
 
 
-@pytest.mark.parametrize("kod", [4, 16, 36])
-def test_bf16_mac_shift_matches_the_jax_roll_and_einsum(kod):
+@pytest.mark.parametrize("kod,vi,p", [
+    *(pytest.param(kod, VI, P, id=str(kod)) for kod in (4, 16, 36)),
+    *(pytest.param(kod, vi, p, id=f"vi{vi}-p{p}-{kod}")
+      for vi, p, kod in MMA_EDGES)])
+def test_bf16_mac_shift_matches_the_jax_roll_and_einsum(kod, vi, p):
     """JAX runs bf16 roll mode as the roll plus the einsum
     (fmajor.py:817, 920-923): the shifted line bit for bit, m within 1e-5
     of scale."""
-    rng = np.random.default_rng(kod)
-    fdl_j, fdl_t = _bf16(rng, (F, VI, 2, P))
-    xn_j, xn_t = _bf16(rng, (F, VI, 2, 1))
-    rhs_j, rhs_t = _bf16(rng, (F, 2, P, kod))
+    rng = np.random.default_rng(kod if (vi, p) == (VI, P) else [vi, p, kod])
+    fdl_j, fdl_t = _bf16(rng, (F, vi, 2, p))
+    xn_j, xn_t = _bf16(rng, (F, vi, 2, 1))
+    rhs_j, rhs_t = _bf16(rng, (F, 2, p, kod))
     shifted = jnp.concatenate([xn_j, fdl_j[..., :-1]], axis=-1)
     want = _f32_einsum("fvcp,fcpk->fvk", shifted, rhs_j)
     out, m = mac_shift(fdl_t, xn_t, rhs_t)

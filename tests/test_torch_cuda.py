@@ -754,22 +754,40 @@ def test_partitioned_and_monolithic_steps_on_the_card_match_the_cpu(cuda,
 # -- bf16 and the 'selected' cascade ---------------------------------------------------
 
 
-@pytest.mark.parametrize("kod", [4, 16, 36, 64, 68])
-@pytest.mark.parametrize("pp", [20, 44, 136])
-@pytest.mark.parametrize("kernel", ["ring_mac", "mac_shift"])
-def test_bf16_kernels_match_plain_version(cuda, kernel, pp, kod):
-    """The bf16 instantiations against their plain versions (bf16 operands
+# the tensor-core kernels' tile edges, (F, VI, Pp, KOD): Pp 4 (Q = 8, less
+# than one k16 step), KOD 12 and 20 (half an n8 tile), VI 1 and 17 (below
+# and across one m16 tile), the long lines, and (ring_mac only) the
+# 2048-voice cascade's head and tail
+BF16_EDGES = [(3, 130, 4, 16), (3, 17, 4, 12), (3, 130, 44, 12),
+              (3, 130, 44, 20), (3, 1, 44, 16), (3, 17, 44, 36),
+              (2, 130, 2048, 16), (2, 130, 2048, 64), (2, 130, 8192, 16),
+              (2, 130, 8192, 64)]
+BF16_CASCADE_2048 = [(257, 4096, 32, 16), (4097, 256, 48, 16)]
+
+
+@pytest.mark.parametrize("kernel,f,vi,pp,kod", [
+    *(pytest.param(kernel, 3, 130, pp, kod, id=f"{kernel}-{pp}-{kod}")
+      for kernel in ("ring_mac", "mac_shift") for pp in (20, 44, 136)
+      for kod in (4, 16, 36, 64, 68)),
+    *(pytest.param(kernel, *shape, id=f"{kernel}-{'-'.join(map(str, shape))}")
+      for kernel in ("ring_mac", "mac_shift") for shape in BF16_EDGES),
+    *(pytest.param("ring_mac", *shape,
+                   id=f"ring_mac-{'-'.join(map(str, shape))}")
+      for shape in BF16_CASCADE_2048)])
+def test_bf16_kernels_match_plain_version(cuda, kernel, f, vi, pp, kod):
+    """The bf16 kernels against their plain versions (bf16 operands
     upcast, float64 sums) at Pp no multiple of 32 (a chunk across the plane
     boundary), KOD 4 to 68 (every column tile; 68 takes two column groups)
-    and VI 130 (a ragged second row tile): m within 1e-5 of scale, the
+    and VI 130 (a ragged second row tile), and at the tensor-core tiles'
+    edges (BF16_EDGES, BF16_CASCADE_2048): m within 1e-5 of scale, the
     shifted line bit for bit, one launch each."""
-    rng = np.random.default_rng(pp * 100 + kod)
+    rng = np.random.default_rng(pp * 100 + kod if (f, vi) == (3, 130)
+                                and pp in (20, 44, 136) else [f, vi, pp, kod])
 
     def bf16(*shape):
         return torch.tensor(rng.standard_normal(shape, dtype=np.float32),
                             device=cuda).to(torch.bfloat16)
 
-    f, vi = 3, 130
     fdl = bf16(f, vi, 2, pp)
     if kernel == "ring_mac":
         rhs2 = bf16(f, 2, 2 * pp, kod)
@@ -794,6 +812,70 @@ def test_bf16_kernels_match_plain_version(cuda, kernel, pp, kod):
     assert torch.equal(got_fdl.view(torch.int16), want_fdl.view(torch.int16))
     err = (got.double() - want).abs().max().item()
     assert err <= 1e-5 * want.abs().max().item()
+
+
+# (F, VI, Pp, KOD) of the f32 kernels' fixed-seed check: every column tile
+# (16, 32, 48, 64, and 64 + 16 at KOD 68), ragged rows and the 64-voice line
+F32_SHAPES = [(3, 130, 44, 68), (3, 129, 20, 32), (16, 128, 696, 16),
+              (16, 128, 696, 36), (16, 128, 696, 64)]
+# sha256 of those outputs, as f32_output_digests gave them on an H100
+# with the f32 kernels' sources from before the bf16 kernels moved to the
+# tensor cores
+F32_DIGESTS = {
+    "ring_mac 3x130x44x68":
+        "e8fcb210e6757d47f20395a5ec6c41e13f242efbc74860d43ac7d14a0b343818",
+    "mac_shift 3x130x44x68":
+        "4f00a3074eac4b1bdaff33ec4680427ae972e6e247c1860ebdd1fdae03ca6cf7",
+    "ring_mac 3x129x20x32":
+        "4aa3840fe1ad4ed583dcb0789601eefe351009cd56c90e3dc98a23592ff62be5",
+    "mac_shift 3x129x20x32":
+        "35b5e0400356dbc003e8278e27023c5b1ef7dfad21acb28bfd90d6aa0b034c8b",
+    "ring_mac 16x128x696x16":
+        "177593c2c9f918c98fe5e7229ead0f9f9c076af9a3407240669b3b12e4b6a7fb",
+    "mac_shift 16x128x696x16":
+        "e518798197a45304be175acba563419476a6b5d323f37d1e2386baa907e54cff",
+    "ring_mac 16x128x696x36":
+        "e0b166c5f74c49ead0ae9bf7367dd4884f582ae16e9d3f4b2c6ca9862671784c",
+    "mac_shift 16x128x696x36":
+        "73bf510d0656460a6cc1fc6b4bba997a42e9d1f63c352b654858d54f62798f37",
+    "ring_mac 16x128x696x64":
+        "1dc4a75851d508ea0c513f1e56e25141005ebd25daf2dc101bdb21a2628b5a11",
+    "mac_shift 16x128x696x64":
+        "15321067a4a5a19dded834d671cb79a179bad9d32d9026b3e1e82b7a473704a7",
+}
+
+
+def f32_output_digests(dev):
+    """{name: sha256} of ring_mac's m (ring slot 7) and mac_shift's shifted
+    line and m on f32 inputs from numpy seeds, at F32_SHAPES."""
+    import hashlib
+
+    digests = {}
+    for f, vi, pp, kod in F32_SHAPES:
+        rng = np.random.default_rng([f, vi, pp, kod])
+
+        def f32(*shape):
+            return torch.tensor(rng.standard_normal(shape, dtype=np.float32),
+                                device=dev)
+
+        fdl, rhs2 = f32(f, vi, 2, pp), f32(f, 2, 2 * pp, kod)
+        x_new, rhs = f32(f, vi, 2, 1), f32(f, 2, pp, kod)
+        m = ring_mac(torch.tensor(7, dtype=torch.int32, device=dev), fdl,
+                     rhs2)
+        line, m2 = mac_shift(fdl.clone(), x_new, rhs)
+        for name, outs in (("ring_mac", (m,)), ("mac_shift", (line, m2))):
+            digest = hashlib.sha256()
+            for t in outs:
+                digest.update(t.cpu().numpy().tobytes())
+            digests[f"{name} {f}x{vi}x{pp}x{kod}"] = digest.hexdigest()
+    return digests
+
+
+def test_f32_kernels_are_unchanged_at_a_fixed_seed(cuda):
+    """The f32 kernels keep their outputs bit for bit beside the bf16
+    tensor-core kernels: the sha256 of every output at F32_SHAPES equals
+    the one the earlier f32 kernels gave on the same inputs."""
+    assert f32_output_digests(cuda) == F32_DIGESTS
 
 
 def test_bf16_kernel_refuses_a_pp_not_divisible_by_4(cuda):

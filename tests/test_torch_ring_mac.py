@@ -173,6 +173,22 @@ def test_build_hash_covers_the_shared_headers(tmp_path, monkeypatch):
     assert lib.digest() != first
 
 
+def test_build_hash_covers_the_headers_beside_the_source(tmp_path,
+                                                         monkeypatch):
+    """An earlier version of a kernel kept outside csrc/ builds against the
+    headers beside it (nvcc looks there first): a change to one of them
+    changes the build's hash too."""
+    from tpu_audio_torch.ops import cuda_build
+    (tmp_path / "csrc").mkdir()
+    monkeypatch.setattr(cuda_build, "CSRC", tmp_path / "csrc")
+    (tmp_path / "k.cu").write_text('#include "h.cuh"\n')
+    (tmp_path / "h.cuh").write_text("// one\n")
+    lib = cuda_build.CudaLibrary("k", [], source=tmp_path / "k.cu")
+    first = lib.digest()
+    (tmp_path / "h.cuh").write_text("// two\n")
+    assert lib.digest() != first
+
+
 def test_cpu_path_launches_no_kernel():
     fdl, rhs = _inputs(8)
     before = ring_mac.launches

@@ -1,6 +1,7 @@
 // cp.async helpers shared by the port's Hopper kernels (sm_90a): 16- and
 // 8-byte asynchronous copies from global to shared memory, with the
-// zero-fill form for masked vectors, and the commit/wait of copy groups.
+// zero-fill form for masked vectors and an L2 prefetch form, and the
+// commit/wait of copy groups.
 
 #pragma once
 
@@ -24,12 +25,22 @@ __device__ __forceinline__ void copy8(void* dst, const void* src,
                :: "r"(s), "l"(src), "r"(valid ? 8 : 0) : "memory");
 }
 
-// the copy of one 4-value vector of T (16 bytes of float, 8 of bf16)
+// copy16 that also has L2 fetch the 256-byte block holding src: a line
+// read in 128-byte runs per row then reaches device memory in 256-byte
+// ones, the next chunk's run already in L2 when its copy comes
+__device__ __forceinline__ void copy16_l2pf(void* dst, const void* src,
+                                            bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global.L2::256B [%0], [%1], 16, %2;\n"
+               :: "r"(s), "l"(src), "r"(valid ? 16 : 0) : "memory");
+}
+
+// the copy of one vector of kBytes: 16 (copy16_l2pf) or 8 (copy8)
 template <int kBytes>
 __device__ __forceinline__ void copy_vec(void* dst, const void* src,
                                          bool valid) {
   static_assert(kBytes == 16 || kBytes == 8, "16- or 8-byte copies only");
-  if constexpr (kBytes == 16) copy16(dst, src, valid);
+  if constexpr (kBytes == 16) copy16_l2pf(dst, src, valid);
   else copy8(dst, src, valid);
 }
 
@@ -40,11 +51,6 @@ __device__ __forceinline__ float bf16_lo(unsigned w) {
 }
 __device__ __forceinline__ float bf16_hi(unsigned w) {
   return __uint_as_float(w & 0xffff0000u);
-}
-
-// four consecutive bf16 values (8 bytes, 8-byte aligned) as a float4
-__device__ __forceinline__ float4 bf16x4(uint2 u) {
-  return make_float4(bf16_lo(u.x), bf16_hi(u.x), bf16_lo(u.y), bf16_hi(u.y));
 }
 
 __device__ __forceinline__ void commit() {

@@ -81,29 +81,41 @@
 // over column groups of 64, re-reading the line per group, and writes the
 // shifted line in the last group only. KOD <= 64 reads the line once.
 //
-// bf16 operands (mac_dtype='bf16'): the kernel is a template on the
-// operand type T, float or __nv_bfloat16. With T = bf16 the line, x_new and
-// rhs are bf16 (JAX casts the new block spectrum to bf16 before it enters
-// the line, tpu_audio/engine/fmajor.py:730) and the shifted line is
-// written back in bf16, bit for bit the values it read; each value becomes
-// an f32 as it leaves shared memory, and products, sums and m are f32 as
-// in the f32 form (bf16 x bf16 products are exact in f32). The Pallas
-// kernel declares its aliased line f32, so JAX runs bf16 roll mode as the
-// roll plus the einsum at fmajor.py:920-923; this kernel stands for that
-// pair. A stage holds 8 values per 16-byte copy, half the shared memory;
-// the rhs tile moves in 8-byte vectors of 4 columns (a row of rhs starts
-// on 8 bytes, not 16, when KOD % 8 == 4); the write-back moves 16-byte
-// runs of 8 slots, each lane taking the slot before its run from the lane
-// to its left (__shfl_up_sync within the row's 4 lanes) or, for the first
-// lane, from the chunk below, as in the f32 form. The race guard is
-// unchanged: the tail-first walk writes chunk i - 1 only once chunks i - 1
-// and i have landed, and every lane of a warp takes part in each shuffle.
-// The bound: the line is read and written in half the bytes, 58.5 / 63.1 /
-// 69.7 us at KOD 16 / 36 / 64, under the f32 FMAs at KOD 36 and 64.
+// bf16 operands (mac_dtype='bf16'): a kernel of its own,
+// mac_shift_bf16_kernel. The line, x_new and rhs are bf16 (JAX casts the
+// new block spectrum to bf16 before it enters the line,
+// tpu_audio/engine/fmajor.py:730) and the shifted line is written back in
+// bf16, bit for bit the values it read; m is f32. The Pallas kernel
+// declares its aliased line f32, so JAX runs bf16 roll mode as the roll
+// plus the einsum at fmajor.py:920-923; this kernel stands for that pair.
+// bf16 x bf16 products are exact in f32, so the product runs on the tensor
+// cores with f32 accumulators, the core of ring_mac's bf16 form
+// (csrc/ring_mac.cu, mma_bf16.cuh): each of the 8 warps takes 16 rows by
+// all KT columns of the chunk, ldmatrix.x4 of the [128][kBQC] line tile
+// (row stride kBQC + 8 bf16, 144 bytes: ldmatrix's rows in distinct banks;
+// the write-back reads the same tile) and ldmatrix.x4.trans of the pre-shifted
+// rhs tile (row stride KT + 8), mma.sync.m16n8k16 bf16 -> f32, each
+// chunk's product summed from zero and added into the running f32 sums
+// (a two-level sum). The walk, the pre-shifted tile, the write-back and
+// the race guard are the f32 form's: the write-back moves 16-byte runs of
+// 8 slots, each lane taking the slot before its run from the lane to its
+// left (__shfl_up_sync within the row's 8 lanes) or, for the first lane,
+// from the chunk below; every lane of a warp takes part in each shuffle.
+// With no unpacking and no FMAs left the copies bound it, so a chunk is
+// kBQC = 64 q, 128 bytes of each line row as in the f32 form (32-q chunks
+// of 64-byte runs measured ~10 % slower on the H100), and the line copies
+// ask L2 for the 256-byte block around each 16 bytes (copy16_l2pf):
+// kBStages = 4 stages of 28 KB at KT = 64, two chunks in flight (kBAhead)
+// while one is multiplied and the one above it written back. The rhs tile
+// moves in 16-byte copies of 8 columns when KOD % 8 == 0, else in 8-byte
+// copies of 4 (a row of rhs then starts on 8 bytes only). The bound:
+// bytes, the line read and written in half the f32 bytes, 58.8 / 63.8 /
+// 70.9 us at KOD 16 / 36 / 64 (64 voices).
 //
-// Alignment: fdl rows start on 16 bytes only if Q * sizeof(T) is a
-// multiple of 16, so the launch refuses an odd Pp for f32 and a Pp that is
-// not a multiple of 4 for bf16 (the engine pads Pp to a multiple of 8).
+// Alignment: fdl rows start on 16 bytes only if Q values (4 bytes each in
+// f32, 2 in bf16) make a multiple of 16, so the launch refuses an odd Pp
+// for f32 and a Pp that is not a multiple of 4 for bf16 (the engine pads Pp
+// to a multiple of 8).
 // The launch allocates nothing and does not synchronise; it returns a
 // cudaError_t so the caller can raise.
 
@@ -112,46 +124,41 @@
 #include <stddef.h>
 #include <stdint.h>
 
-#include <type_traits>
-
 #include "cp_async.cuh"
+#include "mma_bf16.cuh"
 
 namespace {
+
+using bf16 = __nv_bfloat16;
 
 constexpr int kThreads = 256;
 constexpr int kRows = 128;                  // delay-line rows per block
 constexpr int kQC = 32;                     // q per chunk
 constexpr int kStages = 4;                  // depth of the cp.async ring
 constexpr int kAhead = kStages - 2;         // chunks in flight
+// fdl tile row stride in floats: the chunk plus one 16-byte vector, so a
+// warp's rows fall in distinct banks
+constexpr int kAStride = kQC + 4;
 
-// fdl tile row stride in elements: the chunk plus one 16-byte vector, so a
-// warp's rows fall in distinct banks (36 floats; 40 bf16 = 20 words)
-template <typename T>
-__host__ __device__ constexpr int a_stride() {
-  return kQC + 16 / static_cast<int>(sizeof(T));
-}
-
-template <typename T, int KT>
+template <int KT>
 __host__ __device__ constexpr int stage_elems() {
-  return kRows * a_stride<T>() + kQC * KT;
+  return kRows * kAStride + kQC * KT;
 }
 
-template <typename T, int KT>
+template <int KT>
 __global__ void __launch_bounds__(kThreads, 2)
-mac_shift_kernel(T* __restrict__ fdl, const T* __restrict__ x_new,
-                 const T* __restrict__ rhs, float* __restrict__ m,
+mac_shift_kernel(float* __restrict__ fdl, const float* __restrict__ x_new,
+                 const float* __restrict__ rhs, float* __restrict__ m,
                  int vi_count, int pp, int kod) {
   constexpr int kCG = KT == 64 ? 8 : 4;     // column groups of the tile
   constexpr int kNV = KT / (4 * kCG);       // 4-column vectors per thread
   constexpr int kTN = 4 * kNV;              // columns per thread
   constexpr int kRG = kThreads / kCG;       // row groups of the tile
   constexpr int kTM = kRows / kRG;          // rows per thread
-  constexpr int kAStride = a_stride<T>();
-  constexpr int kVecLen = 16 / static_cast<int>(sizeof(T));  // per 16 B
-  constexpr int kVecs = kQC / kVecLen;      // 16-byte vectors per row of a
+  constexpr int kVecs = kQC / 4;            // 16-byte vectors per row of a
                                             // chunk
   extern __shared__ __align__(16) float smem_raw[];
-  T* smem = reinterpret_cast<T*>(smem_raw);
+  float* smem = smem_raw;
 
   const int row_tiles = (vi_count + kRows - 1) / kRows;
   const int f = blockIdx.x / row_tiles;
@@ -163,9 +170,9 @@ mac_shift_kernel(T* __restrict__ fdl, const T* __restrict__ x_new,
   const int cg = tid % kCG;                 // a warp's lanes: kCG column
   const int rg = tid / kCG;                 // groups x consecutive rows
 
-  T* line = fdl + ((size_t)f * vi_count + row0) * q_total;
-  const T* xn = x_new + ((size_t)f * vi_count + row0) * 2;
-  const T* rhs_f = rhs + (size_t)f * q_total * kod;
+  float* line = fdl + ((size_t)f * vi_count + row0) * q_total;
+  const float* xn = x_new + ((size_t)f * vi_count + row0) * 2;
+  const float* rhs_f = rhs + (size_t)f * q_total * kod;
 
   for (int col0 = 0; col0 < kod; col0 += KT) {
     const int cols = min(KT, kod - col0);
@@ -176,11 +183,11 @@ mac_shift_kernel(T* __restrict__ fdl, const T* __restrict__ x_new,
     // into stage i % kStages
     auto load = [&](int i) {
       const int a = (chunks - 1 - i) * kQC;
-      T* as = smem + (i % kStages) * stage_elems<T, KT>();
-      T* bs = as + kRows * kAStride;
+      float* as = smem + (i % kStages) * stage_elems<KT>();
+      float* bs = as + kRows * kAStride;
       for (int e = tid; e < kRows * kVecs; e += kThreads) {
         const int r = e / kVecs;
-        const int qq = kVecLen * (e % kVecs);
+        const int qq = 4 * (e % kVecs);
         const bool ok = r < rows && a + qq < q_total;
         copy16(as + r * kAStride + qq,
                ok ? line + (size_t)r * q_total + a + qq : fdl, ok);
@@ -191,9 +198,8 @@ mac_shift_kernel(T* __restrict__ fdl, const T* __restrict__ x_new,
         const int q = a + j;
         const int s = q >= pp ? q - pp : q;
         const bool ok = q < q_total && s + 1 < pp && col < cols;
-        copy_vec<4 * static_cast<int>(sizeof(T))>(
-            bs + j * KT + col,
-            ok ? rhs_f + (size_t)(q + 1) * kod + col0 + col : rhs, ok);
+        copy16(bs + j * KT + col,
+               ok ? rhs_f + (size_t)(q + 1) * kod + col0 + col : rhs, ok);
       }
     };
 
@@ -202,61 +208,28 @@ mac_shift_kernel(T* __restrict__ fdl, const T* __restrict__ x_new,
     // float4 of a row x kThreads / kVecs rows
     auto write_back = [&](int i) {
       const int a = (chunks - 1 - i) * kQC;
-      const T* cur = smem + (i % kStages) * stage_elems<T, KT>();
-      const T* below = smem + ((i + 1) % kStages) * stage_elems<T, KT>();
+      const float* cur = smem + (i % kStages) * stage_elems<KT>();
+      const float* below = smem + ((i + 1) % kStages) * stage_elems<KT>();
       const int v = tid % kVecs;
-      const int q0 = a + kVecLen * v;
+      const int q0 = a + 4 * v;
       for (int r0 = 0; r0 < rows; r0 += kThreads / kVecs) {
         const int r = r0 + tid / kVecs;
         const bool live = r < rows && q0 < q_total;
-        if constexpr (std::is_same_v<T, float>) {
-          const float4 x = live ? *reinterpret_cast<const float4*>(
-                                      cur + r * kAStride + 4 * v)
-                                : make_float4(0.f, 0.f, 0.f, 0.f);
-          // old[q0 - 1] is the last value of the lane to the left
-          float prev = __shfl_up_sync(0xffffffffu, x.w, 1, kVecs);
-          if (!live) continue;
-          if (v == 0 && a > 0) prev = below[r * kAStride + kQC - 1];
-          float o[4] = {prev, x.x, x.y, x.z};
+        const float4 x = live ? *reinterpret_cast<const float4*>(
+                                    cur + r * kAStride + 4 * v)
+                              : make_float4(0.f, 0.f, 0.f, 0.f);
+        // old[q0 - 1] is the last value of the lane to the left
+        float prev = __shfl_up_sync(0xffffffffu, x.w, 1, kVecs);
+        if (!live) continue;
+        if (v == 0 && a > 0) prev = below[r * kAStride + kQC - 1];
+        float o[4] = {prev, x.x, x.y, x.z};
 #pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int c = q0 + e >= pp ? 1 : 0;
-            if (q0 + e == c * pp) o[e] = xn[2 * r + c];   // a plane's slot 0
-          }
-          *reinterpret_cast<float4*>(line + (size_t)r * q_total + q0) =
-              make_float4(o[0], o[1], o[2], o[3]);
-        } else {
-          // 8 slots as 4 words of 2 bf16; the low half of a word is the
-          // lower slot
-          const uint4 x = live ? *reinterpret_cast<const uint4*>(
-                                     cur + r * kAStride + kVecLen * v)
-                               : make_uint4(0u, 0u, 0u, 0u);
-          // old[q0 - 1] is the last value of the lane to the left
-          unsigned prev = __shfl_up_sync(0xffffffffu, x.w >> 16, 1, kVecs);
-          if (!live) continue;
-          if (v == 0 && a > 0)
-            prev = *reinterpret_cast<const unsigned short*>(
-                below + r * kAStride + kQC - 1);
-          const unsigned in[4] = {x.x, x.y, x.z, x.w};
-          unsigned short o[8];
-          o[0] = static_cast<unsigned short>(prev);
-#pragma unroll
-          for (int e = 1; e < 8; ++e)
-            o[e] = static_cast<unsigned short>(
-                (e % 2 ? in[(e - 1) / 2] : in[(e - 1) / 2] >> 16) & 0xffffu);
-#pragma unroll
-          for (int e = 0; e < 8; ++e) {
-            const int c = q0 + e >= pp ? 1 : 0;
-            if (q0 + e == c * pp)                        // a plane's slot 0
-              o[e] = *reinterpret_cast<const unsigned short*>(xn + 2 * r + c);
-          }
-          uint4 out;
-          out.x = o[0] | (static_cast<unsigned>(o[1]) << 16);
-          out.y = o[2] | (static_cast<unsigned>(o[3]) << 16);
-          out.z = o[4] | (static_cast<unsigned>(o[5]) << 16);
-          out.w = o[6] | (static_cast<unsigned>(o[7]) << 16);
-          *reinterpret_cast<uint4*>(line + (size_t)r * q_total + q0) = out;
+        for (int e = 0; e < 4; ++e) {
+          const int c = q0 + e >= pp ? 1 : 0;
+          if (q0 + e == c * pp) o[e] = xn[2 * r + c];   // a plane's slot 0
         }
+        *reinterpret_cast<float4*>(line + (size_t)r * q_total + q0) =
+            make_float4(o[0], o[1], o[2], o[3]);
       }
     };
 
@@ -277,62 +250,24 @@ mac_shift_kernel(T* __restrict__ fdl, const T* __restrict__ x_new,
       if (i + kAhead < chunks) load(i + kAhead);
       commit();
       if (last && i > 0) write_back(i - 1);
-      const T* as = smem + (i % kStages) * stage_elems<T, KT>();
-      const T* bs = as + kRows * kAStride;
-      if constexpr (std::is_same_v<T, float>) {
+      const float* as = smem + (i % kStages) * stage_elems<KT>();
+      const float* bs = as + kRows * kAStride;
 #pragma unroll 16
-        for (int j = 0; j < kQC; ++j) {
-          float av[kTM];
+      for (int j = 0; j < kQC; ++j) {
+        float av[kTM];
 #pragma unroll
-          for (int t = 0; t < kTM; ++t)
-            av[t] = as[(rg + kRG * t) * kAStride + j];
+        for (int t = 0; t < kTM; ++t)
+          av[t] = as[(rg + kRG * t) * kAStride + j];
 #pragma unroll
-          for (int v = 0; v < kNV; ++v) {
-            const float4 b = *reinterpret_cast<const float4*>(
-                bs + j * KT + 4 * (cg + kCG * v));
-#pragma unroll
-            for (int t = 0; t < kTM; ++t) {
-              acc[t][4 * v + 0] = fmaf(av[t], b.x, acc[t][4 * v + 0]);
-              acc[t][4 * v + 1] = fmaf(av[t], b.y, acc[t][4 * v + 1]);
-              acc[t][4 * v + 2] = fmaf(av[t], b.z, acc[t][4 * v + 2]);
-              acc[t][4 * v + 3] = fmaf(av[t], b.w, acc[t][4 * v + 3]);
-            }
-          }
-        }
-      } else {
-        // bf16: two q per step (one 32-bit load per row), summed in the
-        // same order
-#pragma unroll 8
-        for (int j = 0; j < kQC; j += 2) {
-          float a0[kTM], a1[kTM];
+        for (int v = 0; v < kNV; ++v) {
+          const float4 b = *reinterpret_cast<const float4*>(
+              bs + j * KT + 4 * (cg + kCG * v));
 #pragma unroll
           for (int t = 0; t < kTM; ++t) {
-            const unsigned u = *reinterpret_cast<const unsigned*>(
-                as + (rg + kRG * t) * kAStride + j);
-            a0[t] = bf16_lo(u);
-            a1[t] = bf16_hi(u);
-          }
-#pragma unroll
-          for (int v = 0; v < kNV; ++v) {
-            const int col = 4 * (cg + kCG * v);
-            const float4 b0 = bf16x4(*reinterpret_cast<const uint2*>(
-                bs + j * KT + col));
-            const float4 b1 = bf16x4(*reinterpret_cast<const uint2*>(
-                bs + (j + 1) * KT + col));
-#pragma unroll
-            for (int t = 0; t < kTM; ++t) {
-              acc[t][4 * v + 0] = fmaf(a0[t], b0.x, acc[t][4 * v + 0]);
-              acc[t][4 * v + 1] = fmaf(a0[t], b0.y, acc[t][4 * v + 1]);
-              acc[t][4 * v + 2] = fmaf(a0[t], b0.z, acc[t][4 * v + 2]);
-              acc[t][4 * v + 3] = fmaf(a0[t], b0.w, acc[t][4 * v + 3]);
-            }
-#pragma unroll
-            for (int t = 0; t < kTM; ++t) {
-              acc[t][4 * v + 0] = fmaf(a1[t], b1.x, acc[t][4 * v + 0]);
-              acc[t][4 * v + 1] = fmaf(a1[t], b1.y, acc[t][4 * v + 1]);
-              acc[t][4 * v + 2] = fmaf(a1[t], b1.z, acc[t][4 * v + 2]);
-              acc[t][4 * v + 3] = fmaf(a1[t], b1.w, acc[t][4 * v + 3]);
-            }
+            acc[t][4 * v + 0] = fmaf(av[t], b.x, acc[t][4 * v + 0]);
+            acc[t][4 * v + 1] = fmaf(av[t], b.y, acc[t][4 * v + 1]);
+            acc[t][4 * v + 2] = fmaf(av[t], b.z, acc[t][4 * v + 2]);
+            acc[t][4 * v + 3] = fmaf(av[t], b.w, acc[t][4 * v + 3]);
           }
         }
       }
@@ -345,30 +280,16 @@ mac_shift_kernel(T* __restrict__ fdl, const T* __restrict__ x_new,
       const int r = rg + kRG * t;
       if (r >= rows) continue;
       float* out = m + ((size_t)f * vi_count + row0 + r) * kod + col0;
-      float x0, x1;
-      if constexpr (std::is_same_v<T, float>) {
-        x0 = xn[2 * r];
-        x1 = xn[2 * r + 1];
-      } else {
-        const unsigned u = *reinterpret_cast<const unsigned*>(xn + 2 * r);
-        x0 = bf16_lo(u);
-        x1 = bf16_hi(u);
-      }
+      const float x0 = xn[2 * r];
+      const float x1 = xn[2 * r + 1];
 #pragma unroll
       for (int v = 0; v < kNV; ++v) {
         const int col = 4 * (cg + kCG * v);
         if (col >= cols) continue;
-        float4 h0, h1;
-        if constexpr (std::is_same_v<T, float>) {
-          h0 = __ldg(reinterpret_cast<const float4*>(rhs_f + col0 + col));
-          h1 = __ldg(reinterpret_cast<const float4*>(
-              rhs_f + (size_t)pp * kod + col0 + col));
-        } else {
-          h0 = bf16x4(__ldg(reinterpret_cast<const uint2*>(
-              rhs_f + col0 + col)));
-          h1 = bf16x4(__ldg(reinterpret_cast<const uint2*>(
-              rhs_f + (size_t)pp * kod + col0 + col)));
-        }
+        const float4 h0 =
+            __ldg(reinterpret_cast<const float4*>(rhs_f + col0 + col));
+        const float4 h1 = __ldg(reinterpret_cast<const float4*>(
+            rhs_f + (size_t)pp * kod + col0 + col));
         float4 o;
         o.x = fmaf(x1, h1.x, fmaf(x0, h0.x, acc[t][4 * v + 0]));
         o.y = fmaf(x1, h1.y, fmaf(x0, h0.y, acc[t][4 * v + 1]));
@@ -380,18 +301,220 @@ mac_shift_kernel(T* __restrict__ fdl, const T* __restrict__ x_new,
   }
 }
 
-template <typename T, int KT>
-cudaError_t launch(T* a, const T* xn, const T* b, float* out, int f, int vi,
-                   int pp, int kod, cudaStream_t s) {
-  constexpr size_t smem = kStages * stage_elems<T, KT>() * sizeof(T);
+// -- bf16 on the tensor cores ---------------------------------------------
+
+constexpr int kBQC = 64;                    // q per bf16 chunk
+constexpr int kBStages = 4;                 // depth of the bf16 ring
+constexpr int kBAhead = kBStages - 2;       // chunks in flight
+// line tile row stride in bf16: 144 bytes, so ldmatrix's eight 16-byte
+// rows fall in distinct banks; the rhs tile's is KT + 8 bf16 for the same
+// reason
+constexpr int kBAStride = kBQC + 8;
+
+template <int KT>
+__host__ __device__ constexpr int bf16_stage_elems() {
+  return kRows * kBAStride + kBQC * (KT + 8);
+}
+
+// a chunk's pre-shifted rhs tile, q in [a, a + kBQC): row j holds rhs[f, q +
+// 1] for q = a + j, zero at a plane's last slot and past Q; V columns a
+// copy (V = 8: 16 bytes, 4: 8), columns past `cols` zero-filled
+template <int KT, int V>
+__device__ __forceinline__ void copy_shifted_rhs(bf16* bs, const bf16* rhs_f,
+                                                 const bf16* any, int a,
+                                                 int pp, int kod, int cols,
+                                                 int tid) {
+  constexpr int kPerRow = KT / V;
+  const int q_total = 2 * pp;
+  for (int e = tid; e < kBQC * kPerRow; e += kThreads) {
+    const int j = e / kPerRow;
+    const int col = V * (e % kPerRow);
+    const int q = a + j;
+    const int s = q >= pp ? q - pp : q;
+    const bool ok = q < q_total && s + 1 < pp && col < cols;
+    copy_vec<2 * V>(bs + j * (KT + 8) + col,
+                    ok ? rhs_f + (size_t)(q + 1) * kod + col : any, ok);
+  }
+}
+
+template <int KT>
+__global__ void __launch_bounds__(kThreads, 2)
+mac_shift_bf16_kernel(bf16* __restrict__ fdl, const bf16* __restrict__ x_new,
+                      const bf16* __restrict__ rhs, float* __restrict__ m,
+                      int vi_count, int pp, int kod) {
+  constexpr int kStage = bf16_stage_elems<KT>();
+  constexpr int kVecs = kBQC / 8;            // 16-byte vectors per line row
+  extern __shared__ __align__(16) float smem_raw[];
+  bf16* smem = reinterpret_cast<bf16*>(smem_raw);
+
+  const int row_tiles = (vi_count + kRows - 1) / kRows;
+  const int f = blockIdx.x / row_tiles;
+  const int row0 = (blockIdx.x - f * row_tiles) * kRows;
+  const int rows = min(kRows, vi_count - row0);
+  const int q_total = 2 * pp;
+  const int chunks = (q_total + kBQC - 1) / kBQC;
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const bool vec16 = kod % 8 == 0;
+
+  bf16* line = fdl + ((size_t)f * vi_count + row0) * q_total;
+  const bf16* xn = x_new + ((size_t)f * vi_count + row0) * 2;
+  const bf16* rhs_f = rhs + (size_t)f * q_total * kod;
+
+  for (int col0 = 0; col0 < kod; col0 += KT) {
+    const int cols = min(KT, kod - col0);
+    const bool last = col0 + KT >= kod;
+    if (col0 > 0) __syncthreads();          // every thread is off the ring
+
+    // chunk i of the walk, [a, a + kBQC) with a = (chunks - 1 - i) * kBQC,
+    // into stage i % kBStages
+    auto load = [&](int i) {
+      const int a = (chunks - 1 - i) * kBQC;
+      bf16* as = smem + (i % kBStages) * kStage;
+      for (int e = tid; e < kRows * kVecs; e += kThreads) {
+        const int r = e / kVecs;
+        const int qq = 8 * (e % kVecs);
+        const bool ok = r < rows && a + qq < q_total;
+        copy16_l2pf(as + r * kBAStride + qq,
+                    ok ? line + (size_t)r * q_total + a + qq : fdl, ok);
+      }
+      bf16* bs = as + kRows * kBAStride;
+      if (vec16)
+        copy_shifted_rhs<KT, 8>(bs, rhs_f + col0, rhs, a, pp, kod, cols, tid);
+      else
+        copy_shifted_rhs<KT, 4>(bs, rhs_f + col0, rhs, a, pp, kod, cols, tid);
+    };
+
+    // the shifted slots of chunk i, from its stage and that of chunk i + 1
+    // (the chunk below, whose last slot is old[a - 1]); lanes: kVecs runs
+    // of 8 slots of a row x kThreads / kVecs rows
+    auto write_back = [&](int i) {
+      const int a = (chunks - 1 - i) * kBQC;
+      const bf16* cur = smem + (i % kBStages) * kStage;
+      const bf16* below = smem + ((i + 1) % kBStages) * kStage;
+      const int v = tid % kVecs;
+      const int q0 = a + 8 * v;
+      for (int r0 = 0; r0 < rows; r0 += kThreads / kVecs) {
+        const int r = r0 + tid / kVecs;
+        const bool live = r < rows && q0 < q_total;
+        // 8 slots as 4 words of 2 bf16; the low half of a word is the
+        // lower slot
+        const uint4 x = live ? *reinterpret_cast<const uint4*>(
+                                   cur + r * kBAStride + 8 * v)
+                             : make_uint4(0u, 0u, 0u, 0u);
+        // old[q0 - 1] is the last value of the lane to the left
+        unsigned prev = __shfl_up_sync(0xffffffffu, x.w >> 16, 1, kVecs);
+        if (!live) continue;
+        if (v == 0 && a > 0)
+          prev = *reinterpret_cast<const unsigned short*>(
+              below + r * kBAStride + kBQC - 1);
+        const unsigned in[4] = {x.x, x.y, x.z, x.w};
+        unsigned short o[8];
+        o[0] = static_cast<unsigned short>(prev);
+#pragma unroll
+        for (int e = 1; e < 8; ++e)
+          o[e] = static_cast<unsigned short>(
+              (e % 2 ? in[(e - 1) / 2] : in[(e - 1) / 2] >> 16) & 0xffffu);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          const int c = q0 + e >= pp ? 1 : 0;
+          if (q0 + e == c * pp)                        // a plane's slot 0
+            o[e] = *reinterpret_cast<const unsigned short*>(xn + 2 * r + c);
+        }
+        uint4 out;
+        out.x = o[0] | (static_cast<unsigned>(o[1]) << 16);
+        out.y = o[2] | (static_cast<unsigned>(o[3]) << 16);
+        out.z = o[4] | (static_cast<unsigned>(o[5]) << 16);
+        out.w = o[6] | (static_cast<unsigned>(o[7]) << 16);
+        *reinterpret_cast<uint4*>(line + (size_t)r * q_total + q0) = out;
+      }
+    };
+
+    float acc[KT / 8][4];
+#pragma unroll
+    for (int n = 0; n < KT / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+    for (int i = 0; i < kBAhead; ++i) {
+      if (i < chunks) load(i);
+      commit();
+    }
+    for (int i = 0; i < chunks; ++i) {
+      wait_pending<kBAhead - 1>();          // this thread's copies of chunk i
+      __syncthreads();                      // everyone's; stage i-2 is free
+      if (i + kBAhead < chunks) load(i + kBAhead);
+      commit();
+      if (last && i > 0) write_back(i - 1);
+      const bf16* as = smem + (i % kBStages) * kStage;
+      if (16 * warp < rows)
+        mma_chunk<kBQC, KT, kBAStride, KT + 8>(acc, as, as + kRows * kBAStride,
+                                              warp, lane);
+    }
+    if (last) write_back(chunks - 1);
+
+    // m = the chunks' sums + x_new * rhs[f, c, 0], from the C fragments:
+    // rows r and r + 8, columns 2t and 2t + 1 of each n8 tile
+    const int r = 16 * warp + lane / 4;
+    float x[2][2];                          // [row r, r + 8][plane]
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const unsigned u = r + 8 * h < rows
+          ? *reinterpret_cast<const unsigned*>(xn + 2 * (r + 8 * h)) : 0u;
+      x[h][0] = bf16_lo(u);
+      x[h][1] = bf16_hi(u);
+    }
+    float* out = m + ((size_t)f * vi_count + row0 + r) * kod + col0;
+#pragma unroll
+    for (int n = 0; n < KT / 8; ++n) {
+      const int col = 8 * n + 2 * (lane % 4);
+      if (col >= cols) continue;
+      const unsigned h0 = __ldg(reinterpret_cast<const unsigned*>(
+          rhs_f + col0 + col));
+      const unsigned h1 = __ldg(reinterpret_cast<const unsigned*>(
+          rhs_f + (size_t)pp * kod + col0 + col));
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        if (r + 8 * h >= rows) continue;
+        const float2 o = make_float2(
+            fmaf(x[h][1], bf16_lo(h1),
+                 fmaf(x[h][0], bf16_lo(h0), acc[n][2 * h])),
+            fmaf(x[h][1], bf16_hi(h1),
+                 fmaf(x[h][0], bf16_hi(h0), acc[n][2 * h + 1])));
+        *reinterpret_cast<float2*>(out + 8 * h * (size_t)kod + col) = o;
+      }
+    }
+  }
+}
+
+template <int KT>
+cudaError_t launch(float* a, const float* xn, const float* b, float* out,
+                   int f, int vi, int pp, int kod, cudaStream_t s) {
+  constexpr size_t smem = kStages * stage_elems<KT>() * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      mac_shift_kernel<T, KT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      mac_shift_kernel<KT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const unsigned blocks =
       static_cast<unsigned>(f) * static_cast<unsigned>((vi + kRows - 1) / kRows);
-  mac_shift_kernel<T, KT><<<blocks, kThreads, smem, s>>>(a, xn, b, out, vi,
-                                                         pp, kod);
+  mac_shift_kernel<KT><<<blocks, kThreads, smem, s>>>(a, xn, b, out, vi, pp,
+                                                      kod);
+  return cudaGetLastError();
+}
+
+template <int KT>
+cudaError_t launch_bf16(bf16* a, const bf16* xn, const bf16* b, float* out,
+                        int f, int vi, int pp, int kod, cudaStream_t s) {
+  constexpr size_t smem = kBStages * bf16_stage_elems<KT>() * sizeof(bf16);
+  cudaError_t err = cudaFuncSetAttribute(
+      mac_shift_bf16_kernel<KT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const unsigned blocks =
+      static_cast<unsigned>(f) * static_cast<unsigned>((vi + kRows - 1) / kRows);
+  mac_shift_bf16_kernel<KT><<<blocks, kThreads, smem, s>>>(a, xn, b, out, vi,
+                                                           pp, kod);
   return cudaGetLastError();
 }
 
@@ -399,28 +522,14 @@ bool aligned16(const void* p) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
-template <typename T>
-int dispatch(void* fdl, const void* x_new, const void* rhs, void* m, int f,
-             int vi, int pp, int kod, void* stream) {
-  // a row of fdl is Q = 2 * pp values: 16-byte aligned rows; a bf16
-  // x_new row of 2 values is read as one 32-bit word
-  constexpr int kPpMultiple = 8 / static_cast<int>(sizeof(T));
-  if (f <= 0 || vi <= 0 || pp <= 0 || kod <= 0 || pp % kPpMultiple ||
-      kod % 4 || !aligned16(fdl) || !aligned16(rhs) || !aligned16(m) ||
-      (sizeof(T) == 2 && reinterpret_cast<uintptr_t>(x_new) % 4))
-    return static_cast<int>(cudaErrorInvalidValue);
-  T* a = static_cast<T*>(fdl);
-  const T* xn = static_cast<const T*>(x_new);
-  const T* b = static_cast<const T*>(rhs);
-  float* out = static_cast<float*>(m);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (kod <= 16)
-    return static_cast<int>(launch<T, 16>(a, xn, b, out, f, vi, pp, kod, s));
-  if (kod <= 32)
-    return static_cast<int>(launch<T, 32>(a, xn, b, out, f, vi, pp, kod, s));
-  if (kod <= 48)
-    return static_cast<int>(launch<T, 48>(a, xn, b, out, f, vi, pp, kod, s));
-  return static_cast<int>(launch<T, 64>(a, xn, b, out, f, vi, pp, kod, s));
+// a row of fdl is Q = 2 * pp values of `bytes` each: rows start on 16 bytes
+// for pp a multiple of 8 / bytes; a bf16 x_new row of 2 values is read as
+// one 32-bit word
+bool refused(const void* fdl, const void* x_new, const void* rhs,
+             const void* m, int f, int vi, int pp, int kod, int bytes) {
+  return f <= 0 || vi <= 0 || pp <= 0 || kod <= 0 || pp % (8 / bytes) ||
+         kod % 4 || !aligned16(fdl) || !aligned16(rhs) || !aligned16(m) ||
+         (bytes == 2 && reinterpret_cast<uintptr_t>(x_new) % 4);
 }
 
 }  // namespace
@@ -433,14 +542,34 @@ int dispatch(void* fdl, const void* x_new, const void* rhs, void* m, int f,
 extern "C" int mac_shift_launch(void* fdl, const void* x_new, const void* rhs,
                                 void* m, int f, int vi, int pp, int kod,
                                 void* stream) {
-  return dispatch<float>(fdl, x_new, rhs, m, f, vi, pp, kod, stream);
+  if (refused(fdl, x_new, rhs, m, f, vi, pp, kod, 4))
+    return static_cast<int>(cudaErrorInvalidValue);
+  float* a = static_cast<float*>(fdl);
+  const float* xn = static_cast<const float*>(x_new);
+  const float* b = static_cast<const float*>(rhs);
+  float* out = static_cast<float*>(m);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (kod <= 16) return launch<16>(a, xn, b, out, f, vi, pp, kod, s);
+  if (kod <= 32) return launch<32>(a, xn, b, out, f, vi, pp, kod, s);
+  if (kod <= 48) return launch<48>(a, xn, b, out, f, vi, pp, kod, s);
+  return launch<64>(a, xn, b, out, f, vi, pp, kod, s);
 }
 
 // The same with fdl, x_new and rhs bf16 (m f32): pp must be a multiple of 4.
 extern "C" int mac_shift_bf16_launch(void* fdl, const void* x_new,
                                      const void* rhs, void* m, int f, int vi,
                                      int pp, int kod, void* stream) {
-  return dispatch<__nv_bfloat16>(fdl, x_new, rhs, m, f, vi, pp, kod, stream);
+  if (refused(fdl, x_new, rhs, m, f, vi, pp, kod, 2))
+    return static_cast<int>(cudaErrorInvalidValue);
+  bf16* a = static_cast<bf16*>(fdl);
+  const bf16* xn = static_cast<const bf16*>(x_new);
+  const bf16* b = static_cast<const bf16*>(rhs);
+  float* out = static_cast<float*>(m);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (kod <= 16) return launch_bf16<16>(a, xn, b, out, f, vi, pp, kod, s);
+  if (kod <= 32) return launch_bf16<32>(a, xn, b, out, f, vi, pp, kod, s);
+  if (kod <= 48) return launch_bf16<48>(a, xn, b, out, f, vi, pp, kod, s);
+  return launch_bf16<64>(a, xn, b, out, f, vi, pp, kod, s);
 }
 
 extern "C" const char* mac_shift_error_string(int err) {

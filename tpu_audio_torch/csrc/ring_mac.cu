@@ -77,25 +77,50 @@
 //
 // bf16 operands (mac_dtype='bf16'; JAX runs that MAC as the einsum the
 // Pallas kernel stands for, bf16 operands with preferred_element_type f32,
-// tpu_audio/engine/fmajor.py:908-923): the kernel is a template on the
-// operand type T, float or __nv_bfloat16. With T = bf16 the line and the
-// window are bf16 in device memory and in shared memory (a 16-byte copy
-// carries 8 values, so a stage takes half the shared memory: 56 KB at KT =
-// 64), each value becomes an f32 as it leaves shared memory (exact: a bf16
-// is the top half of a float), and the products, sums and m stay f32 as in
-// the f32 form: bf16 x bf16 products are exact in f32, so m differs from
-// the f32 MAC of the upcast operands only in the order of the sums. A
-// thread reads two q of a row in one 32-bit load and four window columns
-// in one 8-byte load. The window is copied in 8-byte vectors of 4 columns
-// (a row of rhs2 starts on 8 bytes, not 16, when KOD % 8 == 4). The bound:
-// the line is half the bytes (91.6 MB at 64 voices), so at KOD 36 and 64
-// the f32 FMAs (49.2 and 87.5 us at 67 TFLOP/s) bound it, not the bytes
-// (36.5 and 43.5 us); tensor-core MMA (bf16 in, f32 accumulate) is left
-// for a later design.
+// tpu_audio/engine/fmajor.py:908-923): a kernel of its own,
+// ring_mac_bf16_kernel, on the tensor cores. Per bin the MAC is a GEMM, M =
+// VI rows, K = Q, N = KOD, with A the line tile (k contiguous) and B the
+// gathered window (n contiguous). bf16 x bf16 products are exact in f32, so
+// an MMA with f32 accumulators computes the JAX einsum's function; only the
+// order of the sums differs. What bounds it: bytes. The line is half the f32
+// bytes (91.6 MB at 64 voices) and the work 7-21 FLOP/byte, against the
+// bf16 tensor-core ridge of ~295: 31.4 / 36.4 / 43.5 us at KOD 16 / 36 / 64.
+// The design keeps copies in flight and leaves the tensor cores idle most
+// of the time (mma.sync, not wgmma: the full rate buys nothing here):
+//   - the same tiles as the f32 form (one bin, 128 rows, all KT columns, KT
+//     16 to 64) and the same cp.async zero-fill copies (the window row
+//     computed per row, columns past KOD zeroed), in chunks of kBQC = 64 q:
+//     128 bytes of each line row a chunk, as the f32 form's 32 q. Measured
+//     on the H100 at 64 voices, 32-q chunks (64-byte runs per row) held the
+//     copies alone to ~1.8-2.0 TB/s, 64-q ones to ~2.2-2.4; the line
+//     copies also ask L2 for the 256-byte block around each 16 bytes
+//     (copy16_l2pf: the next chunk's run comes in the same DRAM access),
+//     ~2.5-2.7 TB/s. kBStages = 4 stages of 28 KB at KT = 64, three chunks
+//     in flight while one is multiplied, two blocks per SM;
+//   - each of the 8 warps takes 16 rows by all KT columns: per k16 step one
+//     ldmatrix.x4 of its A fragment (the tile's row stride of kBQC + 8
+//     bf16, 144 bytes, puts ldmatrix's eight 16-byte rows in distinct
+//     banks) and KT /
+//     16 ldmatrix.x4.trans of B fragments (row stride KT + 8 bf16 for the
+//     same reason), then KT / 8 mma.sync.m16n8k16 bf16 -> f32. Nothing is
+//     unpacked and no sums are parked: a thread holds KT / 2 f32 sums;
+//   - a two-level sum: each chunk's product starts from zero and is added
+//     into the running f32 sums with one round-to-nearest add (the tensor
+//     core's own adds truncate, so they span 64 products only);
+//   - short lines (the 2048-voice cascade's head, Q = 64, and tail, Q = 96:
+//     ~8200 tiles of 18-34 KB): the grid holds as many blocks as are resident
+//     at once, and each block walks its tiles (tile blockIdx.x, then
+//     gridDim.x on) as one stream of chunks, so the ring runs on across a
+//     tile's end and the next tile's copies overlap this one's product and
+//     stores. m leaves the C fragments as float2 (8 bytes, KOD is even).
+// The window moves in 16-byte copies of 8 columns when KOD % 8 == 0, else
+// in 8-byte copies of 4 (a row of rhs2 then starts on 8 bytes only).
+// KOD > 64 splits into column groups of 64 among the tiles.
 //
-// Alignment: fdl rows start on 16 bytes only if Q * sizeof(T) is a
-// multiple of 16, so the launch refuses an odd Pp for f32 and a Pp that is
-// not a multiple of 4 for bf16 (the engine pads Pp to a multiple of 8).
+// Alignment: fdl rows start on 16 bytes only if Q values (4 bytes each in
+// f32, 2 in bf16) make a multiple of 16, so the launch refuses an odd Pp
+// for f32 and a Pp that is not a multiple of 4 for bf16 (the engine pads Pp
+// to a multiple of 8).
 // The launch allocates nothing and does not synchronise; it returns a
 // cudaError_t so the caller can raise.
 
@@ -104,47 +129,44 @@
 #include <stddef.h>
 #include <stdint.h>
 
-#include <type_traits>
+#include <algorithm>
 
 #include "cp_async.cuh"
+#include "mma_bf16.cuh"
 
 namespace {
+
+using bf16 = __nv_bfloat16;
 
 constexpr int kThreads = 256;
 constexpr int kGroup = 128;                 // threads of one q group
 constexpr int kRows = 128;                  // delay-line rows per block
 constexpr int kQC = 32;                     // q per chunk
 constexpr int kStages = 4;                  // depth of the cp.async ring
+// fdl tile row stride in floats: the chunk plus one 16-byte vector, so a
+// warp's rows fall in distinct banks
+constexpr int kAStride = kQC + 4;
 
-// fdl tile row stride in elements: the chunk plus one 16-byte vector, so a
-// warp's rows fall in distinct banks (36 floats; 40 bf16 = 20 words)
-template <typename T>
-__host__ __device__ constexpr int a_stride() {
-  return kQC + 16 / static_cast<int>(sizeof(T));
-}
-
-template <typename T, int KT>
+template <int KT>
 __host__ __device__ constexpr int stage_elems() {
-  return kRows * a_stride<T>() + kQC * KT;
+  return kRows * kAStride + kQC * KT;
 }
 
-template <typename T, int KT>
+template <int KT>
 __global__ void __launch_bounds__(kThreads, 2)
-ring_mac_kernel(const int* __restrict__ wptr, const T* __restrict__ fdl,
-                const T* __restrict__ rhs2, float* __restrict__ m,
+ring_mac_kernel(const int* __restrict__ wptr, const float* __restrict__ fdl,
+                const float* __restrict__ rhs2, float* __restrict__ m,
                 int vi_count, int pp, int kod) {
   constexpr int kCG = KT == 64 ? 8 : 4;     // column groups of the tile
   constexpr int kNV = KT / (4 * kCG);       // 4-column vectors per thread
   constexpr int kTN = 4 * kNV;              // columns per thread
   constexpr int kRG = kGroup / kCG;         // row groups of the tile
   constexpr int kTM = kRows / kRG;          // rows per thread
-  constexpr int kAStride = a_stride<T>();
-  constexpr int kVecLen = 16 / static_cast<int>(sizeof(T));  // per 16 B
-  constexpr int kVecs = kQC / kVecLen;      // 16-byte vectors per row of a
+  constexpr int kVecs = kQC / 4;            // 16-byte vectors per row of a
                                             // chunk
   constexpr int kHalf = kQC / 2;            // q of a chunk per group
   extern __shared__ __align__(16) float smem_raw[];
-  T* smem = reinterpret_cast<T*>(smem_raw);
+  float* smem = smem_raw;
 
   const int row_tiles = (vi_count + kRows - 1) / kRows;
   const int f = blockIdx.x / row_tiles;
@@ -164,8 +186,8 @@ ring_mac_kernel(const int* __restrict__ wptr, const T* __restrict__ fdl,
   if (w < 0) w += pp;
   const int start = pp - w;                 // window row of slot 0
 
-  const T* line = fdl + ((size_t)f * vi_count + row0) * q_total;
-  const T* rhs_f = rhs2 + (size_t)f * 2 * q_total * kod + col0;
+  const float* line = fdl + ((size_t)f * vi_count + row0) * q_total;
+  const float* rhs_f = rhs2 + (size_t)f * 2 * q_total * kod + col0;
 
   // copy k of this thread for chunk i, q in [i * kQC, (i + 1) * kQC), into
   // stage i % kStages: the chunk's kFdlCopies fdl vectors, then its window
@@ -175,11 +197,11 @@ ring_mac_kernel(const int* __restrict__ wptr, const T* __restrict__ fdl,
       (kFdlCopies + kQC * KT / 4 + kThreads - 1) / kThreads;
   auto copy = [&](int i, int k) {
     const int a = i * kQC;
-    T* as = smem + (i % kStages) * stage_elems<T, KT>();
+    float* as = smem + (i % kStages) * stage_elems<KT>();
     const int e = tid + k * kThreads;
     if (e < kFdlCopies) {
       const int r = e / kVecs;
-      const int qq = kVecLen * (e % kVecs);
+      const int qq = 4 * (e % kVecs);
       const bool ok = r < rows && a + qq < q_total;
       copy16(as + r * kAStride + qq,
              ok ? line + (size_t)r * q_total + a + qq : fdl, ok);
@@ -190,9 +212,8 @@ ring_mac_kernel(const int* __restrict__ wptr, const T* __restrict__ fdl,
       const int c = q >= pp ? 1 : 0;
       const bool ok = q < q_total && col < cols;
       const size_t row = (size_t)c * q_total + start + (q - c * pp);
-      copy_vec<4 * static_cast<int>(sizeof(T))>(
-          as + kRows * kAStride + j * KT + col,
-          ok ? rhs_f + row * kod + col : rhs2, ok);
+      copy16(as + kRows * kAStride + j * KT + col,
+             ok ? rhs_f + row * kod + col : rhs2, ok);
     }
   };
 
@@ -213,67 +234,27 @@ ring_mac_kernel(const int* __restrict__ wptr, const T* __restrict__ fdl,
     wait_pending<kStages - 2>();            // this thread's copies of chunk i
     __syncthreads();                        // everyone's; stage i-1 is free
     const bool ahead = i + kStages - 1 < chunks;
-    const T* as = smem + (i % kStages) * stage_elems<T, KT>();
-    const T* bs = as + kRows * kAStride;
-    if constexpr (std::is_same_v<T, float>) {
+    const float* as = smem + (i % kStages) * stage_elems<KT>();
+    const float* bs = as + kRows * kAStride;
 #pragma unroll 8                            // a full unroll spills at KT 48, 64
-      for (int jj = 0; jj < kHalf; ++jj) {
-        // the next chunk's copies, two steps apart
-        if (jj % 2 == 0 && jj / 2 < kCopies && ahead)
-          copy(i + kStages - 1, jj / 2);
-        const int j = group * kHalf + jj;
-        float x[kTM];
+    for (int jj = 0; jj < kHalf; ++jj) {
+      // the next chunk's copies, two steps apart
+      if (jj % 2 == 0 && jj / 2 < kCopies && ahead)
+        copy(i + kStages - 1, jj / 2);
+      const int j = group * kHalf + jj;
+      float x[kTM];
 #pragma unroll
-        for (int t = 0; t < kTM; ++t) x[t] = as[(rg + kRG * t) * kAStride + j];
+      for (int t = 0; t < kTM; ++t) x[t] = as[(rg + kRG * t) * kAStride + j];
 #pragma unroll
-        for (int v = 0; v < kNV; ++v) {
-          const float4 b = *reinterpret_cast<const float4*>(
-              bs + j * KT + 4 * (cg + kCG * v));
-#pragma unroll
-          for (int t = 0; t < kTM; ++t) {
-            acc[t][4 * v + 0] = fmaf(x[t], b.x, acc[t][4 * v + 0]);
-            acc[t][4 * v + 1] = fmaf(x[t], b.y, acc[t][4 * v + 1]);
-            acc[t][4 * v + 2] = fmaf(x[t], b.z, acc[t][4 * v + 2]);
-            acc[t][4 * v + 3] = fmaf(x[t], b.w, acc[t][4 * v + 3]);
-          }
-        }
-      }
-    } else {
-      // bf16: two q per step (one 32-bit load per row), the copies one
-      // step (two q) apart, as above; q is summed in the same order
-#pragma unroll 4
-      for (int jp = 0; jp < kHalf / 2; ++jp) {
-        if (jp < kCopies && ahead) copy(i + kStages - 1, jp);
-        const int j = group * kHalf + 2 * jp;
-        float x0[kTM], x1[kTM];
+      for (int v = 0; v < kNV; ++v) {
+        const float4 b = *reinterpret_cast<const float4*>(
+            bs + j * KT + 4 * (cg + kCG * v));
 #pragma unroll
         for (int t = 0; t < kTM; ++t) {
-          const unsigned u = *reinterpret_cast<const unsigned*>(
-              as + (rg + kRG * t) * kAStride + j);
-          x0[t] = bf16_lo(u);
-          x1[t] = bf16_hi(u);
-        }
-#pragma unroll
-        for (int v = 0; v < kNV; ++v) {
-          const int col = 4 * (cg + kCG * v);
-          const float4 b0 = bf16x4(*reinterpret_cast<const uint2*>(
-              bs + j * KT + col));
-          const float4 b1 = bf16x4(*reinterpret_cast<const uint2*>(
-              bs + (j + 1) * KT + col));
-#pragma unroll
-          for (int t = 0; t < kTM; ++t) {
-            acc[t][4 * v + 0] = fmaf(x0[t], b0.x, acc[t][4 * v + 0]);
-            acc[t][4 * v + 1] = fmaf(x0[t], b0.y, acc[t][4 * v + 1]);
-            acc[t][4 * v + 2] = fmaf(x0[t], b0.z, acc[t][4 * v + 2]);
-            acc[t][4 * v + 3] = fmaf(x0[t], b0.w, acc[t][4 * v + 3]);
-          }
-#pragma unroll
-          for (int t = 0; t < kTM; ++t) {
-            acc[t][4 * v + 0] = fmaf(x1[t], b1.x, acc[t][4 * v + 0]);
-            acc[t][4 * v + 1] = fmaf(x1[t], b1.y, acc[t][4 * v + 1]);
-            acc[t][4 * v + 2] = fmaf(x1[t], b1.z, acc[t][4 * v + 2]);
-            acc[t][4 * v + 3] = fmaf(x1[t], b1.w, acc[t][4 * v + 3]);
-          }
+          acc[t][4 * v + 0] = fmaf(x[t], b.x, acc[t][4 * v + 0]);
+          acc[t][4 * v + 1] = fmaf(x[t], b.y, acc[t][4 * v + 1]);
+          acc[t][4 * v + 2] = fmaf(x[t], b.z, acc[t][4 * v + 2]);
+          acc[t][4 * v + 3] = fmaf(x[t], b.w, acc[t][4 * v + 3]);
         }
       }
     }
@@ -313,21 +294,199 @@ ring_mac_kernel(const int* __restrict__ wptr, const T* __restrict__ fdl,
   }
 }
 
-template <typename T, int KT>
-cudaError_t launch(const int* w, const T* a, const T* b, float* out, int f,
-                   int vi, int pp, int kod, cudaStream_t s) {
-  constexpr size_t smem = kStages * stage_elems<T, KT>() * sizeof(T);
+// -- bf16 on the tensor cores ---------------------------------------------
+
+constexpr int kBQC = 64;                    // q per bf16 chunk
+constexpr int kBStages = 4;                 // depth of the bf16 ring
+// line tile row stride in bf16: 144 bytes, so ldmatrix's eight 16-byte
+// rows fall in distinct banks; the window tile's is KT + 8 bf16 for the
+// same reason
+constexpr int kBAStride = kBQC + 8;
+
+template <int KT>
+__host__ __device__ constexpr int bf16_stage_elems() {
+  return kRows * kBAStride + kBQC * (KT + 8);
+}
+
+// a chunk's window tile, q in [a, a + kBQC): row j is rhs2[f, c, start + s]
+// for q = a + j = c * pp + s, V columns a copy (V = 8: 16 bytes, 4: 8);
+// rows past Q and columns past `cols` are zero-filled
+template <int KT, int V>
+__device__ __forceinline__ void copy_window(bf16* bs, const bf16* rhs_f,
+                                            const bf16* any, int a, int pp,
+                                            int start, int kod, int cols,
+                                            int tid) {
+  constexpr int kPerRow = KT / V;
+  const int q_total = 2 * pp;
+  for (int e = tid; e < kBQC * kPerRow; e += kThreads) {
+    const int j = e / kPerRow;
+    const int col = V * (e % kPerRow);
+    const int q = a + j;
+    const int c = q >= pp ? 1 : 0;
+    const bool ok = q < q_total && col < cols;
+    const size_t row = (size_t)c * q_total + start + (q - c * pp);
+    copy_vec<2 * V>(bs + j * (KT + 8) + col,
+                    ok ? rhs_f + row * kod + col : any, ok);
+  }
+}
+
+template <int KT>
+__global__ void __launch_bounds__(kThreads, 2)
+ring_mac_bf16_kernel(const int* __restrict__ wptr,
+                     const bf16* __restrict__ fdl,
+                     const bf16* __restrict__ rhs2, float* __restrict__ m,
+                     int f_count, int vi_count, int pp, int kod) {
+  constexpr int kStage = bf16_stage_elems<KT>();
+  constexpr int kVecs = kBQC / 8;            // 16-byte vectors per line row
+  extern __shared__ __align__(16) float smem_raw[];
+  bf16* smem = reinterpret_cast<bf16*>(smem_raw);
+
+  const int row_tiles = (vi_count + kRows - 1) / kRows;
+  const int col_groups = (kod + KT - 1) / KT;
+  const int tiles = f_count * row_tiles * col_groups;
+  const int q_total = 2 * pp;
+  const int chunks = (q_total + kBQC - 1) / kBQC;
+  // this block's tiles are blockIdx.x, + gridDim.x, ...; its chunks one
+  // stream, step g = chunk g % chunks of its tile g / chunks
+  const int block = blockIdx.x;
+  const int blocks = gridDim.x;
+  const int steps = ((tiles - 1 - block) / blocks + 1) * chunks;
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+
+  int w = wptr[0] % pp;
+  if (w < 0) w += pp;
+  const int start = pp - w;                 // window row of slot 0
+  const bool vec16 = kod % 8 == 0;
+
+  struct Tile {
+    int f, row0, col0, rows, cols;
+  };
+  auto tile = [&](int k) {
+    int t = block + k * blocks;
+    Tile u;
+    u.col0 = (t % col_groups) * KT;
+    t /= col_groups;
+    u.row0 = (t % row_tiles) * kRows;
+    u.f = t / row_tiles;
+    u.rows = min(kRows, vi_count - u.row0);
+    u.cols = min(KT, kod - u.col0);
+    return u;
+  };
+
+  auto load = [&](int g) {
+    const Tile u = tile(g / chunks);
+    const int a = (g % chunks) * kBQC;
+    bf16* as = smem + (g % kBStages) * kStage;
+    const bf16* line = fdl + ((size_t)u.f * vi_count + u.row0) * q_total;
+    for (int e = tid; e < kRows * kVecs; e += kThreads) {
+      const int r = e / kVecs;
+      const int qq = 8 * (e % kVecs);
+      const bool ok = r < u.rows && a + qq < q_total;
+      copy16_l2pf(as + r * kBAStride + qq,
+                  ok ? line + (size_t)r * q_total + a + qq : fdl, ok);
+    }
+    const bf16* rhs_f = rhs2 + (size_t)u.f * 2 * q_total * kod + u.col0;
+    bf16* bs = as + kRows * kBAStride;
+    if (vec16)
+      copy_window<KT, 8>(bs, rhs_f, rhs2, a, pp, start, kod, u.cols, tid);
+    else
+      copy_window<KT, 4>(bs, rhs_f, rhs2, a, pp, start, kod, u.cols, tid);
+  };
+
+  float acc[KT / 8][4];
+#pragma unroll
+  for (int n = 0; n < KT / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  for (int g = 0; g < kBStages - 1; ++g) {
+    if (g < steps) load(g);
+    commit();
+  }
+  Tile u = tile(0);
+  for (int g = 0; g < steps; ++g) {
+    wait_pending<kBStages - 2>();           // this thread's copies of step g
+    __syncthreads();                        // everyone's; stage g-1 is free
+    if (g + kBStages - 1 < steps) load(g + kBStages - 1);
+    commit();
+    const int i = g % chunks;
+    if (i == 0 && g > 0) u = tile(g / chunks);
+    const bf16* as = smem + (g % kBStages) * kStage;
+    if (16 * warp < u.rows)
+      mma_chunk<kBQC, KT, kBAStride, KT + 8>(acc, as, as + kRows * kBAStride,
+                                            warp, lane);
+    if (i == chunks - 1) {
+      // the tile's m from the C fragments: rows r and r + 8, columns 2t
+      // and 2t + 1 of each n8 tile
+      const int r = 16 * warp + lane / 4;
+      float* out = m + ((size_t)u.f * vi_count + u.row0 + r) * kod + u.col0;
+#pragma unroll
+      for (int n = 0; n < KT / 8; ++n) {
+        const int col = 8 * n + 2 * (lane % 4);
+        if (col < u.cols) {
+          if (r < u.rows)
+            *reinterpret_cast<float2*>(out + col) =
+                make_float2(acc[n][0], acc[n][1]);
+          if (r + 8 < u.rows)
+            *reinterpret_cast<float2*>(out + 8 * (size_t)kod + col) =
+                make_float2(acc[n][2], acc[n][3]);
+        }
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+      }
+    }
+  }
+  wait_pending<0>();
+}
+
+template <int KT>
+cudaError_t launch(const int* w, const float* a, const float* b, float* out,
+                   int f, int vi, int pp, int kod, cudaStream_t s) {
+  constexpr size_t smem = kStages * stage_elems<KT>() * sizeof(float);
   static_assert(smem >= KT * kRows * sizeof(float),
                 "the stages must hold group 1's parked sums");
   cudaError_t err = cudaFuncSetAttribute(
-      ring_mac_kernel<T, KT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      ring_mac_kernel<KT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const unsigned row_tiles = static_cast<unsigned>((vi + kRows - 1) / kRows);
   const dim3 grid(static_cast<unsigned>(f) * row_tiles,
                   static_cast<unsigned>((kod + KT - 1) / KT));
-  ring_mac_kernel<T, KT><<<grid, kThreads, smem, s>>>(w, a, b, out, vi, pp,
-                                                      kod);
+  ring_mac_kernel<KT><<<grid, kThreads, smem, s>>>(w, a, b, out, vi, pp, kod);
+  return cudaGetLastError();
+}
+
+template <int KT>
+cudaError_t launch_bf16(const int* w, const bf16* a, const bf16* b,
+                        float* out, int f, int vi, int pp, int kod,
+                        cudaStream_t s) {
+  constexpr int smem = kBStages * bf16_stage_elems<KT>() * sizeof(bf16);
+  cudaError_t err = cudaFuncSetAttribute(
+      ring_mac_bf16_kernel<KT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return err;
+  // as many blocks as the card holds at once (asked once per build), each
+  // walking its share of the tiles
+  static const int per_sm = [] {
+    int n = 0;
+    if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &n, ring_mac_bf16_kernel<KT>, kThreads, smem) != cudaSuccess)
+      n = 1;
+    return std::max(n, 1);
+  }();
+  int dev = 0, sms = 0;
+  err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  const long long tiles = static_cast<long long>(f) *
+                          ((vi + kRows - 1) / kRows) * ((kod + KT - 1) / KT);
+  const unsigned grid = static_cast<unsigned>(
+      std::min(tiles, static_cast<long long>(sms) * per_sm));
+  ring_mac_bf16_kernel<KT><<<grid, kThreads, smem, s>>>(w, a, b, out, f, vi,
+                                                        pp, kod);
   return cudaGetLastError();
 }
 
@@ -335,26 +494,12 @@ bool aligned16(const void* p) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
-template <typename T>
-int dispatch(const void* wptr, const void* fdl, const void* rhs2, void* m,
-             int f, int vi, int pp, int kod, void* stream) {
-  // a row of fdl is Q = 2 * pp values: 16-byte aligned rows
-  constexpr int kPpMultiple = 8 / static_cast<int>(sizeof(T));
-  if (f <= 0 || vi <= 0 || pp <= 0 || kod <= 0 || pp % kPpMultiple ||
-      kod % 4 || !aligned16(fdl) || !aligned16(rhs2) || !aligned16(m))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const int* w = static_cast<const int*>(wptr);
-  const T* a = static_cast<const T*>(fdl);
-  const T* b = static_cast<const T*>(rhs2);
-  float* out = static_cast<float*>(m);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (kod <= 16)
-    return static_cast<int>(launch<T, 16>(w, a, b, out, f, vi, pp, kod, s));
-  if (kod <= 32)
-    return static_cast<int>(launch<T, 32>(w, a, b, out, f, vi, pp, kod, s));
-  if (kod <= 48)
-    return static_cast<int>(launch<T, 48>(w, a, b, out, f, vi, pp, kod, s));
-  return static_cast<int>(launch<T, 64>(w, a, b, out, f, vi, pp, kod, s));
+// a row of fdl is Q = 2 * pp values of `bytes` each: rows start on 16 bytes
+// for pp a multiple of 8 / bytes
+bool refused(const void* fdl, const void* rhs2, const void* m, int f, int vi,
+             int pp, int kod, int bytes) {
+  return f <= 0 || vi <= 0 || pp <= 0 || kod <= 0 || pp % (8 / bytes) ||
+         kod % 4 || !aligned16(fdl) || !aligned16(rhs2) || !aligned16(m);
 }
 
 }  // namespace
@@ -367,14 +512,34 @@ int dispatch(const void* wptr, const void* fdl, const void* rhs2, void* m,
 extern "C" int ring_mac_launch(const void* wptr, const void* fdl,
                                const void* rhs2, void* m, int f, int vi,
                                int pp, int kod, void* stream) {
-  return dispatch<float>(wptr, fdl, rhs2, m, f, vi, pp, kod, stream);
+  if (refused(fdl, rhs2, m, f, vi, pp, kod, 4))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int* w = static_cast<const int*>(wptr);
+  const float* a = static_cast<const float*>(fdl);
+  const float* b = static_cast<const float*>(rhs2);
+  float* out = static_cast<float*>(m);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (kod <= 16) return launch<16>(w, a, b, out, f, vi, pp, kod, s);
+  if (kod <= 32) return launch<32>(w, a, b, out, f, vi, pp, kod, s);
+  if (kod <= 48) return launch<48>(w, a, b, out, f, vi, pp, kod, s);
+  return launch<64>(w, a, b, out, f, vi, pp, kod, s);
 }
 
 // The same with fdl and rhs2 bf16 (m f32): pp must be a multiple of 4.
 extern "C" int ring_mac_bf16_launch(const void* wptr, const void* fdl,
                                     const void* rhs2, void* m, int f, int vi,
                                     int pp, int kod, void* stream) {
-  return dispatch<__nv_bfloat16>(wptr, fdl, rhs2, m, f, vi, pp, kod, stream);
+  if (refused(fdl, rhs2, m, f, vi, pp, kod, 2))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int* w = static_cast<const int*>(wptr);
+  const bf16* a = static_cast<const bf16*>(fdl);
+  const bf16* b = static_cast<const bf16*>(rhs2);
+  float* out = static_cast<float*>(m);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (kod <= 16) return launch_bf16<16>(w, a, b, out, f, vi, pp, kod, s);
+  if (kod <= 32) return launch_bf16<32>(w, a, b, out, f, vi, pp, kod, s);
+  if (kod <= 48) return launch_bf16<48>(w, a, b, out, f, vi, pp, kod, s);
+  return launch_bf16<64>(w, a, b, out, f, vi, pp, kod, s);
 }
 
 extern "C" const char* ring_mac_error_string(int err) {

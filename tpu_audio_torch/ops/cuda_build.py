@@ -6,8 +6,8 @@ interface: ``int <name>_launch(...)`` returns a cudaError_t and
 instantiation exports it beside, as ``int <name>_<entry>(...)`` with the
 same parameters (``ring_mac_bf16_launch``). The source is compiled
 with ``nvcc`` for ``sm_90a`` into a shared library under
-``tpu_audio_torch/_build/``, keyed by a hash of the source, the shared
-headers ``csrc/*.cuh`` and the flags (a stale build is never loaded), and
+``tpu_audio_torch/_build/``, keyed by a hash of the source, the headers
+beside it and in ``csrc/`` and the flags (a stale build is never loaded), and
 bound with ``ctypes``. Nothing
 happens at import time: a library is built at its first launch, or ahead
 of time by ``build_all``, which starts one nvcc per source, all at once.
@@ -57,10 +57,12 @@ class CudaLibrary:
         self._entries = {}
 
     def digest(self) -> str:
-        """Hash of the source, every shared header and the flags: what a
-        build depends on."""
+        """Hash of the source, every header it may include (those beside
+        it, which nvcc finds first, and csrc's) and the flags: what a build
+        depends on."""
         digest = hashlib.sha256(self.source.read_bytes())
-        for header in sorted(CSRC.glob("*.cuh")):
+        for header in sorted({*self.source.parent.glob("*.cuh"),
+                              *CSRC.glob("*.cuh")}):
             digest.update(header.read_bytes())
         digest.update(" ".join(NVCC_FLAGS).encode())
         return digest.hexdigest()[:16]

@@ -18,13 +18,13 @@ engine's ``mac_dtype='bf16'``, where the line is stored and shifted in
 bf16); m is float32 either way, the products of two bf16 values being
 exact in f32 (the JAX engine's bf16 roll mode is the roll plus an einsum
 with ``preferred_element_type=float32``, ``tpu_audio/engine/fmajor.py:
-920-923``).
+920-923``). On the card the bf16 form multiplies on the tensor cores
+(``mma.sync``, f32 accumulators), the f32 form on the CUDA cores.
 
 ``mac_shift`` writes the shifted line over ``fdl`` IN PLACE — the Pallas
 call aliases its delay line in and out (``input_output_aliases={0: 0}``) —
 and returns ``(fdl, m)`` with that same tensor. It launches the CUDA kernel
-(``csrc/mac_shift.cu``, instantiated for the operands' dtype) for a
-CUDA tensor and takes the plain version only
+for the operands' dtype (``csrc/mac_shift.cu``) for a CUDA tensor and takes the plain version only
 for a CPU tensor. The kernel is compiled at first use and bound with
 ``ctypes`` (ops/cuda_build.py); nothing CUDA-specific happens at import
 time.

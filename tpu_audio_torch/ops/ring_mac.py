@@ -16,10 +16,13 @@ layout ``[F, VI, 2, Pp]`` (the Pallas kernel took ``[F, 2, VI, Pp]``);
 bf16 MAC as an einsum on bf16 operands with ``preferred_element_type=
 float32`` (``tpu_audio/engine/fmajor.py:908-923``): the products of two
 bf16 values are exact in f32, so the bf16 form is the f32 MAC of the
-operands upcast, which is what the plain version computes.
+operands upcast, which is what the plain version computes. On the card
+the bf16 form multiplies on the tensor cores (``mma.sync`` bf16 operands,
+f32 accumulators, each 32-q chunk's sum added into f32 totals), the f32
+form on the CUDA cores in full f32.
 
-``ring_mac`` launches the CUDA kernel (``csrc/ring_mac.cu``, instantiated
-for the operands' dtype: one pass over the delay line at every KOD <= 64,
+``ring_mac`` launches the CUDA kernel for the operands' dtype
+(``csrc/ring_mac.cu``: one pass over the delay line at every KOD <= 64,
 whatever the line's length) for a CUDA tensor and takes the plain version
 only for a CPU tensor. The kernel is compiled at first use and bound with
 ``ctypes`` (ops/cuda_build.py); nothing CUDA-specific happens at import
