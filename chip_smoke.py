@@ -206,12 +206,37 @@ Phases, in order; any failure raises and the script exits non-zero:
      launches; voices 0 and 63 against the golden within 2e-5 of scale
      before the re-select and after the swap; collapse,
      regather_selection and materialize_base timed at first use and warm;
-     then the CLI over the bank written as 152 WAVs for 40 blocks.
+     then the CLI over the bank written as 152 WAVs for 40 blocks;
+ 30. chunked serving (StreamSession(chunk_blocks=8)) at 64 voices over
+     phase 4's IRs, 803 blocks (a partial last chunk), a re-select at 296
+     and an interrupt at 304 on the chunk grid: ring 'allk' f32 (every
+     block on ring_mac) against its per-block run within 2e-5 of scale and
+     against the golden; roll 'allk' f32 (every block on mac_shift) and
+     ring in bf16 (every block on the bf16 ring_mac), each against its
+     per-block run; the 'allk' cascade in chunks of 16 over 400 blocks (two
+     ring_mac launches per block) against per block; run_resilient in
+     chunks with one sink failure, to the bit against the chunked run;
+     host ms per block p50 / p99, RTF, missed and the steady step's device
+     busy per block at chunk 1 and chunk 8; a monolithic session refuses
+     chunks;
+ 31. the operational surface: `tools makeindex`, `bank-info` and
+     `prebuild-cache` as subprocesses over phase 4's IRs written as WAVs;
+     the CLI's `--engine partitioned --cache-dir` twice (a miss that
+     computes and writes the spectra, then a hit that computes nothing;
+     the output WAVs equal to the bit; both build times); the CLI's
+     default fmajor route at 64 voices with `--chunk-blocks 8` (80 blocks)
+     and under `--profile` (40 blocks), one ring_mac launch per block;
+     `tools profile` must list ring_mac among the trace's kernel events;
+     `tools inspect-checkpoint` on a checkpoint saved in the phase.
+
+Phase 22 runs the app at the debug log level and prints the blocks that
+missed their deadline beside any silent playback periods.
 
 The line before the last is a JSON object describing each kernel (its
 launches summed over the phases whose path rides it: 4, 11, 12, 14-17,
-18's cascade and 19-21 for ring_mac, 7, 10 and 18's roll engine for
-mac_shift, 27-28 for ring_mac_bf16 and 27 for mac_shift_bf16; its
+18's cascade, 19-21, 30 and 31 for ring_mac, 7, 10, 18's roll engine and
+30 for mac_shift, 27-28 and 30 for ring_mac_bf16 and 27 for
+mac_shift_bf16; its
 times and roofline bound at KOD=16, under per_kod at KOD 16, 36 and 64,
 ring_mac's at the cascade's four shapes under cascade and at the bounce's
 shape under bounce, ring_mac_bf16's at the 2048-voice cascade's shapes
@@ -328,6 +353,20 @@ CASCADE_2048_SHAPES = {
 # 450 (mid-fade), the golden against the new bank from 540
 SEL152_IRS, SEL152_BLOCKS, SEL152_SELECT_AT, SEL152_VALUE = 152, 600, 300, 64
 SEL152_SPEED, SEL152_SWAP_AT, SEL152_AFTER = 150, 450, 540
+# phase 30: chunked serving, 803 blocks (not a multiple of 8) in chunks of
+# 8 with a re-select at 296 and an interrupt at 304, on the chunk grid so
+# the chunked run must equal the per-block run; the cascade in chunks of 16
+# over 400 blocks, re-selects at 160 and 176; run_resilient in chunks with
+# a checkpoint every 480 blocks and the sink failing at delivered block 500
+# (it resumes from 480)
+CHUNK_BLOCKS30, CHUNK30, CHUNK_SELECT_AT, CHUNK_INTERRUPT_AT = 803, 8, 296, 304
+CHUNK_AFTER = 500   # the fades have decayed by then: the golden of IR 2
+CAS_CHUNK, CAS_CHUNK_BLOCKS = 16, 400
+CAS_CHUNK_SELECT_AT, CAS_CHUNK_INTERRUPT_AT = 160, 176
+CHUNK_EVERY, CHUNK_FAIL_AT = 480, 500
+# phase 31: the operational surface through the CLI: 80 blocks chunked,
+# 40 blocks under the profiler, 40 per partitioned cache run
+OPS_CHUNK_BLOCKS, OPS_PROFILE_BLOCKS, OPS_CACHE_BLOCKS = 80, 40, 40
 # published peaks of one H100 SXM (NVIDIA's data sheet, dense), at the full
 # 700 W power limit: HBM bytes/s, and FLOP/s by operand type: f32 outside
 # the tensor cores, bf16 on them (bf16 products, f32 sums)
@@ -2013,7 +2052,10 @@ def run_cli_bridge(irs):
                 f"conv[{i}].value.dry 0.2\n" for i in range(2)))
         fifo, dump = f"{tmp}/midi.fifo", f"{tmp}/playback.f32"
         os.mkfifo(fifo)
-        env = dict(os.environ, TPU_AUDIO_LOG="warn",
+        # the debug level logs each block that missed its deadline (the
+        # session's "missed deadline at block N" line), so a gap in the
+        # playback can be matched to the block that emptied the ring
+        env = dict(os.environ, TPU_AUDIO_LOG="debug",
                    PYTHONPATH=repo + os.pathsep
                    + os.environ.get("PYTHONPATH", ""))
         t0 = time.perf_counter()
@@ -2025,7 +2067,7 @@ def run_cli_bridge(irs):
                  "--realtime", "--clock", "native", "--midi-fifo", fifo,
                  "--blocks", str(CLI_BLOCKS), "--max-dry-blocks", "50",
                  "--block-size", str(BLOCK),
-                 "--sample-rate", str(RATE), "--quiet"],
+                 "--sample-rate", str(RATE)],
                 env=env, cwd=tmp, stdout=subprocess.PIPE,
                 stderr=subprocess.PIPE, text=True)
             procs.append(app)
@@ -2064,14 +2106,17 @@ def run_cli_bridge(irs):
                     proc.kill()
                     proc.communicate()
         played = np.fromfile(dump, np.float32)
+    summary = re.search(r"streamed (\d+) blocks.*", app_out)
+    late = [(int(b), float(t)) for b, t in re.findall(
+        r"missed deadline at block (\d+): ([\d.]+) ms", app_out)]
     print(f"CLI bridge: app ready (rings and FIFO) after {ready_s:.2f} s, "
           f"exited {app.returncode} after {app_s:.2f} s: "
-          f"{app_out.strip()} {app_err.strip()[-400:]}")
+          f"{summary.group(0) if summary else app_out.strip()[-400:]} "
+          f"{app_err.strip()[-400:]}")
     print(f"CLI bridge: C bridge exited {jack.returncode}: "
           f"{jack_out.strip()} {jack_err.strip()[-300:]}")
     stats = re.search(r"periods=(\d+) underruns=(\d+) overruns=(\d+)",
                       jack_out)
-    summary = re.search(r"streamed (\d+) blocks", app_out)
     if (app.returncode != 0 or not summary
             or int(summary.group(1)) != CLI_BLOCKS):
         raise AssertionError("CLI bridge: the app failed")
@@ -2089,13 +2134,22 @@ def run_cli_bridge(irs):
           f"{bool(np.isfinite(played).all())}, first sounding period "
           f"{first}, the next {body.size} periods non-silent "
           f"{int((body > 1e-3).sum())}, peak {float(peak.max()):.3f}")
+    silent = (first + np.flatnonzero(body <= 1e-3)).tolist()
+    print(f"CLI bridge: {len(late)} blocks missed their deadline (block, ms): "
+          f"{[(b, round(t, 2)) for b, t in late][:40]}")
+    if silent:
+        # a silent period p plays app block ~p - first: the late blocks
+        # just before it emptied the output ring
+        print(f"CLI bridge: silent periods {silent[:40]} (app block ~ "
+              f"period - {first}: {[p - first for p in silent[:40]]})")
     if (not np.isfinite(played).all() or first > 300
             or body.size != CLI_BLOCKS - 100 or not (body > 1e-3).all()):
         raise AssertionError("CLI bridge: the playback is not finite or has "
                              "silent periods")
     return {"periods": periods, "underruns": underruns, "overruns": overruns,
             "first_sounding_period": first, "app_s": app_s,
-            "ready_s": ready_s, "summary": app_out.strip()}
+            "ready_s": ready_s, "summary": summary.group(0),
+            "late_blocks": len(late)}
 
 
 def slew_weights(blocks, events, num_irs, wet, speed):
@@ -3182,6 +3236,476 @@ def run_sel152(dev, configure, select, keep_sink, reset_counts, rm, ms):
     return figures
 
 
+def run_chunked(bank, irs, dev, configure, select, keep_sink, reset_counts,
+                rm, ms):
+    """Phase 30: chunked serving at full width. 64 voices over phase 4's IRs
+    stream CHUNK_BLOCKS30 blocks of per-voice noise (not a multiple of the
+    chunk: the last chunk is partial) with a re-select and an interrupt on
+    the chunk grid, per block and in chunks of CHUNK30: (a) ring 'allk'
+    f32 (the CLI's default), every block on ring_mac, against the per-block
+    run within 2e-5 of scale and against the golden; (b) roll 'allk' f32,
+    every block on mac_shift, against per-block; (c) ring in bf16 against
+    its per-block run; (d) the 'allk' cascade (ratio 16) in chunks of 16,
+    two ring_mac launches per block, against per-block; (e) run_resilient
+    in chunks with one sink failure, to the bit against (a)'s chunked run.
+    Host ms per block, RTF, missed and the steady step's device busy at
+    chunk 1 and chunk 8; a monolithic session refuses chunks. Returns the
+    figures."""
+    import tempfile
+
+    import torch
+
+    from tpu_audio_torch.engine.fmajor import (
+        FMajorPartitionedConvolution, make_chunk_step,
+    )
+    from tpu_audio_torch.engine.params import ControlPlane
+    from tpu_audio_torch.models.reverb import ConvolutionReverb
+    from tpu_audio_torch.runtime.backends import WavSource
+    from tpu_audio_torch.runtime.recovery import run_resilient
+    from tpu_audio_torch.runtime.stream import MidiSchedule, StreamSession
+
+    rng = np.random.default_rng(0)
+    n = CHUNK_BLOCKS30
+    x = np.concatenate([(rng.standard_normal((VOICES, 2, BLOCK)) * 0.01
+                         ).astype(np.float32) for _ in range(n)], axis=-1)
+
+    def timeline():
+        return MidiSchedule([select(CHUNK_SELECT_AT, 32),
+                             select(CHUNK_INTERRUPT_AT, 64)])
+
+    class Roll:
+        """Roll mode (no model flag): the engine, its bank and a control
+        plane, as phase 7 builds them."""
+
+        working_set = None
+
+        def __init__(self):
+            self.engine = FMajorPartitionedConvolution(
+                VOICES, BLOCK, bank.max_partitions(BLOCK), max_predelay=8192,
+                ring=False, mac_strategy="allk", num_irs=NUM_IRS, device=dev)
+            self.spectra = self.engine.prepare_bank(
+                bank.partitioned_spectra(BLOCK))
+            self.control = ControlPlane(VOICES, NUM_IRS, 8192, device=dev)
+            configure(self.control)
+
+        def init_state(self):
+            return self.engine.init_converged(self.spectra,
+                                              self.control.snapshot_device())
+
+        def session(self, source, sink, **kwargs):
+            return StreamSession(self.engine, self.spectra, self.control,
+                                 source, sink, sample_rate=RATE, **kwargs)
+
+    def build(kind):
+        if kind == "roll":
+            return Roll()
+        kwargs = {"ring_bf16": {"mac_dtype": "bf16"},
+                  "cascade": {"engine": "cascade",
+                              "cascade_ratio": CAS_RATIO}}.get(kind, {})
+        model = ConvolutionReverb(bank, num_voices=VOICES, block=BLOCK,
+                                  sample_rate=RATE, max_predelay=8192,
+                                  device=dev, **kwargs)
+        configure(model.control)
+        return model
+
+    def stream(kind, chunk, blocks, events):
+        model = build(kind)
+        sink = keep_sink(keep_all=True)
+        session = model.session(WavSource(x[..., :blocks * BLOCK], VOICES,
+                                          BLOCK), sink, chunk_blocks=chunk)
+        state = model.init_state()
+        reset_counts()
+        t0 = time.perf_counter()
+        state = session.run(state, midi=events())
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {
+            "ring_mac": rm.ring_mac.launches - rm.ring_mac.launches_bf16,
+            "ring_mac_bf16": rm.ring_mac.launches_bf16,
+            "mac_shift": ms.mac_shift.launches - ms.mac_shift.launches_bf16,
+            "mac_shift_bf16": ms.mac_shift.launches_bf16}
+        s = session.summary()
+        print(f"chunked {kind} chunk {chunk}: {session.blocks_streamed} "
+              f"blocks in {wall:.3f} s, host ms per block p50 "
+              f"{s['p50_ms']:.3f} p99 {s['p99_ms']:.3f}, RTF {s['rtf']:.2f}, "
+              f"missed {s['missed_deadlines']} of {s['blocks']}, indexed "
+              f"blocks {session.indexed_blocks}, general "
+              f"{session.general_blocks}, launches {launches}")
+        if (session.blocks_streamed != blocks or sink.blocks != blocks
+                or not sink.finite):
+            raise AssertionError(f"chunked {kind} chunk {chunk}: streamed "
+                                 f"{session.blocks_streamed}, delivered "
+                                 f"{sink.blocks} of {blocks}")
+        return {"out": sink.data(), "summary": s, "launches": launches,
+                "wall_s": wall, "model": model, "state": state}
+
+    def compare(kind, got, want, counter, per_block):
+        """Chunked against per-block: the same kernel launches, one (two)
+        per block, and the output within 2e-5 of scale (bf16: its own
+        per-block run, the same limit)."""
+        blocks = got["out"].shape[-1] // BLOCK
+        scale = float(np.abs(want["out"]).max())
+        err = float(np.abs(got["out"] - want["out"]).max())
+        print(f"chunked {kind}: chunk {got['chunk']} against per block over "
+              f"{blocks} blocks x {VOICES} voices: max_abs_err {err:.3e} "
+              f"(limit {2e-5 * scale:.3e}), bit-identical {err == 0.0}; "
+              f"{counter} launches {got['launches'][counter]} and "
+              f"{want['launches'][counter]} (want {per_block} x {blocks})")
+        for run in (got, want):
+            launched = run["launches"]
+            if (launched[counter] != per_block * blocks
+                    or sum(launched.values()) != launched[counter]):
+                raise AssertionError(f"chunked {kind}: launches {launched} "
+                                     f"in {blocks} blocks")
+        if not err <= 2e-5 * scale:
+            raise AssertionError(f"chunked {kind}: the chunked run disagrees "
+                                 f"with the per-block run")
+        return err
+
+    out = {"runs": {}, "errs": {}, "busy": {}}
+    # (a) ring 'allk' f32, the CLI's default path
+    runs = {}
+    for chunk in (1, CHUNK30):
+        runs[chunk] = stream("ring", chunk, n, timeline)
+        runs[chunk]["chunk"] = chunk
+        out["runs"][f"ring_chunk{chunk}"] = runs[chunk]
+    out["errs"]["ring"] = compare("ring", runs[CHUNK30], runs[1],
+                                  "ring_mac", 1)
+    ring8 = runs[CHUNK30]
+    out["golden_err"] = check_golden(
+        "chunked ring", ring8["out"][[0, VOICES - 1]], x[[0, VOICES - 1]],
+        (("before the re-selects, IR 0", 0, CHUNK_SELECT_AT, irs[0]),
+         ("after the fades decay, IR 2", CHUNK_AFTER, n, irs[2])),
+        predelay=int(ring8["model"].control.predelay[0, 0]))
+    # steady device busy per block, per block and in chunks of 8
+    model, state = ring8.pop("model"), ring8.pop("state")
+    engine, spectra = model.engine, model.spectra
+    params = model.control.snapshot_device()
+    xs = torch.tensor(x[..., :CHUNK30 * BLOCK].reshape(
+        VOICES, 2, CHUNK30, BLOCK).transpose(2, 0, 1, 3).copy(), device=dev)
+    busy1, ops1, state = device_busy(engine.step_coef_steady, state, spectra,
+                                     params, xs[0])
+    busy8, ops8, state = device_busy(make_chunk_step(engine, steady=True),
+                                     state, spectra, params, xs, n=8)
+    if busy1 is None or busy8 is None:
+        raise AssertionError("chunked: the profiler saw no device activity")
+    out["busy"] = {1: (busy1, ops1), CHUNK30: (busy8 / CHUNK30,
+                                               ops8 / CHUNK30)}
+    for chunk, (busy, ops) in out["busy"].items():
+        print(f"chunked ring chunk {chunk}: steady device busy {busy:.1f} us "
+              f"and {ops:.1f} device ops per block")
+    del model, state, engine, spectra, runs[1]["model"], runs[1]["state"]
+    torch.cuda.empty_cache()
+
+    # (b) roll 'allk' f32; (c) ring in bf16
+    for kind, counter in (("roll", "mac_shift"), ("ring_bf16",
+                                                   "ring_mac_bf16")):
+        pair = {}
+        for chunk in (1, CHUNK30):
+            pair[chunk] = stream(kind, chunk, n, timeline)
+            pair[chunk]["chunk"] = chunk
+            del pair[chunk]["model"], pair[chunk]["state"]
+            out["runs"][f"{kind}_chunk{chunk}"] = pair[chunk]
+        out["errs"][kind] = compare(kind, pair[CHUNK30], pair[1], counter, 1)
+        for run in pair.values():
+            del run["out"]
+        torch.cuda.empty_cache()
+
+    # (d) the 'allk' cascade in chunks of 16
+    def cascade_timeline():
+        return MidiSchedule([select(CAS_CHUNK_SELECT_AT, 32),
+                             select(CAS_CHUNK_INTERRUPT_AT, 64)])
+
+    pair = {}
+    for chunk in (1, CAS_CHUNK):
+        pair[chunk] = stream("cascade", chunk, CAS_CHUNK_BLOCKS,
+                             cascade_timeline)
+        pair[chunk]["chunk"] = chunk
+        del pair[chunk]["model"], pair[chunk]["state"]
+        out["runs"][f"cascade_chunk{chunk}"] = pair[chunk]
+    out["errs"]["cascade"] = compare("cascade", pair[CAS_CHUNK], pair[1],
+                                     "ring_mac", 2)
+    for run in pair.values():
+        del run["out"]
+    torch.cuda.empty_cache()
+
+    # (e) run_resilient in chunks: one sink failure, to the bit
+    class CountingSource(WavSource):
+        """A seekable in-memory source counting the blocks it hands out:
+        a chunked session steps every block it reads."""
+
+        reads = 0
+
+        def read(self):
+            blk = super().read()
+            self.reads += blk is not None
+            return blk
+
+    class FailingSink(keep_sink):
+        def __init__(self):
+            super().__init__(keep_all=True)
+            self.failed = False
+
+        def write(self, block):
+            if not self.failed and self.blocks == CHUNK_FAIL_AT:
+                self.failed = True
+                raise RuntimeError("simulated transport failure at "
+                                   f"delivered block {self.blocks}")
+            super().write(block)
+
+    def build_ring():
+        return build("ring")
+
+    sink = FailingSink()
+    source = CountingSource(x, VOICES, BLOCK)
+    with tempfile.TemporaryDirectory() as tmp:
+        reset_counts()
+        t0 = time.perf_counter()
+        _, summary = run_resilient(
+            build_ring, source, sink,
+            f"{tmp}/chunked.ckpt", checkpoint_every=CHUNK_EVERY,
+            midi=timeline(), session_kwargs={"chunk_blocks": CHUNK30})
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    resumes = [r["resume_block"] for r in summary["recoveries"]]
+    want_resume = CHUNK_FAIL_AT // CHUNK_EVERY * CHUNK_EVERY
+    stepped = source.reads    # replays included
+    launches = rm.ring_mac.launches
+    err = float(np.abs(sink.data() - ring8["out"]).max())
+    print(f"chunked resilient: {wall:.3f} s wall, {summary['restarts']} "
+          f"restart (resumed from {resumes}), saves at "
+          f"{[s['block_index'] for s in summary['checkpoint_saves']]}, "
+          f"ring_mac launches {launches} (want {stepped}), delivered "
+          f"{summary['blocks_delivered']}; against the uninterrupted chunked "
+          f"run: max_abs_err {err:.3e}, bit-identical {err == 0.0}")
+    if (summary["restarts"] != 1 or resumes != [want_resume]
+            or summary["blocks_delivered"] != n or sink.blocks != n
+            or launches != stepped or stepped <= n):
+        raise AssertionError("chunked resilient: the recovery went wrong")
+    if err != 0.0:
+        raise AssertionError("chunked resilient: the recovered output is not "
+                             "the uninterrupted chunked run's")
+    out["resilient"] = {"wall_s": wall, "launches": launches,
+                        "resume_block": want_resume}
+    del ring8["out"]
+
+    # a 'slew' engine has no chunk step
+    mono = ConvolutionReverb(bank, num_voices=1, block=BLOCK,
+                             sample_rate=RATE, engine="monolithic",
+                             fft_size=MONO_FFT, device=dev)
+    try:
+        mono.session(WavSource(x[:1, :, :BLOCK], 1, BLOCK), keep_sink(),
+                     chunk_blocks=CHUNK30)
+    except ValueError as exc:
+        print(f"chunked monolithic: refused ({exc})")
+    else:
+        raise AssertionError("a monolithic session took chunk_blocks=8")
+    del mono
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_ops_surface(irs, dev, reset_counts, rm, ms):
+    """Phase 31: the operational surface through the CLI. Phase 4's IRs are
+    written as WAVs; `python -m tpu_audio_torch.app.tools` makeindex, then
+    bank-info and prebuild-cache, run as subprocesses. The CLI (its main,
+    in this process) builds `--engine partitioned --cache-dir` twice: the
+    first build computes the spectra and writes the cache, the second reads
+    it and computes nothing, and the two output WAVs are equal to the bit.
+    Then the CLI's default fmajor route serves 64 voices with
+    `--chunk-blocks 8` and under `--profile`, one ring_mac launch per
+    block; `tools profile` must list ring_mac among the trace's kernel
+    events, and `tools inspect-checkpoint` reads a checkpoint saved here.
+    Returns the figures."""
+    import contextlib
+    import io
+    import os
+    import re
+    import tempfile
+
+    from tpu_audio_torch.app.main import main as app_main
+    from tpu_audio_torch.engine.bank import IRBank
+    from tpu_audio_torch.io.wav import write_wav
+    from tpu_audio_torch.models.reverb import ConvolutionReverb
+    from tpu_audio_torch.runtime.checkpoint import save_checkpoint
+    from tpu_audio_torch.utils.log import Log
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, TPU_AUDIO_LOG="warn",
+               PYTHONPATH=repo + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    procs = []
+
+    def tools(*args):
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "tpu_audio_torch.app.tools", *args],
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True)
+        procs.append(proc)
+        return proc
+
+    def finish(proc, label):
+        out, err = proc.communicate(timeout=300)
+        if proc.returncode != 0:
+            raise AssertionError(f"tools {label} exited {proc.returncode}: "
+                                 f"{out[-400:]} {err[-400:]}")
+        return out
+
+    spectra_calls = []
+    compute = IRBank.partitioned_spectra
+
+    def counted(self, *args, **kwargs):
+        spectra_calls.append(1)
+        return compute(self, *args, **kwargs)
+
+    def cli(args, label):
+        """The CLI's main with its info log captured; returns (log, wall
+        s, ring_mac launches)."""
+        log, level = io.StringIO(), Log.level
+        reset_counts()
+        t0 = time.perf_counter()
+        try:
+            Log.level = 3
+            with contextlib.redirect_stdout(log):
+                rc = app_main([*args, "--block-size", str(BLOCK),
+                               "--sample-rate", str(RATE), "--device",
+                               dev.type])
+        finally:
+            Log.level = level
+        wall = time.perf_counter() - t0
+        text = log.getvalue()
+        summary = re.search(r"streamed \d+ blocks.*", text)
+        print(f"CLI {label}: exited {rc} after {wall:.2f} s, ring_mac "
+              f"launches {rm.ring_mac.launches}, mac_shift "
+              f"{ms.mac_shift.launches}: "
+              f"{summary.group(0) if summary else text[-400:]}")
+        if rc != 0 or not summary:
+            raise AssertionError(f"CLI {label} failed")
+        return text, wall, rm.ring_mac.launches
+
+    t_phase = time.perf_counter()
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            os.makedirs(f"{tmp}/irs")
+            for k, ir in enumerate(irs):
+                write_wav(f"{tmp}/irs/ir{k}.wav", ir.T, RATE, bits=32)
+            index = f"{tmp}/all.index"
+            finish(tools("makeindex", f"{tmp}/irs", "-o", index), "makeindex")
+            with open(index) as fh:
+                entries = fh.read().split()
+            # the tools run while this process drives the CLI: bank-info
+            # and prebuild-cache now, inspect-checkpoint once the
+            # checkpoint is saved, profile once the trace is written
+            info = tools("bank-info", index)
+            pre = tools("prebuild-cache", index, "--cache-dir",
+                        f"{tmp}/prebuilt", "--quiet")
+            model = ConvolutionReverb(IRBank.from_index(index, verbose=False),
+                                      block=BLOCK, sample_rate=RATE,
+                                      device=dev)
+            save_checkpoint(f"{tmp}/ops.ckpt", model.init_state(),
+                            model.control, meta={"block_index": 0})
+            del model
+            inspect = tools("inspect-checkpoint", f"{tmp}/ops.ckpt")
+            settings = f"{tmp}/settings.txt"
+            with open(settings, "w") as fh:
+                fh.write("conv.count 2\n" + "".join(
+                    f"conv[{c}].index {index}\nconv[{c}].maxPredelay 8192\n"
+                    f"conv[{c}].cc.message 176\n"
+                    f"conv[{c}].cc.select {SELECT_CC}\n"
+                    f"conv[{c}].value.predelay 1024\n"
+                    f"conv[{c}].value.wet 0.7\nconv[{c}].value.dry 0.2\n"
+                    for c in range(2)))
+            common = ["--settings", settings, "--signal", "noise"]
+
+            # the partitioned engine's spectra cache: a miss, then a hit
+            IRBank.partitioned_spectra = counted
+            builds, calls = [], []
+            try:
+                for run in range(2):
+                    text, _, _ = cli(common + [
+                        "--engine", "partitioned", "--cache-dir",
+                        f"{tmp}/cache", "--blocks", str(OPS_CACHE_BLOCKS),
+                        "--output", f"{tmp}/part{run}.wav"],
+                        f"partitioned --cache-dir, run {run + 1}")
+                    built = re.search(r"model built in (\S+) s", text)
+                    cache_line = re.search(r"spectra cache (hit|write)", text)
+                    builds.append(float(built.group(1)))
+                    calls.append((len(spectra_calls),
+                                  cache_line.group(1) if cache_line
+                                  else None))
+            finally:
+                IRBank.partitioned_spectra = compute
+            with open(f"{tmp}/part0.wav", "rb") as a, \
+                    open(f"{tmp}/part1.wav", "rb") as b:
+                same = a.read() == b.read()
+            print(f"CLI partitioned --cache-dir: build {builds[0]:.3f} s "
+                  f"({calls[0][1]}, spectra computed {calls[0][0]} time), "
+                  f"then {builds[1]:.3f} s ({calls[1][1]}, computed "
+                  f"{calls[1][0] - calls[0][0]} more); output WAVs equal to "
+                  f"the bit: {same}")
+            if (calls != [(1, "write"), (1, "hit")] or not same
+                    or len(os.listdir(f"{tmp}/cache")) != 1):
+                raise AssertionError("CLI --cache-dir: the second build did "
+                                     "not hit the cache, or the outputs "
+                                     "differ")
+
+            # the default fmajor route at full width, chunked and profiled
+            voices = ["--voices", str(VOICES)]
+            _, chunk_s, chunk_launches = cli(
+                common + voices + ["--chunk-blocks", str(CHUNK30),
+                                   "--blocks", str(OPS_CHUNK_BLOCKS)],
+                f"fmajor --chunk-blocks {CHUNK30}")
+            _, prof_s, prof_launches = cli(
+                common + voices + ["--profile", f"{tmp}/prof", "--blocks",
+                                   str(OPS_PROFILE_BLOCKS)],
+                "fmajor --profile")
+            if (chunk_launches != OPS_CHUNK_BLOCKS
+                    or prof_launches != OPS_PROFILE_BLOCKS):
+                raise AssertionError(f"CLI fmajor: ring_mac launches "
+                                     f"{chunk_launches} / {prof_launches}")
+            prof = tools("profile", f"{tmp}/prof", "--top", "40")
+            info_out = finish(info, "bank-info")
+            finish(pre, "prebuild-cache")
+            prebuilt = os.listdir(f"{tmp}/prebuilt")
+            print(f"tools makeindex: {len(entries)} entries; bank-info: "
+                  f"{info_out.splitlines()[0]}; prebuild-cache: {prebuilt}")
+            if (entries != sorted(entries) or len(entries) != NUM_IRS
+                    or f"{NUM_IRS} IRs" not in info_out
+                    or len(prebuilt) != 1
+                    or not prebuilt[0].startswith("bank_")):
+                raise AssertionError("tools makeindex / bank-info / "
+                                     "prebuild-cache went wrong")
+            prof_out = finish(prof, "profile")
+            inspect_out = finish(inspect, "inspect-checkpoint")
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    kernel = prof_out.split("\ncategory 'kernel'")
+    kernel = kernel[1].split("\ncategory ")[0] if len(kernel) > 1 else ""
+    ring_rows = [line for line in kernel.splitlines() if "ring_mac" in line]
+    print(f"tools profile: {prof_out.splitlines()[0]}; its kernel events"
+          f"{kernel.splitlines()[0] if kernel else ': none'}")
+    for line in kernel.splitlines()[1:12]:
+        print(f"  {line.strip()}")
+    print(f"tools inspect-checkpoint: {len(inspect_out.splitlines())} lines, "
+          f"state fields "
+          f"{sum(line.startswith('state.') for line in inspect_out.splitlines())}")
+    if not ring_rows:
+        raise AssertionError("tools profile: no ring_mac among the trace's "
+                             "kernel events")
+    if ('"block_index": 0' not in inspect_out
+            or "state.fdl: shape=" not in inspect_out):
+        raise AssertionError("tools inspect-checkpoint went wrong")
+    ring_row = ring_rows[0].split()
+    return {"launches": chunk_launches + prof_launches,
+            "build_miss_s": builds[0], "build_hit_s": builds[1],
+            "chunk_cli_s": chunk_s, "profile_cli_s": prof_s,
+            "profile_ring_mac_count": int(ring_row[1]),
+            "profile_ring_mac_p50_ms": float(ring_row[2]),
+            "wall_s": time.perf_counter() - t_phase}
+
+
 def main() -> int:
     import torch
 
@@ -3795,6 +4319,17 @@ def main() -> int:
     sel152 = run_sel152(dev, configure, select, KeepSink, reset_counts, rm,
                         ms)
 
+    # -- 30. chunked serving at full width ----------------------------------------------
+    t0 = time.perf_counter()
+    chunked = run_chunked(bank, irs, dev, configure, select, KeepSink,
+                          reset_counts, rm, ms)
+    chunked_s = time.perf_counter() - t0
+
+    # -- 31. the operational surface through the CLI --------------------------------------
+    surface = run_ops_surface(irs, dev, reset_counts, rm, ms)
+    print(f"phases 30-31: {chunked_s:.1f} s and {surface['wall_s']:.1f} s "
+          f"wall")
+
     tag = f"[{card}]"
     lines = []
     shorts = {"step_coef_steady": "steady", "step_coef_indexed": "indexed",
@@ -3952,7 +4487,8 @@ def main() -> int:
               ("cli_bridge_underruns", cli["underruns"]),
               ("cli_bridge_overruns", cli["overruns"]),
               ("cli_bridge_first_sounding_period",
-               cli["first_sounding_period"])]
+               cli["first_sounding_period"]),
+              ("cli_bridge_blocks_missed_deadline", cli["late_blocks"])]
     for label, r in (("monolithic", mono),
                      *((f"partitioned_{variant}", r)
                        for variant, r in part["runs"].items())):
@@ -4059,6 +4595,35 @@ def main() -> int:
                 for what, t in sel152["first_ms"].items()),
               *((f"sel{SEL152_IRS}_{what}_warm_ms", t)
                 for what, t in sel152["warm_ms"].items())]
+    for label, r in chunked["runs"].items():
+        s = r["summary"]
+        lines += [(f"chunked_{label}_session_wall_p50_ms_per_block",
+                   s["p50_ms"]),
+                  (f"chunked_{label}_session_wall_p99_ms_per_block",
+                   s["p99_ms"]),
+                  (f"chunked_{label}_session_rtf", s["rtf"]),
+                  (f"chunked_{label}_session_missed_deadlines",
+                   s["missed_deadlines"]),
+                  (f"chunked_{label}_session_wall_s", r["wall_s"])]
+    for chunk, (busy, ops_per_block) in chunked["busy"].items():
+        lines += [(f"chunked_ring_chunk{chunk}_steady_device_busy_us_per_block",
+                   busy),
+                  (f"chunked_ring_chunk{chunk}_steady_device_ops_per_block",
+                   ops_per_block)]
+    lines += [*((f"chunked_{kind}_vs_per_block_max_abs_err", err)
+                for kind, err in chunked["errs"].items()),
+              ("chunked_ring_golden_max_abs_err", chunked["golden_err"]),
+              ("chunked_resilient_wall_s", chunked["resilient"]["wall_s"]),
+              ("chunked_resilient_resume_block",
+               chunked["resilient"]["resume_block"]),
+              ("chunked_phase_wall_s", chunked_s),
+              ("ops_partitioned_build_cache_miss_s", surface["build_miss_s"]),
+              ("ops_partitioned_build_cache_hit_s", surface["build_hit_s"]),
+              ("ops_cli_chunked_wall_s", surface["chunk_cli_s"]),
+              ("ops_cli_profiled_wall_s", surface["profile_cli_s"]),
+              ("ops_profile_ring_mac_count", surface["profile_ring_mac_count"]),
+              ("ops_profile_ring_mac_p50_ms", surface["profile_ring_mac_p50_ms"]),
+              ("ops_phase_wall_s", surface["wall_s"])]
     for key, value in lines:
         print(f"{key} {value} {tag}")
 
@@ -4088,14 +4653,19 @@ def main() -> int:
               + big["launches"] + bounce["launches"] + auto["launches"]
               + engines["cascade"]["launches"]
               + sum(r["launches"] for r in recovery.values())
-              + live["launches"],
+              + live["launches"]
+              + sum(r["launches"]["ring_mac"]
+                    for r in chunked["runs"].values())
+              + chunked["resilient"]["launches"] + surface["launches"],
               max(max_abs_err, cas_err, bounce["mac_err"],
                   engines["cascade"]["mac_err"]), ring_ms,
               cascade={shape: timings(t) for shape, t in cas_ms.items()},
               bounce={f"vi{2 * VOICES * bounce['nseg']}_kod{kod_full}":
                       timings(bounce["mac_ms"])}),
         entry("mac_shift", "tpu_audio/ops/pallas_mac.py:76",
-              roll_launches + ceil_launches + engines["roll"]["launches"],
+              roll_launches + ceil_launches + engines["roll"]["launches"]
+              + sum(r["launches"]["mac_shift"]
+                    for r in chunked["runs"].values()),
               max(shift_err, engines["roll"]["mac_err"]), shift_ms),
         # the bf16 kernels (mac_dtype='bf16'): ring_mac's library_ms is
         # torch.bmm on the same bf16 operands with f32 out (the bf16
@@ -4103,7 +4673,9 @@ def main() -> int:
         # mac_shift has none
         entry("ring_mac_bf16", "tpu_audio/ops/pallas_mac.py:160",
               fm16["ring"]["launches"] + fm16["bounce"]["launches"]
-              + huge["launches"] + huge["cli_launches"],
+              + huge["launches"] + huge["cli_launches"]
+              + sum(r["launches"]["ring_mac_bf16"]
+                    for r in chunked["runs"].values()),
               bf16_err["ring_mac"], bf16_kods("ring_mac"),
               source="tpu_audio_torch/csrc/ring_mac.cu",
               cascade={shape: timings(t) for shape, t

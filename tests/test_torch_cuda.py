@@ -1035,3 +1035,85 @@ def test_run_resilient_of_the_later_paths_on_the_card(cuda, tmp_path, kind):
     assert summary["recoveries"][0]["resume_block"] == 12
     np.testing.assert_array_equal(np.concatenate(sink.blocks, axis=-1),
                                   want.data)
+
+
+def _chunk_session(device, ring, chunk, x):
+    """A roll or ring 'allk' session at 4 voices on `device`, a re-select
+    at 8 and an interrupt at 16 (on the chunk grid), in chunks of `chunk`;
+    returns (sink data, kernel launches)."""
+    from tpu_audio_torch.engine.params import CCMapping
+    from tpu_audio_torch.runtime.backends import WavSink, WavSource
+    from tpu_audio_torch.runtime.stream import MidiSchedule, StreamSession
+
+    rng = np.random.default_rng(21)
+    spectra = np.fft.rfft(rng.standard_normal((3, 2, 12, 128)), axis=-1
+                          ).astype(np.complex64) * 0.1
+    eng = FMajorPartitionedConvolution(4, 64, 12, max_predelay=64, num_irs=3,
+                                       ring=ring, device=device)
+    bank = eng.prepare_bank(spectra)
+    cp = ControlPlane(4, 3, 64, device=device)
+    cp.wet[:], cp.dry[:], cp.speed[:] = 0.8, 0.2, 10
+    for v in range(4):
+        for ch in range(2):
+            cp.set_mapping(v, ch, CCMapping(message=0xB0, select=0x15))
+    sink = WavSink("/dev/null", keep_data=True)
+    session = StreamSession(eng, bank, cp, WavSource(x, 4, 64), sink,
+                            warmup=0, chunk_blocks=chunk)
+    counter = ring_mac if ring else mac_shift
+    before = counter.launches
+    session.run(eng.init_converged(bank, cp.snapshot_device()),
+                midi=MidiSchedule([(8, "", bytes([0xB0, 0x15, 64])),
+                                   (16, "", bytes([0xB0, 0x15, 127]))]))
+    return sink.data, counter.launches - before
+
+
+@pytest.mark.parametrize("ring", [True, False])
+def test_chunked_session_on_the_card_matches_its_per_block_run(cuda, ring):
+    """chunk_blocks=8 over 43 blocks (a partial last chunk): one ring_mac
+    (ring) or mac_shift (roll) launch per block, the output equal to the
+    per-block session's on the card to the bit (every event on the chunk
+    grid, the fades outlast the run) and to the CPU's within 2e-5."""
+    x = (np.random.default_rng(22).standard_normal((4, 2, 64 * 43)) * 0.05
+         ).astype(np.float32)
+    chunked, launches = _chunk_session(cuda, ring, 8, x)
+    per_block, launches1 = _chunk_session(cuda, ring, 1, x)
+    on_cpu, cpu_launches = _chunk_session("cpu", ring, 8, x)
+    assert launches == launches1 == 43 and cpu_launches == 0
+    np.testing.assert_array_equal(chunked, per_block)
+    np.testing.assert_allclose(chunked, on_cpu, atol=2e-5)
+
+
+def test_cli_profile_trace_holds_ring_mac(cuda, tmp_path, capsys):
+    """--profile on the card: the trace's kernel events hold the
+    hand-written ring_mac (launched through ctypes, seen by CUPTI), and
+    `tools profile` lists it."""
+    import os
+
+    from tpu_audio_torch.app.main import main as app_main
+    from tpu_audio_torch.app.tools import main as tools_main
+    from tpu_audio_torch.io.wav import write_wav
+    from tpu_audio_torch.utils import trace
+
+    ir = np.random.default_rng(23).standard_normal((3000, 2)) * 0.1
+    write_wav(tmp_path / "ir.wav", ir.astype(np.float32), 44100, bits=32)
+    (tmp_path / "bank.index").write_text("ir.wav\n")
+    (tmp_path / "settings.txt").write_text("conv.count 2\n" + "".join(
+        f"conv[{c}].index bank.index\nconv[{c}].maxPredelay 256\n"
+        for c in range(2)))
+    before = ring_mac.launches
+    assert app_main(["--settings", str(tmp_path / "settings.txt"), "--root",
+                     str(tmp_path), "--signal", "noise", "--blocks", "12",
+                     "--chunk-blocks", "4", "--profile",
+                     str(tmp_path / "prof"), "--quiet"]) == 0
+    assert ring_mac.launches - before == 12
+    path = trace.newest_trace(tmp_path / "prof")
+    assert os.path.basename(path) == f"{os.getpid()}.pt.trace.json"
+    kernels = trace.category_events(path)["kernel"]
+    # CUPTI can drop an event at the trace's edge (chip_smoke.py phase 31
+    # once counted 39 of 40 launches), so at least 11 of the 12
+    assert 11 <= sum(len(d) for name, d in kernels.items()
+                     if "ring_mac" in name) <= 12
+    capsys.readouterr()
+    assert tools_main(["profile", str(tmp_path / "prof"), "--top", "40"]) == 0
+    out = capsys.readouterr().out
+    assert "ring_mac" in out.split("category 'kernel'")[1]

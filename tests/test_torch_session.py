@@ -272,7 +272,10 @@ def test_import_leaves_jax_out():
             "tpu_audio_torch.runtime.midi_transport, "
             "tpu_audio_torch.runtime.jack_bridge, "
             "tpu_audio_torch.io.midi, "
-            "tpu_audio_torch.utils.wire; "
+            "tpu_audio_torch.utils.wire, "
+            "tpu_audio_torch.app.tools, "
+            "tpu_audio_torch.utils.diskcache, "
+            "tpu_audio_torch.utils.trace; "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'tpu_audio.'))]; "
             "assert not bad, bad")

@@ -16,6 +16,7 @@ MIDI schedule or live byte FIFOs and device files (--midi-fifo).
         [--engine fmajor|cascade|partitioned|monolithic [--cascade-ratio N]
          [--predelay-side write|read] [--variant coef|materialized]]
         [--voices N] [--blocks N] [--realtime [--clock sleep|native]]
+        [--chunk-blocks N] [--cache-dir DIR] [--profile DIR]
         [--no-swap-snapshot]
         [--bank-capacity N [--async-paging] [--ws-exhausted defer|raise]]
         [--offline [SEGMENTS] [--offline-chunk-blocks N]
@@ -37,13 +38,20 @@ and writes their sum (the reference's JACK playback mix), streamed or with
 
 The fmajor and cascade banks are always prepared on the engine's device;
 ``--bank-prep`` and ``--fault-upload td`` are accepted so that the JAX
-CLI's command lines run unchanged.
+CLI's command lines run unchanged. ``--cache-dir`` keeps the partitioned
+engine's IR spectra in a disk cache shared with the JAX package (the other
+engines compute their banks without it; the JAX flag's XLA compile cache
+has no counterpart: the CUDA kernels build once into
+``tpu_audio_torch/_build/``). ``--profile DIR`` writes a torch.profiler
+Chrome trace of the session to ``DIR/<pid>.pt.trace.json``, which
+``python -m tpu_audio_torch.app.tools profile DIR`` summarises.
 """
 
 from __future__ import annotations
 
 import argparse
 import os
+import time
 
 from tpu_audio_torch.models.reverb import ConvolutionReverb, pair_geometry_keys
 from tpu_audio_torch.runtime.backends import (
@@ -189,7 +197,19 @@ def build_parser() -> argparse.ArgumentParser:
                    help="realtime pacing source (native = drift-free C++ "
                         "absolute-deadline clock)")
     p.add_argument("--pipeline-depth", type=int, default=1,
-                   help="blocks in flight between step and sink")
+                   help="blocks (chunks) in flight between step and sink")
+    p.add_argument("--chunk-blocks", type=int, default=1,
+                   help="blocks per dispatch: one upload, one chunk step and "
+                        "one fetch per N blocks (MIDI applies at chunk "
+                        "granularity; not for the monolithic engine or "
+                        "--variant materialized)")
+    p.add_argument("--cache-dir", default=None,
+                   help="IR spectra disk cache directory (the partitioned "
+                        "engine's; shared with the JAX package)")
+    p.add_argument("--profile", default=None, metavar="DIR",
+                   help="write a torch.profiler trace of the session to "
+                        "DIR/<pid>.pt.trace.json (summarise it with "
+                        "python -m tpu_audio_torch.app.tools profile DIR)")
     p.add_argument("--device", default="cuda",
                    help="'cuda' (best CUDA device; fails without one), "
                         "'cuda:N', or 'cpu' for the plain PyTorch path")
@@ -260,6 +280,7 @@ def main(argv=None) -> int:
     if len(set(pair_geometry_keys(parsed, args.root))) > 1:
         return _run_groups(args, device)
 
+    t0 = time.perf_counter()
     model = ConvolutionReverb.from_settings(
         args.settings, engine=args.engine, root=args.root,
         num_voices=args.voices,
@@ -270,7 +291,8 @@ def main(argv=None) -> int:
         bank_capacity=args.bank_capacity, ws_exhausted=args.ws_exhausted,
         async_paging=args.async_paging, cascade_ratio=args.cascade_ratio,
         predelay_side=args.predelay_side, mac_dtype=args.mac_dtype,
-        device=device)
+        cache_dir=args.cache_dir, device=device)
+    Log.info("app", "model built in %.3f s", time.perf_counter() - t0)
     rings = []
     try:
         if args.offline is not None:
@@ -388,7 +410,7 @@ def _run_groups(args, device) -> int:
         max_ir_seconds=args.max_ir_seconds, verbose=not args.quiet,
         variant=args.variant, block=args.block_size,
         sample_rate=args.sample_rate, mac_dtype=args.mac_dtype,
-        device=device)
+        cache_dir=args.cache_dir, device=device)
     if args.offline is not None:
         # every group bounced over the same input and summed, as
         # ReverbGroups.process sums them
@@ -409,6 +431,26 @@ def _run_groups(args, device) -> int:
         write_wav(args.output, total.T, sample_rate)
         Log.info("app", "wrote %s", args.output)
     return 0
+
+
+def _profiled_run(directory: str, session, state, **run_kwargs) -> None:
+    """session.run under torch.profiler (the CPU's ops, and the device's
+    kernels and copies on a CUDA model), its Chrome trace written to
+    `directory`/<pid>.pt.trace.json."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if session.device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities) as prof:
+        session.run(state, **run_kwargs)
+        if session.device.type == "cuda":
+            torch.cuda.synchronize(session.device)
+    os.makedirs(directory, exist_ok=True)
+    path = os.path.join(directory, f"{os.getpid()}.pt.trace.json")
+    prof.export_chrome_trace(path)
+    Log.info("app", "profiler trace written to %s", path)
 
 
 def _stream(args, model, rings: list) -> int:
@@ -475,6 +517,7 @@ def _stream(args, model, rings: list) -> int:
 
         session = model.session(source, sink, realtime=args.realtime,
                                 pipeline_depth=args.pipeline_depth,
+                                chunk_blocks=args.chunk_blocks,
                                 underrun_policy=underrun,
                                 max_consecutive_underruns=args.max_dry_blocks,
                                 clock=args.clock)
@@ -491,8 +534,13 @@ def _stream(args, model, rings: list) -> int:
                 session.stop()
 
             threading.Thread(target=_watch_stdin, daemon=True).start()
-        session.run(model.init_state(), max_blocks=args.blocks, midi=midi,
-                    live_midi=live_midi)
+        state = model.init_state()
+        if args.profile:
+            _profiled_run(args.profile, session, state, max_blocks=args.blocks,
+                          midi=midi, live_midi=live_midi)
+        else:
+            session.run(state, max_blocks=args.blocks, midi=midi,
+                        live_midi=live_midi)
     finally:
         if live_midi is not None:
             live_midi.close()

@@ -1,16 +1,19 @@
-"""IR bank: host-side loading and spectra (port of
-tpu_audio/engine/bank.py:IRBank, without the disk cache).
+"""IR bank: host-side loading, spectra and their disk cache (port of
+tpu_audio/engine/bank.py:IRBank).
 
 Capability equivalent of the reference's `_irBuffers` spectra map filled by
 ``Convolution::prepare`` (reference src/conv.cu:207-253, wired from index
 files at src/main.cu:72-81). The bank is numpy at heart: IRs are kept as
 [2, L] float32 arrays and turned into [K, 2, P, F] partition spectra or
 [K, 2, Fm] monolithic half-spectra once per load, which the engine packs
-and uploads.
+and uploads. ``cached_partitioned_spectra`` keeps the partition spectra in a
+content-addressed ``bank_<key>.npy`` under a cache directory, keyed as the
+JAX package keys them, so either package reads the other's entries.
 """
 
 from __future__ import annotations
 
+import hashlib
 import os
 
 import numpy as np
@@ -20,6 +23,7 @@ from tpu_audio_torch.io.wav import WavFile, read_wav
 from tpu_audio_torch.ops.partition import (
     monolithic_spectrum, num_partitions, partition_spectra,
 )
+from tpu_audio_torch.utils import diskcache
 from tpu_audio_torch.utils.log import Log
 
 
@@ -188,3 +192,42 @@ class IRBank:
         for k, ir in enumerate(self._irs):
             out[k] = monolithic_spectrum(ir, fft_size, reserve)[..., :fm]
         return out
+
+    # -- disk cache -----------------------------------------------------------------
+
+    def _cache_key(self, kind: str, *geometry) -> str:
+        """The JAX package's key (tpu_audio/engine/bank.py:_cache_key):
+        sha256 over the kind, geometry and sample rate, then each IR's
+        shape and raw float32 bytes, truncated to 24 hex chars."""
+        h = hashlib.sha256()
+        h.update(repr((kind, geometry, self.sample_rate)).encode())
+        for ir in self._irs:
+            # per-IR shape separators: two banks whose IR lists concatenate
+            # to the same byte stream must not collide to one entry
+            h.update(repr(np.asarray(ir).shape).encode())
+            h.update(np.ascontiguousarray(ir).tobytes())
+        return h.hexdigest()[:24]
+
+    def cached_partitioned_spectra(self, block: int,
+                                   cache_dir: str | os.PathLike,
+                                   max_partitions: int | None = None
+                                   ) -> np.ndarray:
+        """partitioned_spectra through a content-addressed disk cache:
+        ``<cache_dir>/bank_<key>.npy``, read with mmap (a read-only array),
+        written through a pid-unique tmp file. Legacy ``.npz`` entries are
+        honoured. The key hashes the JAX signature's offset as 0, so an
+        entry either package writes is a hit for the other."""
+        os.makedirs(cache_dir, exist_ok=True)
+        key = self._cache_key("part", block, max_partitions, 0)
+        base = os.path.join(os.fspath(cache_dir), f"bank_{key}")
+        if os.path.exists(base + ".npy"):
+            Log.info("bank", "spectra cache hit: %s.npy", base)
+            return np.load(base + ".npy", mmap_mode="r")
+        if os.path.exists(base + ".npz"):
+            Log.info("bank", "spectra cache hit: %s.npz", base)
+            with np.load(base + ".npz") as data:
+                return data["spectra"]
+        spectra = self.partitioned_spectra(block, max_partitions)
+        diskcache.save_array(base + ".npy", spectra)
+        Log.info("bank", "spectra cache write: %s.npy", base)
+        return spectra

@@ -868,3 +868,47 @@ class FMajorPartitionedConvolution:
             coef_a=torch.where(changed, 1.0, state.coef_a),
             coef_c=torch.where(changed, 0.0, state.coef_c),
         )
+
+
+def make_chunk_step(engine, steady: bool = False, indexed: bool = False):
+    """Multi-block step (port of tpu_audio/engine/fmajor.py:make_chunk_step):
+    run a coefficient engine's step over a [T, V, 2, B] chunk uploaded once.
+
+    Works with any engine whose fade protocol is not "slew" (fmajor in
+    either mode, strategy and MAC dtype; the cascade; partitioned 'coef'):
+    the steady step with ``steady=True``, the span-indexed fade step with
+    ``indexed=True`` ('allk'), else the general fade step. Within a chunk
+    the parameters are frozen except the crossfade countdown: block i gets
+    ``vsteps = max(params.vsteps - i, 0)``, computed on the device, as the
+    JAX scan body and the host's per-block countdown do. Each step launches
+    its MAC kernel (ring_mac or mac_shift) exactly as a per-block step does.
+
+    The returned ``chunk_step(state, bank, params, xs, blocks=None)`` is a
+    Python loop of ``blocks`` step calls (default T) writing one
+    preallocated [T, V, 2, B] output; rows past ``blocks`` (a partial
+    chunk's zero pad) are neither rendered nor written. It is not captured
+    as a CUDA graph yet (ROADMAP Queue 2 item 8b), so the host enqueues
+    every step's ops as a per-block session does. The steps update the
+    state in place: the state passed in is consumed, and each block's input
+    is a view of ``xs``, which the state keeps as ``prev_in``, so ``xs``
+    must not be written afterwards."""
+    if engine.fade_protocol == "slew":
+        raise ValueError(f"{type(engine).__name__} slews its own spectra "
+                         f"(fade protocol 'slew'): it has no coefficient "
+                         f"step to run in chunks")
+    if indexed:
+        step = engine.step_coef_indexed
+    else:
+        step = engine.step_coef_steady if steady else engine.step_coef
+
+    def chunk_step(state, bank, params, xs, blocks=None):
+        n = xs.shape[0] if blocks is None else blocks
+        outs = torch.empty_like(xs)
+        for i in range(n):
+            p_i = params if i == 0 else replace(
+                params, vsteps=torch.clamp_min(params.vsteps - i, 0))
+            state, out = step(state, bank, p_i, xs[i])
+            outs[i].copy_(out)
+        return state, outs
+
+    return chunk_step

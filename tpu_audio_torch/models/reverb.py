@@ -128,7 +128,14 @@ class ConvolutionReverb:
     ("coef" or "materialized"), `engine="monolithic"` the reference's
     MonolithicConvolution at `fft_size`, its IRs truncated to fft_size -
     max(block, min(1024, fft_size // 8)). Their spectra are computed on the
-    host (numpy) and uploaded; they take no `bank_capacity`."""
+    host (numpy) and uploaded; they take no `bank_capacity`.
+
+    `cache_dir` keeps the partitioned engine's spectra in a content-addressed
+    disk cache (IRBank.cached_partitioned_spectra), shared with the JAX
+    package. The other engines compute their banks without it (fmajor, the
+    cascade and the working set on the device, as the JAX package's
+    bank_prep="device" does; the monolithic engine, as JAX, on the host): a
+    `cache_dir` there is accepted and has no effect."""
 
     def __init__(self, bank: IRBank, num_voices: int = 1, block: int = 256,
                  sample_rate: int = 44100, engine: str = "fmajor",
@@ -140,7 +147,7 @@ class ConvolutionReverb:
                  predelay_side: str = "write", tail_mac: str = "auto",
                  bank_capacity: int | None = None,
                  async_paging: bool = False, ws_exhausted: str = "defer",
-                 device=None):
+                 cache_dir: str | os.PathLike | None = None, device=None):
         if engine not in ("fmajor", "cascade", "partitioned", "monolithic"):
             raise ValueError(f"unknown engine {engine!r}")
         if bank_capacity is not None and engine not in ("fmajor", "cascade"):
@@ -157,6 +164,10 @@ class ConvolutionReverb:
                      abs(1 - bank.sample_rate / sample_rate) * 100,
                      sample_rate)
         self.device = resolve_device(device)
+        if cache_dir and engine != "partitioned":
+            Log.info("reverb", "cache_dir %s: no effect on engine %r (only "
+                     "the partitioned engine's spectra are cached)",
+                     os.fspath(cache_dir), engine)
         self.control = ControlPlane(num_voices, len(bank), max_predelay,
                                     device=self.device)
         self.working_set = None
@@ -202,6 +213,9 @@ class ConvolutionReverb:
                 num_voices, block, partitions, max_predelay=max_predelay,
                 variant=variant, device=self.device)
             self.spectra = self._upload(
+                bank.cached_partitioned_spectra(
+                    block, cache_dir, max_partitions=partitions)
+                if cache_dir else
                 bank.partitioned_spectra(block, max_partitions=partitions))
         else:
             self.engine = MonolithicConvolution(
@@ -219,7 +233,10 @@ class ConvolutionReverb:
                  self.bank_bytes() / 1e6, self.device)
 
     def _upload(self, spectra: np.ndarray) -> torch.Tensor:
-        """Host complex64 spectra -> a tensor on the model's device."""
+        """Host complex64 spectra (a read-only cache mmap included) -> a
+        tensor on the model's device."""
+        if not spectra.flags.writeable:
+            return torch.tensor(spectra, device=self.device)
         return torch.from_numpy(spectra).to(self.device)
 
     def _cascade(self, num_voices, block, partitions, requested, max_predelay,

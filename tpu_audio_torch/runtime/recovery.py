@@ -10,7 +10,9 @@ ends that session, and ``run_resilient``:
   - builds a FRESH model through the caller's factory (new device tensors,
     a new bank prep);
   - restores the last periodic checkpoint (runtime/checkpoint.py) and
-    rewinds the scripted MIDI so events at blocks >= the checkpoint replay;
+    rewinds the scripted MIDI so events at blocks >= the checkpoint replay
+    (a chunk further back for a chunked session, whose checkpoint holds
+    only the events of the chunks before it);
   - rewinds a seekable source to the checkpoint block, so the regenerated
     stream is EXACT, and drops the regenerated blocks already delivered
     (a dedup sink), so the sink sees a gap-free, duplicate-free stream;
@@ -141,9 +143,14 @@ def run_resilient(build_model, source, sink: BlockSink, checkpoint_path,
                                "rebuild_s": t1 - t0,
                                "load_s": time.perf_counter() - t1})
             # events at blocks >= the checkpoint must replay: the restored
-            # control plane carries the state up to the checkpoint block
+            # control plane carries the state up to the checkpoint block.
+            # A chunked session applies events at chunk STARTS, so a
+            # checkpoint at block C has only events <= C - chunk in it:
+            # rewind a chunk further back (the replays land at the chunk
+            # boundary where the uninterrupted run applied them)
             if midi is not None and hasattr(midi, "rewind_to"):
-                midi.rewind_to(resume_block)
+                chunk = int(session_kwargs.get("chunk_blocks") or 1)
+                midi.rewind_to(resume_block - (chunk - 1))
             if hasattr(source, "seek"):
                 source.seek(resume_block)
                 deduped.rewind_to(resume_block)

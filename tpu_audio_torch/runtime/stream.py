@@ -9,6 +9,11 @@ Capability equivalent of the reference's JACK process-callback runtime
     step is enqueued before block t - pipeline_depth is handed to the sink
     (the reference overlaps H2D/compute/D2H with 4 CUDA streams,
     src/conv.cu:149-153);
+  - chunked dispatch (``chunk_blocks`` > 1, coefficient engines): N blocks
+    are gathered, uploaded in one transfer, stepped by one chunk step
+    (engine/fmajor.py:make_chunk_step) and fetched in one transfer; MIDI,
+    bank swaps and the step choice apply at chunk boundaries, and
+    ``pipeline_depth`` then counts chunks;
   - per-block wall timing with warmup discard (reference _nruns = -10,
     src/conv.h:80), p50/p99, RTF and a missed-deadline count, with an
     ``on_missed_deadline(block, seconds)`` hook;
@@ -51,9 +56,15 @@ Each engine names its fade protocol in ``engine.fade_protocol``:
   - "slew": ``engine.step``, which slews the active spectra itself and
     needs no collapse (the monolithic engine, partitioned 'materialized').
 
-Left out of this port: chunked dispatch (``chunk_blocks``), batched
-fetches and the pcm16 wire (``fetch_batch``, ``wire``), mesh serving, and,
-by design, the JAX session's layout pinning.
+Left out of this port: mesh serving, and, by design, batched fetches and
+the pcm16 wire (``fetch_batch``, ``wire``) and the JAX session's layout
+pinning.
+
+Where chunked dispatch differs from the JAX session's: a partial chunk
+(the source's end, or ``max_blocks``) renders only its valid blocks (JAX
+also scans the zero pad, so its state runs on past the last delivered
+block), and ``indexed_blocks`` / ``general_blocks`` count blocks (JAX
+counts one per chunk).
 """
 
 from __future__ import annotations
@@ -155,7 +166,8 @@ class StreamSession:
                  realtime: bool = False,
                  pipeline_depth: int = 1, underrun_policy: str = "stop",
                  max_consecutive_underruns: int | None = None,
-                 on_missed_deadline=None, clock: str = "sleep"):
+                 on_missed_deadline=None, clock: str = "sleep",
+                 chunk_blocks: int = 1):
         self.engine = engine
         self.bank = bank
         self.device = engine.device
@@ -176,9 +188,17 @@ class StreamSession:
         self.clock = clock
         self.clock_used = None
         self.clock_ticks = self.clock_missed = 0
-        # how many blocks may be in flight between dispatch and sink
-        # delivery: 1 = classic double buffering
+        # how many blocks (chunks) may be in flight between dispatch and
+        # sink delivery: 1 = classic double buffering
         self.pipeline_depth = max(1, pipeline_depth)
+        # chunk_blocks > 1: one upload, one chunk step and one fetch per N
+        # blocks; MIDI and parameter changes apply at chunk granularity
+        self.chunk_blocks = max(1, chunk_blocks)
+        if self.chunk_blocks > 1 and engine.fade_protocol == "slew":
+            raise ValueError(
+                f"chunk_blocks={chunk_blocks}: {type(engine).__name__} "
+                f"slews its own spectra (fade protocol 'slew') and has no "
+                f"chunk step; serve it per block")
         # "stop": end the stream when the source runs dry (file processing);
         # "silence": substitute silent blocks and keep real time, bounded
         # only by max_consecutive_underruns (None = ride out any outage)
@@ -189,6 +209,10 @@ class StreamSession:
         self.underruns = 0
         self._consecutive_underruns = 0
         self.block_period = engine.block / sample_rate
+        # the first chunk absorbs the kernels' builds and the FFT plans and
+        # records chunk_blocks per-block times: discard two whole chunks
+        if self.chunk_blocks > 1:
+            warmup = max(warmup, 2 * self.chunk_blocks)
         self.timer = BlockTimer(warmup=warmup, deadline_s=self.block_period)
         self.on_missed_deadline = on_missed_deadline
         self._missed_logged = 0
@@ -196,19 +220,30 @@ class StreamSession:
         self._stop_requested = False
         # one record per checkpoint written: block_index, d2h_s, write_s,
         # bytes (runtime/checkpoint.py) and block_s, the wall time of the
-        # block that wrote it, the save included
+        # block (the chunk, in chunked mode) that wrote it, the save
+        # included
         self.checkpoint_saves: list[dict] = []
         self.blocks_streamed = 0
-        self.indexed_blocks = 0   # blocks that rode step_coef_indexed
-        self.general_blocks = 0   # blocks that rode the general fade step
+        # blocks (not chunks) that rode step_coef_indexed / the general
+        # fade step
+        self.indexed_blocks = 0
+        self.general_blocks = 0
 
         # coefficient engines pick a step from the host mirrors and collapse
         # on a re-select; "slew" engines only call engine.step
         protocol = engine.fade_protocol
         spans = protocol == "spans"
         self._is_coef = protocol != "slew"
-        self._step_steady, self._step_full = engine_steps(engine)
-        self._step_indexed = engine.step_coef_indexed if spans else None
+        if self.chunk_blocks > 1:
+            from tpu_audio_torch.engine.fmajor import make_chunk_step
+
+            self._step_steady = make_chunk_step(engine, steady=True)
+            self._step_full = make_chunk_step(engine)
+            self._step_indexed = (make_chunk_step(engine, indexed=True)
+                                  if spans else None)
+        else:
+            self._step_steady, self._step_full = engine_steps(engine)
+            self._step_indexed = engine.step_coef_indexed if spans else None
         self._collapse_pure = engine.collapse_pure if spans else None
         # 'selected' re-gathers its per-voice spectra at a collapse (it
         # takes the new selection) and at a bank swap
@@ -291,21 +326,24 @@ class StreamSession:
                                     new_select=new_t,
                                     params=self.control.snapshot_device())
 
-    def _pick_coef_step(self):
-        """The coefficient engine's step for this block (steady once every
-        fade has decayed, else the indexed or general fade step), then the
-        analytic coef_a mirror advanced exactly as the device recursion
-        advances it."""
+    def _pick_coef_step(self, blocks: int = 1):
+        """The coefficient engine's step for the next `blocks` blocks (one
+        chunk): steady once every fade has decayed, else the indexed or
+        general fade step. Then the analytic coef_a mirror advanced exactly
+        as the device recursion advances it, with the chunk's in-step
+        vsteps countdown (make_chunk_step)."""
         vsteps = self.control.vsteps.astype(np.float64)
         if bool((self._a_host < STEADY_THRESHOLD).all()):
             step = self._step_steady
         elif self._step_indexed is not None and self._indexed_valid():
             step = self._step_indexed
-            self.indexed_blocks += 1
+            self.indexed_blocks += blocks
         else:
             step = self._step_full
-            self.general_blocks += 1
-        self._a_host *= 1.0 - 1.0 / (vsteps + 5.0)
+            self.general_blocks += blocks
+        for _ in range(blocks):
+            self._a_host *= 1.0 - 1.0 / (vsteps + 5.0)
+            vsteps = np.maximum(vsteps - 1.0, 0.0)
         return step
 
     def _materialize_base(self, state):
@@ -393,29 +431,53 @@ class StreamSession:
     # -- device transfer ---------------------------------------------------------------
 
     def _upload(self, x: np.ndarray) -> torch.Tensor:
-        # a copy, never a view of the source's buffer: the state keeps this
-        # block as prev_in. On CUDA the copy goes through a fresh pinned
-        # buffer so the host->device transfer is queued, not waited for.
+        # a copy, never a view of the source's buffer (or, chunked, of the
+        # gathered blocks): the state keeps the last block as prev_in. On
+        # CUDA the copy goes through a fresh pinned buffer so the
+        # host->device transfer is queued, not waited for.
         if self.device.type != "cuda":
             return torch.tensor(x, device=self.device)
         pinned = torch.from_numpy(np.asarray(x, np.float32)).pin_memory()
         return pinned.to(self.device, non_blocking=True)
 
-    def _start_fetch(self, out: torch.Tensor):
-        """Queue the device->host copy of one output block; returns what
-        _deliver needs to wait for it."""
+    def _start_fetch(self, out: torch.Tensor, n_valid: int | None):
+        """Queue the device->host copy of one output block, or of one
+        chunk's [T, V, 2, B] outputs of which the first `n_valid` are
+        delivered; returns what _deliver needs."""
         if out.device.type != "cuda":
-            return out, None
+            return out, None, n_valid
         host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
         host.copy_(out, non_blocking=True)
         done = torch.cuda.Event()
         done.record()
-        return host, done
+        return host, done, n_valid
 
-    def _deliver(self, host: torch.Tensor, done) -> None:
+    def _deliver(self, host: torch.Tensor, done, n_valid: int | None
+                 ) -> None:
         if done is not None:
             done.synchronize()
-        self.sink.write(host.numpy())
+        if n_valid is None:
+            self.sink.write(host.numpy())
+            return
+        for block in host[:n_valid].numpy():   # a partial chunk's pad is
+            self.sink.write(block)             # trimmed here
+
+    def _gather(self, want: int) -> tuple[list, bool]:
+        """Read up to `want` blocks from the source under the underrun
+        policy. Returns (blocks, dry): `dry` when the source ended (or the
+        underrun cap stopped it) before `want` blocks came."""
+        blocks = []
+        while len(blocks) < want:
+            x = self.source.read()
+            if x is None:
+                if self.underrun_policy == "stop" or self._underrun_stop():
+                    return blocks, True
+                x = np.zeros((self.engine.num_voices, 2, self.engine.block),
+                             np.float32)
+            else:
+                self._consecutive_underruns = 0
+            blocks.append(x)
+        return blocks, False
 
     # -- main loop ---------------------------------------------------------------------
 
@@ -427,13 +489,15 @@ class StreamSession:
 
     def _open_clock(self):
         """The native clock for a realtime run with clock="native", when
-        the native library builds; None means time.sleep pacing."""
+        the native library builds, ticking once per chunk; None means
+        time.sleep pacing."""
         if not self.realtime:
             return None
         if self.clock == "native":
             if native.native_available():
                 self.clock_used = "native"
-                return native.NativeBlockClock(self.block_period)
+                return native.NativeBlockClock(self.chunk_blocks
+                                               * self.block_period)
             Log.warn("stream", "native clock unavailable; using sleep")
         self.clock_used = "sleep"
         return None
@@ -451,11 +515,12 @@ class StreamSession:
         final state.
 
         live_midi: anything with poll() -> [(device, message)], polled
-        once per block after the scripted `midi` events.
+        once per block (chunk) after the scripted `midi` events.
         checkpoint_path + checkpoint_every: persist the full engine state
-        and control plane every `checkpoint_every` blocks so a failed
-        session can be rebuilt and resumed (runtime/recovery.py). Each save
-        copies the state to the host synchronously — size the interval
+        and control plane every `checkpoint_every` blocks (in chunked mode
+        at the first chunk end that crosses a multiple) so a failed session
+        can be rebuilt and resumed (runtime/recovery.py). Each save copies
+        the state to the host synchronously — size the interval
         accordingly. start_block offsets the block indices of the MIDI
         schedule and of the checkpoints (resume bookkeeping).
 
@@ -471,19 +536,20 @@ class StreamSession:
             self._a_host = state.coef_a.double().cpu().numpy()
         if self._has_provenance:
             self._pure_host = state.base_pure.cpu().numpy().copy()
-            if (self._selected
+            if (self._step_indexed is None
                     and bool((self._pure_host
                               & (self._a_host >= STEADY_THRESHOLD)).any())):
-                # a span-collapsed fade is in flight but this engine has no
-                # indexed step ('selected'): materialize the virtual
+                # a span-collapsed fade is in flight but this session has
+                # no indexed step ('selected'): materialize the virtual
                 # snapshots once so the general fade reads a valid base
                 state = self._materialize_base(state)
         else:
             self._pure_host[:] = False
 
+        chunk = self.chunk_blocks
         pending = collections.deque()
         block_index = 0
-        next_deadline = time.perf_counter() + self.block_period
+        next_deadline = time.perf_counter() + chunk * self.block_period
         native_clock = self._open_clock()
         try:
             while max_blocks is None or block_index < max_blocks:
@@ -492,14 +558,14 @@ class StreamSession:
                     # loop even starts)
                     self._stop_requested = False
                     break
-                x = self.source.read()
-                if x is None:
-                    if self.underrun_policy == "stop" or self._underrun_stop():
-                        break
-                    x = np.zeros((self.engine.num_voices, 2,
-                                  self.engine.block), np.float32)
-                else:
-                    self._consecutive_underruns = 0
+                # a chunk never reaches past max_blocks: its gather stops
+                # there, and a partial chunk renders its valid blocks only
+                want = chunk if max_blocks is None else min(
+                    chunk, max_blocks - block_index)
+                xs, dry = self._gather(want)
+                if not xs:
+                    break
+                n_valid = len(xs)
 
                 if midi is not None:
                     for device, message in midi.pop_due(start_block
@@ -513,22 +579,33 @@ class StreamSession:
                 state = self._apply_pending_bank(state)
                 if self._is_coef:
                     state = self._maybe_collapse(state)
-                    step = self._pick_coef_step()
+                    step = self._pick_coef_step(n_valid)
                 else:
                     step = self._step_full
 
                 params = self.control.snapshot_device()
-                state, out = step(state, self.bank, params, self._upload(x))
-                self.control.end_block()
+                if chunk == 1:
+                    state, out = step(state, self.bank, params,
+                                      self._upload(xs[0]))
+                    pending.append(self._start_fetch(out, None))
+                else:
+                    # zero-pad a partial chunk to the fixed [T, V, 2, B]
+                    # upload; its pad is not rendered
+                    xs += [np.zeros_like(xs[0])] * (chunk - n_valid)
+                    state, outs = step(state, self.bank, params,
+                                       self._upload(np.stack(xs)), n_valid)
+                    pending.append(self._start_fetch(outs, n_valid))
+                self.control.end_block(n_valid)
 
-                # pipelined delivery: queue this block's device->host copy
-                # now, deliver the block from `pipeline_depth` steps ago
-                pending.append(self._start_fetch(out))
+                # pipelined delivery: this block's (chunk's) device->host
+                # copy is queued; deliver the one from `pipeline_depth`
+                # dispatches ago
                 if len(pending) >= self.pipeline_depth + 1:
                     self._deliver(*pending.popleft())
 
+                end = block_index + n_valid
                 saved = (checkpoint_path is not None and checkpoint_every
-                         and (block_index + 1) % checkpoint_every == 0)
+                         and end % checkpoint_every < n_valid)
                 if saved:
                     # drain in-flight deliveries FIRST: a checkpoint must
                     # never get ahead of the sink, or a crash between save
@@ -539,12 +616,20 @@ class StreamSession:
                     # async working set's uploads and deferred selects)
                     for hook in self.control.pre_checkpoint_hooks:
                         hook()
-                    self._save(checkpoint_path, state,
-                               start_block + block_index + 1)
+                    self._save(checkpoint_path, state, start_block + end)
 
-                elapsed = self.timer.stop()
+                if chunk == 1:
+                    elapsed = self.timer.stop()
+                else:
+                    # the chunk's wall time, recorded as its per-block
+                    # equivalent once per valid block
+                    chunk_s = time.perf_counter() - self.timer._t0
+                    elapsed = chunk_s / n_valid
+                    for _ in range(n_valid):
+                        self.timer.record(elapsed)
                 if saved:
-                    self.checkpoint_saves[-1]["block_s"] = elapsed
+                    self.checkpoint_saves[-1]["block_s"] = (
+                        elapsed * n_valid)
                 if (elapsed > self.block_period
                         and self.timer.missed > self._missed_logged):
                     self._missed_logged = self.timer.missed
@@ -560,8 +645,10 @@ class StreamSession:
                     now = time.perf_counter()
                     if now < next_deadline:
                         time.sleep(next_deadline - now)
-                    next_deadline += self.block_period
-                block_index += 1
+                    next_deadline += chunk * self.block_period
+                block_index = end
+                if dry:
+                    break   # the source ended (or the underrun cap) mid-chunk
 
             while pending:
                 self._deliver(*pending.popleft())
