@@ -227,20 +227,34 @@ Phases, in order; any failure raises and the script exits non-zero:
      default fmajor route at 64 voices with `--chunk-blocks 8` (80 blocks)
      and under `--profile` (40 blocks), one ring_mac launch per block;
      `tools profile` must list ring_mac among the trace's kernel events;
-     `tools inspect-checkpoint` on a checkpoint saved in the phase.
+     `tools inspect-checkpoint` on a checkpoint saved in the phase;
+ 32. the device mesh (tpu_audio_torch/parallel/mesh.py) over every card
+     when the machine has two or more, else over virtual shards on one
+     card (run_mesh's docstring lists the runs): ring 'allk' f32 over
+     voice=2 (and 4 with four cards) with checkpoints every 97 blocks and
+     a resume on the mesh and on one device, roll 'allk' f32 over voice=1
+     x part=2 with a swap_bank mid-fade, roll bf16 over voice=2 x part=2,
+     the bf16 cascade at 2560 voices over voice=2, the working set over
+     voice=2 and the bounce over voice=2; each against the same run on
+     one device, with one kernel launch per shard per block (two on the
+     cascade), and host ms per block, RTF, missed deadlines and the
+     sharded steady step's device busy per block; then each kernel at
+     every shape those mesh runs gave it (recorded as they ran) against
+     its plain version, timed beside its bound.
 
 Phase 22 runs the app at the debug log level and prints the blocks that
 missed their deadline beside any silent playback periods.
 
 The line before the last is a JSON object describing each kernel (its
 launches summed over the phases whose path rides it: 4, 11, 12, 14-17,
-18's cascade, 19-21, 30 and 31 for ring_mac, 7, 10, 18's roll engine and
-30 for mac_shift, 27-28 and 30 for ring_mac_bf16 and 27 for
-mac_shift_bf16; its
+18's cascade, 19-21, 30, 31 and 32 for ring_mac, 7, 10, 18's roll engine,
+30 and 32 for mac_shift, 27-28, 30 and 32 for ring_mac_bf16 and 27 and 32
+for mac_shift_bf16; its
 times and roofline bound at KOD=16, under per_kod at KOD 16, 36 and 64,
 ring_mac's at the cascade's four shapes under cascade and at the bounce's
 shape under bounce, ring_mac_bf16's at the 2048-voice cascade's shapes
-under cascade); the last line is {"ok": true, "device": {...}}. The
+under cascade, and each kernel's at phase 32's shard shapes under mesh,
+whose errors its max_abs_err covers too); the last line is {"ok": true, "device": {...}}. The
 script imports nothing of JAX and nothing of the JAX package.
 """
 
@@ -367,6 +381,15 @@ CHUNK_EVERY, CHUNK_FAIL_AT = 480, 500
 # phase 31: the operational surface through the CLI: 80 blocks chunked,
 # 40 blocks under the profiler, 40 per partitioned cache run
 OPS_CHUNK_BLOCKS, OPS_PROFILE_BLOCKS, OPS_CACHE_BLOCKS = 80, 40, 40
+# phase 32, the mesh: (a) phase 4's timeline with a checkpoint every 97
+# blocks; (b) 400 blocks of roll mode, (c) 200 in bf16; (d) the bf16
+# cascade at 2560 voices (the JAX package's two-chip capacity leg,
+# __graft_entry__.py:140-220), 200 blocks, a re-select at 100; (e) the
+# working set, 200 blocks, a new IR every 32 from block 16; (g) 10 s
+# bounces
+MESH_EVERY, MESH_ROLL_BLOCKS, MESH_BF16_BLOCKS = 97, 400, 200
+MESH_CAS_VOICES, MESH_CAS_BLOCKS, MESH_CAS_SELECT_AT = 2560, 200, 100
+MESH_WS_BLOCKS, MESH_BOUNCE_SECONDS, MESH_BOUNCE_SEGMENTS = 200, 10, 16
 # published peaks of one H100 SXM (NVIDIA's data sheet, dense), at the full
 # 700 W power limit: HBM bytes/s, and FLOP/s by operand type: f32 outside
 # the tensor cores, bf16 on them (bf16 products, f32 sums)
@@ -781,7 +804,7 @@ def device_busy(step, state, bank, params, x, n=30, label=None):
     return busy / n, len(device) / n, state
 
 
-def time_ring_mac(rm, fdl, rhs2, w_host=5):
+def time_ring_mac(rm, fdl, rhs2, w_host=5, reps=200):
     """ring_mac at one shape against its plain version and one library
     call (ring_mac_library), and in bf16 also the bf16 einsum (it rounds m
     to bf16), interleaved (plain, [einsum,] library, kernel, kernel,
@@ -801,7 +824,7 @@ def time_ring_mac(rm, fdl, rhs2, w_host=5):
         order.insert(1, "einsum")
     runs = {key: [] for key in calls}
     for key in order + order[::-1]:
-        runs[key].append(cuda_ms(calls[key], 200))
+        runs[key].append(cuda_ms(calls[key], reps))
     f, vi, _, pp = fdl.shape
     kod = rhs2.shape[3]
     nbytes = ((fdl.numel() + f * 2 * pp * kod) * fdl.element_size()
@@ -844,6 +867,71 @@ def check_ring_mac(rm, fdl, rhs2, label):
         worst = max(worst, err)
         del got, ref64
     return worst
+
+
+def check_mac_shift(ms, fdl, xn, rhs, label):
+    """mac_shift on (fdl, xn, rhs) against its plain version: the shifted
+    line bit-identical to the plain shift in the operands' dtype, m within
+    1e-5 of the output's scale of the float64 plain sums. Shifts a copy of
+    `fdl`. Returns the error; raises beyond the limit."""
+    import torch
+
+    f, vi, _, pp = fdl.shape
+    want_fdl, _ = ms.mac_shift_reference(fdl, xn, rhs)
+    _, ref = ms.mac_shift_reference(fdl.double(), xn.double(), rhs.double())
+    got_fdl, got = ms.mac_shift(fdl.clone(), xn, rhs)
+    torch.cuda.synchronize()
+    same = torch.equal(got_fdl, want_fdl)
+    scale = ref.abs().max().item()
+    err = (got.double() - ref).abs().max().item()
+    print(f"mac_shift vs plain [{label} F={f} VI={vi} Pp={pp} "
+          f"KOD={rhs.shape[3]}]: shifted line "
+          f"{'bit-identical' if same else 'DIFFERS'}, m max_abs_err "
+          f"{err:.3e} (limit {1e-5 * scale:.3e})")
+    if not same or not err <= 1e-5 * scale:
+        raise AssertionError(f"mac_shift disagrees with the plain version at "
+                             f"{label}")
+    return err
+
+
+class ShapeProbe:
+    """Records, while ``on``, the shapes the engines call each kernel's
+    wrapper at: the wrappers' names in engine/fmajor.py and
+    engine/cascade.py are wrapped for the probe's life (the wrappers still
+    count their launches). ``seen`` maps (kernel, F, VI, Pp, KOD) to the
+    calls at that shape; ``close()`` puts the wrappers back."""
+
+    def __init__(self):
+        from tpu_audio_torch.engine import cascade, fmajor
+
+        self.on, self.seen, self._saved = False, {}, []
+        for module in (fmajor, cascade):
+            for name in ("ring_mac", "mac_shift"):
+                if hasattr(module, name):
+                    self._wrap(module, name)
+
+    def _wrap(self, module, name):
+        import torch
+
+        fn = getattr(module, name)
+
+        def probe(*args):
+            if self.on:
+                fdl, rhs = args[1:3] if name == "ring_mac" else args[0::2]
+                kernel = name + ("_bf16" if fdl.dtype == torch.bfloat16
+                                 else "")
+                f, vi, _, pp = fdl.shape
+                key = (kernel, f, vi, pp, rhs.shape[3])
+                self.seen[key] = self.seen.get(key, 0) + 1
+            return fn(*args)
+
+        setattr(module, name, probe)
+        self._saved.append((module, name, fn))
+
+    def close(self):
+        for module, name, fn in self._saved:
+            setattr(module, name, fn)
+        self._saved = []
 
 
 def check_cascade_shapes(rm, dev, rng):
@@ -2581,7 +2669,7 @@ def snr_db(got, want):
         float((want ** 2).sum()) / err)
 
 
-def time_mac_shift(ms, fdl, xn, rhs):
+def time_mac_shift(ms, fdl, xn, rhs, reps=200):
     """mac_shift at one shape against its plain version and one torch.einsum
     of the unshifted line on the same operands (a yardstick, not the
     function: no one call shifts the line; in bf16 it rounds m to bf16),
@@ -2600,7 +2688,7 @@ def time_mac_shift(ms, fdl, xn, rhs):
              "kernel": lambda: ms.mac_shift(fdl, xn, rhs)}
     runs = {key: [] for key in calls}
     for key in ("plain", "einsum", "kernel", "kernel", "einsum", "plain"):
-        runs[key].append(cuda_ms(calls[key], 200))
+        runs[key].append(cuda_ms(calls[key], reps))
     nbytes = ((2 * fdl.numel() + xn.numel() + rhs.numel())
               * fdl.element_size() + f * vi * kod * 4)
     bound_ms, bound_by = roofline_ms(nbytes, 2 * f * vi * 2 * pp * kod,
@@ -3706,6 +3794,510 @@ def run_ops_surface(irs, dev, reset_counts, rm, ms):
             "wall_s": time.perf_counter() - t_phase}
 
 
+def hold_mesh_shapes(seen, launches, rm, ms, dev):
+    """Phase 32 (h): each kernel at each shape the mesh runs called it at
+    (`seen`, a ShapeProbe's), on random operands of the run's dtype,
+    against its plain version (check_ring_mac, check_mac_shift), then timed
+    beside its bound (time_ring_mac, time_mac_shift, 100 calls a run). A
+    kernel the mesh runs launched (`launches`) with no shape recorded
+    fails. Returns ({kernel: largest error}, {kernel: {shape: timing}})."""
+    import torch
+
+    missing = [k for k, n in launches.items()
+               if n and not any(key[0] == k for key in seen)]
+    if missing:
+        raise AssertionError(f"phase 32 (h): no shape recorded for {missing}")
+    gen = torch.Generator(device=dev).manual_seed(32)
+    errs, timed = {}, {}
+    for (kernel, f, vi, pp, kod), calls in sorted(seen.items()):
+        dtype = torch.bfloat16 if kernel.endswith("_bf16") else torch.float32
+
+        def randn(*shape):
+            return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+        label = f"{kernel} mesh shard, {calls} calls"
+        fdl = randn(f, vi, 2, pp)
+        if kernel.startswith("ring_mac"):
+            rhs2 = randn(f, 2, 2 * pp, kod)
+            err = check_ring_mac(rm, fdl, rhs2, label)
+            t = time_ring_mac(rm, fdl, rhs2, reps=100)
+            del rhs2
+        else:
+            xn, rhs = randn(f, vi, 2, 1), randn(f, 2, pp, kod)
+            err = check_mac_shift(ms, fdl, xn, rhs, label)
+            t = time_mac_shift(ms, fdl, xn, rhs, reps=100)
+            del xn, rhs
+        errs[kernel] = max(errs.get(kernel, 0.0), err)
+        timed.setdefault(kernel, {})[f"f{f}_vi{vi}_pp{pp}_kod{kod}"] = t
+        library = (f", library {t['library'] * 1e3:.2f} us"
+                   if "library" in t else "")
+        print(f"{kernel} timing [mesh shard F={f} VI={vi} Pp={pp} KOD={kod}]"
+              f": kernel {t['kernel'] * 1e3:.2f} us "
+              f"({100 * t['bound'] / t['kernel']:.1f} % of the "
+              f"{t['bound'] * 1e3:.2f} us bound by {t['bound_by']}), plain "
+              f"{t['plain'] * 1e3:.2f} us{library}")
+        del fdl
+        torch.cuda.empty_cache()
+    return errs, timed
+
+
+def run_mesh(bank, irs, ws_bank, dev, configure, select, reset_counts, rm,
+             ms):
+    """Phase 32: the device mesh (tpu_audio_torch/parallel/mesh.py). Every
+    CUDA device when the machine has two or more, else virtual shards on
+    `dev` (shard i on card i mod the card count). Each run is held against
+    the same run on one device: (a) ring 'allk' f32, 64 voices, voice=2
+    (and 4 with four cards), 800 blocks of phase 4's timeline, to 2e-6
+    abs, phase 4's golden, a checkpoint every 97 blocks; (b) roll 'allk'
+    f32, voice=1 x part=2, 400 blocks, a re-select, a swap_bank mid-fade
+    and an interrupt (the general step), to 2e-5 of scale; (c) roll bf16,
+    voice=2 x part=2, 200 blocks, SNR >= 40 dB against (b)'s f32 run on one
+    device; (d) the cascade in bf16, read side, 2560 voices, voice=2, 200
+    blocks, a re-select at 100, to 2e-6 abs; (e) the working set, 152 IRs
+    through 16 slots, voice=2, 200 blocks, a new IR every 32 blocks: the
+    same faults and hits, to 2e-6 abs; (f) a resume on the mesh from (a)'s
+    last checkpoint against (a)'s tail, and the same file resumed on one
+    device; (g) render_offline over voice=2, fmajor ring and the cascade,
+    10 s in 16 segments (whole stagger groups per lane, so the same steps
+    as on one device, twice the launches), to 3e-5; (h) every kernel at
+    every shape the mesh runs gave it (a ShapeProbe records them) against
+    its plain version, and timed beside its bound (hold_mesh_shapes).
+    Each run prints host ms per block p50 / p99, RTF, missed deadlines,
+    launches per block and, for a session, the device busy time of its
+    sharded steady step per block (all shards). Returns the figures."""
+    import tempfile
+
+    import torch
+
+    from tpu_audio_torch.engine.bank import IRBank
+    from tpu_audio_torch.engine.fmajor import FMajorPartitionedConvolution
+    from tpu_audio_torch.engine.params import ControlPlane
+    from tpu_audio_torch.models.reverb import ConvolutionReverb
+    from tpu_audio_torch.parallel import make_mesh
+    from tpu_audio_torch.runtime.backends import (
+        BlockSink, BlockSource, WavSource,
+    )
+    from tpu_audio_torch.runtime.checkpoint import load_checkpoint
+    from tpu_audio_torch.runtime.offline import render_offline
+    from tpu_audio_torch.runtime.stream import MidiSchedule, StreamSession
+
+    t_phase = time.perf_counter()
+    cards = torch.cuda.device_count()
+    # the shapes the mesh runs give each kernel, held at the end
+    probe = ShapeProbe()
+
+    def mesh_of(voice, part=1):
+        n = voice * part
+        devices = ([dev] * n if cards < 2 else
+                   [torch.device("cuda", i % cards) for i in range(n)])
+        mesh = make_mesh(devices=devices, part=part)
+        print(f"mesh: voice={voice} x part={part}, "
+              f"{'real' if cards >= 2 else 'virtual'} shards over "
+              f"{len(mesh.distinct)} distinct device(s) "
+              f"({', '.join(map(str, mesh.distinct))})")
+        return mesh
+
+    class Keep(BlockSink):
+        """Keeps the rows `rows` of every block (all with None)."""
+
+        def __init__(self, rows=None):
+            self.rows, self.kept, self.finite, self.blocks = rows, [], True, 0
+
+        def write(self, block):
+            self.finite &= bool(np.isfinite(block).all())
+            self.kept.append((block if self.rows is None
+                              else block[self.rows]).copy())
+            self.blocks += 1
+
+        def data(self):
+            return np.concatenate(self.kept, axis=-1)
+
+    def noise(voices, blocks, seed=0):
+        """NoiseSource(voices, BLOCK, blocks, 0.01, seed)'s blocks as one
+        per-voice array, so that a resume can start anywhere in it."""
+        rng = np.random.default_rng(seed)
+        return np.concatenate(
+            [(rng.standard_normal((voices, 2, BLOCK)) * 0.01
+              ).astype(np.float32) for _ in range(blocks)], axis=-1)
+
+    def launches():
+        return {"ring_mac": rm.ring_mac.launches - rm.ring_mac.launches_bf16,
+                "ring_mac_bf16": rm.ring_mac.launches_bf16,
+                "mac_shift": ms.mac_shift.launches
+                - ms.mac_shift.launches_bf16,
+                "mac_shift_bf16": ms.mac_shift.launches_bf16}
+
+    def serve(label, session, state, **run_kwargs):
+        reset_counts()
+        probe.on = session.mesh is not None
+        t0 = time.perf_counter()
+        state = session.run(state, **run_kwargs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        probe.on = False
+        s = session.summary()
+        n = launches()
+        print(f"{label}: {session.blocks_streamed} blocks in {wall:.3f} s, "
+              f"p50 / p99 {s['p50_ms']:.3f} / {s['p99_ms']:.3f} ms per "
+              f"block, RTF {s['rtf']:.3f}, missed {s['missed_deadlines']}, "
+              f"launches {n}")
+        return state, {"summary": s, "wall_s": wall, "launches": n}
+
+    def busy(label, session, state, voices):
+        """Device busy per block of the session's (sharded) steady step,
+        summed over the shards."""
+        x = torch.randn((voices, 2, BLOCK), device=dev) * 0.01
+        probe.on = True
+        us, ops, _ = device_busy(session._eng.step_coef_steady, state,
+                                 session._eng.place_bank(session.bank),
+                                 session.control.snapshot_device(), x, n=10)
+        probe.on = False
+        print(f"{label}: steady step device busy "
+              + ("not measured" if us is None else
+                 f"{us:.1f} us in {ops:.1f} device ops per block, all "
+                 f"shards"))
+        return us, ops
+
+    def compare(label, got, want, limit, relative=False):
+        err = float(np.abs(got.astype(np.float64) - want).max())
+        scale = float(np.abs(want).max())
+        bound = limit * scale if relative else limit
+        exact = bool(np.array_equal(got, want))
+        print(f"{label}: max_abs_err {err:.3e} (limit {bound:.3e}"
+              f"{' = %g of scale %.3e' % (limit, scale) if relative else ''})"
+              f", bit-identical {exact}")
+        if not (err <= bound and scale > 1e-3):
+            raise AssertionError(f"{label}: {err:.3e} against one device")
+        return err, exact
+
+    def lap(what):
+        print(f"phase 32: {what} done at {time.perf_counter() - t_phase:.1f}"
+              f" s")
+
+    def expect(label, got, want):
+        if got != want:
+            raise AssertionError(f"{label}: launches {got}, wanted {want}")
+
+    out = {"runs": {}, "errs": {}, "exact": {}, "busy": {}}
+    timeline = [select(SELECT_AT, 32), select(INTERRUPT_AT, 64)]
+
+    # (a) ring 'allk' f32, voice=2, checkpoints every 97 blocks; (f) resume
+    x_a = noise(VOICES, BLOCKS)
+
+    def ring_model():
+        model = ConvolutionReverb(bank, num_voices=VOICES, block=BLOCK,
+                                  sample_rate=RATE, engine="fmajor",
+                                  max_predelay=8192, device=dev)
+        configure(model.control)
+        return model
+
+    single = ring_model()
+    sink1 = Keep()
+    sess1 = single.session(WavSource(x_a, VOICES, BLOCK), sink1)
+    _, fig = serve("mesh (a) ring f32, one device", sess1,
+                   single.init_state(), midi=MidiSchedule(list(timeline)))
+    want_a = sink1.data()
+    out["runs"]["a_single"] = fig
+    tmp = tempfile.mkdtemp(prefix="mesh32_")
+    ckpt = f"{tmp}/ring.ckpt"
+    voices_a = (2, 4) if cards >= 4 else (2,)
+    for voice in voices_a:
+        mesh = mesh_of(voice)
+        model = ring_model()
+        sink = Keep()
+        session = model.session(WavSource(x_a, VOICES, BLOCK), sink,
+                                mesh=mesh)
+        kwargs = ({"checkpoint_path": ckpt, "checkpoint_every": MESH_EVERY}
+                  if voice == 2 else {})
+        state, fig = serve(f"mesh (a) ring f32, voice={voice}", session,
+                           model.init_state(),
+                           midi=MidiSchedule(list(timeline)), **kwargs)
+        expect(f"(a) voice={voice}", fig["launches"],
+               {"ring_mac": voice * BLOCKS, "ring_mac_bf16": 0,
+                "mac_shift": 0, "mac_shift_bf16": 0})
+        if session.indexed_blocks < 20 or session.general_blocks:
+            raise AssertionError(f"(a): {session.indexed_blocks} indexed, "
+                                 f"{session.general_blocks} general blocks")
+        if not sink.finite or sink.blocks != BLOCKS:
+            raise AssertionError(f"(a): {sink.blocks} blocks, finite "
+                                 f"{sink.finite}")
+        got_a = sink.data()
+        key = f"a_voice{voice}"
+        out["errs"][key], out["exact"][key] = compare(
+            f"mesh (a) voice={voice} against one device", got_a, want_a,
+            2e-6)
+        out["golden_err"] = check_golden(
+            f"mesh (a) voice={voice}", got_a[[0, VOICES - 1]],
+            x_a[[0, VOICES - 1]],
+            (("before the re-selects, IR 0", 0, SELECT_AT, irs[0]),
+             ("after the fades decay, IR 2", 500, BLOCKS, irs[2])),
+            predelay=int(model.control.predelay[0, 0]), voices=VOICES)
+        out["busy"][key] = busy(f"mesh (a) voice={voice}", session, state,
+                                VOICES)
+        out["runs"][key] = fig
+        if voice == 2:
+            saves = session.checkpoint_saves
+            fig["saves"] = len(saves)
+            fig["save_block_ms_max"] = max(s["block_s"] for s in saves) * 1e3
+            got_full = got_a
+        del model, session, state
+
+    # (f) resume on the mesh from the last save, and on one device
+    resumed = {}
+    for where in ("mesh", "one device"):
+        model = ring_model()
+        state, meta = load_checkpoint(ckpt, model.init_state(),
+                                      model.control)
+        start = meta["block_index"]
+        sink = Keep()
+        midi = MidiSchedule(list(timeline))
+        midi.rewind_to(start)
+        session = model.session(
+            WavSource(x_a[..., start * BLOCK:], VOICES, BLOCK), sink,
+            mesh=mesh_of(2) if where == "mesh" else None)
+        state, fig = serve(f"mesh (f) resume at {start} on {where}", session,
+                           state, midi=midi, start_block=start)
+        resumed[where] = sink.data()
+        ref = got_full if where == "mesh" else want_a
+        key = "f_mesh" if where == "mesh" else "f_single"
+        out["errs"][key], out["exact"][key] = compare(
+            f"mesh (f) resumed on {where} against the uninterrupted run",
+            resumed[where], ref[..., start * BLOCK:], 2e-6)
+        out["runs"][key] = fig
+        out["resume_block"] = start
+        del model, session, state
+
+    lap("(a) and (f)")
+
+    # (b) roll 'allk' f32, voice=1 x part=2; (c) roll bf16, voice=2 x part=2
+    partitions = bank.max_partitions(BLOCK)
+    swapped = IRBank(sample_rate=RATE)
+    for k in ROLL_PERM:
+        swapped.append(irs[k] * np.float32(0.5))
+    x_b = x_a[..., :MESH_ROLL_BLOCKS * BLOCK]
+
+    def roll_run(label, key, mac_dtype, blocks, mesh, events=True):
+        eng = FMajorPartitionedConvolution(
+            VOICES, BLOCK, partitions, max_predelay=8192, ring=False,
+            mac_strategy="allk", num_irs=NUM_IRS, mac_dtype=mac_dtype,
+            device=dev)
+        spectra = bank.partitioned_spectra(BLOCK)
+        roll_bank = eng.prepare_bank(spectra)
+        cp = ControlPlane(VOICES, NUM_IRS, 8192, device=dev)
+        configure(cp)
+        sink = Keep()
+        session = StreamSession(eng, roll_bank, cp,
+                                WavSource(x_b[..., :blocks * BLOCK], VOICES,
+                                          BLOCK), sink, sample_rate=RATE,
+                                mesh=mesh)
+        state = eng.init_converged(roll_bank, cp.snapshot_device())
+        exchanges = mesh.exchanges if mesh is not None else 0
+        if events:
+            state, fig = serve(label + " (to the swap)", session, state,
+                               max_blocks=ROLL_SWAP_AT,
+                               midi=MidiSchedule([select(SELECT_AT, 32)]))
+            n = fig["launches"]
+            session.swap_bank(eng.prepare_bank(
+                swapped.partitioned_spectra(BLOCK)))
+            state, fig = serve(label, session, state, midi=MidiSchedule(
+                [select(ROLL_INTERRUPT_AT - ROLL_SWAP_AT, 64)]))
+            fig["launches"] = {k: v + n[k] for k, v in fig["launches"].items()}
+            if session.general_blocks < 60 or session.indexed_blocks < 15:
+                raise AssertionError(f"{label}: {session.indexed_blocks} "
+                                     f"indexed, {session.general_blocks} "
+                                     f"general blocks")
+        else:
+            state, fig = serve(label, session, state)
+        if not sink.finite or session.blocks_streamed != blocks:
+            raise AssertionError(f"{label}: {session.blocks_streamed} blocks,"
+                                 f" finite {sink.finite}")
+        if mesh is not None:
+            fig["exchanges_per_block"] = (mesh.exchanges - exchanges) / blocks
+            print(f"{label}: {fig['exchanges_per_block']:.2f} part-axis "
+                  f"exchanges per block")
+            out["busy"][key] = busy(label, session, state, VOICES)
+        return sink.data(), fig
+
+    want_b, out["runs"]["b_single"] = roll_run(
+        "mesh (b) roll f32, one device", "b_single", "f32", MESH_ROLL_BLOCKS,
+        None)
+    got_b, fig = roll_run("mesh (b) roll f32, voice=1 x part=2", "b", "f32",
+                          MESH_ROLL_BLOCKS, mesh_of(1, 2))
+    expect("(b)", fig["launches"], {"ring_mac": 0, "ring_mac_bf16": 0,
+                                     "mac_shift": 2 * MESH_ROLL_BLOCKS,
+                                     "mac_shift_bf16": 0})
+    out["runs"]["b"] = fig
+    out["errs"]["b"], out["exact"]["b"] = compare(
+        "mesh (b) roll voice=1 x part=2 against one device", got_b, want_b,
+        2e-5, relative=True)
+    got_c, fig = roll_run("mesh (c) roll bf16, voice=2 x part=2", "c",
+                          "bf16", MESH_BF16_BLOCKS, mesh_of(2, 2),
+                          events=False)
+    expect("(c)", fig["launches"], {"ring_mac": 0, "ring_mac_bf16": 0,
+                                     "mac_shift": 0,
+                                     "mac_shift_bf16": 4 * MESH_BF16_BLOCKS})
+    out["runs"]["c"] = fig
+    out["c_snr"] = snr_db(got_c, want_b[..., :MESH_BF16_BLOCKS * BLOCK])
+    print(f"mesh (c) roll bf16 voice=2 x part=2 against roll f32 on one "
+          f"device: SNR {out['c_snr']:.2f} dB (limit 40)")
+    if not out["c_snr"] >= 40.0:
+        raise AssertionError(f"(c): SNR {out['c_snr']:.2f} dB")
+
+    lap("(b) and (c)")
+
+    # (d) the cascade, bf16, read side, 2560 voices, voice=2
+    cas_voices, cas_blocks = MESH_CAS_VOICES, MESH_CAS_BLOCKS
+    rng = np.random.default_rng(5)
+    cycle = [(rng.standard_normal((cas_voices, 2, BLOCK)) * 0.01
+              ).astype(np.float32) for _ in range(16)]
+
+    class Cycle(BlockSource):
+        """16 noise blocks of 2560 voices, cycled."""
+
+        def __init__(self):
+            self.i = 0
+
+        def read(self):
+            if self.i >= cas_blocks:
+                return None
+            self.i += 1
+            return cycle[(self.i - 1) % 16]
+
+    rows = np.r_[0:cas_voices:16, cas_voices // 2 - 1, cas_voices // 2,
+                 cas_voices - 1]
+    cas = {}
+    for where in ("one device", "voice=2"):
+        torch.cuda.synchronize()
+        for d in range(cards):
+            torch.cuda.reset_peak_memory_stats(d)
+        model = ConvolutionReverb(bank, num_voices=cas_voices, block=BLOCK,
+                                  sample_rate=RATE, engine="cascade",
+                                  max_predelay=8192, cascade_ratio=CAS_RATIO,
+                                  predelay_side="read", mac_dtype="bf16",
+                                  device=dev)
+        configure(model.control)
+        sink = Keep(rows)
+        mesh = mesh_of(2) if where != "one device" else None
+        session = model.session(Cycle(), sink, mesh=mesh)
+        state, fig = serve(f"mesh (d) cascade bf16 {cas_voices} voices, "
+                           f"{where}", session, model.init_state(),
+                           midi=MidiSchedule([select(MESH_CAS_SELECT_AT,
+                                                     32)]))
+        shards = 1 if mesh is None else 2
+        expect(f"(d) {where}", fig["launches"],
+               {"ring_mac": 0, "ring_mac_bf16": 2 * shards * cas_blocks,
+                "mac_shift": 0, "mac_shift_bf16": 0})
+        if not sink.finite or session.indexed_blocks < 20:
+            raise AssertionError(f"(d) {where}: finite {sink.finite}, "
+                                 f"{session.indexed_blocks} indexed blocks")
+        fig["peak_mb"] = {str(torch.device("cuda", d)):
+                          torch.cuda.max_memory_allocated(d) / 1e6
+                          for d in range(cards)}
+        print(f"mesh (d) {where}: peak allocated per device "
+              f"{fig['peak_mb']} MB")
+        if mesh is not None:
+            out["busy"]["d"] = busy(f"mesh (d) cascade {cas_voices} voices, "
+                                    f"voice=2", session, state, cas_voices)
+        cas[where] = sink.data()
+        out["runs"]["d_single" if mesh is None else "d"] = fig
+        del model, session, state
+        torch.cuda.empty_cache()
+    out["errs"]["d"], out["exact"]["d"] = compare(
+        f"mesh (d) cascade {cas_voices} voices voice=2 against one device",
+        cas["voice=2"], cas["one device"], 2e-6)
+
+    lap("(d)")
+
+    # (e) the working set: 152 IRs through 16 slots, voice=2
+    churn = [select(16 + 32 * j, 20 + 7 * j) for j in range(6)]
+    x_e = x_a[..., :MESH_WS_BLOCKS * BLOCK]
+    ws_out = {}
+    for where in ("one device", "voice=2"):
+        model = ConvolutionReverb(ws_bank, num_voices=VOICES, block=BLOCK,
+                                  sample_rate=RATE, max_predelay=8192,
+                                  bank_capacity=WS_CAPACITY, device=dev)
+        configure(model.control)
+        sink = Keep()
+        mesh = mesh_of(2) if where != "one device" else None
+        session = model.session(WavSource(x_e, VOICES, BLOCK), sink,
+                                mesh=mesh)
+        state, fig = serve(f"mesh (e) working set, {where}", session,
+                           model.init_state(), midi=MidiSchedule(list(churn)))
+        ws = model.working_set
+        fig["misses"], fig["hits"] = ws.misses, ws.hits
+        print(f"mesh (e) {where}: misses {ws.misses}, hits {ws.hits}")
+        expect(f"(e) {where}", fig["launches"],
+               {"ring_mac": (1 if mesh is None else 2) * MESH_WS_BLOCKS,
+                "ring_mac_bf16": 0, "mac_shift": 0, "mac_shift_bf16": 0})
+        if mesh is not None:
+            out["busy"]["e"] = busy("mesh (e) working set, voice=2",
+                                    session, state, VOICES)
+        ws_out[where] = (sink.data(), ws.misses, ws.hits)
+        out["runs"]["e_single" if mesh is None else "e"] = fig
+        ws.close()
+        del model, session, state
+    if ws_out["voice=2"][1:] != ws_out["one device"][1:] or \
+            ws_out["one device"][1] < 6:
+        raise AssertionError(f"(e): misses and hits {ws_out['voice=2'][1:]} "
+                             f"against {ws_out['one device'][1:]}")
+    out["errs"]["e"], out["exact"]["e"] = compare(
+        "mesh (e) working set voice=2 against one device",
+        ws_out["voice=2"][0], ws_out["one device"][0], 2e-6)
+
+    lap("(e)")
+
+    # (g) the bounce over voice=2: fmajor ring and the cascade, 10 s
+    seconds = MESH_BOUNCE_SECONDS
+    program = (np.random.default_rng(7).standard_normal(
+        (2, int(seconds * RATE))) * 0.01).astype(np.float32)
+    for engine in ("fmajor", "cascade"):
+        kwargs = ({"cascade_ratio": CAS_RATIO} if engine == "cascade" else {})
+        model = ConvolutionReverb(bank, num_voices=VOICES, block=BLOCK,
+                                  sample_rate=RATE, engine=engine,
+                                  max_predelay=8192, device=dev, **kwargs)
+        configure(model.control)
+        got = {}
+        for where in ("one device", "voice=2"):
+            mesh = mesh_of(2) if where != "one device" else None
+            reset_counts()
+            probe.on = mesh is not None
+            t0 = time.perf_counter()
+            got[where] = render_offline(model, program, mesh=mesh,
+                                        segments=MESH_BOUNCE_SEGMENTS)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            probe.on = False
+            n = launches()
+            print(f"mesh (g) bounce {engine}, {where}: {seconds} s of "
+                  f"{VOICES} voices in {wall:.3f} s = {seconds / wall:.2f}x "
+                  f"real time, launches {n}")
+            key = "one_device" if mesh is None else "voice2"
+            out["runs"][f"g_{engine}_{key}"] = {
+                "wall_s": wall, "x_real_time": seconds / wall,
+                "launches": n}
+        single_n = out["runs"][f"g_{engine}_one_device"]["launches"]
+        expect(f"(g) {engine}", n, {k: 2 * v for k, v in single_n.items()})
+        out["errs"][f"g_{engine}"], out["exact"][f"g_{engine}"] = compare(
+            f"mesh (g) bounce {engine} voice=2 against one device",
+            got["voice=2"], got["one device"], 3e-5)
+        del model
+    torch.cuda.empty_cache()
+    probe.close()
+    lap("(g)")
+
+    # (h) every kernel at every shape the mesh runs gave it, against its
+    # plain version on random operands, then timed beside its bound
+    out["launches"] = {k: sum(r["launches"][k] for r in out["runs"].values())
+                       for k in ("ring_mac", "ring_mac_bf16", "mac_shift",
+                                 "mac_shift_bf16")}
+    out["kernel_err"], out["kernel_ms"] = hold_mesh_shapes(
+        probe.seen, out["launches"], rm, ms, dev)
+    out["wall_s"] = time.perf_counter() - t_phase
+    print(f"phase 32: {out['wall_s']:.1f} s wall, launches "
+          f"{out['launches']}")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -4225,7 +4817,7 @@ def main() -> int:
             ws_bank, async_paging, configure, select, KeepSink, dev, ws_x,
             ws_irs, hit_ir, reset_counts, rm, ms)
         torch.cuda.empty_cache()
-    del ws_irs, ws_bank
+    del ws_irs    # ws_bank serves phase 32's working set too
 
     # -- 13. ring_mac at the cascade's shapes ------------------------------------------
     cas_err, cas_ms = check_cascade_shapes(rm, dev, rng)
@@ -4329,6 +4921,10 @@ def main() -> int:
     surface = run_ops_surface(irs, dev, reset_counts, rm, ms)
     print(f"phases 30-31: {chunked_s:.1f} s and {surface['wall_s']:.1f} s "
           f"wall")
+
+    # -- 32. the device mesh ------------------------------------------------------------
+    mesh = run_mesh(bank, irs, ws_bank, dev, configure, select, reset_counts,
+                    rm, ms)
 
     tag = f"[{card}]"
     lines = []
@@ -4624,6 +5220,45 @@ def main() -> int:
               ("ops_profile_ring_mac_count", surface["profile_ring_mac_count"]),
               ("ops_profile_ring_mac_p50_ms", surface["profile_ring_mac_p50_ms"]),
               ("ops_phase_wall_s", surface["wall_s"])]
+    lines += [("mesh_cards", torch.cuda.device_count()),
+              ("mesh_phase_wall_s", mesh["wall_s"]),
+              ("mesh_a_golden_max_abs_err", mesh["golden_err"]),
+              ("mesh_f_resume_block", mesh["resume_block"]),
+              ("mesh_c_bf16_snr_vs_f32_db", mesh["c_snr"]),
+              *((f"mesh_{key}_max_abs_err", err)
+                for key, err in mesh["errs"].items()),
+              *((f"mesh_{key}_bit_identical", int(exact))
+                for key, exact in mesh["exact"].items())]
+    for kernel, shapes in mesh["kernel_ms"].items():
+        for shape, t in shapes.items():
+            key = f"mesh_h_{kernel}_{shape}"
+            lines += [(f"{key}_ms", t["kernel"]),
+                      (f"{key}_plain_ms", t["plain"]),
+                      (f"{key}_bound_ms", t["bound"])]
+    lines += [(f"mesh_h_{kernel}_max_abs_err", err)
+              for kernel, err in mesh["kernel_err"].items()]
+    for label, (us, ops) in mesh["busy"].items():
+        key = f"mesh_{label}_steady"
+        lines += [(f"{key}_device_busy_us_per_block", us),
+                  (f"{key}_device_ops_per_block", ops)]
+    for label, r in mesh["runs"].items():
+        for what in ("wall_s", "x_real_time", "exchanges_per_block",
+                     "saves", "save_block_ms_max", "misses", "hits"):
+            if what in r:
+                lines.append((f"mesh_{label}_{what}", r[what]))
+        if "summary" in r:
+            s = r["summary"]
+            lines += [(f"mesh_{label}_session_wall_p50_ms_per_block",
+                       s["p50_ms"]),
+                      (f"mesh_{label}_session_wall_p99_ms_per_block",
+                       s["p99_ms"]),
+                      (f"mesh_{label}_session_rtf", s["rtf"]),
+                      (f"mesh_{label}_session_missed_deadlines",
+                       s["missed_deadlines"])]
+        lines += [(f"mesh_{label}_launches_{kernel}", n)
+                  for kernel, n in r["launches"].items() if n]
+        lines += [(f"mesh_{label}_peak_allocated_MB_{d}", mb)
+                  for d, mb in r.get("peak_mb", {}).items()]
     for key, value in lines:
         print(f"{key} {value} {tag}")
 
@@ -4645,6 +5280,13 @@ def main() -> int:
     def bf16_kods(kernel):
         return {kod: bf16_ms[kernel][f"kod{kod}"] for kod in RING_KODS}
 
+    def mesh_shapes(kernel):
+        """The kernel's timings at phase 32's shard shapes, and its
+        largest error there."""
+        return ({shape: timings(t)
+                 for shape, t in mesh["kernel_ms"].get(kernel, {}).items()},
+                mesh["kernel_err"].get(kernel, 0.0))
+
     print(json.dumps({"kernels": [
         entry("ring_mac", "tpu_audio/ops/pallas_mac.py:160",
               launches + ring16_launches
@@ -4656,17 +5298,23 @@ def main() -> int:
               + live["launches"]
               + sum(r["launches"]["ring_mac"]
                     for r in chunked["runs"].values())
-              + chunked["resilient"]["launches"] + surface["launches"],
+              + chunked["resilient"]["launches"] + surface["launches"]
+              + mesh["launches"]["ring_mac"],
               max(max_abs_err, cas_err, bounce["mac_err"],
-                  engines["cascade"]["mac_err"]), ring_ms,
+                  engines["cascade"]["mac_err"], mesh_shapes("ring_mac")[1]),
+              ring_ms,
               cascade={shape: timings(t) for shape, t in cas_ms.items()},
               bounce={f"vi{2 * VOICES * bounce['nseg']}_kod{kod_full}":
-                      timings(bounce["mac_ms"])}),
+                      timings(bounce["mac_ms"])},
+              mesh=mesh_shapes("ring_mac")[0]),
         entry("mac_shift", "tpu_audio/ops/pallas_mac.py:76",
               roll_launches + ceil_launches + engines["roll"]["launches"]
               + sum(r["launches"]["mac_shift"]
-                    for r in chunked["runs"].values()),
-              max(shift_err, engines["roll"]["mac_err"]), shift_ms),
+                    for r in chunked["runs"].values())
+              + mesh["launches"]["mac_shift"],
+              max(shift_err, engines["roll"]["mac_err"],
+                  mesh_shapes("mac_shift")[1]), shift_ms,
+              mesh=mesh_shapes("mac_shift")[0]),
         # the bf16 kernels (mac_dtype='bf16'): ring_mac's library_ms is
         # torch.bmm on the same bf16 operands with f32 out (the bf16
         # einsum, which rounds m to bf16, is printed on its own lines);
@@ -4675,16 +5323,21 @@ def main() -> int:
               fm16["ring"]["launches"] + fm16["bounce"]["launches"]
               + huge["launches"] + huge["cli_launches"]
               + sum(r["launches"]["ring_mac_bf16"]
-                    for r in chunked["runs"].values()),
-              bf16_err["ring_mac"], bf16_kods("ring_mac"),
+                    for r in chunked["runs"].values())
+              + mesh["launches"]["ring_mac_bf16"],
+              max(bf16_err["ring_mac"], mesh_shapes("ring_mac_bf16")[1]),
+              bf16_kods("ring_mac"),
               source="tpu_audio_torch/csrc/ring_mac.cu",
               cascade={shape: timings(t) for shape, t
                        in bf16_ms["ring_mac"].items()
-                       if not shape.startswith("kod")}),
+                       if not shape.startswith("kod")},
+              mesh=mesh_shapes("ring_mac_bf16")[0]),
         entry("mac_shift_bf16", "tpu_audio/ops/pallas_mac.py:76",
-              fm16["roll"]["launches"], bf16_err["mac_shift"],
+              fm16["roll"]["launches"] + mesh["launches"]["mac_shift_bf16"],
+              max(bf16_err["mac_shift"], mesh_shapes("mac_shift_bf16")[1]),
               bf16_kods("mac_shift"),
-              source="tpu_audio_torch/csrc/mac_shift.cu")]}))
+              source="tpu_audio_torch/csrc/mac_shift.cu",
+              mesh=mesh_shapes("mac_shift_bf16")[0])]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

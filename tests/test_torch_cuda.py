@@ -1117,3 +1117,90 @@ def test_cli_profile_trace_holds_ring_mac(cuda, tmp_path, capsys):
     assert tools_main(["profile", str(tmp_path / "prof"), "--top", "40"]) == 0
     out = capsys.readouterr().out
     assert "ring_mac" in out.split("category 'kernel'")[1]
+
+
+# -- the device mesh on the card ---------------------------------------------------------
+
+
+def _mesh_session(device, kind, mesh, x):
+    """8 voices of fmajor ring, roll or the cascade (ratio 2) on `device`
+    over `mesh` (None: one device), a re-select at 10 and an interrupt at
+    20; returns (sink data, the MAC kernel's launches)."""
+    from tpu_audio_torch.engine.cascade import CascadeConvolution
+    from tpu_audio_torch.engine.params import CCMapping
+    from tpu_audio_torch.runtime.backends import WavSink, WavSource
+    from tpu_audio_torch.runtime.stream import MidiSchedule, StreamSession
+
+    rng = np.random.default_rng(31)
+    if kind == "cascade":
+        from tpu_audio_torch.engine.bank import IRBank
+
+        bank = IRBank()
+        for _ in range(3):
+            bank.append((rng.standard_normal((2, 900)) * 0.1
+                         ).astype(np.float32))
+        eng = CascadeConvolution(8, 32, bank.max_partitions(32), ratio=2,
+                                 max_predelay=64, num_irs=3, device=device)
+        spectra = eng.prepare_bank(bank)
+    else:
+        eng = FMajorPartitionedConvolution(8, 64, 16, max_predelay=64,
+                                           num_irs=3, ring=kind == "ring",
+                                           device=device)
+        spectra = eng.prepare_bank(
+            np.fft.rfft(rng.standard_normal((3, 2, 16, 128)), axis=-1
+                        ).astype(np.complex64) * 0.1)
+    cp = ControlPlane(8, 3, 64, device=device)
+    cp.wet[:], cp.dry[:], cp.speed[:] = 0.8, 0.2, 10
+    for v in range(8):
+        for ch in range(2):
+            cp.set_mapping(v, ch, CCMapping(message=0xB0, select=0x15))
+    sink = WavSink("/dev/null", keep_data=True)
+    session = StreamSession(eng, spectra, cp,
+                            WavSource(x[..., :eng.block * 40], 8, eng.block),
+                            sink, warmup=0, mesh=mesh)
+    counter = mac_shift if kind == "roll" else ring_mac
+    before = counter.launches
+    session.run(eng.init_converged(spectra, cp.snapshot_device()),
+                midi=MidiSchedule([(10, "", bytes([0xB0, 0x15, 64])),
+                                   (20, "", bytes([0xB0, 0x15, 127]))]))
+    return sink.data, counter.launches - before
+
+
+@pytest.mark.parametrize("kind,voice,part", [
+    ("ring", 2, 1), ("roll", 1, 2), ("cascade", 2, 1)])
+def test_virtual_mesh_on_the_card_matches_one_device(cuda, kind, voice,
+                                                    part):
+    """A 2-shard mesh of cuda:0 (virtual shards) against the same session
+    on one device: one kernel launch per shard per block (two on the
+    cascade), the output within 2e-6 (voice shards) or 1e-5 (partition
+    shards) absolute."""
+    from tpu_audio_torch.parallel import make_mesh
+
+    dev = torch.device("cuda", 0)
+    x = (np.random.default_rng(32).standard_normal((8, 2, 64 * 40)) * 0.05
+         ).astype(np.float32)
+    mesh = make_mesh(devices=[dev] * (voice * part), part=part)
+    got, launches = _mesh_session(dev, kind, mesh, x)
+    want, launches1 = _mesh_session(dev, kind, None, x)
+    per_block = 2 if kind == "cascade" else 1
+    assert launches1 == 40 * per_block
+    assert launches == 40 * per_block * voice * part
+    assert np.abs(want).max() > 1e-2
+    np.testing.assert_allclose(got, want, atol=2e-6 if part == 1 else 1e-5)
+
+
+@pytest.mark.skipif(torch.cuda.device_count() < 2,
+                    reason="needs two CUDA devices")
+@pytest.mark.parametrize("kind,part", [("ring", 1), ("roll", 2)])
+def test_mesh_over_two_cards_matches_one_device(cuda, kind, part):
+    """The same session over cuda:0 and cuda:1 (the peer copies of the
+    part axis, each output fetched behind its own device's event)."""
+    from tpu_audio_torch.parallel import make_mesh
+
+    x = (np.random.default_rng(33).standard_normal((8, 2, 64 * 40)) * 0.05
+         ).astype(np.float32)
+    mesh = make_mesh(n_devices=2, part=part)
+    got, launches = _mesh_session(torch.device("cuda", 0), kind, mesh, x)
+    want, _ = _mesh_session(torch.device("cuda", 0), kind, None, x)
+    assert launches == 80
+    np.testing.assert_allclose(got, want, atol=2e-6 if part == 1 else 1e-5)

@@ -450,8 +450,11 @@ def test_guards():
         offline.render_offline(model, np.zeros((3, 64), np.float32))
     with pytest.raises(ValueError, match="per-voice"):
         offline.render_offline(model, np.zeros((3, 2, 64), np.float32))
-    with pytest.raises(NotImplementedError, match="item 14"):
-        offline.render_offline(model, program(64), mesh=object())
+    # the mesh bounce shards the virtual-voice axis only
+    from tpu_audio_torch.parallel import make_mesh
+    with pytest.raises(ValueError, match="part=1"):
+        offline.render_offline(model, program(64),
+                               mesh=make_mesh(devices=["cpu"] * 2, part=2))
     sched = MidiSchedule([(2, "", bytes([0xB0, 0x15, 0x40]))])
     moving = build_model("port", automate=True)
     moving.control.vsteps[:] = 7

@@ -275,7 +275,8 @@ def test_import_leaves_jax_out():
             "tpu_audio_torch.utils.wire, "
             "tpu_audio_torch.app.tools, "
             "tpu_audio_torch.utils.diskcache, "
-            "tpu_audio_torch.utils.trace; "
+            "tpu_audio_torch.utils.trace, "
+            "tpu_audio_torch.parallel.mesh; "
             "bad = [m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'tpu_audio.'))]; "
             "assert not bad, bad")

@@ -324,15 +324,18 @@ class CascadeConvolution:
 
     # -- offline / cloning interface ------------------------------------------------
 
-    def with_voices(self, num_voices: int) -> "CascadeConvolution":
-        """Same geometry at another voice count (divisible by the ratio).
-        Banks are voice-independent."""
+    def with_voices(self, num_voices: int, device=None
+                    ) -> "CascadeConvolution":
+        """Same geometry at another voice count (divisible by the ratio),
+        on this engine's device or on `device`. Banks are
+        voice-independent."""
         clone = CascadeConvolution(
             num_voices, self.block, self.partitions, ratio=self.ratio,
             max_predelay=self.max_predelay, num_irs=self.num_irs,
             mac_dtype=self.mac_dtype_name, predelay_side=self.predelay_side,
             tail_mac=self._tail_mac_requested,
-            mac_strategy=self.mac_strategy, device=self.device)
+            mac_strategy=self.mac_strategy,
+            device=self.device if device is None else device)
         clone.xf1, clone.xf2 = self.xf1, self.xf2
         return clone
 
@@ -415,15 +418,19 @@ class CascadeConvolution:
         return CascadeSlot(head=head, tail=tail, host=host, done=done)
 
     def write_bank_slot(self, bank: CascadeBank, slot: int,
-                        packed: CascadeSlot) -> CascadeBank:
+                        packed: CascadeSlot, device: torch.device | None = None
+                        ) -> CascadeBank:
         """Write a packed slot into `bank` in place on the current stream
         (columns 4k:4k+4 of both stages). On CUDA the current stream first
         waits for the stream that packed the slot, and the packed tensors
-        are marked in use by it until the copies ran."""
+        are marked in use by it until the copies ran. `device` is the
+        bank's (default the engine's): its current stream takes the
+        copies."""
         self._require_allk()
         col0 = 4 * int(slot)
-        if self.device.type == "cuda":
-            stream = torch.cuda.current_stream(self.device)
+        device = self.device if device is None else device
+        if device.type == "cuda":
+            stream = torch.cuda.current_stream(device)
             if packed.done is not None:
                 stream.wait_event(packed.done)
             for t in (packed.head, packed.tail):

@@ -321,13 +321,15 @@ class FMajorPartitionedConvolution:
     # -- offline / cloning interface ------------------------------------------------
 
     def with_voices(self, num_voices: int,
-                    swap_snapshot: bool | None = None
+                    swap_snapshot: bool | None = None, device=None
                     ) -> "FMajorPartitionedConvolution":
-        """Same geometry, strategy and device at another voice count. Banks
-        are voice-independent ([K, ...] tensors), so a bank prepared by this
-        engine serves the clone directly — the seam the offline renderer
-        (runtime/offline.py) builds on. `swap_snapshot` overrides the fade
-        snapshot for 'allk' ('selected' always keeps it)."""
+        """Same geometry and strategy at another voice count, on this
+        engine's device or on `device`. Banks are voice-independent ([K,
+        ...] tensors), so a bank prepared by this engine serves the clone
+        directly — the seam the offline renderer (runtime/offline.py) and
+        the mesh's per-shard engines (parallel/mesh.py) build on.
+        `swap_snapshot` overrides the fade snapshot for 'allk' ('selected'
+        always keeps it)."""
         if swap_snapshot is None:
             swap_snapshot = self.swap_snapshot
         return FMajorPartitionedConvolution(
@@ -337,7 +339,8 @@ class FMajorPartitionedConvolution:
             mac_dtype=self.mac_dtype_name,
             swap_snapshot=(swap_snapshot if self.mac_strategy == "allk"
                            else True),
-            pv_mac=self.pv_mac, device=self.device)
+            pv_mac=self.pv_mac,
+            device=self.device if device is None else device)
 
     @property
     def history_blocks(self) -> int:
@@ -497,21 +500,24 @@ class FMajorPartitionedConvolution:
                              "spectra into state at collapse)")
 
     def write_bank_slot(self, bank: FMajorBank, slot: int,
-                        packed: BankSlot) -> FMajorBank:
+                        packed: BankSlot, device: torch.device | None = None
+                        ) -> FMajorBank:
         """Write a packed slot into `bank` in place on the current stream:
         ring mode rhs2[..., 4k:4k+4] and spectra_rev2[k], roll mode
         mac_rhs[..., 4k:4k+4] and spectra[k]. On CUDA the current stream
         first waits for the stream that packed the slot, and the packed
         tensors are marked in use by this stream so that their memory is
-        not handed out again before the copies ran."""
+        not handed out again before the copies ran. `device` is the bank's
+        (default the engine's): its current stream takes the copies."""
         self._require_allk()
         col0 = 4 * int(slot)
         if self.ring_mode:
             columns, rows = bank.rhs2, bank.spectra_rev2
         else:
             columns, rows = bank.mac_rhs, bank.spectra
-        if self.device.type == "cuda":
-            stream = torch.cuda.current_stream(self.device)
+        device = self.device if device is None else device
+        if device.type == "cuda":
+            stream = torch.cuda.current_stream(device)
             if packed.done is not None:
                 stream.wait_event(packed.done)
             for t in (packed.columns, packed.row):
@@ -641,8 +647,10 @@ class FMajorPartitionedConvolution:
         batched [2, Pp] x [Pp, 4] matvec per (f, v, i) (one voice, one
         rhs); 'merged': a [4, Pp] x [Pp, 8] product per (f, v), (i, c) on
         its rows and (i', o, e) on its columns, of which the i == i'
-        diagonal is kept (twice the FLOPs, half the products)."""
-        f, v, pp = self.num_bins, self.num_voices, self.pp
+        diagonal is kept (twice the FLOPs, half the products). Sized by
+        `fdl`, so it also runs on one partition shard's slice."""
+        f, vi, _, pp = fdl.shape
+        v = vi // 2
         if self.pv_mac == "merged":
             lhs = fdl.reshape(f * v, 4, pp)                       # [B, ic, p]
             rhs = spectra.reshape(f * v, 8, pp)                   # [B, i'oe, p]
@@ -712,58 +720,85 @@ class FMajorPartitionedConvolution:
         add the fade term. ``with_base`` without ``indexed_base`` is the
         general fade, which reads the materialized snapshot ``base``;
         ``indexed_base`` ('allk') takes the span-represented fade term from
-        the same all-K MAC output."""
+        the same all-K MAC output.
+
+        The step is the composition of two stages, the seam of the mesh's
+        part axis (parallel/mesh.py): mac_stage, linear in the partitions,
+        and finish_stage, which reads only their sums."""
         if with_base and not indexed_base and not self.swap_snapshot:
             raise ValueError(
                 "engine was built with swap_snapshot=False: there is no "
                 "materialized fade snapshot to read — fades ride "
                 "step_coef_indexed (span provenance)")
-        v, f, pp = self.num_voices, self.num_bins, self.pp
-        allk = self.mac_strategy == "allk"
         xn = self._input_spectrum(state, x)                       # [F, VI, 2, 1]
+        sums = self.mac_stage(state.fdl, bank, xn, state.wptr,
+                              state.sel_spectra, state.base,
+                              with_base=with_base and not indexed_base)
+        return self.finish_stage(state, params, x, sums,
+                                 indexed_base=indexed_base)
 
-        t = state.wptr  # block counter (mod t_modulus), device int32
-        fdl = state.fdl
+    def mac_stage(self, fdl: torch.Tensor, bank: FMajorBank,
+                  xn: torch.Tensor, t, sel_spectra: torch.Tensor,
+                  base: torch.Tensor, with_base: bool):
+        """Stage 1 of a step: write the new column `xn` [F, VI, 2, 1] into
+        the line `fdl` IN PLACE (ring slot t mod Pp, or the roll shift)
+        and return its sums over the line's partitions: (m [F, VI, KOD],
+        the all-K MAC ('allk'); y_sel [F, V, I, O, 2], the selected
+        products ('selected'); y_base, the materialized snapshot's
+        products (``with_base``)), None where not computed.
+
+        Every term is a sum over partitions, so a roll-mode line split
+        over partition shards runs this stage on each shard (its `fdl`,
+        `sel_spectra`, `base` and bank the shard's partitions, `xn` the
+        previous shard's last column) and the shards' sums add up; `t` is
+        read in ring mode only."""
+        allk = self.mac_strategy == "allk"
+        m = y_sel = y_base = None
         if self.ring_mode:
-            fdl.index_copy_(3, (t.long() % pp).reshape(1), xn)
+            fdl.index_copy_(3, (t.long() % fdl.shape[3]).reshape(1), xn)
             if allk:  # all-K MAC: [F, VI, 2Pp] x window [F, 2Pp, KOD]
                 m = ring_mac(t, fdl, bank.rhs2)
         elif allk:  # the shift and the all-K MAC in one pass
             _, m = mac_shift(fdl, xn, bank.mac_rhs)
         else:  # 'selected' has no all-K MAC: shift alone
             fdl.copy_(torch.cat([xn, fdl[..., :-1]], dim=-1))
+        if not allk:
+            y_sel = self._per_voice_mac(fdl, self._window(sel_spectra, t))
+        if with_base:
+            y_base = self._per_voice_mac(fdl, self._window(base, t))
+        return m, y_sel, y_base
 
+    def finish_stage(self, state: FMajorState, params: VoiceParams,
+                     x: torch.Tensor, sums, indexed_base: bool = False):
+        """Stage 2 of a step, on mac_stage's sums: the coefficient slew,
+        the gather of each voice's selection and the span fade term from
+        the all-K MAC (``indexed_base``), the mix of the terms, and
+        _finish. Reads no partition-sized tensor."""
+        m, y_sel, y_base = sums
+        f, v = self.num_bins, self.num_voices
+        t = state.wptr  # block counter (mod t_modulus), device int32
         r = 1.0 / (params.vsteps.to(torch.float32) + 5.0)
         a = state.coef_a * (1.0 - r)
         c = state.coef_c * (1.0 - r) + params.wet * r
         scale = wet_scale(params)                                 # [V, I, O]
         coef_sel = c[..., None] * scale
 
-        if allk:
-            k = bank.num_irs
+        if m is not None:
+            k = m.shape[2] // 4
             m = m.reshape(f, v, 2, k, 2, 2)                       # [F,V,I,K,O,d]
             sel = params.select.long()[None, :, :, None, None, None]
             y_sel = torch.gather(m, 3, sel.expand(f, v, 2, 1, 2, 2))[:, :, :, 0]
-            y = torch.einsum("fviod,vio->fvod", y_sel, coef_sel)
             if indexed_base:
                 # span snapshot: base == sum_k base_g[k] * bank[k], so the
                 # base term is linear in the SAME all-K products m
                 y_base = torch.einsum("fvikod,vik->fviod", m, state.base_g)
-            elif with_base:
-                y_base = self._per_voice_mac(fdl, self._window(state.base, t))
-        else:
-            y = torch.einsum(
-                "fviod,vio->fvod",
-                self._per_voice_mac(fdl, self._window(state.sel_spectra, t)),
-                coef_sel)
-            if with_base:
-                y_base = self._per_voice_mac(fdl, self._window(state.base, t))
-        if with_base or indexed_base:
+        y = torch.einsum("fviod,vio->fvod", y_sel, coef_sel)
+        if y_base is not None:
             y = y + torch.einsum("fviod,vio->fvod", y_base,
                                  a[..., None] * scale)
 
         wptr_next = torch.remainder(t + 1, self.t_modulus).to(torch.int32)
-        return self._finish(state, params, x, y, t, fdl=fdl, coef_a=a,
+        return self._finish(state, params, x, y, t, fdl=state.fdl, coef_a=a,
                             coef_c=c, wptr=wptr_next)
 
     def step_coef_steady(self, state, bank, params, x):

@@ -101,13 +101,16 @@ class PartitionedConvolution:
 
     # -- offline / cloning interface ------------------------------------------------
 
-    def with_voices(self, num_voices: int) -> "PartitionedConvolution":
-        """Same geometry, variant and device at another voice count; banks
-        are voice-independent (the runtime/offline.py renderer seam)."""
+    def with_voices(self, num_voices: int, device=None
+                    ) -> "PartitionedConvolution":
+        """Same geometry and variant at another voice count, on this
+        engine's device or on `device`; banks are voice-independent (the
+        seam of the runtime/offline.py renderer and of the mesh's
+        per-shard engines, parallel/mesh.py)."""
         return PartitionedConvolution(
             num_voices, self.block, self.partitions,
             max_predelay=self.max_predelay, variant=self.variant,
-            device=self.device)
+            device=self.device if device is None else device)
 
     @property
     def history_blocks(self) -> int:
@@ -150,11 +153,22 @@ class PartitionedConvolution:
 
     # -- shared pieces -----------------------------------------------------------------
 
+    def input_column(self, state: PartitionedState, x: torch.Tensor
+                     ) -> torch.Tensor:
+        """The OLS segment's rfft, the line's new column [V, 2, 1, F]."""
+        return self.xf.rfft(torch.cat([state.prev_in, x], dim=-1))[:, :, None]
+
+    @staticmethod
+    def shift_line(fdl: torch.Tensor, column: torch.Tensor) -> torch.Tensor:
+        """`column` pushed onto the front of the delay line [V, 2, P, F]
+        (a new tensor); on a partition shard of the line, `column` is the
+        previous shard's last one (parallel/mesh.py)."""
+        return torch.cat([column, fdl[:, :, :-1]], dim=2)
+
     def _analyze(self, state: PartitionedState, x: torch.Tensor
                  ) -> torch.Tensor:
         """OLS segment rfft pushed onto the front of the delay line."""
-        spec = self.xf.rfft(torch.cat([state.prev_in, x], dim=-1))  # [V,2,F]
-        return torch.cat([spec[:, :, None], state.fdl[:, :, :-1]], dim=2)
+        return self.shift_line(state.fdl, self.input_column(state, x))
 
     def _finish(self, state: PartitionedState, params: VoiceParams,
                 x: torch.Tensor, spec_out: torch.Tensor, **updates):
@@ -186,27 +200,53 @@ class PartitionedConvolution:
     def step_materialized(self, state, bank, params, x):
         """The reference's form: slew the full spectra, one MAC."""
         fdl = self._analyze(state, x)
-        active = slew_spectra(state.active, gather_spectra(bank, params.select),
-                              params.wet[..., None, None, None],
-                              params.vsteps[..., None, None, None])
-        spec_out = _mix(_mac(fdl, active), wet_scale(params))
-        return self._finish(state, params, x, spec_out, fdl=fdl, active=active)
+        active, mac = self.slew_stage(fdl, bank, params, state.active)
+        return self.slew_finish(state, params, x, fdl, active, mac)
 
     def step_coef(self, state, bank, params, x, with_base: bool = True):
         """Affine-coefficient form: scalar slew, MAC over bank[select] and,
         `with_base`, the snapshot."""
         fdl = self._analyze(state, x)
+        sums = self.coef_stage(fdl, bank, params.select,
+                               state.base if with_base else None)
+        return self.coef_finish(state, params, x, fdl, sums)
+
+    # the two stages of each step, the seam of the mesh's part axis
+    # (parallel/mesh.py): the first sums over the line's partitions, so a
+    # line split over partition shards runs it on each shard's slice and
+    # adds the shards' sums; the second reads only those sums
+
+    @staticmethod
+    def coef_stage(fdl, bank, select, base=None):
+        """(MAC over bank[select], MAC over `base` or None), each [V, I, O,
+        F] summed over the partitions of `fdl`."""
+        target = _mac(fdl, gather_spectra(bank, select))          # [V,2,2,F]
+        return target, (None if base is None else _mac(fdl, base))
+
+    def coef_finish(self, state, params, x, fdl, sums):
+        target, base = sums
         r = 1.0 / (params.vsteps.to(torch.float32) + 5.0)          # [V, 2]
         a = state.coef_a * (1.0 - r)
         c = state.coef_c * (1.0 - r) + params.wet * r
         scale = wet_scale(params)                                   # [V, 2, 2]
-        target = gather_spectra(bank, params.select)                # [V,2,2,P,F]
-        spec_out = _mix(_mac(fdl, target), c[..., None] * scale)
-        if with_base:
-            spec_out = spec_out + _mix(_mac(fdl, state.base),
-                                       a[..., None] * scale)
+        spec_out = _mix(target, c[..., None] * scale)
+        if base is not None:
+            spec_out = spec_out + _mix(base, a[..., None] * scale)
         return self._finish(state, params, x, spec_out, fdl=fdl, coef_a=a,
                             coef_c=c)
+
+    @staticmethod
+    def slew_stage(fdl, bank, params, active):
+        """The slewed spectra of `fdl`'s partitions and their MAC [V, I, O,
+        F]."""
+        active = slew_spectra(active, gather_spectra(bank, params.select),
+                              params.wet[..., None, None, None],
+                              params.vsteps[..., None, None, None])
+        return active, _mac(fdl, active)
+
+    def slew_finish(self, state, params, x, fdl, active, mac):
+        spec_out = _mix(mac, wet_scale(params))
+        return self._finish(state, params, x, spec_out, fdl=fdl, active=active)
 
     def step_coef_steady(self, state, bank, params, x):
         """Steady-state step: every fade has decayed (coef_a ~ 0, tracked by

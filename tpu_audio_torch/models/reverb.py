@@ -29,6 +29,7 @@ from tpu_audio_torch.engine.monolithic import MonolithicConvolution
 from tpu_audio_torch.engine.params import CC_MAX_SPEED, CCMapping, ControlPlane
 from tpu_audio_torch.engine.partitioned import PartitionedConvolution
 from tpu_audio_torch.io.settings import Settings
+from tpu_audio_torch.parallel.mesh import ShardedBank
 from tpu_audio_torch.runtime.backends import (
     BlockSink, BlockSource, CallbackSink, WavSource,
 )
@@ -294,7 +295,9 @@ class ConvolutionReverb:
         return sum(leaf.numel() * leaf.element_size() for leaf in leaves)
 
     def _publish_bank(self, new_bank) -> None:
-        self.spectra = new_bank
+        if not isinstance(new_bank, ShardedBank):
+            # (a mesh session's placed bank is the session's, for one run)
+            self.spectra = new_bank
         if self._live_session is not None:
             # slot updates only touch fade-inert slots (min-age eviction),
             # so the swap is safe to apply directly between blocks
@@ -371,12 +374,24 @@ class ConvolutionReverb:
                 **kwargs) -> StreamSession:
         """A StreamSession of this model; `kwargs` go to it unchanged
         (warmup, realtime, clock, pipeline_depth, underrun_policy,
-        max_consecutive_underruns, on_missed_deadline)."""
+        max_consecutive_underruns, on_missed_deadline, chunk_blocks, mesh:
+        a parallel/mesh.py Mesh; the working set writes the session's
+        placed bank while a run lasts, so that its slot writes reach every
+        replica, and ``spectra`` stays the single-device bank)."""
         sess = StreamSession(self.engine, self.spectra, self.control,
                              source, sink, sample_rate=self.sample_rate,
                              **kwargs)
         if self.working_set is not None:
             self._live_session = sess
+
+            def adopt(bank):
+                # a mesh session's placed bank at run start, the gathered
+                # single-device bank at run end
+                self.working_set.bank = bank
+                if not isinstance(bank, ShardedBank):
+                    self.spectra = bank
+
+            sess.on_bank_placed = adopt
             # warm the fault path before block 0, so the first real bank
             # miss pays no one-off cost mid-stream
             sess.pre_run_hooks.append(self.working_set.warmup)
@@ -402,8 +417,9 @@ class ConvolutionReverb:
         of the per-block step time (runtime/offline.py). Renders the control
         plane's current (converged) parameters, or a scripted MIDI timeline
         via ``schedule=MidiSchedule(...)``, which matches the live streaming
-        session to float precision. Returns per-voice output [V, 2, T +
-        tail]."""
+        session to float precision; ``mesh=`` renders the virtual voices
+        in one lane per voice row of a parallel/mesh.py Mesh. Returns
+        per-voice output [V, 2, T + tail]."""
         from tpu_audio_torch.runtime.offline import render_offline
 
         return render_offline(self, samples, **kwargs)

@@ -66,9 +66,15 @@ def save_checkpoint(path: str | os.PathLike, state, control: ControlPlane,
     """Serialise engine state + control plane to one file. The state is
     copied to the host before this returns (the steps update delay lines
     and wet rings in place, so the copy must finish before the next step is
-    queued). Returns the save's figures: seconds of the device-to-host copy
-    (``d2h_s``) and of the file write (``write_s``), and ``bytes``."""
+    queued). A mesh's ShardedState (parallel/mesh.py) is gathered first,
+    so the file holds the single-device format and loads into a session on
+    one device or on a mesh (which places it at run start). Returns the
+    save's figures: seconds of the device-to-host copy, the gather
+    included (``d2h_s``), and of the file write (``write_s``), and
+    ``bytes``."""
     t0 = time.perf_counter()
+    if hasattr(state, "gather"):
+        state = state.gather()
     arrays: dict[str, np.ndarray] = {}
     specs = []
     for f in fields(state):

@@ -42,18 +42,27 @@ What the port does where the JAX renderer serves XLA:
   - each step's output is copied, without waiting, into one pinned host
     buffer; an isfinite accumulator on the device is read once, after the
     loop;
-  - no compile cache, no background precompile, and no mesh (multi-GPU
-    sharding is ROADMAP.md Queue 1 item 14).
+  - no compile cache and no background precompile;
+  - a mesh (``mesh=``, parallel/mesh.py, voice axis only) splits the
+    virtual voices into contiguous lanes, one per voice row: each lane
+    runs the row's local engine on its own device, with its own copy of
+    the bank, the input and the step tables, and the host loop steps every
+    lane in turn, each lane's output copied into its slice of the one
+    pinned host buffer. The lanes never communicate (the bounce's time
+    axis is embarrassingly parallel), and the segment count is rounded so
+    that the virtual voices split evenly, in whole stagger groups on the
+    cascade (_mesh_round_segments). A mesh with a part axis > 1 is
+    refused.
 
-All paths need a fully resident bank (no working-set paging) and one
-device. A CUDA model launches the engine's kernels on every step; only a
-CPU model takes their plain versions.
+All paths need a fully resident bank (no working-set paging). A CUDA model
+launches the engine's kernels on every step; only a CPU model takes their
+plain versions.
 """
 
 from __future__ import annotations
 
 import math
-from dataclasses import replace
+from dataclasses import dataclass, replace
 
 import numpy as np
 import torch
@@ -70,10 +79,6 @@ from tpu_audio_torch.utils.wire import decode_pcm16, encode_pcm16
 # count, never for correctness
 _STEP_FIXED_MS = 1.65
 _STEP_PER_VOICE_MS = 0.00186
-
-_NO_MESH = ("render_offline on a device mesh is not ported yet (ROADMAP.md, "
-            "Queue 1 item 14: multi-GPU voice sharding)")
-
 
 def _auto_segments(total_blocks: int, warmup: int, base_voices: int,
                    max_virtual_voices: int) -> int:
@@ -175,9 +180,11 @@ def render_offline(model, samples, *, segments: int | None = None,
     of that many blocks, each re-primed from the trailing input history
     inside its slice (composable with `schedule=`; on the cascade the
     chunk grid and history prefix round up to the stagger ratio). `mesh`
-    is not ported (NotImplementedError). `wire='pcm16'` encodes the output
-    to 16-bit PCM on the device and decodes it on the host: f32 [V, 2, T]
-    quantized to 1/32767. `bucket_blocks` rounds the padded track length
+    (a parallel/mesh.py Mesh with part=1) shards the virtual voices over
+    its voice rows (fmajor and cascade engines; raise
+    `max_virtual_voices` to feed every device). `wire='pcm16'` encodes
+    the output to 16-bit PCM on the device and decodes it on the host: f32
+    [V, 2, T] quantized to 1/32767. `bucket_blocks` rounds the padded track length
     up to a grid (or ~3 % with 'auto'); the pad is zero input, trimmed
     from the output. `input_wire='pcm16'` uploads the program material as
     int16, decoded on the device at `input_scale` (default 32767); 'auto'
@@ -189,8 +196,6 @@ def render_offline(model, samples, *, segments: int | None = None,
     if input_wire not in ("f32", "pcm16", "auto"):
         raise ValueError(f"input_wire must be 'f32', 'pcm16', or 'auto', "
                          f"got {input_wire!r}")
-    if mesh is not None:
-        raise NotImplementedError(_NO_MESH)
     _bucket_total(1, bucket_blocks)  # validate even where chunking ignores it
     if input_wire == "auto":
         input_wire, input_scale = _detect_input_grid(
@@ -200,17 +205,24 @@ def render_offline(model, samples, *, segments: int | None = None,
                      "uploading as int16, bit-exact", input_scale)
     elif input_wire == "pcm16" and input_scale is None:
         input_scale = 32767.0
+    if mesh is not None and not (
+            hasattr(model.engine, "prime_fdl")
+            or hasattr(model.engine, "ratio")):
+        raise ValueError(
+            "mesh-sharded bounce supports fmajor and cascade engines "
+            "(voice data parallelism over the virtual-voice axis)")
     if track_chunk_blocks is not None:
         return _render_chunked(
             model, samples, track_chunk_blocks, segments=segments,
             include_tail=include_tail, warmup_blocks=warmup_blocks,
             max_virtual_voices=max_virtual_voices, schedule=schedule,
-            wire=wire, input_wire=input_wire, input_scale=input_scale)
+            mesh=mesh, wire=wire, input_wire=input_wire,
+            input_scale=input_scale)
     if schedule is not None:
         return _render_automated(
             model, samples, schedule, segments=segments,
             include_tail=include_tail, warmup_blocks=warmup_blocks,
-            max_virtual_voices=max_virtual_voices, wire=wire,
+            max_virtual_voices=max_virtual_voices, mesh=mesh, wire=wire,
             bucket_blocks=bucket_blocks, input_wire=input_wire,
             input_scale=input_scale)
     eng = model.engine
@@ -237,43 +249,56 @@ def render_offline(model, samples, *, segments: int | None = None,
         nseg = int(segments)
         if nseg < 1:
             raise ValueError(f"segments must be >= 1, got {segments}")
+    nseg = _mesh_round_segments(nseg, v, mesh, int(getattr(eng, "ratio", 1)))
     seg_len = -(-total_blocks // nseg)
     seng = _virtual_engine(eng, v * nseg)
-    dev, bank = seng.device, model.spectra
+    lanes = _lanes(seng, model.spectra, mesh)
 
     # block tensor [T', 2, B] (shared) or [T', V, 2, B] (per-voice), zero
-    # past the input (the zero tail flushes the ring-out)
+    # past the input (the zero tail flushes the ring-out), on every lane's
+    # device
     xb = _block_tensor(x, per_voice, nseg * seg_len, b, t_samples)
-    xb_dev = torch.from_numpy(xb).to(dev)
+    xb_dev = {dev: torch.from_numpy(xb).to(dev) for dev in _devices(lanes)}
 
     # the control plane, replicated voice-major: virtual voice v*nseg + s
     # carries voice v's parameters over segment s
     host = model.control.snapshot()
-    vparams = VoiceParams(**{
-        name: np.repeat(np.asarray(arr), nseg, axis=0)
-        for name, arr in vars(host).items()}).to(dev)
-    state = seng.init_converged(bank, vparams)
-    if fast:
-        t0 = np.tile(np.arange(nseg) * seg_len - warmup, v)
-        voice_of = np.repeat(np.arange(v), nseg) if per_voice else None
-        state = _prime_fast(seng, state, xb_dev, t0, voice_of, dec)
+    vp = {name: np.repeat(np.asarray(arr), nseg, axis=0)
+          for name, arr in vars(host).items()}
+    t0 = np.tile(np.arange(nseg) * seg_len - warmup, v)
+    voice_of = np.repeat(np.arange(v), nseg) if per_voice else None
+    states, vparams = [], []
+    for lane in lanes:
+        lo, hi = lane.lo, lane.hi
+        vparams.append(VoiceParams(**{name: arr[lo:hi] for name, arr
+                                      in vp.items()}).to(lane.device))
+        state = lane.engine.init_converged(lane.bank, vparams[-1])
+        if fast:
+            state = _prime_fast(lane.engine, state, xb_dev[lane.device],
+                                t0[lo:hi], _cut(voice_of, lo, hi), dec)
+        states.append(state)
     steps = warmup + seg_len
-    inputs = _step_inputs(xb_dev, per_voice, nseg, seg_len, warmup, steps,
-                          v, dec, voice_major=True)
+    inputs = {dev: _step_inputs(xd, per_voice, nseg, seg_len, warmup, steps,
+                                v, dec, voice_major=True)
+              for dev, xd in xb_dev.items()}
     del xb_dev
 
     Log.info("offline", "bounce: %d blocks as %d segment(s) x %d + %d "
-             "warm-up steps (%d virtual voices)",
-             total_blocks, nseg, seg_len, warmup, v * nseg)
+             "warm-up steps (%d virtual voices in %d lane(s))",
+             total_blocks, nseg, seg_len, warmup, v * nseg, len(lanes))
 
     # converged static params ride the steady step (engine.step where the
     # engine slews its own spectra: the slew is then a converged no-op)
-    steady, _ = engine_steps(seng)
+    steady = [engine_steps(lane.engine)[0] for lane in lanes]
 
-    def step(i, st):
-        return steady(st, bank, vparams, inputs(i))
+    def step(i, sts):
+        outs = [steady[j](st, lane.bank, vparams[j],
+                          inputs[lane.device](i)[lane.lo:lane.hi])
+                for j, (lane, st) in enumerate(zip(lanes, sts))]
+        return [s for s, _ in outs], [y for _, y in outs]
 
-    out = _collect(step, state, warmup, seg_len, (v * nseg, 2, b), wire, dev)
+    out = _collect(step, states, warmup, seg_len, (v * nseg, 2, b), wire,
+                   _devices(lanes))
     # [seg_len, V*nseg, 2, B] -> [V, 2, nseg*seg_len*B]
     out = (out.reshape(seg_len, v, nseg, 2, b)
               .transpose(1, 3, 2, 0, 4)
@@ -319,8 +344,9 @@ def _chunk_input(x: np.ndarray, lo: int, hist: int, chunk_blocks: int,
 
 def _render_chunked(model, samples, chunk_blocks: int, *, segments,
                     include_tail, warmup_blocks, max_virtual_voices,
-                    schedule, wire: str = "f32", input_wire: str = "f32",
-                    input_scale=None) -> np.ndarray:
+                    schedule, mesh=None, wire: str = "f32",
+                    input_wire: str = "f32", input_scale=None
+                    ) -> np.ndarray:
     """Bounded-memory bounce: the track renders in `chunk_blocks`-block
     chunks, each an independent time-parallel render over its slice plus
     `history_blocks` of trailing input prefix (output discarded) — the
@@ -334,7 +360,7 @@ def _render_chunked(model, samples, chunk_blocks: int, *, segments,
         return _render_chunked_automated(
             model, samples, chunk_blocks, schedule, segments=segments,
             include_tail=include_tail, warmup_blocks=warmup_blocks,
-            max_virtual_voices=max_virtual_voices, wire=wire,
+            max_virtual_voices=max_virtual_voices, mesh=mesh, wire=wire,
             input_wire=input_wire, input_scale=input_scale)
     eng = model.engine
     b = eng.block
@@ -348,7 +374,7 @@ def _render_chunked(model, samples, chunk_blocks: int, *, segments,
                              segments=segments, include_tail=False,
                              warmup_blocks=warmup_blocks,
                              max_virtual_voices=max_virtual_voices,
-                             wire=wire, input_wire=input_wire,
+                             mesh=mesh, wire=wire, input_wire=input_wire,
                              input_scale=input_scale)
         outs.append(out[..., hist * b:])
     out = np.concatenate(outs, axis=-1)
@@ -357,8 +383,8 @@ def _render_chunked(model, samples, chunk_blocks: int, *, segments,
 
 def _render_chunked_automated(model, samples, chunk_blocks: int, schedule,
                               *, segments, include_tail, warmup_blocks,
-                              max_virtual_voices, wire: str = "f32",
-                              input_wire: str = "f32",
+                              max_virtual_voices, mesh=None,
+                              wire: str = "f32", input_wire: str = "f32",
                               input_scale=None) -> np.ndarray:
     """Bounded-memory bounce of an automation timeline. The host replays
     the schedule ONCE over the whole (chunk-grid-padded) timeline, with
@@ -384,7 +410,7 @@ def _render_chunked_automated(model, samples, chunk_blocks: int, schedule,
     span_blocks = hist + chunk_blocks
     _fast, warmup, nseg, seg_len = _plan_automated(
         eng, span_blocks, segments=segments, warmup_blocks=warmup_blocks,
-        max_virtual_voices=max_virtual_voices)
+        max_virtual_voices=max_virtual_voices, mesh=mesh)
     los = list(range(0, out_blocks, chunk_blocks))
     tpad_local = nseg * seg_len
     tpadg = max(los[-1] - hist + tpad_local, tpad_local)
@@ -396,7 +422,7 @@ def _render_chunked_automated(model, samples, chunk_blocks: int, schedule,
         out = _render_automated(
             model, _chunk_input(x, lo, hist, chunk_blocks, b), schedule,
             segments=nseg, include_tail=False, warmup_blocks=warmup,
-            max_virtual_voices=max_virtual_voices, wire=wire,
+            max_virtual_voices=max_virtual_voices, mesh=mesh, wire=wire,
             input_wire=input_wire, input_scale=input_scale,
             _chunk_ctx=(sim, lo - hist, tpadg))
         outs.append(out[..., hist * b:])
@@ -539,7 +565,7 @@ def _check_automatable(eng) -> bool:
 
 
 def _plan_automated(eng, total_blocks: int, *, segments, warmup_blocks,
-                    max_virtual_voices):
+                    max_virtual_voices, mesh=None):
     """Segment plan for an automated bounce: (fast, warmup, nseg, seg_len).
 
     The cascade's tail schedule is staggered (group g computes at blocks
@@ -561,6 +587,7 @@ def _plan_automated(eng, total_blocks: int, *, segments, warmup_blocks,
         nseg = int(segments)
         if nseg < 1:
             raise ValueError(f"segments must be >= 1, got {segments}")
+    nseg = _mesh_round_segments(nseg, v, mesh, ratio)
     seg_len = -(-(-(-total_blocks // nseg)) // ratio) * ratio
     return fast, warmup, nseg, seg_len
 
@@ -604,7 +631,7 @@ def _schedule_tables(sim: _ControlSim, nseg: int, v: int, seg_len: int,
 
 def _render_automated(model, samples, schedule, *, segments,
                       include_tail, warmup_blocks, max_virtual_voices,
-                      wire: str = "f32", bucket_blocks=None,
+                      mesh=None, wire: str = "f32", bucket_blocks=None,
                       input_wire: str = "f32", input_scale=None,
                       _chunk_ctx=None) -> np.ndarray:
     """Time-parallel bounce of a scripted MIDI timeline — render_offline
@@ -632,95 +659,115 @@ def _render_automated(model, samples, schedule, *, segments,
         total_blocks = t_blocks
     fast, warmup, nseg, seg_len = _plan_automated(
         eng, total_blocks, segments=segments, warmup_blocks=warmup_blocks,
-        max_virtual_voices=max_virtual_voices)
+        max_virtual_voices=max_virtual_voices, mesh=mesh)
     tpad = nseg * seg_len
     seng = _virtual_engine(eng, v * nseg)
-    dev, bank = seng.device, model.spectra
+    lanes = _lanes(seng, model.spectra, mesh)
 
     xb = _block_tensor(x, per_voice, tpad, b, t_samples)
-    xb_dev = torch.from_numpy(xb).to(dev)
+    xb_dev = {dev: torch.from_numpy(xb).to(dev) for dev in _devices(lanes)}
     if _chunk_ctx is None:
         abs_base, tpadg = 0, tpad
         sim = _ControlSim(model.control, schedule, tpad,
                           [max(s * seg_len - warmup, 0) for s in range(nseg)])
     tables = _schedule_tables(sim, nseg, v, seg_len, warmup, abs_base, tpadg)
     event = tables.pop("event")
-    tbl = {name: torch.from_numpy(np.ascontiguousarray(arr)).to(dev)
-           for name, arr in tables.items()}
 
-    def vm(arr: np.ndarray) -> torch.Tensor:
-        """[nseg, V, 2, ...] -> SEGMENT-major [nseg*V, 2, ...] on the
-        device. Segment-major (not the static path's voice-major) keeps
-        every virtual voice's cascade stagger group, j % ratio == v % ratio
-        (V is ratio-divisible), so with the ratio-aligned warm-up starts
-        each virtual voice computes its tail at the stream's block phases,
+    def vm(arr: np.ndarray, lane) -> torch.Tensor:
+        """[nseg, V, 2, ...] -> the lane's rows of the SEGMENT-major
+        [nseg*V, 2, ...] on its device. Segment-major (not the static
+        path's voice-major) keeps every virtual voice's cascade stagger
+        group, j % ratio == v % ratio (V is ratio-divisible, and so is
+        every lane's start), so with the ratio-aligned warm-up starts each
+        virtual voice computes its tail at the stream's block phases,
         which the in-flight fade projections are sensitive to."""
         arr = np.ascontiguousarray(arr)
-        return torch.from_numpy(arr.reshape((nseg * v,) + arr.shape[2:])
-                                ).to(dev)
+        rows = arr.reshape((nseg * v,) + arr.shape[2:])[lane.lo:lane.hi]
+        return torch.from_numpy(np.ascontiguousarray(rows)).to(lane.device)
 
     host0 = model.control.snapshot()
-    p0 = VoiceParams(**{
-        name: np.tile(np.asarray(arr), (nseg, 1))
-        for name, arr in vars(host0).items()}).to(dev)
-    state = seng.init_converged(bank, p0)
+    p0 = {name: np.tile(np.asarray(arr), (nseg, 1))
+          for name, arr in vars(host0).items()}
     snaps = [sim.snaps[max(s * seg_len - warmup + abs_base, 0)]
              for s in range(nseg)]
-    g0 = vm(np.stack([s[2] for s in snaps]))
-    state = replace(state, coef_a=vm(np.stack([s[0] for s in snaps])),
-                    coef_c=vm(np.stack([s[1] for s in snaps])))
-    if selected:
-        # the 'selected' strategy reads materialized per-voice tensors; the
-        # snapshot is still an affine span of the bank (the stream's
-        # collapse is base := a*base + c*bank[old], the recursion the host
-        # g tracks), so expand g once and gather the pre-event selection
-        sel0 = vm(np.stack([s[3] for s in snaps]))
-        state = replace(
-            state,
-            base=seng._span_expand(bank, g0).to(state.base.dtype).contiguous(),
-            sel_spectra=seng._gather_selection(bank, sel0),
-            base_pure=torch.zeros((v * nseg, 2), dtype=torch.bool,
-                                  device=dev))
-    else:
-        if g0.shape[-1] != state.base_g.shape[-1]:
-            raise ValueError(
-                f"span width mismatch: control plane tracks {g0.shape[-1]} "
-                f"IRs, engine state carries {state.base_g.shape[-1]}")
-        state = replace(state, base_g=g0,
-                        base_pure=torch.ones((v * nseg, 2), dtype=torch.bool,
-                                             device=dev))
-    if fast:
-        # segment-major virtual packing: t0[s*V + v]
-        t0 = np.repeat(np.arange(nseg) * seg_len - warmup, v)
-        voice_of = np.tile(np.arange(v), nseg) if per_voice else None
-        state = _prime_fast(seng, state, xb_dev, t0, voice_of, dec)
+    # segment-major virtual packing: t0[s*V + v]
+    t0 = np.repeat(np.arange(nseg) * seg_len - warmup, v)
+    voice_of = np.tile(np.arange(v), nseg) if per_voice else None
+    states, tbls = [], []
+    for lane in lanes:
+        lo, hi, dev, e, bank = (lane.lo, lane.hi, lane.device, lane.engine,
+                                lane.bank)
+        state = e.init_converged(bank, VoiceParams(**{
+            name: arr[lo:hi] for name, arr in p0.items()}).to(dev))
+        g0 = vm(np.stack([s[2] for s in snaps]), lane)
+        state = replace(state, coef_a=vm(np.stack([s[0] for s in snaps]), lane),
+                        coef_c=vm(np.stack([s[1] for s in snaps]), lane))
+        if selected:
+            # the 'selected' strategy reads materialized per-voice tensors;
+            # the snapshot is still an affine span of the bank (the
+            # stream's collapse is base := a*base + c*bank[old], the
+            # recursion the host g tracks), so expand g once and gather
+            # the pre-event selection
+            sel0 = vm(np.stack([s[3] for s in snaps]), lane)
+            state = replace(
+                state,
+                base=e._span_expand(bank, g0).to(state.base.dtype
+                                                 ).contiguous(),
+                sel_spectra=e._gather_selection(bank, sel0),
+                base_pure=torch.zeros((hi - lo, 2), dtype=torch.bool,
+                                      device=dev))
+        else:
+            if g0.shape[-1] != state.base_g.shape[-1]:
+                raise ValueError(
+                    f"span width mismatch: control plane tracks "
+                    f"{g0.shape[-1]} IRs, engine state carries "
+                    f"{state.base_g.shape[-1]}")
+            state = replace(state, base_g=g0,
+                            base_pure=torch.ones((hi - lo, 2),
+                                                 dtype=torch.bool,
+                                                 device=dev))
+        if fast:
+            state = _prime_fast(e, state, xb_dev[dev], t0[lo:hi],
+                                _cut(voice_of, lo, hi), dec)
+        states.append(state)
+        tbls.append({name: torch.from_numpy(np.ascontiguousarray(
+            arr[:, lo:hi])).to(dev) for name, arr in tables.items()})
     steps = warmup + seg_len
-    inputs = _step_inputs(xb_dev, per_voice, nseg, seg_len, warmup, steps,
-                          v, dec, voice_major=False)
+    inputs = {dev: _step_inputs(xd, per_voice, nseg, seg_len, warmup, steps,
+                                v, dec, voice_major=False)
+              for dev, xd in xb_dev.items()}
     del xb_dev
 
     Log.info("offline", "automated bounce: %d blocks as %d segment(s) x %d "
-             "+ %d warm-up steps (%d virtual voices, %d regime(s), %d "
-             "re-select block(s))", total_blocks, nseg, seg_len, warmup,
-             v * nseg, len(sim.regimes), len(sim.ev_changed) - 1)
+             "+ %d warm-up steps (%d virtual voices in %d lane(s), %d "
+             "regime(s), %d re-select block(s))", total_blocks, nseg,
+             seg_len, warmup, v * nseg, len(lanes), len(sim.regimes),
+             len(sim.ev_changed) - 1)
 
     takes_params = seng.collapse_pure_takes_params
 
-    def step(i, st):
+    def lane_step(i, st, lane, tbl):
+        e, bank = lane.engine, lane.bank
         params = VoiceParams(**{f: tbl[f][i] for f in _ControlSim.FIELDS})
         if event[i]:
             old, chg = tbl["old"][i], tbl["changed"][i]
             if selected:
-                st = seng.collapse(st, bank, old, chg,
-                                   new_select=params.select)
+                st = e.collapse(st, bank, old, chg, new_select=params.select)
             else:
-                st = seng.collapse_pure(st, old, chg,
-                                        *((params,) if takes_params else ()))
+                st = e.collapse_pure(st, old, chg,
+                                     *((params,) if takes_params else ()))
+        x_i = inputs[lane.device](i)[lane.lo:lane.hi]
         if selected:
-            return seng.step_coef(st, bank, params, inputs(i))
-        return seng.step_coef_indexed(st, bank, params, inputs(i))
+            return e.step_coef(st, bank, params, x_i)
+        return e.step_coef_indexed(st, bank, params, x_i)
 
-    out = _collect(step, state, warmup, seg_len, (v * nseg, 2, b), wire, dev)
+    def step(i, sts):
+        outs = [lane_step(i, st, lane, tbl)
+                for st, lane, tbl in zip(sts, lanes, tbls)]
+        return [s for s, _ in outs], [y for _, y in outs]
+
+    out = _collect(step, states, warmup, seg_len, (v * nseg, 2, b), wire,
+                   _devices(lanes))
     # [seg_len, nseg*V, 2, B] (segment-major) -> [V, 2, tpad*B]
     out = (out.reshape(seg_len, nseg, v, 2, b)
               .transpose(2, 3, 1, 0, 4)
@@ -744,6 +791,59 @@ def _block_tensor(x: np.ndarray, per_voice: bool, t_pad_blocks: int,
     flat[:, :t_samples] = x
     return np.ascontiguousarray(
         flat.reshape(2, t_pad_blocks, b).transpose(1, 0, 2))
+
+
+def _mesh_round_segments(nseg: int, v: int, mesh, ratio: int = 1) -> int:
+    """Round the segment count up so the virtual voices split evenly over
+    the mesh's voice axis: v*nseg virtual voices for fmajor, and
+    v*nseg/ratio stagger-group rows for the cascade, which also makes
+    every lane's voice count a whole number of stagger groups."""
+    if mesh is None:
+        return nseg
+    voice_n = int(mesh.shape["voice"])
+    w = v // ratio
+    need = voice_n // math.gcd(w, voice_n)
+    return -(-nseg // need) * need
+
+
+@dataclass
+class _Lane:
+    """The virtual voices [lo, hi) one voice row of a mesh renders (every
+    virtual voice without a mesh): its engine, its copy of the bank and
+    its device."""
+
+    engine: object
+    bank: object
+    device: torch.device
+    lo: int
+    hi: int
+
+
+def _lanes(seng, bank, mesh) -> list[_Lane]:
+    if mesh is None:
+        return [_Lane(seng, bank, seng.device, 0, seng.num_voices)]
+    if mesh.shape["part"] > 1:
+        raise ValueError("the mesh-sharded bounce shards the virtual-voice "
+                         "axis only: build the mesh with part=1")
+    from tpu_audio_torch.parallel.mesh import sharded
+
+    sh = sharded(seng, mesh)
+    placed = sh.place_bank(bank)
+    n = sh.local_voices
+    return [_Lane(sh.locals[r][0], placed.shards[r][0], row[0], r * n,
+                  (r + 1) * n) for r, row in enumerate(mesh.devices)]
+
+
+def _devices(lanes) -> list[torch.device]:
+    out = []
+    for lane in lanes:
+        if lane.device not in out:
+            out.append(lane.device)
+    return out
+
+
+def _cut(arr, lo: int, hi: int):
+    return None if arr is None else arr[lo:hi]
 
 
 def _virtual_engine(eng, vv: int):
@@ -815,38 +915,45 @@ def _step_inputs(xb_dev: torch.Tensor, per_voice: bool, nseg: int,
 
 
 def _step_loop(step, state, warmup: int, seg_len: int, out: torch.Tensor,
-               wire: str, dev: torch.device) -> torch.Tensor:
+               wire: str, devices) -> list:
     """Run every step, queue each kept output's copy into the host buffer
-    `out` without waiting, and return the isfinite accumulator (a bool
-    tensor on `dev`, not yet read): the loop reads nothing back from the
-    device. The accumulator sees the RAW output: the pcm16 encoder clips
+    `out` without waiting, and return the isfinite accumulators (a bool
+    tensor per device, not yet read): the loop reads nothing back from the
+    device. `step(i, states)` steps every lane and returns (states, the
+    lanes' outputs in virtual-voice order), each copied into its rows of
+    `out`. The accumulators see the RAW output: the pcm16 encoder clips
     NaN into ordinary int16 values, so a check after it could never
     fail."""
-    ok = torch.ones((), dtype=torch.bool, device=dev)
+    ok = {dev: torch.ones((), dtype=torch.bool, device=dev)
+          for dev in devices}
     for i in range(warmup + seg_len):
-        state, y = step(i, state)
+        state, ys = step(i, state)
         if i < warmup:
             continue
-        ok &= torch.isfinite(y).all()
-        if wire == "pcm16":
-            y = encode_pcm16(y)
-        out[i - warmup].copy_(y, non_blocking=True)
-    return ok
+        v0 = 0
+        for y in ys:
+            ok[y.device] &= torch.isfinite(y).all()
+            if wire == "pcm16":
+                y = encode_pcm16(y)
+            out[i - warmup, v0:v0 + y.shape[0]].copy_(y, non_blocking=True)
+            v0 += y.shape[0]
+    return list(ok.values())
 
 
 def _collect(step, state, warmup: int, seg_len: int, shape: tuple,
-             wire: str, dev: torch.device) -> np.ndarray:
+             wire: str, devices) -> np.ndarray:
     """Drive the step loop and collect [seg_len, *shape] on the host: one
     pinned buffer (on CUDA) takes every kept step's output as it is
-    produced, and the isfinite accumulator is read once, after the loop;
+    produced, and the isfinite accumulators are read once, after the loop;
     non-finite output raises on every wire."""
     dtype = torch.int16 if wire == "pcm16" else torch.float32
-    out = torch.empty((seg_len,) + shape, dtype=dtype,
-                      pin_memory=dev.type == "cuda")
-    ok = _step_loop(step, state, warmup, seg_len, out, wire, dev)
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
-    if not bool(ok):
+    cuda = devices[0].type == "cuda"
+    out = torch.empty((seg_len,) + shape, dtype=dtype, pin_memory=cuda)
+    oks = _step_loop(step, state, warmup, seg_len, out, wire, devices)
+    if cuda:
+        for dev in devices:
+            torch.cuda.synchronize(dev)
+    if not all(bool(ok) for ok in oks):
         raise RuntimeError(
             "offline bounce produced non-finite output (device isfinite "
             "accumulator on the raw engine output)")

@@ -56,9 +56,21 @@ Each engine names its fade protocol in ``engine.fade_protocol``:
   - "slew": ``engine.step``, which slews the active spectra itself and
     needs no collapse (the monolithic engine, partitioned 'materialized').
 
-Left out of this port: mesh serving, and, by design, batched fetches and
-the pcm16 wire (``fetch_batch``, ``wire``) and the JAX session's layout
-pinning.
+Mesh serving (``mesh=``, a parallel/mesh.py Mesh): the session drives the
+engine's ShardedEngine, which splits voices over the mesh's voice axis and,
+in fmajor roll mode and the partitioned engine, partitions over its part
+axis. The bank and the state are placed at the start of run() (a restored
+single-device state included), each block is uploaded once into pinned
+host memory and copied to each voice row's device as its voice slice, each
+row's output is copied into its slice of one pinned host buffer behind an
+event on that row's device, and a checkpoint gathers the state first
+(runtime/checkpoint.py), so the file has the single-device format. Step
+choice stays on the host mirrors; bank swaps and the working set's slot
+writes reach every replica. Per-block dispatch only (``chunk_blocks`` must
+be 1), and coefficient engines only, as in the JAX package.
+
+Left out of this port, by design: batched fetches and the pcm16 wire
+(``fetch_batch``, ``wire``) and the JAX session's layout pinning.
 
 Where chunked dispatch differs from the JAX session's: a partial chunk
 (the source's end, or ``max_blocks``) renders only its valid blocks (JAX
@@ -167,10 +179,31 @@ class StreamSession:
                  pipeline_depth: int = 1, underrun_policy: str = "stop",
                  max_consecutive_underruns: int | None = None,
                  on_missed_deadline=None, clock: str = "sleep",
-                 chunk_blocks: int = 1):
+                 chunk_blocks: int = 1, mesh=None):
         self.engine = engine
         self.bank = bank
         self.device = engine.device
+        # mesh: serve over a parallel/mesh.py Mesh through this session's
+        # ShardedEngine (`_eng`, the engine itself without one). run()
+        # places the bank and the state at its start and gathers the bank
+        # back onto the engine's device at its end; on_bank_placed(bank)
+        # hands each of the two to the bank's owner (the working set,
+        # whose slot writes must reach every replica during the run)
+        self.mesh = mesh
+        self._eng = engine
+        self.on_bank_placed = None
+        if mesh is not None:
+            if chunk_blocks > 1:
+                raise ValueError("mesh serving uses per-block dispatch "
+                                 "(chunk_blocks must be 1)")
+            if engine.fade_protocol == "slew":
+                raise ValueError("mesh serving supports coef-interface "
+                                 "engines (fmajor, cascade, "
+                                 "partitioned-coef)")
+            from tpu_audio_torch.parallel.mesh import ShardedEngine
+
+            self._eng = ShardedEngine(engine, mesh)
+            self.device = self._eng.device
         self.control = control
         self.source = source
         self.sink = sink
@@ -242,9 +275,10 @@ class StreamSession:
             self._step_indexed = (make_chunk_step(engine, indexed=True)
                                   if spans else None)
         else:
-            self._step_steady, self._step_full = engine_steps(engine)
-            self._step_indexed = engine.step_coef_indexed if spans else None
-        self._collapse_pure = engine.collapse_pure if spans else None
+            self._step_steady, self._step_full = engine_steps(self._eng)
+            self._step_indexed = (self._eng.step_coef_indexed if spans
+                                  else None)
+        self._collapse_pure = self._eng.collapse_pure if spans else None
         # 'selected' re-gathers its per-voice spectra at a collapse (it
         # takes the new selection) and at a bank swap
         self._selected = protocol == "selected"
@@ -322,9 +356,9 @@ class StreamSession:
                  if self._selected else None)
         # the post-change parameters: the 'selected' cascade's in-flight
         # tail rescale reads them, the other engines take and ignore them
-        return self.engine.collapse(state, self.bank, old_t, changed_t,
-                                    new_select=new_t,
-                                    params=self.control.snapshot_device())
+        return self._eng.collapse(state, self.bank, old_t, changed_t,
+                                  new_select=new_t,
+                                  params=self.control.snapshot_device())
 
     def _pick_coef_step(self, blocks: int = 1):
         """The coefficient engine's step for the next `blocks` blocks (one
@@ -346,10 +380,16 @@ class StreamSession:
             vsteps = np.maximum(vsteps - 1.0, 0.0)
         return step
 
+    def _leaf(self, state, name: str) -> torch.Tensor:
+        """One field of the state; on a mesh, joined over the shards (a
+        gather onto the mesh's first device)."""
+        return (getattr(state, name) if self.mesh is None
+                else state.leaf(name))
+
     def _materialize_base(self, state):
         """Materialize virtual fade snapshots with NO re-select (bank-swap
         and run-start paths)."""
-        state = self.engine.materialize_base(state, self.bank)
+        state = self._eng.materialize_base(state, self.bank)
         self._pure_host[:] = False
         return state
 
@@ -395,6 +435,8 @@ class StreamSession:
         self._swap_wait_logged = False
         new_bank = self._pending_bank
         self._pending_bank = None
+        if self.mesh is not None:
+            new_bank = self._eng.place_bank(new_bank)
         # (the "coef" and "slew" engines keep their fade snapshots
         # materialized, base or active, so their fade tails keep the old
         # bank's sound as they are)
@@ -402,15 +444,19 @@ class StreamSession:
             # the deferral above guarantees every fade has decayed, so the
             # old-bank span coefficients are inert: zero them so no stale
             # provenance is reinterpreted against the new bank
-            state = replace(state, base_g=torch.zeros_like(state.base_g))
-        elif self._has_provenance and bool(state.base_pure.any()):
+            zero = torch.zeros_like(self._leaf(state, "base_g"))
+            state = (state.with_leaves(base_g=zero)
+                     if self.mesh is not None
+                     else replace(state, base_g=zero))
+        elif (self._has_provenance
+              and bool(self._leaf(state, "base_pure").any())):
             # materialize virtual snapshots against the OLD bank: the
             # fade-out tail must keep playing the old bank's sound
             state = self._materialize_base(state)
         if self._selected:
             # the steady MAC reads materialized per-voice spectra —
             # re-gather them from the NEW bank
-            state = self.engine.regather_selection(
+            state = self._eng.regather_selection(
                 state, new_bank, torch.tensor(self.control.select,
                                               device=self.device))
         self.bank = new_bank
@@ -434,28 +480,43 @@ class StreamSession:
         # a copy, never a view of the source's buffer (or, chunked, of the
         # gathered blocks): the state keeps the last block as prev_in. On
         # CUDA the copy goes through a fresh pinned buffer so the
-        # host->device transfer is queued, not waited for.
+        # host->device transfer is queued, not waited for; on a mesh the
+        # pinned buffer itself is returned and the sharded step copies
+        # each voice row's slice to the row's device.
         if self.device.type != "cuda":
             return torch.tensor(x, device=self.device)
         pinned = torch.from_numpy(np.asarray(x, np.float32)).pin_memory()
+        if self.mesh is not None:
+            return pinned
         return pinned.to(self.device, non_blocking=True)
 
-    def _start_fetch(self, out: torch.Tensor, n_valid: int | None):
+    def _start_fetch(self, out, n_valid: int | None):
         """Queue the device->host copy of one output block, or of one
         chunk's [T, V, 2, B] outputs of which the first `n_valid` are
-        delivered; returns what _deliver needs."""
-        if out.device.type != "cuda":
-            return out, None, n_valid
-        host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
-        host.copy_(out, non_blocking=True)
-        done = torch.cuda.Event()
-        done.record()
+        delivered, or of a mesh step's VoiceShards (each row into its
+        slice of one host buffer); returns what _deliver needs: the host
+        tensor, the events to wait for, n_valid."""
+        parts = out if isinstance(out, list) else [out]
+        if parts[0].device.type != "cuda":
+            host = torch.cat(parts) if len(parts) > 1 else parts[0]
+            return host, (), n_valid
+        rows = sum(t.shape[0] for t in parts)
+        host = torch.empty((rows,) + tuple(parts[0].shape[1:]),
+                           dtype=parts[0].dtype, pin_memory=True)
+        done, v0 = [], 0
+        for t in parts:
+            host[v0:v0 + t.shape[0]].copy_(t, non_blocking=True)
+            v0 += t.shape[0]
+            # on the stream of the device that holds this part
+            event = torch.cuda.Event()
+            event.record(torch.cuda.current_stream(t.device))
+            done.append(event)
         return host, done, n_valid
 
     def _deliver(self, host: torch.Tensor, done, n_valid: int | None
                  ) -> None:
-        if done is not None:
-            done.synchronize()
+        for event in done:
+            event.synchronize()
         if n_valid is None:
             self.sink.write(host.numpy())
             return
@@ -525,7 +586,34 @@ class StreamSession:
         schedule and of the checkpoints (resume bookkeeping).
 
         The fmajor engine and the cascade update the state's delay line and
-        wet ring in place: the state passed in is consumed."""
+        wet ring in place: the state passed in is consumed.
+
+        On a mesh the bank and the state (a fresh init, a restored
+        checkpoint or a previous run's result) are placed over it first,
+        and the run returns the sharded state; the bank goes back onto the
+        engine's device when the run ends, the way it ends included. A
+        session without a mesh gathers a sharded state first."""
+        args = (max_blocks, midi, live_midi, checkpoint_path,
+                checkpoint_every, start_block)
+        if self.mesh is None:
+            if hasattr(state, "gather"):    # a mesh session's result
+                state = state.gather(self.device)
+            return self._run(state, *args)
+        # the owner takes the placed bank before the pre-run hooks, which
+        # may write a slot of it
+        self._hand_over(self._eng.place_bank(self.bank))
+        try:
+            return self._run(self._eng.place_state(state), *args)
+        finally:
+            self._hand_over(self.bank.gather(self.engine.device))
+
+    def _hand_over(self, bank) -> None:
+        self.bank = bank
+        if self.on_bank_placed is not None:
+            self.on_bank_placed(bank)
+
+    def _run(self, state, max_blocks, midi, live_midi, checkpoint_path,
+             checkpoint_every, start_block):
         for hook in self.pre_run_hooks:
             hook()
         # resync the analytic mirrors from the state (one host read, before
@@ -533,9 +621,10 @@ class StreamSession:
         # restored mid-fade included — keeps the fade step; snapshot
         # provenance is state-carried, so purity survives too
         if self._is_coef:
-            self._a_host = state.coef_a.double().cpu().numpy()
+            self._a_host = self._leaf(state, "coef_a").double().cpu().numpy()
         if self._has_provenance:
-            self._pure_host = state.base_pure.cpu().numpy().copy()
+            self._pure_host = (self._leaf(state, "base_pure").cpu().numpy()
+                               .copy())
             if (self._step_indexed is None
                     and bool((self._pure_host
                               & (self._a_host >= STEADY_THRESHOLD)).any())):

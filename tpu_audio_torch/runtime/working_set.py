@@ -169,6 +169,21 @@ class WorkingSetBank:
         control.on_aux_restored = self._restore_residency
         self._sync_aux()
 
+    def _write_slot(self, slot: int, packed):
+        """Write a packed slot into the bank in place: into every replica
+        of a mesh-placed bank (a ShardedBank, which the serving session
+        hands over at run start; virtual shards share one replica), else
+        into the single-device bank. Returns the bank."""
+        if hasattr(self.bank, "write_slot"):
+            return self.bank.write_slot(self.engine, slot, packed)
+        return self.engine.write_bank_slot(self.bank, slot, packed)
+
+    def _update_slot(self, slot: int, ir):
+        """Pack the time-domain IR on the engine's device and write it
+        (engine.update_bank_slot, on every replica of a mesh-placed
+        bank)."""
+        return self._write_slot(slot, self.engine.pack_bank_slot(ir))
+
     def warmup(self) -> None:
         """Warm the fault path before serving starts: re-upload slot 0's
         currently resident IR — a no-op on bank contents — so the first
@@ -177,8 +192,8 @@ class WorkingSetBank:
         their pre_run_hooks (models/reverb.py:session). A failure raises:
         a fault path that cannot page slot 0 in would fail at the first
         real miss, mid-stream, so the session does not start."""
-        self.bank = self.engine.update_bank_slot(
-            self.bank, 0, self.slot_payload(self.slot_to_full[0]))
+        self.bank = self._update_slot(
+            0, self.slot_payload(self.slot_to_full[0]))
         self.warmups += 1
         if self.on_update is not None:
             self.on_update(self.bank)
@@ -207,8 +222,8 @@ class WorkingSetBank:
                 f"has {self.capacity}")
         for slot, full in enumerate(want):
             if self.slot_to_full[slot] != full:
-                self.bank = self.engine.update_bank_slot(
-                    self.bank, slot, self.slot_payload(full))
+                self.bank = self._update_slot(
+                    slot, self.slot_payload(full))
         self.slot_to_full = list(want)
         self.full_to_slot = {f: s for s, f in enumerate(want)}
         self.last_used = [float(self.control.blocks)] * self.capacity
@@ -318,8 +333,8 @@ class WorkingSetBank:
         # payload/upload must not leave them claiming an IR is resident
         # that never landed (a later select of it would 'hit' a slot still
         # holding the evicted IR and silently play the wrong sound)
-        self.bank = self.engine.update_bank_slot(
-            self.bank, victim, self.slot_payload(full_idx))
+        self.bank = self._update_slot(
+            victim, self.slot_payload(full_idx))
         self.full_to_slot.pop(old_full, None)
         self.slot_to_full[victim] = full_idx
         self.full_to_slot[full_idx] = victim
@@ -429,8 +444,7 @@ class WorkingSetBank:
                 raise rec["error"]
             # the write is queued on the block loop's stream after every
             # block already in flight (the victim slot is inert to them)
-            self.bank = self.engine.write_bank_slot(
-                self.bank, rec["slot"], rec["result"])
+            self.bank = self._write_slot(rec["slot"], rec["result"])
             rec["result"] = None
             self.full_to_slot[rec["full"]] = rec["slot"]
             self.last_used[rec["slot"]] = self.control.blocks
