@@ -77,7 +77,9 @@ Phases, in order; any failure raises and the script exits non-zero:
  13. ring_mac at the cascade's shapes (KOD 16): the head [257, VI, 2, 32]
      and one group's tail [4097, VI/16, 2, 48] at 64 and 1024 voices,
      against the float64 plain version at four ring phases within 1e-5 of
-     scale, then timed against plain and one einsum, interleaved;
+     scale, then timed against plain and one einsum, interleaved; the
+     bf16 form the same way at the 64-voice tail (VI = 8), against plain
+     and torch.bmm;
  14. the cascade at full width: ConvolutionReverb(engine='cascade'), 64
      voices, the 4 IRs, ratio 16, through its session for 800 blocks with
      phase 4's re-select and interrupt, a swap_bank requested mid-fade
@@ -253,7 +255,7 @@ for mac_shift_bf16; its
 times and roofline bound at KOD=16, under per_kod at KOD 16, 36 and 64,
 ring_mac's at the cascade's four shapes under cascade and at the bounce's
 shape under bounce, ring_mac_bf16's at the 2048-voice cascade's shapes
-under cascade, and each kernel's at phase 32's shard shapes under mesh,
+and the 64-voice tail under cascade, and each kernel's at phase 32's shard shapes under mesh,
 whose errors its max_abs_err covers too); the last line is {"ok": true, "device": {...}}. The
 script imports nothing of JAX and nothing of the JAX package.
 """
@@ -310,6 +312,9 @@ CASCADE_SHAPES = {
     "head_1024v": (BLOCK + 1, 2 * BIG_VOICES, CAS_PP1),
     "tail_1024v": (CAS_RATIO * BLOCK + 1, 2 * BIG_VOICES // CAS_RATIO,
                    CAS_PP2)}
+# those whose rows fall below the 128-row tile, where phase 13 holds and
+# times the bf16 form too (mac_dtype='bf16' on a 64-voice cascade)
+CASCADE_BF16_SHAPES = ("tail_64v",)
 RING_KODS = (16, 36, 64)  # 4, 9 and 16 IRs: the main path, a KOD that is no
                          # multiple of 16, the all-K ceiling
 # the offline bounce (phases 16-18): 30 s of per-voice noise at 0.01 for 64
@@ -936,21 +941,29 @@ class ShapeProbe:
 
 def check_cascade_shapes(rm, dev, rng):
     """Phase 13: ring_mac at the cascade's four shapes (KOD 16) against the
-    float64 plain version (check_ring_mac), then timed (time_ring_mac).
-    Returns (largest error, {shape: timing})."""
+    float64 plain version (check_ring_mac), then timed (time_ring_mac);
+    the bf16 form too at the shapes whose rows fall below the 128-row tile
+    (CASCADE_BF16_SHAPES: the 64-voice tail). Returns ({dtype: largest
+    error}, {dtype: {shape: timing}}), dtype "f32" or "bf16"."""
     import torch
 
-    worst, timed = 0.0, {}
+    worst, timed = {"f32": 0.0, "bf16": 0.0}, {"f32": {}, "bf16": {}}
     kod = 4 * NUM_IRS
-    for name, (f, vi, pp) in CASCADE_SHAPES.items():
-        fdl = torch.tensor(rng.standard_normal((f, vi, 2, pp),
-                                               dtype=np.float32), device=dev)
-        rhs2 = torch.tensor(rng.standard_normal((f, 2, 2 * pp, kod),
-                                                dtype=np.float32), device=dev)
-        worst = max(worst, check_ring_mac(rm, fdl, rhs2, f"cascade {name}"))
-        t = timed[name] = time_ring_mac(rm, fdl, rhs2)
+    cases = [("f32", name) for name in CASCADE_SHAPES]
+    cases += [("bf16", name) for name in CASCADE_BF16_SHAPES]
+    for dtype, name in cases:
+        f, vi, pp = CASCADE_SHAPES[name]
+        fdl, rhs2 = (torch.tensor(rng.standard_normal(shape, dtype=np.float32),
+                                  device=dev)
+                     for shape in ((f, vi, 2, pp), (f, 2, 2 * pp, kod)))
+        if dtype == "bf16":
+            fdl, rhs2 = fdl.to(torch.bfloat16), rhs2.to(torch.bfloat16)
+        label = f"cascade {name}" + (" bf16" if dtype == "bf16" else "")
+        worst[dtype] = max(worst[dtype],
+                           check_ring_mac(rm, fdl, rhs2, label))
+        t = timed[dtype][name] = time_ring_mac(rm, fdl, rhs2)
         gbps = t["bytes"] / (t["kernel"] * 1e-3) / 1e9
-        print(f"ring_mac timing [cascade {name}]: kernel "
+        print(f"ring_mac timing [{label}]: kernel "
               f"{t['kernel'] * 1e3:.2f} us ({gbps:.0f} GB/s, "
               f"{100 * t['bound'] / t['kernel']:.1f} % of "
               f"the {t['bound'] * 1e3:.2f} us bound by {t['bound_by']}), "
@@ -4820,7 +4833,8 @@ def main() -> int:
     del ws_irs    # ws_bank serves phase 32's working set too
 
     # -- 13. ring_mac at the cascade's shapes ------------------------------------------
-    cas_err, cas_ms = check_cascade_shapes(rm, dev, rng)
+    cas_errs, cas_timed = check_cascade_shapes(rm, dev, rng)
+    cas_err, cas_ms = cas_errs["f32"], cas_timed["f32"]
 
     # -- 14. the cascade at full width, write side then read side ----------------------
     cas_runs = {}
@@ -4946,14 +4960,16 @@ def main() -> int:
                   (f"{mode}_{short}_step_p99_ms", p99),
                   (f"{mode}_{short}_step_device_busy_us", busy),
                   (f"{mode}_{short}_step_device_ops", ops)]
-    for shape, t in cas_ms.items():
-        key = f"ring_mac_cascade_{shape}"
-        lines += [(f"{key}_kernel_us", t["kernel"] * 1e3),
-                  (f"{key}_kernel_GBps",
-                   t["bytes"] / (t["kernel"] * 1e-3) / 1e9),
-                  (f"{key}_plain_us", t["plain"] * 1e3),
-                  (f"{key}_library_us", t["library"] * 1e3),
-                  (f"{key}_bound_us", t["bound"] * 1e3)]
+    for dtype, timed in cas_timed.items():
+        for shape, t in timed.items():
+            key = (f"ring_mac_cascade_{shape}"
+                   + ("_bf16" if dtype == "bf16" else ""))
+            lines += [(f"{key}_kernel_us", t["kernel"] * 1e3),
+                      (f"{key}_kernel_GBps",
+                       t["bytes"] / (t["kernel"] * 1e-3) / 1e9),
+                      (f"{key}_plain_us", t["plain"] * 1e3),
+                      (f"{key}_library_us", t["library"] * 1e3),
+                      (f"{key}_bound_us", t["bound"] * 1e3)]
     for kernel, timed in (("ring_mac", ring_ms), ("mac_shift", shift_ms)):
         for kod, t in timed.items():
             key = kernel if kod == kod_full else f"{kernel}_kod{kod}"
@@ -5325,12 +5341,15 @@ def main() -> int:
               + sum(r["launches"]["ring_mac_bf16"]
                     for r in chunked["runs"].values())
               + mesh["launches"]["ring_mac_bf16"],
-              max(bf16_err["ring_mac"], mesh_shapes("ring_mac_bf16")[1]),
+              max(bf16_err["ring_mac"], cas_errs["bf16"],
+                  mesh_shapes("ring_mac_bf16")[1]),
               bf16_kods("ring_mac"),
               source="tpu_audio_torch/csrc/ring_mac.cu",
-              cascade={shape: timings(t) for shape, t
-                       in bf16_ms["ring_mac"].items()
-                       if not shape.startswith("kod")},
+              cascade={**{shape: timings(t) for shape, t
+                          in bf16_ms["ring_mac"].items()
+                          if not shape.startswith("kod")},
+                       **{shape: timings(t) for shape, t
+                          in cas_timed["bf16"].items()}},
               mesh=mesh_shapes("ring_mac_bf16")[0]),
         entry("mac_shift_bf16", "tpu_audio/ops/pallas_mac.py:76",
               fm16["roll"]["launches"] + mesh["launches"]["mac_shift_bf16"],

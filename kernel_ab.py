@@ -16,9 +16,14 @@ other, this, this, other, `--rounds` times, 200 launches a run.
 `--dtype` picks the instantiation: f32 (`<name>_launch`, the default) or
 bf16 (`<name>_bf16_launch`, bf16 operands, f32 m). The shapes are the main
 path's at 64 voices, 4 s IRs and 256-frame blocks (F=257, VI=128, Pp=696)
-at KOD 16, 36 and 64 (4, 9 and 16 IRs) and, for ring_mac in bf16, the
-2048-voice cascade's head and tail (chip_smoke.py's CASCADE_2048_SHAPES,
-KOD 16). Every shape also reports whether the two sources' outputs are
+at KOD 16, 36 and 64 (4, 9 and 16 IRs) and, for ring_mac, the other
+shapes the paths give it (KOD 16 unless named): in f32 the cascade's head
+and tail at 64 and 1024 voices (chip_smoke.py's CASCADE_SHAPES), the
+512-voice bounce lanes' tail, a 64-voice mesh shard (voice = 2: VI=64) at
+KOD 16 and 64, and the bounce's 512 virtual voices (VI=1024); in bf16 the
+2048-voice cascade's head and tail (CASCADE_2048_SHAPES) and the tails at
+64 and 1280 voices (the mesh's 2560-voice run). Every shape also reports
+whether the two sources' outputs are
 bit-identical, and in f32 a difference is an error: the f32 kernels keep
 their results bit for bit (`tests/test_torch_cuda.py::
 test_f32_kernels_are_unchanged_at_a_fixed_seed`). Prints every run, the
@@ -35,7 +40,9 @@ from pathlib import Path
 
 import numpy as np
 
-from chip_smoke import CASCADE_2048_SHAPES, NUM_IRS, cuda_ms
+from chip_smoke import (BLOCK, BOUNCE_SEGMENTS, CAS_PP2, CAS_RATIO,
+                        CASCADE_2048_SHAPES, CASCADE_SHAPES, NUM_IRS,
+                        cuda_ms)
 
 F, VI, PP = 257, 128, 696
 KODS = (16, 36, 64)
@@ -44,12 +51,28 @@ REPS = 200
 ENTRIES = {"f32": "launch", "bf16": "bf16_launch"}
 
 
+def cascade_tail(voices):
+    """(F, VI, Pp) of one group's tail on the ratio-16 cascade."""
+    return CAS_RATIO * BLOCK + 1, 2 * voices // CAS_RATIO, CAS_PP2
+
+
 def shapes(name, dtype):
     """(label, F, VI, Pp, KOD) for one kernel and dtype."""
     out = [(f"kod{kod}", F, VI, PP, kod) for kod in KODS]
-    if name == "ring_mac" and dtype == "bf16":
-        out += [(label, f, vi, pp, 4 * NUM_IRS)
-                for label, (f, vi, pp) in CASCADE_2048_SHAPES.items()]
+    if name != "ring_mac":
+        return out
+    kod = 4 * NUM_IRS
+    if dtype == "f32":
+        out += [(label, *shape, kod) for label, shape
+                in CASCADE_SHAPES.items()]
+        out += [("tail_512v", *cascade_tail(512), kod),
+                *((f"shard_64v_kod{k}", F, VI // 2, PP, k) for k in (16, 64)),
+                ("bounce_512v", F, VI * BOUNCE_SEGMENTS, PP, kod)]
+    else:
+        out += [(label, *shape, kod) for label, shape
+                in CASCADE_2048_SHAPES.items()]
+        out += [("tail_64v", *cascade_tail(64), kod),
+                ("tail_1280v", *cascade_tail(1280), kod)]
     return out
 
 

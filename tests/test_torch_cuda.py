@@ -56,14 +56,17 @@ def test_kernel_matches_plain_version(cuda, f, vi, pp, kod, phase):
     assert err <= 1e-5 * want.abs().max().item()
 
 
-def _check_ring_mac_kernel(device, f, vi, pp, kod, phase, seed):
+def _check_ring_mac_kernel(device, f, vi, pp, kod, phase, seed,
+                           dtype=torch.float32):
     """One launch against the float64 plain version, within 1e-5 of the
-    output's scale; the launch is counted once."""
+    output's scale; the launch is counted once. `dtype` is the operands'
+    (float32 or bfloat16; m is float32)."""
     rng = np.random.default_rng(seed)
     fdl = torch.tensor(rng.standard_normal((f, vi, 2, pp), dtype=np.float32),
-                       device=device)
+                       device=device).to(dtype)
     rhs2 = torch.tensor(rng.standard_normal((f, 2, 2 * pp, kod),
-                                            dtype=np.float32), device=device)
+                                            dtype=np.float32),
+                        device=device).to(dtype)
     w = phase % pp
     before = ring_mac.launches
     got = ring_mac(torch.tensor(w, dtype=torch.int32, device=device), fdl, rhs2)
@@ -343,6 +346,50 @@ def test_kernel_matches_plain_version_at_cascade_shapes(cuda, f, vi, pp, kod,
     VI = 2V, P1p) and one group's tail (F2 = ratio*B+1, VI = 2V/ratio,
     P2p), whose few rows leave most of a 128-row tile empty."""
     _check_ring_mac_kernel(cuda, f, vi, pp, kod, phase, seed=f + vi + kod)
+
+
+# row counts below the 128-row tile: single rows, several bins to a tile
+# (1 to 24), one small tile (40, 64), even splits of a ragged VI (72 to
+# 200: VI = 160 is the 1280-voice cascade tail)
+SMALL_ROWS = (1, 7, 8, 16, 24, 40, 64, 72, 96, 136, 160, 200)
+DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("kod", [12, 16, 20, 36, 64, 68])
+@pytest.mark.parametrize("pp", [48, 696])
+@pytest.mark.parametrize("vi", SMALL_ROWS)
+def test_kernel_matches_plain_version_at_small_row_counts(cuda, vi, pp, kod,
+                                                          dtype):
+    """Both forms at row counts below the 128-row tile, the cascade tails'
+    Pp and the 64-voice line's, every column tile and a second column
+    group (KOD 68). F = 5 leaves the last tile of packed bins part empty."""
+    for phase in (0, 1, -1):
+        _check_ring_mac_kernel(cuda, 5, vi, pp, kod, phase,
+                               seed=[vi, pp, kod, phase + 1],
+                               dtype=DTYPES[dtype])
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("vi,pp", [(1, 4), (8, 4), (24, 8), (72, 12),
+                                   (160, 8)])
+def test_kernel_matches_plain_version_below_one_chunk(cuda, vi, pp, dtype):
+    """Q = 2Pp below one chunk of q (32 in f32, 64 in bf16): one ragged
+    chunk, zero-filled past Q."""
+    for phase in (0, 1, -1):
+        _check_ring_mac_kernel(cuda, 9, vi, pp, 16, phase,
+                               seed=[vi, pp, phase + 1], dtype=DTYPES[dtype])
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("vi", [8, 64, 160])
+def test_kernel_matches_plain_version_at_the_cascade_tails(cuda, vi, dtype):
+    """The cascade's tail at full width (F = 16 * 256 + 1, Pp = 48, KOD
+    16): 64, 512 and 1280 voices, many more tiles than the card holds
+    blocks at once."""
+    for phase in (0, 1, -1):
+        _check_ring_mac_kernel(cuda, 4097, vi, 48, 16, phase,
+                               seed=[vi, phase + 1], dtype=DTYPES[dtype])
 
 
 def _cascade_session(device, side, x):
@@ -815,12 +862,16 @@ def test_bf16_kernels_match_plain_version(cuda, kernel, f, vi, pp, kod):
 
 
 # (F, VI, Pp, KOD) of the f32 kernels' fixed-seed check: every column tile
-# (16, 32, 48, 64, and 64 + 16 at KOD 68), ragged rows and the 64-voice line
+# (16, 32, 48, 64, and 64 + 16 at KOD 68), ragged rows, the 64-voice line,
+# and row counts below the 128-row tile: packed bins (the 64-voice cascade
+# tail's VI = 8), a 64-voice mesh shard (VI = 64), an even split (VI = 160)
 F32_SHAPES = [(3, 130, 44, 68), (3, 129, 20, 32), (16, 128, 696, 16),
-              (16, 128, 696, 36), (16, 128, 696, 64)]
+              (16, 128, 696, 36), (16, 128, 696, 64), (64, 8, 48, 16),
+              (16, 64, 696, 64), (8, 160, 48, 16)]
 # sha256 of those outputs, as f32_output_digests gave them on an H100
 # with the f32 kernels' sources from before the bf16 kernels moved to the
-# tensor cores
+# tensor cores (the first five shapes) and from before ring_mac's tiles
+# followed VI below 128 rows (the last three)
 F32_DIGESTS = {
     "ring_mac 3x130x44x68":
         "e8fcb210e6757d47f20395a5ec6c41e13f242efbc74860d43ac7d14a0b343818",
@@ -842,6 +893,18 @@ F32_DIGESTS = {
         "1dc4a75851d508ea0c513f1e56e25141005ebd25daf2dc101bdb21a2628b5a11",
     "mac_shift 16x128x696x64":
         "15321067a4a5a19dded834d671cb79a179bad9d32d9026b3e1e82b7a473704a7",
+    "ring_mac 64x8x48x16":
+        "5b4798d193ea14253431b5cd233bb9604b765948fe3199a3b1ace9efedfa832c",
+    "mac_shift 64x8x48x16":
+        "25f5a6b5ef812c09ef012758d4e045518f8c9c3db2560387f10758e15021ef07",
+    "ring_mac 16x64x696x64":
+        "1606915b479754dc80794a214bab1e50234818535e2d81e5b2e9d142aea90ecc",
+    "mac_shift 16x64x696x64":
+        "6bb69db64c8d46bdff77c21cd811182bb340c828eb8e68066f0de11b75876619",
+    "ring_mac 8x160x48x16":
+        "e24ac407814486da2bed6827947959d782bf54dd0bba67e60db77b40283a1660",
+    "mac_shift 8x160x48x16":
+        "667cc57fe3511821f4d0449050118fce8faf2b48520fd1c8e87116a803857bdc",
 }
 
 

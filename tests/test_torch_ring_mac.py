@@ -80,6 +80,32 @@ def test_ring_mac_matches_the_jax_package_at_all_k_bank_sizes(k, w):
     np.testing.assert_allclose(got, want_ref, atol=1e-5)
 
 
+@pytest.mark.parametrize("kod", [16, 68])
+@pytest.mark.parametrize("pp", [24, 48])
+@pytest.mark.parametrize("vi", [1, 8, 20, 40])
+def test_ring_mac_matches_the_jax_package_at_small_row_counts(vi, pp, kod):
+    """Row counts below the CUDA kernel's 128-row tile, as the cascade's
+    tails (VI = 8 at 64 voices) and the mesh's shards give it, at the
+    tails' Pp = 48 and KOD 16 and 68 (two column groups on the card).
+    Q = 2Pp is up to 96 products here, three times the cases above, and
+    the f32 rounding of two correct sums grows with the sums: the operands
+    are drawn at half scale, so the outputs stay at those cases'
+    magnitudes under the same 1e-5."""
+    rng = np.random.default_rng([vi, pp, kod])
+    fdl = (0.5 * rng.standard_normal((4, 2, vi, pp))).astype(np.float32)
+    rhs2 = (0.5 * rng.standard_normal((4, 2, 2 * pp, kod))).astype(np.float32)
+    w = 5
+    want_kernel = np.asarray(jax_ring_mac(w, jnp.asarray(fdl),
+                                          jnp.asarray(rhs2), f_tile=2,
+                                          interpret=True))
+    want_ref = np.asarray(jax_ring_mac_reference(w, jnp.asarray(fdl),
+                                                 jnp.asarray(rhs2)))
+    got = ring_mac(_w(w), _port_fdl(fdl), torch.tensor(rhs2)).numpy()
+    assert got.shape == (4, vi, kod)
+    np.testing.assert_allclose(got, want_kernel, atol=1e-5)
+    np.testing.assert_allclose(got, want_ref, atol=1e-5)
+
+
 def test_ring_mac_reduces_the_block_counter_mod_p():
     """The engine passes its block counter (mod t_modulus), not the slot:
     any w congruent mod P selects the same window."""

@@ -23,8 +23,9 @@ form on the CUDA cores in full f32.
 
 ``ring_mac`` launches the CUDA kernel for the operands' dtype
 (``csrc/ring_mac.cu``: one pass over the delay line at every KOD <= 64,
-whatever the line's length) for a CUDA tensor and takes the plain version
-only for a CPU tensor. The kernel is compiled at first use and bound with
+whatever the line's length, in row tiles that follow VI: 128 rows when VI
+is a multiple of 128, smaller tiles, or several bins to a tile, below) for
+a CUDA tensor and takes the plain version only for a CPU tensor. The kernel is compiled at first use and bound with
 ``ctypes`` (ops/cuda_build.py); nothing CUDA-specific happens at import
 time.
 """
