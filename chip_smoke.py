@@ -242,7 +242,17 @@ Phases, in order; any failure raises and the script exits non-zero:
      cascade), and host ms per block, RTF, missed deadlines and the
      sharded steady step's device busy per block; then each kernel at
      every shape those mesh runs gave it (recorded as they ran) against
-     its plain version, timed beside its bound.
+     its plain version, timed beside its bound;
+ 33. roll mode at 96 voices (VI = 192 delay-line rows, no multiple of 128:
+     mac_shift's small tiles): phase 4's IRs, ring=False, 'allk', 400
+     blocks in f32 then 400 in bf16 through StreamSession with phase 7's
+     controls (a re-select, a swap_bank mid-fade, an interrupt); every
+     block must ride mac_shift (its bf16 form in bf16) and none ring_mac,
+     voices 0, 40, 64 and 95 (every f32 row tile and both bf16 ones) of
+     the f32 run must match the golden before the re-select and once the
+     fades decay, the bf16 run must track the f32 one at >= 40 dB SNR;
+     then each form at the session's shape against its plain version,
+     timed beside its bound, and the steady step's device busy.
 
 Phase 22 runs the app at the debug log level and prints the blocks that
 missed their deadline beside any silent playback periods.
@@ -250,13 +260,15 @@ missed their deadline beside any silent playback periods.
 The line before the last is a JSON object describing each kernel (its
 launches summed over the phases whose path rides it: 4, 11, 12, 14-17,
 18's cascade, 19-21, 30, 31 and 32 for ring_mac, 7, 10, 18's roll engine,
-30 and 32 for mac_shift, 27-28, 30 and 32 for ring_mac_bf16 and 27 and 32
-for mac_shift_bf16; its
+30, 32 and 33 for mac_shift, 27-28, 30 and 32 for ring_mac_bf16 and 27, 32
+and 33 for mac_shift_bf16; its
 times and roofline bound at KOD=16, under per_kod at KOD 16, 36 and 64,
 ring_mac's at the cascade's four shapes under cascade and at the bounce's
 shape under bounce, ring_mac_bf16's at the 2048-voice cascade's shapes
-and the 64-voice tail under cascade, and each kernel's at phase 32's shard shapes under mesh,
-whose errors its max_abs_err covers too); the last line is {"ok": true, "device": {...}}. The
+and the 64-voice tail under cascade, each kernel's at phase 32's shard
+shapes under mesh and mac_shift's two forms at phase 33's shape under
+roll96, whose errors its max_abs_err covers too); the last line is
+{"ok": true, "device": {...}}. The
 script imports nothing of JAX and nothing of the JAX package.
 """
 
@@ -395,6 +407,17 @@ OPS_CHUNK_BLOCKS, OPS_PROFILE_BLOCKS, OPS_CACHE_BLOCKS = 80, 40, 40
 MESH_EVERY, MESH_ROLL_BLOCKS, MESH_BF16_BLOCKS = 97, 400, 200
 MESH_CAS_VOICES, MESH_CAS_BLOCKS, MESH_CAS_SELECT_AT = 2560, 200, 100
 MESH_WS_BLOCKS, MESH_BOUNCE_SECONDS, MESH_BOUNCE_SEGMENTS = 200, 10, 16
+# phase 33: a roll session at 96 voices (VI = 192 delay-line rows, no
+# multiple of 128: mac_shift's small tiles) over phase 4's 4 IRs, 400
+# blocks in f32 then in bf16: a re-select at 60 (IR 1), a swap_bank
+# mid-fade at 80 to phase 7's bank new[k] = 0.5 * irs[ROLL_PERM[k]], an
+# interrupt at 86 (new IR 2); the golden before the re-select and from 320
+# (234 blocks after the interrupt, as phase 7), on voices 0, 40, 64 and
+# 95: rows 0, 80, 128 and 190, so each of the f32 form's three 64-row
+# tiles and the bf16 form's two 96-row tiles is held to the golden
+ROLL96_VOICES, ROLL96_BLOCKS, ROLL96_ROWS = 96, 400, (0, 40, 64, 95)
+ROLL96_SELECT_AT, ROLL96_SWAP_AT, ROLL96_INTERRUPT_AT = 60, 80, 86
+ROLL96_AFTER = 320
 # published peaks of one H100 SXM (NVIDIA's data sheet, dense), at the full
 # 700 W power limit: HBM bytes/s, and FLOP/s by operand type: f32 outside
 # the tensor cores, bf16 on them (bf16 products, f32 sums)
@@ -435,13 +458,14 @@ def golden(x, ir_pair, wet, dry, predelay):
     return out
 
 
-def noise_input(blocks, voices=VOICES, amplitude=0.01):
-    """The first and last voice of NoiseSource(voices, BLOCK, blocks,
-    amplitude, seed 0)."""
+def noise_input(blocks, voices=VOICES, amplitude=0.01, rows=None):
+    """Voices `rows` (the first and last by default) of NoiseSource(voices,
+    BLOCK, blocks, amplitude, seed 0)."""
     noise = np.random.default_rng(0)
+    rows = list(rows or (0, voices - 1))
     return np.concatenate(
         [(noise.standard_normal((voices, 2, BLOCK)) * amplitude
-          ).astype(np.float32)[[0, voices - 1]] for _ in range(blocks)],
+          ).astype(np.float32)[rows] for _ in range(blocks)],
         axis=-1)
 
 
@@ -454,12 +478,13 @@ def golden_error(out, x, i, b0, b1, ir, predelay, wet=0.7):
 
 
 def check_golden(name, out, x, windows, predelay, limit=1e-4,
-                 voices=VOICES):
-    """out, x [2 voices, 2, T]: the first and last of `voices`; windows:
-    (label, first block, end block, IR [2, L][, wet]) (wet 0.7 unless
-    given). Returns the largest error; raises beyond `limit`."""
+                 voices=VOICES, rows=None):
+    """out, x [rows, 2, T]: voices `rows` of `voices` (the first and last
+    by default); windows: (label, first block, end block, IR [2, L][, wet])
+    (wet 0.7 unless given). Returns the largest error; raises beyond
+    `limit`."""
     worst = 0.0
-    for i, v in enumerate((0, voices - 1)):
+    for i, v in enumerate(rows or (0, voices - 1)):
         for label, b0, b1, ir, *wet in windows:
             err = golden_error(out, x, i, b0, b1, ir, predelay, *wet)
             worst = max(worst, err)
@@ -2126,10 +2151,13 @@ def run_cli_bridge(irs):
     into tpu_audio_torch/_build; `python -m tpu_audio_torch.app --voices 1`
     serves a 4 s IR from shm rings, realtime on the native clock, with a
     live MIDI FIFO, while the bridge moves the stub's capture periods in
-    and its playback periods out. Returns the figures."""
+    and its playback periods out. The app warms its steps up before it
+    creates the rings and queues its default --output-latency of 4 silent
+    blocks ahead of the first output block. Returns the figures."""
     import os
     import re
     import tempfile
+    import threading
 
     from tpu_audio_torch.io.wav import write_wav
     from tpu_audio_torch.runtime import native
@@ -2142,6 +2170,23 @@ def run_cli_bridge(irs):
     in_name, out_name = f"/tpuaudio_cli_in_{tag}", f"/tpuaudio_cli_out_{tag}"
     repo = os.path.dirname(os.path.abspath(__file__))
     procs = []
+    # (seconds, output ring fill, input ring backlog), in blocks, sampled
+    # every millisecond from a second mapping of the app's rings
+    samples, sampling = [], threading.Event()
+
+    def sample_rings():
+        rings = [native.NativeRing.open(name) for name in (out_name, in_name)]
+        try:
+            while not sampling.is_set():
+                samples.append((time.perf_counter(),
+                                rings[0].readable // (2 * BLOCK),
+                                rings[1].readable // (2 * BLOCK)))
+                time.sleep(0.001)
+        finally:
+            for ring in rings:
+                ring.close()
+
+    sampler = threading.Thread(target=sample_rings, daemon=True)
     with tempfile.TemporaryDirectory() as tmp:
         write_wav(f"{tmp}/ir.wav", irs[0].T, RATE, bits=32)
         with open(f"{tmp}/bank.index", "w") as fh:
@@ -2184,6 +2229,7 @@ def run_cli_bridge(irs):
                                              f"{app.communicate()}")
                     time.sleep(0.02)
             ready_s = time.perf_counter() - t0
+            sampler.start()
             jack = subprocess.Popen(
                 [bridge, "--in-ring", in_name, "--out-ring", out_name,
                  "--expect-block", str(BLOCK), "--expect-rate", str(RATE),
@@ -2202,6 +2248,9 @@ def run_cli_bridge(irs):
             app_s = time.perf_counter() - t0
             jack_out, jack_err = jack.communicate(timeout=120)
         finally:
+            sampling.set()
+            if sampler.is_alive():
+                sampler.join()
             for proc in procs:
                 if proc.poll() is None:
                     proc.kill()
@@ -2210,6 +2259,9 @@ def run_cli_bridge(irs):
     summary = re.search(r"streamed (\d+) blocks.*", app_out)
     late = [(int(b), float(t)) for b, t in re.findall(
         r"missed deadline at block (\d+): ([\d.]+) ms", app_out)]
+    warm = re.search(r"warmed up in ([\d.]+) s", app_out)
+    print(f"CLI bridge: app warmed up in "
+          f"{float(warm.group(1)) if warm else float('nan'):.3f} s")
     print(f"CLI bridge: app ready (rings and FIFO) after {ready_s:.2f} s, "
           f"exited {app.returncode} after {app_s:.2f} s: "
           f"{summary.group(0) if summary else app_out.strip()[-400:]} "
@@ -2236,6 +2288,21 @@ def run_cli_bridge(irs):
           f"{first}, the next {body.size} periods non-silent "
           f"{int((body > 1e-3).sum())}, peak {float(peak.max()):.3f}")
     silent = (first + np.flatnonzero(body <= 1e-3)).tolist()
+    # the fill over the 900 periods after the app's first output block:
+    # the consumer's blocks in hand, what keeps a late block from a gap
+    ring_fill = None
+    at = np.array(samples, np.float64).reshape(-1, 3)
+    queued = np.flatnonzero(at[:, 1] > 0)
+    if queued.size:
+        t1 = at[queued[0], 0]
+        win = at[(at[:, 0] >= t1)
+                 & (at[:, 0] < t1 + (CLI_BLOCKS - 100) * BLOCK / RATE)]
+        ring_fill = {"out_min": int(win[:, 1].min()),
+                     "out_median": float(np.median(win[:, 1])),
+                     "out_max": int(win[:, 1].max()),
+                     "in_max": int(win[:, 2].max()), "samples": len(win)}
+    print(f"CLI bridge: rings over the 900 periods after the first output "
+          f"block (blocks, {len(samples)} samples ~1 ms apart): {ring_fill}")
     print(f"CLI bridge: {len(late)} blocks missed their deadline (block, ms): "
           f"{[(b, round(t, 2)) for b, t in late][:40]}")
     if silent:
@@ -2250,6 +2317,8 @@ def run_cli_bridge(irs):
     return {"periods": periods, "underruns": underruns, "overruns": overruns,
             "first_sounding_period": first, "app_s": app_s,
             "ready_s": ready_s, "summary": summary.group(0),
+            "warm_up_s": float(warm.group(1)) if warm else None,
+            "ring_fill": ring_fill,
             "late_blocks": len(late)}
 
 
@@ -4311,6 +4380,161 @@ def run_mesh(bank, irs, ws_bank, dev, configure, select, reset_counts, rm,
     return out
 
 
+def run_roll96(bank, irs, dev, configure, select, reset_counts, rm, ms):
+    """Phase 33: roll mode at 96 voices, whose VI = 192 delay-line rows are
+    no multiple of 128, so every step runs mac_shift's small tiles (f32:
+    three 64-row tiles a bin; bf16: two tiles of 6 warp slabs). Phase 4's
+    4 IRs, ring=False, 'allk', 400 blocks in f32 then in bf16 through
+    StreamSession with phase 7's controls: a re-select at 60 (the indexed
+    step), a swap_bank mid-fade at 80 (the general step) and an interrupt
+    at 86. Every block must launch mac_shift (the bf16 form in bf16) and
+    none ring_mac; f32 voices 0, 40, 64 and 95 (a row in each tile) must
+    match the golden before the re-select and once the fades decay against
+    the new bank, the bf16 run track the f32 one at >= 40 dB SNR. Then
+    each form at the session's own shape against its plain version, timed
+    beside its bound, and the steady step's device busy. Returns the
+    figures."""
+    import torch
+
+    from tpu_audio_torch.engine.bank import IRBank
+    from tpu_audio_torch.engine.fmajor import FMajorPartitionedConvolution
+    from tpu_audio_torch.engine.params import ControlPlane
+    from tpu_audio_torch.runtime.backends import BlockSink, NoiseSource
+    from tpu_audio_torch.runtime.stream import MidiSchedule, StreamSession
+
+    class RowSink(BlockSink):
+        """Keeps voices ROLL96_ROWS; checks every block is finite."""
+
+        def __init__(self):
+            self.kept, self.finite, self.blocks = [], True, 0
+
+        def write(self, block):
+            self.finite &= bool(np.isfinite(block).all())
+            self.kept.append(block[list(ROLL96_ROWS)].copy())
+            self.blocks += 1
+
+        def data(self):
+            return np.concatenate(self.kept, axis=-1)
+
+    voices, t_phase = ROLL96_VOICES, time.perf_counter()
+    new_irs = [irs[k] * np.float32(0.5) for k in ROLL_PERM]
+    swapped = IRBank(sample_rate=RATE)
+    for ir in new_irs:
+        swapped.append(ir)
+    xt = torch.randn((voices, 2, BLOCK), device=dev) * 0.01
+    out = {"runs": {}, "kernel_ms": {}, "kernel_err": {}}
+    outs = {}
+    for dtype in ("f32", "bf16"):
+        name = f"roll {voices} voices {dtype}"
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        roll = FMajorPartitionedConvolution(
+            voices, BLOCK, bank.max_partitions(BLOCK), max_predelay=8192,
+            ring=False, mac_strategy="allk", num_irs=NUM_IRS,
+            swap_snapshot=True, mac_dtype=dtype, device=dev)
+        roll_bank = roll.prepare_bank(bank.partitioned_spectra(BLOCK))
+        roll_bank2 = roll.prepare_bank(swapped.partitioned_spectra(BLOCK))
+        build_s = time.perf_counter() - t0
+        cp = ControlPlane(voices, NUM_IRS, 8192, device=dev)
+        configure(cp)
+        sink = RowSink()
+        session = StreamSession(
+            roll, roll_bank, cp,
+            NoiseSource(voices, BLOCK, ROLL96_BLOCKS, amplitude=0.01, seed=0),
+            sink, sample_rate=RATE)
+        state = roll.init_converged(roll_bank, cp.snapshot_device())
+        reset_counts()
+        t0 = time.perf_counter()
+        state = session.run(state, max_blocks=ROLL96_SWAP_AT,
+                            midi=MidiSchedule([select(ROLL96_SELECT_AT, 32)]))
+        indexed_before_swap = session.indexed_blocks
+        session.swap_bank(roll_bank2)
+        state = session.run(state, midi=MidiSchedule(
+            [select(ROLL96_INTERRUPT_AT - ROLL96_SWAP_AT, 64)]))
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches = (ms.mac_shift.launches, ms.mac_shift.launches_bf16,
+                    rm.ring_mac.launches)
+        steps = session.blocks_streamed
+        print(f"{name}: {steps} blocks, mac_shift launches {launches[0]} "
+              f"({launches[1]} bf16), ring_mac {launches[2]}, indexed blocks "
+              f"{session.indexed_blocks} ({indexed_before_swap} before the "
+              f"swap), general {session.general_blocks}, line "
+              f"{state.fdl.dtype} {tuple(state.fdl.shape)}")
+        want = (steps, steps if dtype == "bf16" else 0, 0)
+        if steps != ROLL96_BLOCKS or sink.blocks != ROLL96_BLOCKS:
+            raise AssertionError(f"{name}: streamed {steps} blocks, "
+                                 f"delivered {sink.blocks}")
+        if launches != want or state.fdl.shape[1] != 2 * voices:
+            raise AssertionError(f"{name}: launches {launches} in {steps} "
+                                 f"steps, line {tuple(state.fdl.shape)}")
+        if (session.bank is not roll_bank2 or indexed_before_swap < 15
+                or session.indexed_blocks != indexed_before_swap
+                or session.general_blocks < 60):
+            raise AssertionError(f"{name}: {session.indexed_blocks} indexed "
+                                 f"blocks ({indexed_before_swap} before the "
+                                 f"swap), {session.general_blocks} general")
+        if not sink.finite or not float(state.coef_a.max()) < 1e-6:
+            raise AssertionError(f"{name}: finite {sink.finite}, the fades "
+                                 f"decayed {float(state.coef_a.max()) < 1e-6}")
+        outs[dtype] = sink.data()
+        if dtype == "f32":
+            out["golden_err"] = check_golden(
+                name, outs[dtype],
+                noise_input(ROLL96_BLOCKS, voices, rows=ROLL96_ROWS),
+                (("before the re-select, IR 0", 0, ROLL96_SELECT_AT, irs[0]),
+                 ("after the fades decay, new bank IR 2 = 0.5 * IR "
+                  f"{ROLL_PERM[2]}", ROLL96_AFTER, ROLL96_BLOCKS,
+                  new_irs[2])),
+                predelay=int(cp.predelay[0, 0]), voices=voices,
+                rows=ROLL96_ROWS)
+        else:
+            out["snr"] = snr_db(outs["bf16"], outs["f32"])
+            print(f"{name}: voices {ROLL96_ROWS} against the f32 run, all "
+                  f"{ROLL96_BLOCKS} blocks: SNR {out['snr']:.2f} dB (limit "
+                  f"40)")
+            if not out["snr"] >= 40.0:
+                raise AssertionError(f"{name}: SNR {out['snr']:.2f} dB")
+        peak_mb = torch.cuda.max_memory_allocated() / 1e6
+        figures = session_figures(name, session, run_s, build_s, peak_mb,
+                                  roll.step_coef_steady, state,
+                                  xt,
+                                  f"{name} step_coef_steady")
+        figures["launches"] = launches[1] if dtype == "bf16" else launches[0]
+        out["runs"][dtype] = figures
+
+        # the kernel at the session's own shape, on random operands
+        kernel = "mac_shift_bf16" if dtype == "bf16" else "mac_shift"
+        f, vi, _, pp = state.fdl.shape
+        kod = roll_bank.mac_rhs.shape[3]
+        del session, state, roll, roll_bank, roll_bank2
+        torch.cuda.empty_cache()
+        gen = torch.Generator(device=dev).manual_seed(33)
+        op_dtype = torch.bfloat16 if dtype == "bf16" else torch.float32
+
+        def randn(*shape):
+            return torch.randn(shape, generator=gen, device=dev).to(op_dtype)
+
+        fdl, xn, rhs = randn(f, vi, 2, pp), randn(f, vi, 2, 1), randn(
+            f, 2, pp, kod)
+        label = f"{kernel} at the {voices}-voice roll session's shape"
+        out["kernel_err"][kernel] = check_mac_shift(ms, fdl, xn, rhs, label)
+        t = time_mac_shift(ms, fdl, xn, rhs)
+        out["kernel_ms"][kernel] = {f"f{f}_vi{vi}_pp{pp}_kod{kod}": t}
+        print(f"{kernel} timing [{voices}-voice roll F={f} VI={vi} Pp={pp} "
+              f"KOD={kod}]: kernel {t['kernel'] * 1e3:.2f} us "
+              f"({100 * t['bound'] / t['kernel']:.1f} % of the "
+              f"{t['bound'] * 1e3:.2f} us bound by {t['bound_by']}), plain "
+              f"{t['plain'] * 1e3:.2f} us, unshifted einsum "
+              f"{t['einsum'] * 1e3:.2f} us")
+        del fdl, xn, rhs
+        torch.cuda.empty_cache()
+    out["wall_s"] = time.perf_counter() - t_phase
+    print(f"phase 33: {out['wall_s']:.1f} s wall")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -4940,6 +5164,10 @@ def main() -> int:
     mesh = run_mesh(bank, irs, ws_bank, dev, configure, select, reset_counts,
                     rm, ms)
 
+    # -- 33. roll mode at 96 voices: mac_shift below its 128-row tile ------------------
+    roll96 = run_roll96(bank, irs, dev, configure, select, reset_counts, rm,
+                        ms)
+
     tag = f"[{card}]"
     lines = []
     shorts = {"step_coef_steady": "steady", "step_coef_indexed": "indexed",
@@ -5275,6 +5503,31 @@ def main() -> int:
                   for kernel, n in r["launches"].items() if n]
         lines += [(f"mesh_{label}_peak_allocated_MB_{d}", mb)
                   for d, mb in r.get("peak_mb", {}).items()]
+    lines += [("roll96_phase_wall_s", roll96["wall_s"]),
+              ("roll96_golden_max_abs_err", roll96["golden_err"]),
+              ("roll96_bf16_snr_vs_f32_db", roll96["snr"])]
+    for dtype, r in roll96["runs"].items():
+        s = r["summary"]
+        p50, p99, busy, ops = r["step"]
+        key = f"roll96_{dtype}"
+        lines += [(f"{key}_build_s", r["build_s"]),
+                  (f"{key}_peak_allocated_MB", r["peak_mb"]),
+                  (f"{key}_session_wall_p50_ms_per_block", s["p50_ms"]),
+                  (f"{key}_session_wall_p99_ms_per_block", s["p99_ms"]),
+                  (f"{key}_session_rtf", s["rtf"]),
+                  (f"{key}_session_missed_deadlines", s["missed_deadlines"]),
+                  (f"{key}_steady_step_p50_ms", p50),
+                  (f"{key}_steady_step_p99_ms", p99),
+                  (f"{key}_steady_step_device_busy_us", busy),
+                  (f"{key}_steady_step_device_ops", ops),
+                  (f"{key}_launches", r["launches"])]
+    for kernel, shapes in roll96["kernel_ms"].items():
+        for shape, t in shapes.items():
+            key = f"roll96_{kernel}_{shape}"
+            lines += [(f"{key}_kernel_us", t["kernel"] * 1e3),
+                      (f"{key}_plain_us", t["plain"] * 1e3),
+                      (f"{key}_einsum_us", t["einsum"] * 1e3),
+                      (f"{key}_bound_us", t["bound"] * 1e3)]
     for key, value in lines:
         print(f"{key} {value} {tag}")
 
@@ -5303,6 +5556,11 @@ def main() -> int:
                  for shape, t in mesh["kernel_ms"].get(kernel, {}).items()},
                 mesh["kernel_err"].get(kernel, 0.0))
 
+    def roll96_shapes(kernel):
+        """The kernel's timings at phase 33's shape."""
+        return {shape: timings(t)
+                for shape, t in roll96["kernel_ms"][kernel].items()}
+
     print(json.dumps({"kernels": [
         entry("ring_mac", "tpu_audio/ops/pallas_mac.py:160",
               launches + ring16_launches
@@ -5327,10 +5585,13 @@ def main() -> int:
               roll_launches + ceil_launches + engines["roll"]["launches"]
               + sum(r["launches"]["mac_shift"]
                     for r in chunked["runs"].values())
-              + mesh["launches"]["mac_shift"],
+              + mesh["launches"]["mac_shift"]
+              + roll96["runs"]["f32"]["launches"],
               max(shift_err, engines["roll"]["mac_err"],
-                  mesh_shapes("mac_shift")[1]), shift_ms,
-              mesh=mesh_shapes("mac_shift")[0]),
+                  mesh_shapes("mac_shift")[1],
+                  roll96["kernel_err"]["mac_shift"]), shift_ms,
+              mesh=mesh_shapes("mac_shift")[0],
+              roll96=roll96_shapes("mac_shift")),
         # the bf16 kernels (mac_dtype='bf16'): ring_mac's library_ms is
         # torch.bmm on the same bf16 operands with f32 out (the bf16
         # einsum, which rounds m to bf16, is printed on its own lines);
@@ -5352,11 +5613,14 @@ def main() -> int:
                           in cas_timed["bf16"].items()}},
               mesh=mesh_shapes("ring_mac_bf16")[0]),
         entry("mac_shift_bf16", "tpu_audio/ops/pallas_mac.py:76",
-              fm16["roll"]["launches"] + mesh["launches"]["mac_shift_bf16"],
-              max(bf16_err["mac_shift"], mesh_shapes("mac_shift_bf16")[1]),
+              fm16["roll"]["launches"] + mesh["launches"]["mac_shift_bf16"]
+              + roll96["runs"]["bf16"]["launches"],
+              max(bf16_err["mac_shift"], mesh_shapes("mac_shift_bf16")[1],
+                  roll96["kernel_err"]["mac_shift_bf16"]),
               bf16_kods("mac_shift"),
               source="tpu_audio_torch/csrc/mac_shift.cu",
-              mesh=mesh_shapes("mac_shift_bf16")[0])]}))
+              mesh=mesh_shapes("mac_shift_bf16")[0],
+              roll96=roll96_shapes("mac_shift_bf16"))]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

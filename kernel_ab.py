@@ -22,8 +22,12 @@ and tail at 64 and 1024 voices (chip_smoke.py's CASCADE_SHAPES), the
 512-voice bounce lanes' tail, a 64-voice mesh shard (voice = 2: VI=64) at
 KOD 16 and 64, and the bounce's 512 virtual voices (VI=1024); in bf16 the
 2048-voice cascade's head and tail (CASCADE_2048_SHAPES) and the tails at
-64 and 1280 voices (the mesh's 2560-voice run). Every shape also reports
-whether the two sources' outputs are
+64 and 1280 voices (the mesh's 2560-voice run); for mac_shift, in both
+dtypes, the mesh's roll shards at Pp=348 (VI=128 in f32 over part = 2,
+VI=64 in bf16 over voice = 2 x part = 2; KOD 16), VI=64 at Pp=696 (a
+32-voice roll, or a 64-voice one over voice = 2) at KOD 16 and 64, VI=192
+(96 voices, chip_smoke.py's phase 33) and VI=8 (4 voices) at KOD 16.
+Every shape also reports whether the two sources' outputs are
 bit-identical, and in f32 a difference is an error: the f32 kernels keep
 their results bit for bit (`tests/test_torch_cuda.py::
 test_f32_kernels_are_unchanged_at_a_fixed_seed`). Prints every run, the
@@ -59,6 +63,13 @@ def cascade_tail(voices):
 def shapes(name, dtype):
     """(label, F, VI, Pp, KOD) for one kernel and dtype."""
     out = [(f"kod{kod}", F, VI, PP, kod) for kod in KODS]
+    if name == "mac_shift":
+        return out + [("shard_128v_pp348", F, VI, PP // 2, 16),
+                      ("shard_64v_pp348", F, VI // 2, PP // 2, 16),
+                      ("vi64_kod16", F, VI // 2, PP, 16),
+                      ("vi64_kod64", F, VI // 2, PP, 64),
+                      ("vi192_kod16", F, 3 * VI // 2, PP, 16),
+                      ("vi8_kod16", F, 8, PP, 16)]
     if name != "ring_mac":
         return out
     kod = 4 * NUM_IRS

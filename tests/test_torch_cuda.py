@@ -110,16 +110,19 @@ def test_kernel_refuses_an_odd_pp(cuda):
         ring_mac(torch.zeros((), dtype=torch.int32, device=cuda), fdl, rhs2)
 
 
-def _check_mac_shift_kernel(device, f, vi, pp, kod, seed):
+def _check_mac_shift_kernel(device, f, vi, pp, kod, seed,
+                            dtype=torch.float32):
     """One launch against the float64 plain version: the shifted line
-    bit-equal, m within 1e-5 of the output's scale."""
+    bit-equal, m within 1e-5 of the output's scale. `dtype` is the
+    operands' (float32 or bfloat16; m is float32)."""
     rng = np.random.default_rng(seed)
-    fdl = torch.tensor(rng.standard_normal((f, vi, 2, pp), dtype=np.float32),
-                       device=device)
-    x_new = torch.tensor(rng.standard_normal((f, vi, 2, 1), dtype=np.float32),
-                         device=device)
-    rhs = torch.tensor(rng.standard_normal((f, 2, pp, kod), dtype=np.float32),
-                       device=device)
+
+    def operand(*shape):
+        return torch.tensor(rng.standard_normal(shape, dtype=np.float32),
+                            device=device).to(dtype)
+
+    fdl, x_new, rhs = (operand(f, vi, 2, pp), operand(f, vi, 2, 1),
+                       operand(f, 2, pp, kod))
     want_fdl, want = mac_shift_reference(fdl.double(), x_new.double(),
                                          rhs.double())
     before = mac_shift.launches
@@ -131,17 +134,45 @@ def _check_mac_shift_kernel(device, f, vi, pp, kod, seed):
     assert err <= 1e-5 * want.abs().max().item()
 
 
+# mac_shift below its 128-row tile, (F, VI, Pp, KOD): one small tile (8,
+# 24, 64), even splits of a ragged VI (96: 2 x 48, 160: 3 x 54, 192: 3 x
+# 64), every column tile, KOD 80 at VI 64 (two column groups, the shift
+# written in the last), and many bins of a few rows each (F = 1101)
+MAC_SHIFT_SMALL_ROWS = [
+    (5, 8, 40, 16), (3, 24, 44, 32), (3, 64, 52, 48), (3, 64, 136, 64),
+    (3, 64, 44, 80), (4, 96, 40, 20), (2, 160, 52, 36), (2, 192, 136, 16),
+    (2, 192, 44, 68), (1101, 8, 24, 16), (1101, 24, 20, 12),
+    (1101, 16, 24, 32), (1101, 8, 8, 64)]
+
+
 @pytest.mark.parametrize("f,vi,pp,kod", [
     (7, 4, 16, 8), (5, 6, 24, 4), (3, 20, 40, 32), (4, 4, 8, 12),
     (9, 33, 56, 16), (6, 10, 136, 64), (2, 3, 8, 12),
     (3, 130, 40, 4), (2, 130, 44, 20), (3, 130, 40, 36), (2, 131, 52, 60),
-    (2, 130, 136, 64), (2, 129, 40, 80)])
+    (2, 130, 136, 64), (2, 129, 40, 80), (2, 256, 44, 16), (2, 256, 44, 36),
+    *MAC_SHIFT_SMALL_ROWS])
 def test_mac_shift_kernel_matches_plain_version(cuda, f, vi, pp, kod):
-    """Every KOD <= 64 takes one column tile (16, 32 or 64 wide, the columns
-    past KOD masked); KOD 80 takes two column groups, the shifted rows
-    written in the last. VI 129-131 leaves a ragged second row tile of 128;
-    Pp 40, 44, 52 and 136 put a 32-q chunk across the plane boundary."""
+    """Every KOD <= 64 takes one column tile (16, 32, 48 or 64 wide, the
+    columns past KOD masked); KOD 68 and 80 take two column groups, the
+    shifted rows written in the last. VI a multiple of 128 takes the
+    128-row tiles at KOD > 16 (VI 256: two of them), any other VI and
+    every KOD <= 16 the 64-row tiles (MAC_SHIFT_SMALL_ROWS; VI 129-131: an
+    even split into 44-row tiles; VI 256 at KOD 16: 4 x 64); Pp 40, 44, 52
+    and 136 put a 32-q chunk across the plane boundary."""
     _check_mac_shift_kernel(cuda, f, vi, pp, kod, seed=f * 1000 + vi + kod)
+
+
+def test_mac_shift_kernel_sets_up_each_tiling_once_per_device(cuda):
+    """Launches that alternate row counts and column tiles (the f32
+    form's 128-row and 64-row kernels, the bf16 form's tiles of 1 to 8
+    slabs), both dtypes, on one device: each kernel's shared-memory
+    ceiling is raised at its first launch only, and every launch after it
+    still matches the plain version."""
+    for dtype in (torch.float32, torch.bfloat16):
+        for vi, kod in [(64, 16), (128, 16), (8, 64), (128, 64), (192, 36),
+                        (64, 16), (128, 16), (8, 64), (24, 48)]:
+            _check_mac_shift_kernel(cuda, 3, vi, 44, kod, seed=vi + kod,
+                                    dtype=dtype)
 
 
 @pytest.mark.parametrize("pp,kod", [(2048, 16), (8192, 4)])
@@ -810,6 +841,17 @@ BF16_EDGES = [(3, 130, 4, 16), (3, 17, 4, 12), (3, 130, 44, 12),
               (2, 130, 2048, 16), (2, 130, 2048, 64), (2, 130, 8192, 16),
               (2, 130, 8192, 64)]
 BF16_CASCADE_2048 = [(257, 4096, 32, 16), (4097, 256, 48, 16)]
+# mac_shift's warp-slab tiles, (F, VI, Pp, KOD): one slab (VI 8), one tile
+# of 2 to 4 slabs (24, 64), even splits (96: 6 slabs, 160: 2 x 5, 192: 2 x
+# 6), whole tiles of 8 slabs (128, 256: 2 x 8), every column tile, KOD 80
+# at VI 64 (the shift in the last column group), Pp 20, 44 and 136 (a 64-q
+# chunk across the plane boundary), the mesh's shard (VI 64, Pp 348), and
+# many bins of a few rows each (F = 1101)
+BF16_MAC_SHIFT_SLABS = [(2, 128, 136, 64), (2, 256, 44, 16),
+    (5, 8, 44, 16), (3, 24, 20, 32), (3, 64, 136, 48), (3, 64, 44, 64),
+    (3, 64, 44, 80), (3, 64, 348, 16), (4, 96, 20, 20), (2, 160, 136, 36),
+    (2, 192, 44, 16), (2, 192, 136, 68), (1101, 8, 44, 16),
+    (1101, 24, 20, 12), (1101, 40, 8, 64)]
 
 
 @pytest.mark.parametrize("kernel,f,vi,pp,kod", [
@@ -818,6 +860,9 @@ BF16_CASCADE_2048 = [(257, 4096, 32, 16), (4097, 256, 48, 16)]
       for kod in (4, 16, 36, 64, 68)),
     *(pytest.param(kernel, *shape, id=f"{kernel}-{'-'.join(map(str, shape))}")
       for kernel in ("ring_mac", "mac_shift") for shape in BF16_EDGES),
+    *(pytest.param("mac_shift", *shape,
+                   id=f"mac_shift-{'-'.join(map(str, shape))}")
+      for shape in BF16_MAC_SHIFT_SLABS),
     *(pytest.param("ring_mac", *shape,
                    id=f"ring_mac-{'-'.join(map(str, shape))}")
       for shape in BF16_CASCADE_2048)])
@@ -864,14 +909,16 @@ def test_bf16_kernels_match_plain_version(cuda, kernel, f, vi, pp, kod):
 # (F, VI, Pp, KOD) of the f32 kernels' fixed-seed check: every column tile
 # (16, 32, 48, 64, and 64 + 16 at KOD 68), ragged rows, the 64-voice line,
 # and row counts below the 128-row tile: packed bins (the 64-voice cascade
-# tail's VI = 8), a 64-voice mesh shard (VI = 64), an even split (VI = 160)
+# tail's VI = 8), a 64-voice mesh shard (VI = 64), even splits (VI = 160,
+# and VI = 192: a 96-voice roll session's line)
 F32_SHAPES = [(3, 130, 44, 68), (3, 129, 20, 32), (16, 128, 696, 16),
               (16, 128, 696, 36), (16, 128, 696, 64), (64, 8, 48, 16),
-              (16, 64, 696, 64), (8, 160, 48, 16)]
+              (16, 64, 696, 64), (8, 160, 48, 16), (4, 192, 696, 16)]
 # sha256 of those outputs, as f32_output_digests gave them on an H100
 # with the f32 kernels' sources from before the bf16 kernels moved to the
-# tensor cores (the first five shapes) and from before ring_mac's tiles
-# followed VI below 128 rows (the last three)
+# tensor cores (the first five shapes), from before ring_mac's tiles
+# followed VI below 128 rows (the next three) and from before mac_shift's
+# did (the last: mac_shift's 128-row tiles, ring_mac's small ones)
 F32_DIGESTS = {
     "ring_mac 3x130x44x68":
         "e8fcb210e6757d47f20395a5ec6c41e13f242efbc74860d43ac7d14a0b343818",
@@ -905,6 +952,10 @@ F32_DIGESTS = {
         "e24ac407814486da2bed6827947959d782bf54dd0bba67e60db77b40283a1660",
     "mac_shift 8x160x48x16":
         "667cc57fe3511821f4d0449050118fce8faf2b48520fd1c8e87116a803857bdc",
+    "ring_mac 4x192x696x16":
+        "60924fcdeceacd1c404e2232bc1740c2f4808bf667ae32240a30bd7e88fd518b",
+    "mac_shift 4x192x696x16":
+        "6003b4859e9d814e74f25fcf9b87d60979533d1970d3c12a5e3e738e2978a000",
 }
 
 

@@ -320,7 +320,7 @@ def test_alsa_rawmidi_path_convention(tmp_path):
 # -- live MIDI in the session ------------------------------------------------------------
 
 
-def _small_model(jax_side, voices=1, mapping=None):
+def _small_model(jax_side, voices=1, mapping=None, engine="fmajor"):
     rng = np.random.default_rng(2)
     bank = JaxIRBank() if jax_side else IRBank()
     for _ in range(2):
@@ -331,7 +331,8 @@ def _small_model(jax_side, voices=1, mapping=None):
                           backend="fft")
     else:
         model = ConvolutionReverb(bank, num_voices=voices, block=32,
-                                  max_predelay=64, device="cpu")
+                                  max_predelay=64, device="cpu",
+                                  engine=engine)
     cls = JaxCCMapping if jax_side else CCMapping
     for v in range(voices):
         for ch in range(2):
@@ -437,6 +438,104 @@ def test_session_native_clock_paces_and_reports(built):
     with pytest.raises(ValueError, match="unknown clock"):
         model.session(WavSource(x, 1, 32), WavSink("/dev/null"),
                       clock="jack")
+
+
+def test_ring_sink_queues_its_latency_ahead_of_the_first_block(built):
+    """RingSink(latency_blocks=3) puts three silent blocks into the ring
+    just before the first block and none before later ones; RingSource's
+    backlog counts the whole blocks waiting in its ring."""
+    ring = native.NativeRing(8 * 2 * 2 * 32)
+    sink, src = (native.RingSink(ring, latency_blocks=3),
+                 native.RingSource(ring, 2, 32))
+    assert src.backlog() == 0
+    blocks = [np.random.default_rng(k).standard_normal((2, 2, 32)
+                                                       ).astype(np.float32)
+              for k in range(2)]
+    sink.write(blocks[0])
+    assert src.backlog() == 4
+    sink.write(blocks[1])
+    assert src.backlog() == 5 and sink.dropped == 0
+    for _ in range(3):
+        np.testing.assert_array_equal(src.read(), np.zeros((2, 2, 32)))
+    np.testing.assert_array_equal(src.read(), blocks[0])
+    np.testing.assert_array_equal(src.read(), blocks[1])
+    assert src.read() is None and src.backlog() == 0
+    ring.write(np.ones(2 * 2 * 32 + 5, np.float32))   # a block and a part
+    assert src.backlog() == 1
+    ring.close()
+
+
+class _CountingClock:
+    """Stands in for the native clock of a realtime session and counts
+    its waits."""
+
+    def __init__(self):
+        self.waits = self.ticks = self.missed = 0
+
+    def wait(self):
+        self.waits += 1
+        return 0.0
+
+    def close(self):
+        pass
+
+
+def test_realtime_session_takes_its_sources_backlog_at_once(built):
+    """A realtime session waits for its clock only while its source's
+    producer is not ahead of it: six blocks already waiting in a ring are
+    taken back to back (one wait, after the last of them), a WAV source is
+    paced after every block, and the two outputs are the same."""
+    x = (np.random.default_rng(6).standard_normal((1, 2, 32 * 6)) * 0.05
+         ).astype(np.float32)
+    ring = native.NativeRing(8 * 2 * 32)
+    for k in range(6):
+        assert ring.write(np.ascontiguousarray(x[..., 32 * k: 32 * k + 32]))
+    outs, waits = {}, {}
+    for label, src in (("ring", native.RingSource(ring, 1, 32)),
+                       ("wav", WavSource(x, 1, 32))):
+        model = _small_model(False)
+        sink = WavSink("/dev/null", keep_data=True)
+        session = model.session(src, sink, warmup=0, realtime=True,
+                                clock="native")
+        clock = _CountingClock()
+        session._open_clock = lambda clock=clock: clock
+        session.run(model.init_state())
+        assert session.blocks_streamed == 6
+        outs[label], waits[label] = sink.data, clock.waits
+    ring.close()
+    assert waits == {"ring": 1, "wav": 6}
+    np.testing.assert_array_equal(outs["ring"], outs["wav"])
+
+
+@pytest.mark.parametrize("engine,chunk", [("fmajor", 1), ("fmajor", 2),
+                                          ("partitioned", 1),
+                                          ("monolithic", 1)])
+def test_warm_up_leaves_the_stream_as_it_was(engine, chunk):
+    """StreamSession.warm_up steps silence through every step of the
+    session on a throwaway state: nothing reaches the sink, the control
+    plane does not move, and the stream that follows (a select fading and
+    a wet change, so the fade steps run too) is the same to the bit as the
+    one of a session that was not warmed up."""
+    by_poll = {3: [("", bytes([0xB0, 0x15, 100]))],
+               5: [("", bytes([0xB0, 0x18, 40]))]}
+    x = (np.random.default_rng(7).standard_normal((1, 2, 32 * 12)) * 0.05
+         ).astype(np.float32)
+    outs = {}
+    for warm in (True, False):
+        model = _small_model(False, engine=engine)
+        sink = WavSink("/dev/null", keep_data=True)
+        session = model.session(WavSource(x, 1, 32), sink, warmup=0,
+                                chunk_blocks=chunk)
+        if warm:
+            blocks = model.control.blocks
+            assert session.warm_up(model.init_state()) > 0
+            assert sink.data.shape[-1] == 0
+            assert model.control.blocks == blocks
+        session.run(model.init_state(), live_midi=_ScriptedLive(by_poll))
+        outs[warm] = sink.data
+        assert model.control.select[0, 0] == 1
+    assert outs[True].shape[-1] == 32 * 12
+    np.testing.assert_array_equal(outs[True], outs[False])
 
 
 # -- the JACK bridges --------------------------------------------------------------------
@@ -646,7 +745,8 @@ def test_cli_streams_between_two_processes_until_enter(built, tmp_path):
     """The app (a second process) serves shm ring -> engine -> shm ring in
     real time on the native clock, with a live MIDI FIFO, until Enter; this
     process produces, consumes and presses Enter (the JAX package's
-    tests/test_live_path.py:76-135 topology)."""
+    tests/test_live_path.py:76-135 topology). The output ring starts with
+    the app's default --output-latency of 4 silent blocks."""
     _write_assets(tmp_path)
     uid = f"{os.getpid()}_{np.random.randint(1e9)}"
     name_in, name_out = f"/tat_cli_in_{uid}", f"/tat_cli_out_{uid}"
@@ -688,7 +788,7 @@ def test_cli_streams_between_two_processes_until_enter(built, tmp_path):
         os.close(wfd)
         rng = np.random.default_rng(0)
         sent = 0
-        while len(got) < 30 and time.time() < deadline:
+        while len(got) < 4 + 30 and time.time() < deadline:
             if sent < 40 and rings[name_in].write(
                     (rng.standard_normal(floats) * 0.1).astype(np.float32)):
                 sent += 1
@@ -707,8 +807,9 @@ def test_cli_streams_between_two_processes_until_enter(built, tmp_path):
             app.kill()
             app.communicate()
     assert app.returncode == 0, (out, err)
-    assert len(got) == 30
-    audio = np.concatenate(got, axis=-1)
+    assert len(got) == 4 + 30
+    assert not np.concatenate(got[:4]).any()
+    audio = np.concatenate(got[4:], axis=-1)
     assert np.isfinite(audio).all() and np.abs(audio).max() > 1e-4
     summary = re.search(r"streamed (\d+) blocks .*\| missed \d+ \| underruns "
                         r"\d+ \| dropped (\d+)", out)

@@ -29,12 +29,12 @@ F, VI, P, K, O = 8, 4, 16, 2, 2
 KOD = K * O * 2
 
 
-def _inputs(seed=0):
+def _inputs(seed=0, vi=VI):
     """JAX-layout fdl [F, 2, VI, P], x_new [F, 2, VI, 1], the complex
     spectra and the packed natural-order rhs."""
     rng = np.random.default_rng(seed)
-    fdl = rng.standard_normal((F, 2, VI, P)).astype(np.float32)
-    x_new = rng.standard_normal((F, 2, VI, 1)).astype(np.float32)
+    fdl = rng.standard_normal((F, 2, vi, P)).astype(np.float32)
+    x_new = rng.standard_normal((F, 2, vi, 1)).astype(np.float32)
     spectra = (rng.standard_normal((K, O, P, F))
                + 1j * rng.standard_normal((K, O, P, F))).astype(np.complex64)
     return fdl, x_new, spectra, pack_rhs_planes(spectra)
@@ -50,8 +50,12 @@ def _jax(t: torch.Tensor) -> np.ndarray:
     return np.swapaxes(t.numpy(), 1, 2)
 
 
-def test_mac_shift_matches_pallas_kernel_and_reference():
-    fdl, x_new, _, rhs = _inputs(1)
+@pytest.mark.parametrize("vi", [VI, 64, 192])
+def test_mac_shift_matches_pallas_kernel_and_reference(vi):
+    """VI 64 and 192 are row counts the CUDA kernel takes in tiles below
+    its 128-row tile (one 64-row tile, an even split into three); the
+    plain version the port runs here is held to the same functions."""
+    fdl, x_new, _, rhs = _inputs(1, vi)
     want_fdl, want_m = jax_mac_shift_reference(
         jnp.asarray(fdl), jnp.asarray(x_new), jnp.asarray(rhs))
     kern_fdl, kern_m = jax_mac_shift(jnp.asarray(fdl), jnp.asarray(x_new),
@@ -243,3 +247,93 @@ def test_mac_shift_rejects_what_the_kernel_does_not_take(case):
         x_new = fdl.reshape(-1)[: F * VI * 2].reshape(F, VI, 2, 1)
     with pytest.raises((TypeError, ValueError)):
         mac_shift(fdl, x_new, rhs)
+
+
+def test_roll_session_at_three_voices_matches_the_jax_package():
+    """A roll-mode session at 3 voices (VI = 6, a row count no power of
+    two) through both packages' StreamSession: steady blocks, a re-select
+    (collapse_pure, the indexed step), a swap_bank mid-fade (the general
+    step) and an interrupting re-select, every block through mac_shift;
+    the outputs agree within 2e-5."""
+    import jax
+
+    from tpu_audio.engine import ControlPlane as JaxControlPlane
+    from tpu_audio.engine import IRBank as JaxIRBank
+    from tpu_audio.engine.fmajor import (
+        FMajorPartitionedConvolution as JaxFMajor,
+    )
+    from tpu_audio.engine.params import CCMapping as JaxCCMapping
+    from tpu_audio.runtime.backends import WavSink as JaxWavSink
+    from tpu_audio.runtime.backends import WavSource as JaxWavSource
+    from tpu_audio.runtime.stream import MidiSchedule as JaxMidiSchedule
+    from tpu_audio.runtime.stream import StreamSession as JaxSession
+    from tpu_audio_torch.engine import ControlPlane, IRBank
+    from tpu_audio_torch.engine.fmajor import FMajorPartitionedConvolution
+    from tpu_audio_torch.engine.params import CCMapping
+    from tpu_audio_torch.runtime.backends import WavSink, WavSource
+    from tpu_audio_torch.runtime.stream import MidiSchedule, StreamSession
+
+    voices, block, num_irs, blocks, swap_at = 3, 32, 3, 40, 14
+    rng = np.random.default_rng(16)
+    irs = [ir * np.float32(0.4 / np.abs(ir).max()) for ir in
+           rng.standard_normal((num_irs, 2, 300)).astype(np.float32)]
+    x = (rng.standard_normal((voices, 2, blocks * block)) * 0.05
+         ).astype(np.float32)
+    events = [(10, 64), (swap_at + 4, 127)]     # CC 21: IR 1, then IR 2
+
+    def run(jax_side):
+        # the bank, then the one swapped in: its IRs reversed and halved
+        banks = [JaxIRBank() if jax_side else IRBank() for _ in range(2)]
+        for ir in irs:
+            banks[0].append(ir)
+        for ir in irs[::-1]:
+            banks[1].append(ir * np.float32(0.5))
+        kwargs = dict(max_predelay=64, ring=False, mac_strategy="allk",
+                      num_irs=num_irs, swap_snapshot=True)
+        p = banks[0].max_partitions(block)
+        if jax_side:
+            engine = JaxFMajor(voices, block, p, backend="fft", **kwargs)
+            control = JaxControlPlane(voices, num_irs, 64)
+            mapping, schedule = JaxCCMapping, JaxMidiSchedule
+            source_cls, sink_cls = JaxWavSource, JaxWavSink
+        else:
+            engine = FMajorPartitionedConvolution(voices, block, p,
+                                                  device="cpu", **kwargs)
+            control = ControlPlane(voices, num_irs, 64, device="cpu")
+            mapping, schedule = CCMapping, MidiSchedule
+            source_cls, sink_cls = WavSource, WavSink
+        control.wet[:] = 0.8
+        control.dry[:] = 0.2
+        control.speed[:] = 10
+        control.predelay[:] = [[5, 0], [17, 40], [3, 3]]
+        for v in range(voices):
+            for ch in range(2):
+                control.set_mapping(v, ch, mapping(message=0xB0, select=0x15))
+        spectra = [engine.prepare_bank(b.partitioned_spectra(block))
+                   for b in banks]
+        extra = {"donate": False} if jax_side else {}
+        session = (JaxSession if jax_side else StreamSession)(
+            engine, spectra[0], control, None, None, warmup=0, **extra)
+        params = (jax.tree.map(jax.numpy.asarray, control.snapshot())
+                  if jax_side else control.snapshot_device())
+        state = engine.init_converged(spectra[0], params)
+        out = []
+        # blocks [0, swap_at), then the swap and the rest of the stream
+        for b0, b1 in ((0, swap_at), (swap_at, blocks)):
+            if b0:
+                session.swap_bank(spectra[1])
+            session.source = source_cls(x[..., b0 * block: b1 * block],
+                                        voices, block)
+            session.sink = sink_cls("/dev/null", keep_data=True)
+            state = session.run(state, midi=schedule(
+                [(b - b0, "", bytes([0xB0, 0x15, value]))
+                 for b, value in events if b0 <= b < b1]))
+            out.append(session.sink.data)
+        return np.concatenate(out, axis=-1), session
+
+    got, session = run(jax_side=False)
+    want, _ = run(jax_side=True)
+    assert got.shape == want.shape == (voices, 2, blocks * block)
+    assert session.indexed_blocks > 0 and session.general_blocks > 0
+    assert np.abs(want).max() > 1e-2
+    np.testing.assert_allclose(got, want, atol=2e-5)

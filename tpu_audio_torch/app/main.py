@@ -28,6 +28,7 @@ The live path (a server fed by another process, until Enter or EOF):
 
     python -m tpu_audio_torch.app --settings settings.txt \
         --input-ring tpu_in --output-ring tpu_out [--ring-blocks 64] \
+        [--output-latency 4] \
         --realtime --clock native [--midi-fifo [DEV=]PATH ...] \
         [--underrun stop|silence] [--max-dry-blocks N] --until-enter
 
@@ -121,6 +122,11 @@ def build_parser() -> argparse.ArgumentParser:
                         "(created here; another process consumes it)")
     p.add_argument("--ring-blocks", type=int, default=64,
                    help="shm ring capacity in blocks")
+    p.add_argument("--output-latency", type=int, default=4, metavar="BLOCKS",
+                   help="silent blocks queued in --output-ring ahead of the "
+                        "first output block: the consumer then plays a "
+                        "block that is up to this many periods late on "
+                        "time")
     p.add_argument("--underrun", default=None, choices=["stop", "silence"],
                    help="source-dry policy (default: silence when "
                         "--input-ring is used, else stop)")
@@ -457,6 +463,15 @@ def _stream(args, model, rings: list) -> int:
     """Stream through the session; shm rings opened here are appended to
     `rings` (the caller unlinks them)."""
     v, b = model.engine.num_voices, model.block
+    if args.input_ring or args.output_ring:
+        # the process's first step loads the kernels and plans the FFTs;
+        # take it before the rings exist, so that the first block a
+        # producer writes is rendered in time and no backlog of captured
+        # blocks builds up behind it
+        warm = model.session(SilenceSource(v, b, 1), NullSink(),
+                             chunk_blocks=args.chunk_blocks)
+        Log.info("app", "warmed up in %.3f s",
+                 warm.warm_up(model.init_state()))
     if args.input_ring:
         from tpu_audio_torch.runtime.native import NativeRing, RingSource
         ring_in = NativeRing(args.ring_blocks * v * 2 * b,
@@ -486,7 +501,7 @@ def _stream(args, model, rings: list) -> int:
         ring_out = NativeRing(args.ring_blocks * v * 2 * b,
                               shm_name=args.output_ring)
         rings.append(ring_out)
-        sink = RingSink(ring_out)
+        sink = RingSink(ring_out, latency_blocks=args.output_latency)
         Log.info("app", "output ring /dev/shm/%s (%d blocks)",
                  args.output_ring, args.ring_blocks)
     elif args.output:

@@ -182,6 +182,7 @@
 #include <atomic>
 
 #include "cp_async.cuh"
+#include "launch_once.cuh"
 #include "mma_bf16.cuh"
 
 namespace {
@@ -196,7 +197,6 @@ constexpr int kStages = 4;                  // depth of the cp.async ring
 // fdl tile row stride in floats: the chunk plus one 16-byte vector, so a
 // warp's rows fall in distinct banks
 constexpr int kAStride = kQC + 4;
-constexpr int kMaxDevices = 64;             // launch state kept per device
 
 template <int KT>
 __host__ __device__ constexpr int stage_elems() {
@@ -732,26 +732,6 @@ ring_mac_bf16_kernel(const int* __restrict__ wptr,
 
 // -- launches ---------------------------------------------------------------
 
-// the device this host thread launches on, an index into per-device state
-cudaError_t current_device(int* dev) {
-  cudaError_t err = cudaGetDevice(dev);
-  if (err == cudaSuccess && (*dev < 0 || *dev >= kMaxDevices))
-    err = cudaErrorInvalidDevice;
-  return err;
-}
-
-// raise `kernel`'s dynamic shared-memory ceiling to `bytes` on device
-// `dev`, once: `done` holds the kernel's flags, one per device
-template <typename Kernel>
-cudaError_t allow_smem(Kernel* kernel, int bytes, int dev,
-                       std::atomic<bool> (&done)[kMaxDevices]) {
-  if (done[dev].load(std::memory_order_acquire)) return cudaSuccess;
-  const cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err == cudaSuccess) done[dev].store(true, std::memory_order_release);
-  return err;
-}
-
 // the 128-row tiles (VI a multiple of 128)
 template <int KT>
 cudaError_t launch(const int* w, const float* a, const float* b, float* out,
@@ -862,12 +842,9 @@ cudaError_t launch_bf16(const int* w, const bf16* a, const bf16* b,
   const int smem = kBStages * bf16_stage_elems<KT>(slabs, bins) *
                    static_cast<int>(sizeof(bf16));
 
-  int n_sms = sms[dev].load(std::memory_order_relaxed);
-  if (n_sms == 0) {
-    err = cudaDeviceGetAttribute(&n_sms, cudaDevAttrMultiProcessorCount, dev);
-    if (err != cudaSuccess) return err;
-    sms[dev].store(n_sms, std::memory_order_relaxed);
-  }
+  int n_sms = 0;
+  err = sm_count(dev, sms, &n_sms);
+  if (err != cudaSuccess) return err;
   std::atomic<int>& cached = per_sm[dev][(slabs - 1) * kWarps + bins - 1];
   int resident = cached.load(std::memory_order_relaxed);
   if (resident == 0) {

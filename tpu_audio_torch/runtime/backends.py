@@ -24,6 +24,13 @@ class BlockSource:
     def read(self) -> np.ndarray | None:
         raise NotImplementedError
 
+    def backlog(self) -> int:
+        """Blocks that a producer running on its own clock has already
+        delivered and that read() has not taken. A realtime session does
+        not wait for its own clock while this is above 0: it is behind that
+        producer. A source with no such producer returns 0."""
+        return 0
+
 
 class BlockSink:
     """Consumes [V, 2, B] blocks."""

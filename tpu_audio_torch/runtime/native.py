@@ -340,15 +340,27 @@ class RingSource(BlockSource):
                 return None
             time.sleep(0.0005)
 
+    def backlog(self) -> int:
+        return self.ring.readable // self.n
+
 
 class RingSink(BlockSink):
     """BlockSink into a NativeRing; a block that does not fit is dropped
-    whole and counted in `dropped`."""
+    whole and counted in `dropped`. `latency_blocks` silent blocks go into
+    the ring just ahead of the first block: the consumer, which takes one
+    block per period, then finds that many blocks in hand, so a block that
+    comes up to that many periods late plays on time."""
 
-    def __init__(self, ring: NativeRing):
+    def __init__(self, ring: NativeRing, latency_blocks: int = 0):
         self.ring = ring
         self.dropped = 0
+        self._lead = latency_blocks
 
     def write(self, block: np.ndarray) -> None:
+        if self._lead:
+            silence = np.zeros_like(block)
+            for _ in range(self._lead):
+                self.ring.write(silence)
+            self._lead = 0
         if not self.ring.write(block):
             self.dropped += 1

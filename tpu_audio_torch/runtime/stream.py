@@ -548,6 +548,37 @@ class StreamSession:
         reference's cin.get() park at src/main.cu:95)."""
         self._stop_requested = True
 
+    def warm_up(self, state) -> float:
+        """Step one block (one chunk) of silence through each of the
+        session's steps on `state`, which it consumes, and wait for the
+        outputs on the host. Nothing reaches the sink and the control plane
+        does not move. A process's first step loads the kernels and plans
+        the FFTs (chip_smoke.py phase 22 prints what that costs the CLI's
+        one-voice model); a live session warmed up before its producer
+        starts renders the first block it is given in time, and leaves no
+        backlog of blocks behind that one. Returns the seconds it took."""
+        if self.mesh is not None:
+            raise ValueError("warm_up runs on one device (mesh=None)")
+        t0 = time.perf_counter()
+        x = np.zeros((self.chunk_blocks, self.engine.num_voices, 2,
+                      self.engine.block), np.float32)
+        params = self.control.snapshot_device()
+        steps = ((self._step_steady, self._step_indexed, self._step_full)
+                 if self._is_coef else (self._step_full,))
+        for step in steps:
+            if step is None:
+                continue
+            if self.chunk_blocks == 1:
+                state, out = step(state, self.bank, params,
+                                  self._upload(x[0]))
+            else:
+                state, out = step(state, self.bank, params, self._upload(x),
+                                  self.chunk_blocks)
+            _, done, _ = self._start_fetch(out, None)
+            for event in done:
+                event.synchronize()
+        return time.perf_counter() - t0
+
     def _open_clock(self):
         """The native clock for a realtime run with clock="native", when
         the native library builds, ticking once per chunk; None means
@@ -728,11 +759,15 @@ class StreamSession:
                         Log.debug("stream", "missed deadline at block %d: "
                                   "%.2f ms", block_index, elapsed * 1e3)
 
+                # a late block left the source's producer, which runs on
+                # its own clock, ahead: take its waiting blocks at once
+                behind = self.realtime and self.source.backlog() > 0
                 if native_clock is not None:
-                    native_clock.wait()
+                    if not behind:
+                        native_clock.wait()
                 elif self.realtime:
                     now = time.perf_counter()
-                    if now < next_deadline:
+                    if now < next_deadline and not behind:
                         time.sleep(next_deadline - now)
                     next_deadline += chunk * self.block_period
                 block_index = end
