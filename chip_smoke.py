@@ -252,16 +252,28 @@ Phases, in order; any failure raises and the script exits non-zero:
      the f32 run must match the golden before the re-select and once the
      fades decay, the bf16 run must track the f32 one at >= 40 dB SNR;
      then each form at the session's shape against its plain version,
-     timed beside its bound, and the steady step's device busy.
+     timed beside its bound, and the steady step's device busy;
+ 34. the host link (run_host_link's docstring lists the runs): phase 4's
+     ring session (400 blocks) per block and with fetch_batch=16 in f32
+     (bit-identical) and on the pcm16 wire (within one step of the 16-bit
+     grid), phase 28's 2048-voice bf16 cascade (200 blocks) per block and
+     in f32 and pcm16 batches of 16, phase 12's bank on the 16-bit grid uploaded
+     over both wires (the banks bit-identical), host against device bank
+     prep for fmajor and the cascade with the packed-bank caches' miss and
+     hit, and phase 12's working set for 300 blocks with 'derived' and
+     'td' faults in ring and roll mode (a 'derived' slot bit-identical to
+     the host pack of both layouts, JAX's 'dual' payload); host ms per
+     block, RTF, device-to-host copies and
+     bytes per block, ms and bytes per fault.
 
 Phase 22 runs the app at the debug log level and prints the blocks that
 missed their deadline beside any silent playback periods.
 
 The line before the last is a JSON object describing each kernel (its
 launches summed over the phases whose path rides it: 4, 11, 12, 14-17,
-18's cascade, 19-21, 30, 31 and 32 for ring_mac, 7, 10, 18's roll engine,
-30, 32 and 33 for mac_shift, 27-28, 30 and 32 for ring_mac_bf16 and 27, 32
-and 33 for mac_shift_bf16; its
+18's cascade, 19-21, 30, 31, 32 and 34 for ring_mac, 7, 10, 18's roll
+engine, 30, 32, 33 and 34 for mac_shift, 27-28, 30, 32 and 34 for
+ring_mac_bf16 and 27, 32 and 33 for mac_shift_bf16; its
 times and roofline bound at KOD=16, under per_kod at KOD 16, 36 and 64,
 ring_mac's at the cascade's four shapes under cascade and at the bounce's
 shape under bounce, ring_mac_bf16's at the 2048-voice cascade's shapes
@@ -272,7 +284,9 @@ roll96, whose errors its max_abs_err covers too); the last line is
 script imports nothing of JAX and nothing of the JAX package.
 """
 
+import glob
 import json
+import os
 import subprocess
 import sys
 import time
@@ -418,6 +432,15 @@ MESH_WS_BLOCKS, MESH_BOUNCE_SECONDS, MESH_BOUNCE_SEGMENTS = 200, 10, 16
 ROLL96_VOICES, ROLL96_BLOCKS, ROLL96_ROWS = 96, 400, (0, 40, 64, 95)
 ROLL96_SELECT_AT, ROLL96_SWAP_AT, ROLL96_INTERRUPT_AT = 60, 80, 86
 ROLL96_AFTER = 320
+# phase 34, the host link: phase 4's ring session for 400 blocks and phase
+# 28's 2048-voice bf16 cascade for 200, each per block and in batches of
+# 16; host prep against device prep over 200 blocks with a re-select at
+# 100; phase 12's working set for 300 blocks, a new IR every 32 from 16
+LINK_BATCH, LINK_BLOCKS, LINK_HUGE_BLOCKS = 16, 400, 200
+LINK_PREP_BLOCKS, LINK_PREP_SELECT_AT = 200, 100
+LINK_WS_BLOCKS = 300
+LINK_PACE_FROM = 32   # the sink's pace is taken from the third batch on
+LINK_WS_CHURN = [(16 + 32 * j, 20 + 7 * j) for j in range(9)]
 # published peaks of one H100 SXM (NVIDIA's data sheet, dense), at the full
 # 700 W power limit: HBM bytes/s, and FLOP/s by operand type: f32 outside
 # the tensor cores, bf16 on them (bf16 products, f32 sums)
@@ -4535,6 +4558,474 @@ def run_roll96(bank, irs, dev, configure, select, reset_counts, rm, ms):
     return out
 
 
+class CycleSource:
+    """`blocks` blocks of per-voice noise at 0.01 that repeat `distinct`
+    blocks drawn once from numpy seed 0: a 2048-voice source whose host
+    cost is a copy, not 1 M normal draws per block."""
+
+    def __init__(self, voices, blocks, distinct=16):
+        rng = np.random.default_rng(0)
+        self.pool = [(rng.standard_normal((voices, 2, BLOCK)) * 0.01
+                      ).astype(np.float32) for _ in range(distinct)]
+        self.remaining, self.i = blocks, 0
+
+    def read(self):
+        if self.remaining <= 0:
+            return None
+        self.remaining -= 1
+        self.i += 1
+        return self.pool[(self.i - 1) % len(self.pool)].copy()
+
+    def backlog(self):
+        return 0
+
+
+def link_figures(name, session, run_s, stamps):
+    """Print and return a session's host-link figures: host ms per block
+    p50 / p99 (the session's timer: per block, each block's span; batched,
+    the wall time between batch deliveries over their blocks), RTF, missed
+    deadlines, the sink's pace (wall ms per delivered block from block
+    LINK_PACE_FROM on, the same clock in both modes: `stamps` holds the
+    time of each block's delivery), device-to-host copies and bytes per
+    block."""
+    s = session.summary()
+    blocks = session.blocks_streamed
+    pace = ((stamps[-1] - stamps[LINK_PACE_FROM - 1]) * 1e3
+            / (len(stamps) - LINK_PACE_FROM))
+    fig = {"p50_ms": s["p50_ms"], "p99_ms": s["p99_ms"], "rtf": s["rtf"],
+           "missed": s["missed_deadlines"], "run_s": run_s,
+           "sink_pace_ms_per_block": pace,
+           "copies_per_block": session.fetch_copies / blocks,
+           "d2h_bytes_per_block": session.fetch_bytes / blocks}
+    print(f"{name}: {blocks} blocks in {run_s:.3f} s, host p50 / p99 "
+          f"{fig['p50_ms']:.3f} / {fig['p99_ms']:.3f} ms per block, RTF "
+          f"{fig['rtf']:.3f}, missed {fig['missed']}, sink pace "
+          f"{pace:.3f} ms per block, device-to-host "
+          f"{fig['copies_per_block']:.4f} copies and "
+          f"{fig['d2h_bytes_per_block'] / 1e6:.4f} MB per block")
+    return fig
+
+
+def run_host_link(bank, irs, ws_bank, dev, configure, select, keep_sink,
+                  reset_counts, rm, ms):
+    """Phase 34, the host link: (a) phase 4's 64-voice ring session (400
+    blocks, its re-select and interrupt) per block, with fetch_batch=16 in
+    f32 (bit-identical) and on the pcm16 wire (within one step of the
+    16-bit grid, the per-block output clipped to [-1, 1]), and per block
+    again, every block on ring_mac; (b) phase 28's 2048-voice bf16 cascade
+    for 200 blocks, the same four runs (a 16-block repeating input); (c) phase 12's 152-IR bank on the
+    1/65536 grid uploaded over both wires (bytes, seconds, the prepared
+    banks bit-identical); (d) bank_prep='host' against 'device' for fmajor
+    and the cascade at 64 voices: build seconds with a packed-bank cache
+    miss and hit, the sessions within 2e-5 of scale; (e) phase 12's
+    16-slot working set for 300 blocks, a new IR every 32 blocks, with
+    'derived' and 'td' faults in ring and roll mode: 'td' (device-prepped
+    residents) within 2e-5 of scale of 'derived', one ring_mac (ring) or
+    mac_shift (roll) launch per block; ms and bytes per fault; a 'derived'
+    slot's device-rebuilt columns and row bit-identical to the host pack of
+    both layouts (the JAX package's 'dual' upload, whose route 'dual'
+    takes here). Returns the figures and the phase's kernel launches."""
+    import tempfile
+
+    import torch
+
+    from tpu_audio_torch.engine import device_prep as dp
+    from tpu_audio_torch.engine.bank import IRBank
+    from tpu_audio_torch.engine.fmajor import FMajorPartitionedConvolution
+    from tpu_audio_torch.engine.params import CC_MAX_SPEED, ControlPlane
+    from tpu_audio_torch.models.reverb import ConvolutionReverb
+    from tpu_audio_torch.runtime.backends import BlockSink, NoiseSource
+    from tpu_audio_torch.runtime.stream import MidiSchedule, StreamSession
+    from tpu_audio_torch.runtime.working_set import WorkingSetBank
+
+    def stamped(sink):
+        """`sink`, with the time of each block's delivery in .stamps."""
+        write, sink.stamps = sink.write, []
+
+        def timed(block):
+            write(block)
+            sink.stamps.append(time.perf_counter())
+
+        sink.write = timed
+        return sink
+
+    t_phase = time.perf_counter()
+    out = {"runs": {}, "faults": {}, "launches": {
+        "ring_mac": 0, "ring_mac_bf16": 0, "mac_shift": 0}}
+
+    def count():
+        """Add the launches since reset_counts() to the phase's, f32 and
+        bf16 apart (.launches counts both); return (every ring_mac, bf16
+        ring_mac, every mac_shift) launch."""
+        out["launches"]["ring_mac"] += (rm.ring_mac.launches
+                                        - rm.ring_mac.launches_bf16)
+        out["launches"]["ring_mac_bf16"] += rm.ring_mac.launches_bf16
+        out["launches"]["mac_shift"] += (ms.mac_shift.launches
+                                         - ms.mac_shift.launches_bf16)
+        return (rm.ring_mac.launches, rm.ring_mac.launches_bf16,
+                ms.mac_shift.launches)
+
+    # -- (a) the 64-voice ring session, per block and batched ----------------
+    ring = {}
+    # per block again last: the host's time spreads within a call too
+    for label, kwargs in (("per_block", {}),
+                          ("batch16_f32", {"fetch_batch": LINK_BATCH}),
+                          ("batch16_pcm16", {"fetch_batch": LINK_BATCH,
+                                             "wire": "pcm16"}),
+                          ("per_block_again", {})):
+        model = ConvolutionReverb(bank, num_voices=VOICES, block=BLOCK,
+                                  sample_rate=RATE, max_predelay=8192,
+                                  device=dev)
+        configure(model.control)
+        sink = stamped(keep_sink(keep_all=True))
+        session = model.session(NoiseSource(VOICES, BLOCK, LINK_BLOCKS,
+                                            amplitude=0.01, seed=0), sink,
+                                **kwargs)
+        state = model.init_state()
+        reset_counts()
+        t0 = time.perf_counter()
+        session.run(state, midi=MidiSchedule([select(SELECT_AT, 32),
+                                              select(INTERRUPT_AT, 64)]))
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches = count()
+        if launches != (LINK_BLOCKS, 0, 0) or sink.blocks != LINK_BLOCKS:
+            raise AssertionError(f"host link ring {label}: launches "
+                                 f"{launches}, {sink.blocks} blocks")
+        if not sink.finite:
+            raise AssertionError(f"host link ring {label}: non-finite")
+        out["runs"][f"ring64_{label}"] = link_figures(
+            f"host link ring {VOICES} v {label}", session, run_s,
+            sink.stamps)
+        ring[label] = np.concatenate(sink.kept, axis=-1)
+        del model, session, state, sink
+    f32_err = float(np.abs(ring["batch16_f32"] - ring["per_block"]).max())
+    # the 16-bit wire holds [-1, 1], as a 16-bit WAV does: it is held to
+    # the per-block output clipped there
+    clipped = np.clip(ring["per_block"], -1.0, 1.0)
+    pcm_err = float(np.abs(ring["batch16_pcm16"] - clipped).max())
+    grid = ring["batch16_pcm16"] * 32767.0
+    print(f"host link ring {VOICES} v: batched f32 against per block "
+          f"max_abs_err {f32_err:.3e} (bit-identical: "
+          f"{np.array_equal(ring['batch16_f32'], ring['per_block'])}); "
+          f"pcm16 against per block clipped to [-1, 1] {pcm_err:.3e} (limit "
+          f"{1.01 / 32767:.3e}; {int((clipped != ring['per_block']).sum())} "
+          f"samples clipped)")
+    if not (np.array_equal(ring["batch16_f32"], ring["per_block"])
+            and np.array_equal(ring["per_block_again"], ring["per_block"])):
+        raise AssertionError("host link: batched f32 differs from per block")
+    if not (pcm_err <= 1.01 / 32767 and np.array_equal(grid, np.round(grid))):
+        raise AssertionError(f"host link: pcm16 error {pcm_err:.3e}")
+    out.update(ring_f32_err=f32_err, ring_pcm16_err=pcm_err)
+    del ring
+    torch.cuda.empty_cache()
+
+    # -- (b) the 2048-voice bf16 cascade, per block and batched -----------------
+    class AllSink(BlockSink):
+        """Keeps a copy of every block: the same host work in every run
+        (the comparison comes after the run, off its clock)."""
+
+        def __init__(self):
+            self.blocks, self.finite = [], True
+
+        def write(self, block):
+            self.finite &= bool(np.isfinite(block).all())
+            self.blocks.append(block.copy())
+
+    ref, out["cascade_errs"] = None, {}
+    for label, kwargs in (("per_block", {}),
+                          ("batch16_f32", {"fetch_batch": LINK_BATCH}),
+                          ("batch16_pcm16", {"fetch_batch": LINK_BATCH,
+                                             "wire": "pcm16"}),
+                          ("per_block_again", {})):
+        model = ConvolutionReverb(bank, num_voices=HUGE_VOICES, block=BLOCK,
+                                  sample_rate=RATE, engine="cascade",
+                                  max_predelay=8192, cascade_ratio=CAS_RATIO,
+                                  predelay_side="read", mac_dtype="bf16",
+                                  device=dev)
+        configure(model.control)
+        sink = stamped(AllSink())
+        session = model.session(CycleSource(HUGE_VOICES, LINK_HUGE_BLOCKS),
+                                sink, **kwargs)
+        state = model.init_state()
+        reset_counts()
+        t0 = time.perf_counter()
+        session.run(state, midi=MidiSchedule([select(HUGE_SELECT_AT, 32)]))
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches = count()
+        if (launches != (2 * LINK_HUGE_BLOCKS, 2 * LINK_HUGE_BLOCKS, 0)
+                or len(sink.blocks) != LINK_HUGE_BLOCKS or not sink.finite):
+            raise AssertionError(f"host link cascade {label}: launches "
+                                 f"{launches}, {len(sink.blocks)} blocks, "
+                                 f"finite {sink.finite}")
+        out["runs"][f"cascade2048_bf16_{label}"] = link_figures(
+            f"host link cascade {HUGE_VOICES} v bf16 {label}", session,
+            run_s, sink.stamps)
+        if ref is None:
+            ref = sink.blocks
+        else:
+            # f32 bit for bit; the 16-bit wire against the per-block output
+            # clipped to [-1, 1], its range
+            pcm16 = label.endswith("pcm16")
+            err = max(float(np.abs(got - (np.clip(want, -1.0, 1.0) if pcm16
+                                          else want)).max())
+                      for got, want in zip(sink.blocks, ref))
+            limit = 1.01 / 32767 if pcm16 else 0.0
+            out["cascade_errs"][label] = err
+            print(f"host link cascade {HUGE_VOICES} v bf16: {label} against "
+                  f"per block, every voice: max_abs_err {err:.3e} (limit "
+                  f"{limit:.3e})")
+            if not err <= limit:
+                raise AssertionError(f"host link cascade {label}: error "
+                                     f"{err:.3e}")
+        del model, session, state, sink
+        torch.cuda.empty_cache()
+    del ref
+
+    # -- (c) the 152-IR bank on the 16-bit grid, over both wires --------------
+    qbank = IRBank(sample_rate=RATE)
+    for k in range(len(ws_bank)):
+        q = np.clip(np.round(ws_bank.ir(k) * 65536.0), -32768, 32767)
+        qbank.append((q / 65536.0).astype(np.float32))
+    td = dp.bank_time_domain(qbank)
+    upload = {}
+    for wire in ("auto", "f32"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dev_td, used = dp.upload_bank_td(td, wire, dev)
+        torch.cuda.synchronize()
+        upload[used] = {"s": time.perf_counter() - t0,
+                        "bytes": td.size * (2 if used == "pcm16" else 4)}
+        if wire == "auto":
+            same = torch.equal(dev_td.cpu(), torch.from_numpy(td))
+        del dev_td
+    if set(upload) != {"pcm16", "f32"} or not same:
+        raise AssertionError(f"host link: wires {sorted(upload)}, the pcm16 "
+                             f"upload decodes to the bank: {same}")
+    # the host's share of the pcm16 wire (the grid check and encode), and
+    # 'auto' against 'f32' on phase 12's bank, which is off the grid
+    t0 = time.perf_counter()
+    dp.encode_pcm16_exact(td)
+    upload["pcm16"]["encode_s"] = time.perf_counter() - t0
+    off_td = dp.bank_time_domain(ws_bank)
+    off = {}
+    for wire in ("auto", "f32", "auto", "f32"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dev_td, used = dp.upload_bank_td(off_td, wire, dev)
+        torch.cuda.synchronize()
+        off.setdefault(wire, []).append(time.perf_counter() - t0)
+        if used != "f32":
+            raise AssertionError(f"host link: the off-grid bank crossed "
+                                 f"over {used}")
+        del dev_td
+    del off_td
+    print(f"host link 152-IR bank off the 16-bit grid: 'auto' upload "
+          f"{[round(t * 1e3, 1) for t in off['auto']]} ms, 'f32' "
+          f"{[round(t * 1e3, 1) for t in off['f32']]} ms (both f32); the "
+          f"on-grid bank's pcm16 encode on the host "
+          f"{upload['pcm16']['encode_s'] * 1e3:.1f} ms")
+    out["upload_offgrid_s"] = off
+    banks = {}
+    for wire in ("pcm16", "f32"):
+        engine = FMajorPartitionedConvolution(
+            VOICES, BLOCK, qbank.max_partitions(BLOCK), max_predelay=8192,
+            mac_strategy="auto", num_irs=len(qbank), device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        banks[wire] = dp.prepare_fmajor_bank_device(engine, qbank, wire=wire)
+        torch.cuda.synchronize()
+        upload[wire]["prep_s"] = time.perf_counter() - t0
+    same = all(torch.equal(getattr(banks["pcm16"], name),
+                           getattr(banks["f32"], name))
+               for name in ("mac_rhs", "rhs2", "spectra", "spectra_rev2"))
+    for wire, u in upload.items():
+        print(f"host link 152-IR 16-bit bank over the {wire} wire: "
+              f"{u['bytes'] / 1e6:.1f} MB up in {u['s'] * 1e3:.1f} ms, "
+              f"device prep ({engine.mac_strategy}) {u['prep_s']:.3f} s")
+    print(f"host link 152-IR bank: pcm16 and f32 uploads give the same "
+          f"bank: {same}")
+    if not same:
+        raise AssertionError("host link: the pcm16 bank differs from f32")
+    out["upload"] = upload
+    del banks, td, engine
+    torch.cuda.empty_cache()
+
+    # -- (d) host prep against device prep, with the packed-bank caches --------
+    with tempfile.TemporaryDirectory() as tmp:
+        for kind in ("fmajor", "cascade"):
+            outs, builds = {}, {}
+            for label, kwargs in (("device", {}),
+                                  ("host_miss", {"bank_prep": "host",
+                                                 "cache_dir": tmp}),
+                                  ("host_hit", {"bank_prep": "host",
+                                                "cache_dir": tmp})):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                model = ConvolutionReverb(
+                    bank, num_voices=VOICES, block=BLOCK, sample_rate=RATE,
+                    engine=kind, max_predelay=8192, cascade_ratio=CAS_RATIO,
+                    device=dev, **kwargs)
+                torch.cuda.synchronize()
+                builds[label] = time.perf_counter() - t0
+                if label == "host_miss":
+                    continue
+                configure(model.control)
+                sink = keep_sink(keep_all=True)
+                session = model.session(NoiseSource(
+                    VOICES, BLOCK, LINK_PREP_BLOCKS, amplitude=0.01, seed=0),
+                    sink)
+                reset_counts()
+                session.run(model.init_state(), midi=MidiSchedule(
+                    [select(LINK_PREP_SELECT_AT, 32)]))
+                torch.cuda.synchronize()
+                per = 2 if kind == "cascade" else 1
+                if count() != (per * LINK_PREP_BLOCKS, 0, 0):
+                    raise AssertionError(f"host link {kind} {label}: "
+                                         f"launches")
+                outs[label] = np.concatenate(sink.kept, axis=-1)
+                del model, session, sink
+            entries = sorted(os.path.basename(p)
+                             for p in glob.glob(os.path.join(tmp, "*.ok")))
+            scale = float(np.abs(outs["device"]).max())
+            err = float(np.abs(outs["host_hit"] - outs["device"]).max())
+            print(f"host link {kind} {VOICES} v: build device {builds['device']:.3f}"
+                  f" s, host (cache miss) {builds['host_miss']:.3f} s, host "
+                  f"(cache hit) {builds['host_hit']:.3f} s; cache entries "
+                  f"{entries}; host against device over {LINK_PREP_BLOCKS} "
+                  f"blocks: max_abs_err {err:.3e} (limit {2e-5 * scale:.3e})")
+            if not err <= 2e-5 * scale:
+                raise AssertionError(f"host link: {kind} host prep differs")
+            if not any(e.startswith("pack_" if kind == "fmajor"
+                                    else "cascpack_") for e in entries):
+                raise AssertionError(f"host link: no packed-bank entry "
+                                     f"{entries}")
+            out[f"prep_{kind}"] = dict(builds, err=err, scale=scale)
+            torch.cuda.empty_cache()
+
+    # -- (e) the working set's fault payloads, ring and roll -------------------
+    residents = list(range(WS_CAPACITY))
+    churn = [select(b, v) for b, v in LINK_WS_CHURN]
+    with tempfile.TemporaryDirectory() as tmp:
+        full = ws_bank.cached_partitioned_spectra(
+            BLOCK, tmp, max_partitions=ws_bank.max_partitions(BLOCK))
+        compact = IRBank(sample_rate=RATE)
+        for k in residents:
+            compact.append(ws_bank.ir(k))
+        for mode in ("ring", "roll"):
+            outs = {}
+            for payload in ("derived", "td"):
+                engine = FMajorPartitionedConvolution(
+                    VOICES, BLOCK, ws_bank.max_partitions(BLOCK),
+                    max_predelay=8192, ring=mode == "ring",
+                    mac_strategy="allk", num_irs=WS_CAPACITY,
+                    fault_upload=payload, device=dev)
+                if payload == "td":
+                    spectra = dp.prepare_fmajor_bank_device(engine, compact)
+                    slot_payload = ws_bank.ir
+                else:
+                    spectra = engine.prepare_bank(full[residents],
+                                                  cache_dir=tmp)
+
+                    def slot_payload(k):
+                        return full[k: k + 1]
+                cp = ControlPlane(VOICES, len(ws_bank), 8192, device=dev)
+                configure(cp)
+                ws = WorkingSetBank(engine, cp, slot_payload, spectra,
+                                    residents,
+                                    min_age_blocks=CC_MAX_SPEED + 64)
+                fault = {"ms": [], "bytes": []}
+                pack, update = engine.pack_bank_slot, ws._update_slot
+
+                def timed_pack(item, pack=pack, fault=fault):
+                    packed = pack(item)
+                    fault["bytes"].append(packed.host.numel()
+                                          * packed.host.element_size())
+                    return packed
+
+                def timed_update(slot, item, update=update, fault=fault):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    result = update(slot, item)
+                    torch.cuda.synchronize()
+                    fault["ms"].append((time.perf_counter() - t0) * 1e3)
+                    return result
+
+                engine.pack_bank_slot = timed_pack
+                ws._update_slot = timed_update
+                sink = stamped(keep_sink(keep_all=True))
+                session = StreamSession(
+                    engine, spectra, cp, NoiseSource(
+                        VOICES, BLOCK, LINK_WS_BLOCKS, amplitude=0.01,
+                        seed=0), sink, sample_rate=RATE)
+                ws.on_update = lambda b, session=session: setattr(
+                    session, "bank", b)
+                session.pre_run_hooks.append(ws.warmup)
+                reset_counts()
+                t0 = time.perf_counter()
+                session.run(engine.init_converged(spectra,
+                                                  cp.snapshot_device()),
+                            midi=MidiSchedule(list(churn)))
+                torch.cuda.synchronize()
+                run_s = time.perf_counter() - t0
+                launches = count()
+                want = ((LINK_WS_BLOCKS, 0, 0) if mode == "ring"
+                        else (0, 0, LINK_WS_BLOCKS))
+                if (launches != want or ws.misses != len(churn)
+                        or not sink.finite):
+                    raise AssertionError(f"host link working set {mode} "
+                                         f"{payload}: launches {launches}, "
+                                         f"misses {ws.misses}")
+                label = f"ws_{mode}_{payload}"
+                out["runs"][label] = link_figures(
+                    f"host link working set {mode} {payload}", session,
+                    run_s, sink.stamps)
+                warm = fault["ms"][1:]   # the first is the session warm-up
+                out["faults"][label] = {
+                    "first_ms": fault["ms"][0],
+                    "warm_median_ms": float(np.median(warm)),
+                    "bytes": fault["bytes"][-1], "misses": ws.misses}
+                print(f"host link working set {mode} {payload}: "
+                      f"{ws.misses} faults, first use "
+                      f"{fault['ms'][0]:.2f} ms, warm median "
+                      f"{np.median(warm):.2f} ms, "
+                      f"{fault['bytes'][-1] / 1e6:.3f} MB up per fault")
+                outs[payload] = np.concatenate(sink.kept, axis=-1)
+                if payload == "derived":
+                    # the slot the device rebuilds against the host pack
+                    # of both layouts, IR 20 (a non-resident)
+                    packed = engine.pack_bank_slot(full[20:21])
+                    mac_rhs, rhs2, planar, rev2 = engine._pack_bank_host(
+                        full[20:21])
+                    cols = rhs2 if mode == "ring" else mac_rhs
+                    row = (rev2 if mode == "ring" else planar)[0]
+                    slot_exact = (
+                        torch.equal(packed.columns, torch.from_numpy(
+                            cols).to(dev).to(packed.columns.dtype))
+                        and torch.equal(packed.row, torch.from_numpy(
+                            row).to(dev).to(packed.row.dtype)))
+                del engine, spectra, ws, session, sink, cp
+                torch.cuda.empty_cache()
+            scale = float(np.abs(outs["derived"]).max())
+            td_err = float(np.abs(outs["td"] - outs["derived"]).max())
+            print(f"host link working set {mode}: a derived slot against "
+                  f"the host pack of both layouts bit-identical: "
+                  f"{slot_exact}; td (device-prepped) against derived "
+                  f"max_abs_err {td_err:.3e} (limit {2e-5 * scale:.3e})")
+            if not slot_exact or not td_err <= 2e-5 * scale:
+                raise AssertionError(f"host link working set {mode}: "
+                                     f"derived slot exact {slot_exact}, td "
+                                     f"error {td_err:.3e}")
+            out[f"ws_{mode}_td_err"] = td_err
+        del full
+    torch.cuda.empty_cache()
+    out["wall_s"] = time.perf_counter() - t_phase
+    print(f"phase 34: {out['wall_s']:.1f} s wall, launches "
+          f"{out['launches']}")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -5168,6 +5659,10 @@ def main() -> int:
     roll96 = run_roll96(bank, irs, dev, configure, select, reset_counts, rm,
                         ms)
 
+    # -- 34. the host link ------------------------------------------------------------
+    link = run_host_link(bank, irs, ws_bank, dev, configure, select,
+                         KeepSink, reset_counts, rm, ms)
+
     tag = f"[{card}]"
     lines = []
     shorts = {"step_coef_steady": "steady", "step_coef_indexed": "indexed",
@@ -5528,6 +6023,29 @@ def main() -> int:
                       (f"{key}_plain_us", t["plain"] * 1e3),
                       (f"{key}_einsum_us", t["einsum"] * 1e3),
                       (f"{key}_bound_us", t["bound"] * 1e3)]
+    lines += [("link_phase_wall_s", link["wall_s"]),
+              ("link_ring64_batch16_f32_max_abs_err", link["ring_f32_err"]),
+              ("link_ring64_batch16_pcm16_max_abs_err",
+               link["ring_pcm16_err"]),
+              *((f"link_cascade2048_bf16_{label}_max_abs_err", err)
+                for label, err in link["cascade_errs"].items()),
+              *((f"link_{label}_{key}", value)
+                for label, fig in link["runs"].items()
+                for key, value in fig.items()),
+              *((f"link_upload152_{wire}_{key}", value)
+                for wire, u in link["upload"].items()
+                for key, value in u.items()),
+              *((f"link_upload152_offgrid_{wire}_s{i}", t)
+                for wire, ts in link["upload_offgrid_s"].items()
+                for i, t in enumerate(ts)),
+              *((f"link_prep_{kind}_{key}", value)
+                for kind in ("fmajor", "cascade")
+                for key, value in link[f"prep_{kind}"].items()),
+              *((f"link_{label}_fault_{key}", value)
+                for label, f in link["faults"].items()
+                for key, value in f.items()),
+              ("link_ws_ring_td_max_abs_err", link["ws_ring_td_err"]),
+              ("link_ws_roll_td_max_abs_err", link["ws_roll_td_err"])]
     for key, value in lines:
         print(f"{key} {value} {tag}")
 
@@ -5573,7 +6091,7 @@ def main() -> int:
               + sum(r["launches"]["ring_mac"]
                     for r in chunked["runs"].values())
               + chunked["resilient"]["launches"] + surface["launches"]
-              + mesh["launches"]["ring_mac"],
+              + mesh["launches"]["ring_mac"] + link["launches"]["ring_mac"],
               max(max_abs_err, cas_err, bounce["mac_err"],
                   engines["cascade"]["mac_err"], mesh_shapes("ring_mac")[1]),
               ring_ms,
@@ -5586,7 +6104,8 @@ def main() -> int:
               + sum(r["launches"]["mac_shift"]
                     for r in chunked["runs"].values())
               + mesh["launches"]["mac_shift"]
-              + roll96["runs"]["f32"]["launches"],
+              + roll96["runs"]["f32"]["launches"]
+              + link["launches"]["mac_shift"],
               max(shift_err, engines["roll"]["mac_err"],
                   mesh_shapes("mac_shift")[1],
                   roll96["kernel_err"]["mac_shift"]), shift_ms,
@@ -5601,7 +6120,8 @@ def main() -> int:
               + huge["launches"] + huge["cli_launches"]
               + sum(r["launches"]["ring_mac_bf16"]
                     for r in chunked["runs"].values())
-              + mesh["launches"]["ring_mac_bf16"],
+              + mesh["launches"]["ring_mac_bf16"]
+              + link["launches"]["ring_mac_bf16"],
               max(bf16_err["ring_mac"], cas_errs["bf16"],
                   mesh_shapes("ring_mac_bf16")[1]),
               bf16_kods("ring_mac"),

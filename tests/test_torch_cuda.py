@@ -1318,3 +1318,101 @@ def test_mesh_over_two_cards_matches_one_device(cuda, kind, part):
     want, _ = _mesh_session(torch.device("cuda", 0), kind, None, x)
     assert launches == 80
     np.testing.assert_allclose(got, want, atol=2e-6 if part == 1 else 1e-5)
+
+
+def _batched_session(device, x, **session_kwargs):
+    """A ring 'allk' session at 4 voices on `device` with a re-select at 8
+    (phase 4's model at a small size); returns (sink data, session,
+    ring_mac launches)."""
+    from tpu_audio_torch.engine.params import CCMapping
+    from tpu_audio_torch.runtime.backends import WavSink, WavSource
+    from tpu_audio_torch.runtime.stream import MidiSchedule, StreamSession
+
+    rng = np.random.default_rng(41)
+    spectra = np.fft.rfft(rng.standard_normal((3, 2, 12, 128)), axis=-1
+                          ).astype(np.complex64) * 0.1
+    eng = FMajorPartitionedConvolution(4, 64, 12, max_predelay=64, num_irs=3,
+                                       device=device)
+    bank = eng.prepare_bank(spectra)
+    cp = ControlPlane(4, 3, 64, device=device)
+    cp.wet[:], cp.dry[:], cp.speed[:] = 0.8, 0.2, 10
+    for v in range(4):
+        for ch in range(2):
+            cp.set_mapping(v, ch, CCMapping(message=0xB0, select=0x15))
+    sink = WavSink("/dev/null", keep_data=True)
+    session = StreamSession(eng, bank, cp, WavSource(x, 4, 64), sink,
+                            warmup=0, **session_kwargs)
+    before = ring_mac.launches
+    session.run(eng.init_converged(bank, cp.snapshot_device()),
+                midi=MidiSchedule([(8, "", bytes([0xB0, 0x15, 64]))]))
+    return sink.data, session, ring_mac.launches - before
+
+
+def test_batched_session_syncs_once_per_batch(cuda, monkeypatch):
+    """fetch_batch=4 over 18 blocks: the host waits on 5 events (4 full
+    batches and the partial last one), not 18, makes 5 device-to-host
+    copies, and delivers the per-block session's audio bit for bit, every
+    block on ring_mac."""
+    x = (np.random.default_rng(42).standard_normal((4, 2, 64 * 18)) * 0.05
+         ).astype(np.float32)
+    waits = []
+    wait = torch.cuda.Event.synchronize
+
+    def counted(event):
+        waits.append(1)
+        return wait(event)
+
+    want, plain, _ = _batched_session(cuda, x)
+    assert plain.fetch_copies == 18
+    monkeypatch.setattr(torch.cuda.Event, "synchronize", counted)
+    got, session, launches = _batched_session(cuda, x, fetch_batch=4)
+    assert len(waits) == 5 and session.fetch_copies == 5
+    assert launches == 18
+    assert session.fetch_bytes == plain.fetch_bytes == 18 * 4 * 2 * 64 * 4
+    np.testing.assert_array_equal(got, want)
+
+
+def test_pcm16_batch_leaves_the_card_as_int16(cuda, monkeypatch):
+    """On the pcm16 wire each batch crosses as one int16 copy (half the f32
+    bytes), and the decoded audio is the f32 session's within one step of
+    the 16-bit grid."""
+    from tpu_audio_torch.runtime import stream
+
+    x = (np.random.default_rng(43).standard_normal((4, 2, 64 * 16)) * 0.05
+         ).astype(np.float32)
+    dtypes = []
+    deliver = stream.StreamSession._deliver_batch
+
+    def spy(self, hosts, n):
+        dtypes.extend(h.dtype for h in hosts)
+        return deliver(self, hosts, n)
+
+    monkeypatch.setattr(stream.StreamSession, "_deliver_batch", spy)
+    want, _, _ = _batched_session(cuda, x)
+    got, session, _ = _batched_session(cuda, x, fetch_batch=8, wire="pcm16")
+    assert dtypes == [torch.int16, torch.int16]
+    assert session.fetch_copies == 2
+    assert session.fetch_bytes == 16 * 4 * 2 * 64 * 2
+    np.testing.assert_allclose(got, want, atol=1.01 / 32767)
+
+
+def test_pcm16_bank_upload_equals_the_f32_upload_on_the_card(cuda):
+    """A bank on the 16-bit WAV grid crosses as int16 and is decoded on the
+    card: the prepared bank equals the f32 upload's bit for bit."""
+    from tpu_audio_torch.engine import IRBank
+    from tpu_audio_torch.engine import device_prep as dp
+
+    bank = IRBank()
+    for ir in _ws_irs():
+        bank.append((np.round(np.clip(ir, -0.49, 0.49) * 65536) / 65536
+                     ).astype(np.float32))
+    td = dp.bank_time_domain(bank)
+    tdev, used = dp.upload_bank_td(td, "auto", cuda)
+    assert used == "pcm16" and tdev.dtype == torch.float32
+    assert torch.equal(tdev.cpu(), torch.from_numpy(td))
+    banks = [dp.prepare_fmajor_bank_device(
+        FMajorPartitionedConvolution(4, 64, bank.max_partitions(64),
+                                     max_predelay=64, device=cuda),
+        bank, wire=wire) for wire in ("pcm16", "f32")]
+    for name in ("rhs2", "spectra_rev2"):
+        assert torch.equal(getattr(banks[0], name), getattr(banks[1], name))

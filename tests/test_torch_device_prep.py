@@ -152,9 +152,10 @@ def test_update_bank_slot_matches_jax_and_a_rebuild(ring):
 
 
 def test_update_bank_slot_refuses_what_the_port_leaves_out(capsys):
-    """'selected' banks take no slot writes (as in the JAX engine), a slot
-    update takes a time-domain IR only, and the CLI refuses the JAX
-    package's spectra fault payloads with their reason."""
+    """'selected' banks take no slot writes (as in the JAX engine), a 'td'
+    slot update takes a time-domain IR only, and the CLI takes the JAX
+    package's three fault payloads (its default None resolves per engine
+    in the model) and refuses any other."""
     from tpu_audio_torch.app.main import build_parser
 
     irs = _irs(3)
@@ -172,9 +173,10 @@ def test_update_bank_slot_refuses_what_the_port_leaves_out(capsys):
     with pytest.raises(ValueError, match="time-domain"):
         allk.update_bank_slot(allk.prepare_bank(spectra), 0, spectra[1])
     parser = build_parser()
-    assert parser.parse_args([]).fault_upload == "td"
-    assert parser.parse_args(["--fault-upload", "td"]).fault_upload == "td"
-    for payload in ("dual", "derived", "nope"):
-        with pytest.raises(SystemExit):
-            parser.parse_args(["--fault-upload", payload])
-        assert "item 15" in capsys.readouterr().err
+    assert parser.parse_args([]).fault_upload is None
+    for payload in ("td", "dual", "derived"):
+        assert parser.parse_args(["--fault-upload",
+                                  payload]).fault_upload == payload
+    with pytest.raises(SystemExit):
+        parser.parse_args(["--fault-upload", "nope"])
+    assert "invalid choice" in capsys.readouterr().err

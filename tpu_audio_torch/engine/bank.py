@@ -170,16 +170,21 @@ class IRBank:
     # -- spectra -----------------------------------------------------------------
 
     def partitioned_spectra(self, block: int,
-                            max_partitions: int | None = None) -> np.ndarray:
+                            max_partitions: int | None = None,
+                            offset: int = 0) -> np.ndarray:
         """[K, 2, P, F] complex64 uniform partition spectra (F = block + 1).
 
         Every IR is padded to the bank-wide partition count so selection is
-        a plain index; zero partitions cost only memory. One rfft per IR:
-        pocketfft runs a 3-D [2, P, 2B] batch far faster than one 4-D call."""
-        p = max_partitions or num_partitions(self.max_length, block)
+        a plain index; zero partitions cost only memory. ``offset`` skips
+        the IRs' first samples (the cascade's tail stage partitions
+        ir[offset:] at its larger block). One rfft per IR: pocketfft runs a
+        3-D [2, P, 2B] batch far faster than one 4-D call."""
+        p = max_partitions or num_partitions(
+            max(self.max_length - offset, 1), block)
         out = np.zeros((len(self._irs), 2, p, block + 1), np.complex64)
         for i, ir in enumerate(self._irs):
-            spec = partition_spectra(ir, block, max_partitions=p)
+            spec = partition_spectra(ir[..., offset:], block,
+                                     max_partitions=p)
             out[i, :, : spec.shape[1]] = spec
         return out
 
@@ -210,15 +215,15 @@ class IRBank:
 
     def cached_partitioned_spectra(self, block: int,
                                    cache_dir: str | os.PathLike,
-                                   max_partitions: int | None = None
-                                   ) -> np.ndarray:
+                                   max_partitions: int | None = None,
+                                   offset: int = 0) -> np.ndarray:
         """partitioned_spectra through a content-addressed disk cache:
         ``<cache_dir>/bank_<key>.npy``, read with mmap (a read-only array),
         written through a pid-unique tmp file. Legacy ``.npz`` entries are
-        honoured. The key hashes the JAX signature's offset as 0, so an
-        entry either package writes is a hit for the other."""
+        honoured. The key is the JAX package's, so an entry either package
+        writes is a hit for the other."""
         os.makedirs(cache_dir, exist_ok=True)
-        key = self._cache_key("part", block, max_partitions, 0)
+        key = self._cache_key("part", block, max_partitions, offset)
         base = os.path.join(os.fspath(cache_dir), f"bank_{key}")
         if os.path.exists(base + ".npy"):
             Log.info("bank", "spectra cache hit: %s.npy", base)
@@ -227,7 +232,7 @@ class IRBank:
             Log.info("bank", "spectra cache hit: %s.npz", base)
             with np.load(base + ".npz") as data:
                 return data["spectra"]
-        spectra = self.partitioned_spectra(block, max_partitions)
+        spectra = self.partitioned_spectra(block, max_partitions, offset)
         diskcache.save_array(base + ".npy", spectra)
         Log.info("bank", "spectra cache write: %s.npy", base)
         return spectra

@@ -79,6 +79,7 @@ place: the state passed in is consumed.
 from __future__ import annotations
 
 import math
+import os
 from dataclasses import dataclass, replace
 
 import numpy as np
@@ -91,8 +92,8 @@ from tpu_audio_torch.engine.fmajor import (
 from tpu_audio_torch.engine.params import VoiceParams
 from tpu_audio_torch.ops.fft import SpectralTransform
 from tpu_audio_torch.ops.mix import add_dry, wet_scale
-from tpu_audio_torch.ops.partition import partition_spectra
 from tpu_audio_torch.ops.ring_mac import ring_mac
+from tpu_audio_torch.utils import diskcache
 from tpu_audio_torch.utils.device import resolve_device
 from tpu_audio_torch.utils.log import Log
 
@@ -358,25 +359,57 @@ class CascadeConvolution:
         return (pack_mac_rhs(head, 2 * self.pp1),
                 pack_mac_rhs(tail, 2 * self.pp2))
 
-    def prepare_bank(self, bank) -> CascadeBank:
+    def prepare_bank(self, bank, cache_dir: str | os.PathLike | None = None
+                     ) -> CascadeBank:
         """IRBank -> CascadeBank from host spectra: the head takes the IRs'
         first 2*B2 samples at block granularity, the tail the rest at B2
-        granularity. The model prepares its banks on the device instead
-        (device_prep.prepare_cascade_bank_device)."""
-        k = len(bank)
+        granularity (the tail spectra at the bank's natural length, cut or
+        zero-padded to tail_parts, as the JAX engine computes them).
+
+        cache_dir: the bank's spectra disk cache
+        (IRBank.cached_partitioned_spectra) and a content-addressed cache
+        of the PACKED tensors, ``cascpack_<key>`` entries keyed and stored
+        as the JAX package stores them (utils/diskcache.py; the tail in
+        its frequency-minor layout [2, 2*P2p, KOD, F2], transposed here),
+        so either package reads the other's."""
+        if cache_dir:
+            head_spec = bank.cached_partitioned_spectra(
+                self.block, cache_dir, max_partitions=self.head_parts)
+            tail_spec = bank.cached_partitioned_spectra(
+                self.b2, cache_dir, offset=2 * self.b2)
+        else:
+            head_spec = bank.partitioned_spectra(
+                self.block, max_partitions=self.head_parts)
+            tail_spec = bank.partitioned_spectra(self.b2,
+                                                 offset=2 * self.b2)
+        if tail_spec.shape[2] < self.tail_parts:
+            pad = self.tail_parts - tail_spec.shape[2]
+            tail_spec = np.pad(tail_spec, ((0, 0), (0, 0), (0, pad), (0, 0)))
+        tail_spec = tail_spec[:, :, : self.tail_parts]
+        k = head_spec.shape[0]
         if self.num_irs is not None and k != self.num_irs:
             raise ValueError(f"bank has {k} IRs, engine was built for "
                              f"num_irs={self.num_irs}")
         self.num_irs = k
-        head_spec = bank.partitioned_spectra(self.block,
-                                             max_partitions=self.head_parts)
-        tail_spec = np.zeros((k, 2, self.tail_parts, self.b2 + 1),
-                             np.complex64)
-        for i in range(k):
-            sp = partition_spectra(bank.ir(i)[..., 2 * self.b2:], self.b2,
-                                   max_partitions=self.tail_parts)
-            tail_spec[i, :, : sp.shape[1]] = sp
-        head_rhs2, tail_rhs2 = self._pack_bank_host(head_spec, tail_spec)
+        head_rhs2 = tail_rhs2 = base = None
+        if cache_dir:
+            base = "cascpack_" + diskcache.content_key(
+                "cascade-pack", (self.pp1, self.pp2, head_spec.shape,
+                                 tail_spec.shape), head_spec, tail_spec)
+            hit = diskcache.load(cache_dir, base, ("head", "tail"))
+            if hit is not None:
+                Log.info("cascade", "packed-bank cache hit: %s/%s*",
+                         os.fspath(cache_dir), base)
+                head_rhs2 = hit["head"]
+                tail_rhs2 = np.ascontiguousarray(
+                    np.transpose(hit["tail"], (3, 0, 1, 2)))
+        if head_rhs2 is None:
+            head_rhs2, tail_rhs2 = self._pack_bank_host(head_spec, tail_spec)
+            if base is not None:
+                diskcache.store(cache_dir, base, {
+                    "head": head_rhs2,
+                    "tail": np.ascontiguousarray(
+                        np.transpose(tail_rhs2, (1, 2, 3, 0)))})
         dt = self.mac_dtype
         return CascadeBank(head_rhs2=_tensor(head_rhs2, self.device).to(dt),
                            tail_rhs2=_tensor(tail_rhs2, self.device).to(dt))

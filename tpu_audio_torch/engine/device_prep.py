@@ -7,9 +7,14 @@ Reference parity: ``Convolution::prepare`` computes every IR spectrum ON
 THE GPU (cufftExecC2C + Hermitian unpack, reference src/conv.cu:207-253);
 the only host-to-device traffic is the WAV's PCM samples (src/wav.cu:100).
 Here the host uploads one [K, O, L] float32 tensor (~215 MB for the
-152-IR 4 s bank), the partition transforms run as ``torch.fft.rfft`` on
-the device (cuFFT on a card, as ops/fft.py does for the block transforms),
-and the double+reverse and plane packs are tensor gathers and permutes.
+152-IR 4 s bank); ``upload_bank_td`` also offers the JAX package's exact
+int16 wire for a bank on the 16-bit WAV grid (half the bytes), which a
+caller asks for by name: on an H100 its host-side grid check and encode
+cost more than the bytes it saves (PERF.md §6), so the prep functions
+default to f32 where the JAX ones default to 'auto'. The partition
+transforms run as ``torch.fft.rfft`` on the device (cuFFT on a card, as
+ops/fft.py does for the block transforms), and the double+reverse and
+plane packs are tensor gathers and permutes.
 
 Exactness: the packs are bit-exact axis moves plus one negation, so a
 device-prepared bank differs from the host prep (numpy pocketfft) only by
@@ -23,9 +28,16 @@ from typing import TYPE_CHECKING
 import numpy as np
 import torch
 
+from tpu_audio_torch.utils.log import Log
+
 if TYPE_CHECKING:
     from tpu_audio_torch.engine.cascade import CascadeBank
     from tpu_audio_torch.engine.fmajor import FMajorBank
+
+# the exact 16-bit WAV scaling read_wav applies (reference src/wav.cu /65536
+# headroom convention): x = q / 65536 with q an int16. 1/65536 is a power of
+# two, so the decode multiply is exact in f32.
+_PCM16_SCALE = 65536.0
 
 
 def bank_time_domain(bank) -> np.ndarray:
@@ -39,6 +51,55 @@ def bank_time_domain(bank) -> np.ndarray:
         ir = bank.ir(i)
         out[i, :, : ir.shape[-1]] = ir
     return out
+
+
+def encode_pcm16_exact(td: np.ndarray) -> np.ndarray | None:
+    """int16 wire encoding when EXACT, else None. Exact iff every sample
+    is q/65536 with q in int16 range — true for any IR loaded from a
+    16-bit WAV (read_wav's /65536 scaling), including tiled or truncated
+    copies, but not for normalized or 24-bit/float sources. Checks one IR
+    (leading-axis row) at a time and stops at the first off the grid."""
+    out = np.empty(td.shape, np.int16)
+    for k in range(td.shape[0]):
+        q = td[k] * _PCM16_SCALE
+        r = np.rint(q)
+        if (q != r).any() or r.min() < -32768 or r.max() > 32767:
+            return None
+        out[k] = r
+    return out
+
+
+def upload_bank_td(td: np.ndarray, wire: str = "auto", device="cpu"):
+    """Host [K, O, L] f32 -> the same f32 values on `device`, over the
+    smallest exact wire.
+
+    wire='auto': int16 when ``encode_pcm16_exact`` holds (half the bytes),
+    else f32; 'pcm16' raises for a bank off the 16-bit grid. The decode
+    multiply on the device is exact (a power-of-two scale). Returns
+    (tensor_f32, wire_used)."""
+    if wire not in ("auto", "f32", "pcm16"):
+        raise ValueError(f"unknown td wire {wire!r}")
+    device = torch.device(device)
+    if wire != "f32":
+        q = encode_pcm16_exact(td)
+        if q is not None:
+            dev = _to_device(torch.from_numpy(q), device)
+            return dev.to(torch.float32) * (1.0 / _PCM16_SCALE), "pcm16"
+        if wire == "pcm16":
+            raise ValueError("pcm16 td wire requested but the bank is not "
+                             "on the 16-bit grid (normalized or >16-bit "
+                             "source); use wire='f32'")
+    host = torch.from_numpy(np.ascontiguousarray(td, np.float32))
+    return _to_device(host, device), "f32"
+
+
+def _to_device(host: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """A host tensor's copy on `device`: through pinned memory on CUDA (one
+    queued copy), a fresh tensor on the CPU (never a view of the caller's
+    array)."""
+    if device.type == "cuda":
+        return host.pin_memory().to(device, non_blocking=True)
+    return host.clone()
 
 
 # -- building blocks ------------------------------------------------------------
@@ -161,31 +222,39 @@ def cascade_columns(engine, td: torch.Tensor
             pack_mac_rhs_j(double_reversed_j(tail, axis=2)))
 
 
-def _upload(engine, td) -> torch.Tensor:
+def _upload(engine, td, wire: str) -> torch.Tensor:
     """[K, O, L] host f32 (or an IRBank) -> the same on the engine's
-    device, after checking the bank size against the engine's."""
+    device over `wire` (upload_bank_td), after checking the bank size
+    against the engine's. Logs the wire used."""
     td = td if isinstance(td, np.ndarray) else bank_time_domain(td)
     if engine.num_irs is not None and td.shape[0] != engine.num_irs:
         raise ValueError(f"bank has {td.shape[0]} IRs, engine was built "
                          f"for num_irs={engine.num_irs}")
     engine.num_irs = td.shape[0]
-    return torch.as_tensor(np.ascontiguousarray(td, np.float32)
-                           ).to(engine.device)
+    dev, used = upload_bank_td(td, wire, engine.device)
+    Log.info("device_prep", "bank upload: %d IRs, %.1f MB over the %s wire",
+             td.shape[0], td.size * (2 if used == "pcm16" else 4) / 1e6,
+             used)
+    return dev
 
 
-def prepare_fmajor_bank_device(engine, td) -> FMajorBank:
+def prepare_fmajor_bank_device(engine, td, wire: str = "f32"
+                               ) -> FMajorBank:
     """[K, O, L] host f32 (or an IRBank) -> FMajorBank on the engine's
-    device, spectra and packs computed there. Mirrors
+    device, spectra and packs computed there; the samples cross over
+    `wire` (upload_bank_td: 'auto', 'f32' or 'pcm16'). Mirrors
     engine.prepare_bank(spectra) to the FFT's rounding."""
-    return _fmajor_bank(engine, _upload(engine, td))
+    return _fmajor_bank(engine, _upload(engine, td, wire))
 
 
-def prepare_cascade_bank_device(engine, td) -> CascadeBank:
+def prepare_cascade_bank_device(engine, td, wire: str = "f32"
+                                ) -> CascadeBank:
     """[K, O, L] host f32 (or an IRBank) -> CascadeBank on the cascade
-    engine's device, both stages' spectra and packs computed there.
-    Mirrors engine.prepare_bank(bank) to the FFT's rounding."""
+    engine's device, both stages' spectra and packs computed there; the
+    samples cross over `wire` (upload_bank_td). Mirrors
+    engine.prepare_bank(bank) to the FFT's rounding."""
     from tpu_audio_torch.engine.cascade import CascadeBank
 
-    head, tail = cascade_columns(engine, _upload(engine, td))
+    head, tail = cascade_columns(engine, _upload(engine, td, wire))
     return CascadeBank(head_rhs2=head.to(engine.mac_dtype),
                        tail_rhs2=tail.to(engine.mac_dtype))

@@ -70,6 +70,7 @@ them: the caller must treat the state it passed in as consumed.
 from __future__ import annotations
 
 import math
+import os
 from dataclasses import dataclass, replace
 
 import numpy as np
@@ -81,7 +82,9 @@ from tpu_audio_torch.ops.fft import SpectralTransform
 from tpu_audio_torch.ops.mac_shift import mac_shift
 from tpu_audio_torch.ops.mix import add_dry, wet_scale
 from tpu_audio_torch.ops.ring_mac import ring_mac
+from tpu_audio_torch.utils import diskcache
 from tpu_audio_torch.utils.device import resolve_device
+from tpu_audio_torch.utils.log import Log
 
 MAC_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
 
@@ -152,7 +155,8 @@ class BankSlot:
 
     columns: torch.Tensor   # mac [F, 2, 2Pp, 4] (ring) or [F, 2, Pp, 4]
     row: torch.Tensor       # mac [F, O, 2, 2Pp] (ring) or f32 [O, Pp, F, 2]
-    host: torch.Tensor      # f32 [O, partitions * block]
+    host: torch.Tensor      # f32: the 'td' IR [O, partitions * block] or
+                            # the spectra payload's packed row
     done: torch.cuda.Event | None = None
 
 
@@ -207,6 +211,17 @@ def pack_spectra_rev2(spectra: np.ndarray, pp: int) -> np.ndarray:
         3, pp)                                       # [K, 2, O, Pp, F]
     dbl = double_reversed(planar, axis=3)            # [K, 2, O, 2Pp, F]
     return np.ascontiguousarray(np.transpose(dbl, (0, 4, 2, 1, 3)))
+
+
+def mac_planes(re_: torch.Tensor, im_: torch.Tensor) -> torch.Tensor:
+    """(br, bi) as [F, q, O] -> the pack_mac_rhs column layout [F, 2, q,
+    O*2]: plane c=0 carries (br, bi), c=1 carries (-bi, br). Axis moves
+    and one negation, so the columns keep the row's bits in either dtype
+    (the 'derived' fault payload's device rebuild)."""
+    f, q = re_.shape[0], re_.shape[1]
+    p0 = torch.stack([re_, im_], dim=-1).reshape(f, q, -1)
+    p1 = torch.stack([-im_, re_], dim=-1).reshape(f, q, -1)
+    return torch.stack([p0, p1], dim=1)
 
 
 def _tensor(arr, device, dtype=None) -> torch.Tensor:
@@ -271,7 +286,8 @@ class FMajorPartitionedConvolution:
                  max_predelay: int = 8192, ring: bool = True,
                  mac_strategy: str = "allk", num_irs: int | None = None,
                  mac_dtype: str = "f32", swap_snapshot: bool = True,
-                 pv_mac: str = "dot", device=None):
+                 pv_mac: str = "dot", fault_upload: str = "td",
+                 device=None):
         self.num_voices = num_voices
         self.block = block
         self.partitions = partitions
@@ -306,6 +322,20 @@ class FMajorPartitionedConvolution:
         if pv_mac not in ("dot", "merged"):
             raise ValueError(f"unknown pv_mac {pv_mac!r}")
         self.pv_mac = pv_mac
+        # working-set fault payloads ('allk', update_bank_slot): "td" the
+        # time-domain IR [O, L], transformed and packed on the device (the
+        # reference's prepare() architecture, src/conv.cu:207-253);
+        # "derived" host spectra [1, O, P, F], only the row packed and
+        # uploaded (rev2 in ring mode, planar in roll mode), the columns
+        # rebuilt from it on the device (axis moves and one negation).
+        # "dual" takes the same payload and the same route: the JAX engine
+        # uploads both packed layouts there, the same bits at three times
+        # the bytes, so the port keeps the name and not the second upload.
+        # The JAX engine defaults to "derived"; the port to "td", what its
+        # model uploads by default.
+        if fault_upload not in ("dual", "derived", "td"):
+            raise ValueError(f"unknown fault_upload {fault_upload!r}")
+        self.fault_upload = fault_upload
         self.num_irs = num_irs
         self.device = resolve_device(device)
         self.xf = SpectralTransform(2 * block)
@@ -339,7 +369,7 @@ class FMajorPartitionedConvolution:
             mac_dtype=self.mac_dtype_name,
             swap_snapshot=(swap_snapshot if self.mac_strategy == "allk"
                            else True),
-            pv_mac=self.pv_mac,
+            pv_mac=self.pv_mac, fault_upload=self.fault_upload,
             device=self.device if device is None else device)
 
     @property
@@ -408,11 +438,35 @@ class FMajorPartitionedConvolution:
 
     # -- bank ---------------------------------------------------------------------
 
-    def prepare_bank(self, spectra: np.ndarray) -> FMajorBank:
+    def _pack_bank_host(self, spectra: np.ndarray):
+        """Host [K, O, P, F] complex -> the numpy bank tensors (mac_rhs,
+        rhs2, planar, rev2; None where this mode and strategy read none),
+        f32. Doubling and reversal happen on the complex spectra BEFORE
+        packing (see double_reversed)."""
+        pp = self.pp
+        mac_rhs = rhs2 = planar = rev2 = None
+        if self.mac_strategy == "allk":
+            if self.ring_mode:
+                dbl = double_reversed(_pad_p(spectra, 2, pp), 2)
+                rhs2 = pack_mac_rhs(dbl, 2 * pp)
+            else:
+                mac_rhs = pack_mac_rhs(spectra, pp)
+        if self.ring_mode:
+            rev2 = pack_spectra_rev2(spectra, pp)
+        else:
+            planar = pack_planar_spectra(spectra, pp)
+        return mac_rhs, rhs2, planar, rev2
+
+    def prepare_bank(self, spectra: np.ndarray,
+                     cache_dir: str | os.PathLike | None = None
+                     ) -> FMajorBank:
         """Host [K, 2, P, F] complex spectra -> device FMajorBank, packing
         what this mode and strategy read, in the MAC dtype (roll mode's
-        planar spectra stay f32). Doubling and reversal happen on the
-        complex spectra BEFORE packing (see double_reversed)."""
+        planar spectra stay f32).
+
+        cache_dir: a content-addressed disk cache of the PACKED tensors,
+        ``pack_<key>`` entries keyed and stored as the JAX package stores
+        them (utils/diskcache.py), so either package reads the other's."""
         spectra = np.asarray(spectra)
         if spectra.shape[2] != self.partitions or spectra.shape[3] != self.num_bins:
             raise ValueError(f"bank geometry {spectra.shape} != engine "
@@ -422,60 +476,103 @@ class FMajorPartitionedConvolution:
                              f"built for num_irs={self.num_irs} (base_g "
                              f"state is K-shaped)")
         self.num_irs = spectra.shape[0]
-        pp, dev, dt = self.pp, self.device, self.mac_dtype
+        fields = ("mac_rhs", "rhs2", "planar", "rev2")
+        packs = base = None
+        if cache_dir is not None:
+            base = "pack_" + diskcache.content_key(
+                "fmajor-pack", (self.pp, self.ring_mode, self.mac_strategy,
+                                spectra.shape), spectra)
+            hit = diskcache.load(cache_dir, base, fields)
+            if hit is not None:
+                Log.info("fmajor", "packed-bank cache hit: %s/%s*",
+                         os.fspath(cache_dir), base)
+                packs = tuple(hit[f] for f in fields)
+        if packs is None:
+            packs = self._pack_bank_host(spectra)
+            if base is not None:
+                diskcache.store(cache_dir, base, dict(zip(fields, packs)))
+        mac_rhs, rhs2, planar, rev2 = packs
+        dev, dt = self.device, self.mac_dtype
 
-        def placeholder(ndim, dtype=dt):
-            return torch.zeros((1,) * ndim, dtype=dtype, device=dev)
+        def leaf(arr, ndim, dtype=dt):
+            if arr is None:
+                return torch.zeros((1,) * ndim, dtype=dtype, device=dev)
+            return _tensor(arr, dev).to(dtype)
 
-        def mac(arr):
-            return _tensor(arr, dev).to(dt)
-
-        mac_rhs = rhs2 = placeholder(4)
-        if self.mac_strategy == "allk":
-            if self.ring_mode:
-                dbl = double_reversed(_pad_p(spectra, 2, pp), 2)
-                rhs2 = mac(pack_mac_rhs(dbl, 2 * pp))
-            else:
-                mac_rhs = mac(pack_mac_rhs(spectra, pp))
-        if self.ring_mode:
-            planar = placeholder(5, torch.float32)
-            rev2 = mac(pack_spectra_rev2(spectra, pp))
-        else:
-            planar = _tensor(pack_planar_spectra(spectra, pp), dev)
-            rev2 = placeholder(5)
-        return FMajorBank(mac_rhs=mac_rhs, rhs2=rhs2, spectra=planar,
-                          spectra_rev2=rev2)
+        return FMajorBank(mac_rhs=leaf(mac_rhs, 4), rhs2=leaf(rhs2, 4),
+                          spectra=leaf(planar, 5, torch.float32),
+                          spectra_rev2=leaf(rev2, 5))
 
     def update_bank_slot(self, bank: FMajorBank, slot: int,
-                         ir: np.ndarray) -> FMajorBank:
+                         payload: np.ndarray) -> FMajorBank:
         """Replace ONE IR slot of a device bank (working-set residency,
-        runtime/working_set.py) with the time-domain IR `ir` [O, L]: its
-        partition FFT and packs run on the device (pack_bank_slot), and
-        the slot's columns and row are written IN PLACE, stream-ordered
-        after every step already queued (write_bank_slot). Returns the
-        same bank object. 'allk' only: the 'selected' strategy
-        materializes per-voice spectra in state, which a bank-slot write
-        would silently miss."""
-        return self.write_bank_slot(bank, slot, self.pack_bank_slot(ir))
+        runtime/working_set.py) with `payload`, of the engine's
+        fault_upload kind (pack_bank_slot): the slot's columns and row are
+        written IN PLACE, stream-ordered after every step already queued
+        (write_bank_slot). Returns the same bank object. 'allk' only: the
+        'selected' strategy materializes per-voice spectra in state, which
+        a bank-slot write would silently miss."""
+        return self.write_bank_slot(bank, slot, self.pack_bank_slot(payload))
 
-    def pack_bank_slot(self, ir: np.ndarray) -> BankSlot:
-        """Host [O, L] IR -> its BankSlot on the engine's device: one
-        zero-pad to the static partition grid on the host, one upload
-        (through a pinned buffer on CUDA), then the partition FFT, the
-        double+reverse (ring) and the packs on the current stream. Reads
-        no bank, so it may run on a side stream while blocks stream."""
+    def pack_bank_slot(self, payload: np.ndarray) -> BankSlot:
+        """One fault payload -> its BankSlot on the engine's device, each
+        upload through a pinned buffer on CUDA, the device work on the
+        current stream. Reads no bank, so it may run on a side stream while
+        blocks stream.
+
+          - 'td': the time-domain IR [O, L], zero-padded to the static
+            partition grid on the host; the partition FFT, the
+            double+reverse (ring) and the packs on the device;
+          - 'derived' and 'dual': host spectra [1, O, P, F], only the row
+            packed and uploaded (ring: rev2, roll: planar); the columns
+            are rebuilt from it on the device (mac_planes), bit-equal to
+            the JAX engine's 'dual' upload of both layouts."""
         self._require_allk()
-        ir = np.asarray(ir)
-        if ir.ndim != 2 or np.iscomplexobj(ir):
-            raise ValueError(f"a slot update takes a time-domain [O, L] "
-                             f"IR, got {ir.dtype} {ir.shape}")
+        payload = np.asarray(payload)
+        if self.fault_upload == "td":
+            if payload.ndim != 2 or np.iscomplexobj(payload):
+                raise ValueError(f"a slot update takes a time-domain [O, L] "
+                                 f"IR, got {payload.dtype} {payload.shape}")
+            return self._pack_slot_td(payload)
+        if payload.ndim != 4 or not np.iscomplexobj(payload):
+            raise ValueError(f"fault_upload={self.fault_upload!r} takes a "
+                             f"spectra payload [1, O, P, F] complex, got "
+                             f"{payload.dtype} {payload.shape}")
+        if self.ring_mode:
+            host, row = self._stage(pack_spectra_rev2(payload, self.pp)[0])
+            row = row.to(self.mac_dtype)              # [F, O, 2, 2Pp]
+            columns = mac_planes(row[:, :, 0].transpose(1, 2),
+                                 row[:, :, 1].transpose(1, 2))
+        else:                                         # row f32 [O, Pp, F, 2]
+            host, row = self._stage(pack_planar_spectra(payload,
+                                                        self.pp)[0])
+            columns = mac_planes(row[..., 0].permute(2, 1, 0),
+                                 row[..., 1].permute(2, 1, 0)
+                                 ).to(self.mac_dtype)
+        return self._slot(columns, row, host)
+
+    def _stage(self, arr: np.ndarray) -> tuple[torch.Tensor, torch.Tensor]:
+        """A host array's f32 copy on the engine's device, queued through
+        a pinned staging buffer on CUDA. Returns (staging buffer, device
+        tensor)."""
+        host = torch.from_numpy(np.ascontiguousarray(arr, np.float32))
+        if self.device.type == "cuda":
+            host = host.pin_memory()
+        return host, host.to(self.device, non_blocking=True)
+
+    def _slot(self, columns, row, host) -> BankSlot:
+        """A BankSlot, with an event after its device work on CUDA."""
+        done = None
+        if self.device.type == "cuda":
+            done = torch.cuda.Event()
+            done.record()
+        return BankSlot(columns=columns, row=row, host=host, done=done)
+
+    def _pack_slot_td(self, ir: np.ndarray) -> BankSlot:
         lp = self.partitions * self.block
         pad = np.zeros((ir.shape[0], lp), np.float32)
         pad[:, : min(ir.shape[1], lp)] = ir[:, :lp]
-        host = torch.from_numpy(pad)
-        if self.device.type == "cuda":
-            host = host.pin_memory()
-        td = host.to(self.device, non_blocking=True)
+        host, td = self._stage(pad)
         spec = device_prep.pad_parts(
             device_prep.partition_fd(td[None], self.block, self.partitions,
                                      0, self.xf), self.pp)   # [1, O, Pp, F]
@@ -487,11 +584,7 @@ class FMajorPartitionedConvolution:
         else:
             columns = device_prep.pack_mac_rhs_j(spec).to(dt)
             row = device_prep.pack_planar_j(spec)[0]
-        done = None
-        if self.device.type == "cuda":
-            done = torch.cuda.Event()
-            done.record()
-        return BankSlot(columns=columns, row=row, host=host, done=done)
+        return self._slot(columns, row, host)
 
     def _require_allk(self) -> None:
         if self.mac_strategy != "allk":

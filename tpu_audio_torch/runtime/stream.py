@@ -69,8 +69,19 @@ choice stays on the host mirrors; bank swaps and the working set's slot
 writes reach every replica. Per-block dispatch only (``chunk_blocks`` must
 be 1), and coefficient engines only, as in the JAX package.
 
-Left out of this port, by design: batched fetches and the pcm16 wire
-(``fetch_batch``, ``wire``) and the JAX session's layout pinning.
+Batched fetches (``fetch_batch`` > 1): dispatch stays per block (MIDI,
+parameters and the step choice keep block granularity), but each output is
+copied into slot i of a device batch tensor [N, V, 2, B] as it comes, and
+the batch leaves the device in one copy into pinned host memory behind one
+event (on a mesh, one batch and one copy per voice row). With
+``wire="pcm16"`` the batch is encoded to 16-bit PCM on the device first
+(utils/wire.py: half the bytes) and decoded on the host. ``pipeline_depth``
+then counts batches; a partial batch is flushed before every checkpoint,
+at the source's end, at an underrun stop and at stop(). Pace is recorded
+per batch at delivery: the wall time between two deliveries over the
+batch's blocks, the missed-deadline hook fired from there.
+
+Left out of this port, by design: the JAX session's layout pinning.
 
 Where chunked dispatch differs from the JAX session's: a partial chunk
 (the source's end, or ``max_blocks``) renders only its valid blocks (JAX
@@ -94,6 +105,7 @@ from tpu_audio_torch.runtime.backends import BlockSink, BlockSource
 from tpu_audio_torch.runtime.checkpoint import save_checkpoint
 from tpu_audio_torch.utils.log import Log
 from tpu_audio_torch.utils.profiling import BlockTimer
+from tpu_audio_torch.utils.wire import decode_pcm16, encode_pcm16
 
 STEADY_THRESHOLD = 1e-6  # coef_a below this ≈ crossfade fully decayed
 
@@ -179,7 +191,8 @@ class StreamSession:
                  pipeline_depth: int = 1, underrun_policy: str = "stop",
                  max_consecutive_underruns: int | None = None,
                  on_missed_deadline=None, clock: str = "sleep",
-                 chunk_blocks: int = 1, mesh=None):
+                 chunk_blocks: int = 1, fetch_batch: int = 1,
+                 wire: str = "f32", mesh=None):
         self.engine = engine
         self.bank = bank
         self.device = engine.device
@@ -232,6 +245,28 @@ class StreamSession:
                 f"chunk_blocks={chunk_blocks}: {type(engine).__name__} "
                 f"slews its own spectra (fade protocol 'slew') and has no "
                 f"chunk step; serve it per block")
+        # fetch_batch > 1: per-block dispatch, but every N outputs leave
+        # the device in one copy (N blocks more delivery latency);
+        # pipeline_depth then counts batches
+        self.fetch_batch = max(1, fetch_batch)
+        if self.fetch_batch > 1 and self.chunk_blocks > 1:
+            raise ValueError("fetch_batch and chunk_blocks are exclusive")
+        # wire="pcm16" (batched only): the batch is encoded to 16-bit PCM on
+        # the device before its copy, half the bytes (utils/wire.py)
+        if wire not in ("f32", "pcm16"):
+            raise ValueError(f"unknown wire format {wire!r}")
+        if wire != "f32" and self.fetch_batch == 1:
+            raise ValueError("wire='pcm16' requires fetch_batch > 1 "
+                             "(per-block delivery always transfers f32)")
+        self.wire = wire
+        # the open batch: one device tensor [N, ...] per voice row, and how
+        # many of its slots are filled
+        self._batch: list | None = None
+        self._batch_n = 0
+        self._batch_tprev = None
+        # device-to-host copies and their bytes, over every run
+        self.fetch_copies = 0
+        self.fetch_bytes = 0
         # "stop": end the stream when the source runs dry (file processing);
         # "silence": substitute silent blocks and keep real time, bounded
         # only by max_consecutive_underruns (None = ride out any outage)
@@ -507,21 +542,96 @@ class StreamSession:
         for t in parts:
             host[v0:v0 + t.shape[0]].copy_(t, non_blocking=True)
             v0 += t.shape[0]
-            # on the stream of the device that holds this part
-            event = torch.cuda.Event()
-            event.record(torch.cuda.current_stream(t.device))
-            done.append(event)
+            done.append(self._copied(t))
         return host, done, n_valid
 
-    def _deliver(self, host: torch.Tensor, done, n_valid: int | None
-                 ) -> None:
+    def _copied(self, t: torch.Tensor) -> torch.cuda.Event:
+        """Count one device-to-host copy of `t`, just queued, and return an
+        event recorded after it on the stream of the device that holds
+        `t`."""
+        self.fetch_copies += 1
+        self.fetch_bytes += t.numel() * t.element_size()
+        event = torch.cuda.Event()
+        event.record(torch.cuda.current_stream(t.device))
+        return event
+
+    def _batch_add(self, out) -> bool:
+        """Copy one block's output (each voice row's, on a mesh) into the
+        next slot of the open batch on its device, so that a step output
+        the next step reuses cannot reach the batch changed. True when
+        the batch is full."""
+        parts = out if isinstance(out, list) else [out]
+        if self._batch is None:
+            self._batch = [torch.empty((self.fetch_batch,) + tuple(t.shape),
+                                       dtype=t.dtype, device=t.device)
+                           for t in parts]
+            self._batch_n = 0
+        for buf, t in zip(self._batch, parts):
+            buf[self._batch_n].copy_(t)
+        self._batch_n += 1
+        return self._batch_n == self.fetch_batch
+
+    def _flush_batch(self, pending) -> None:
+        """Queue the device-to-host copy of the open batch's filled slots
+        (a partial batch included): per voice row, the [n, V_row, 2, B]
+        slots, encoded to int16 on the device on the pcm16 wire, in one
+        copy into pinned memory behind one event."""
+        if self._batch is None:
+            return
+        bufs, n = self._batch, self._batch_n
+        self._batch = None
+        hosts, done = [], []
+        for buf in bufs:
+            t = buf[:n]
+            if self.wire == "pcm16":
+                t = encode_pcm16(t)
+            if t.device.type != "cuda":
+                hosts.append(t)
+                continue
+            host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            host.copy_(t, non_blocking=True)
+            done.append(self._copied(t))
+            hosts.append(host)
+        pending.append((hosts, done, n))
+
+    def _deliver(self, host, done, n_valid: int | None) -> None:
         for event in done:
             event.synchronize()
+        if isinstance(host, list):
+            self._deliver_batch(host, n_valid)
+            return
         if n_valid is None:
             self.sink.write(host.numpy())
             return
         for block in host[:n_valid].numpy():   # a partial chunk's pad is
             self.sink.write(block)             # trimmed here
+
+    def _deliver_batch(self, hosts: list, n: int) -> None:
+        """Write a fetched batch's n blocks to the sink (the voice rows'
+        parts joined, the pcm16 wire decoded), then record the pace: the
+        wall time since the previous batch's delivery over these n blocks,
+        once per block, and fire the missed-deadline hook from here (the
+        loop's own timing never sees a batch)."""
+        arr = (hosts[0].numpy() if len(hosts) == 1
+               else np.concatenate([h.numpy() for h in hosts], axis=1))
+        if arr.dtype == np.int16:
+            arr = decode_pcm16(arr)
+        for block in arr:
+            self.sink.write(block)
+        now = time.perf_counter()
+        if self._batch_tprev is not None:
+            per_block = (now - self._batch_tprev) / n
+            for _ in range(n):
+                self.timer.record(per_block)
+            if (per_block > self.block_period
+                    and self.timer.missed > self._missed_logged):
+                self._missed_logged = self.timer.missed
+                if self.on_missed_deadline is not None:
+                    self.on_missed_deadline(self.timer.count, per_block)
+                else:
+                    Log.debug("stream", "missed deadline near block %d: "
+                              "%.2f ms", self.timer.count, per_block * 1e3)
+        self._batch_tprev = now
 
     def _gather(self, want: int) -> tuple[list, bool]:
         """Read up to `want` blocks from the source under the underrun
@@ -667,7 +777,10 @@ class StreamSession:
             self._pure_host[:] = False
 
         chunk = self.chunk_blocks
+        batched = self.fetch_batch > 1
         pending = collections.deque()
+        self._batch = None
+        self._batch_tprev = None
         block_index = 0
         next_deadline = time.perf_counter() + chunk * self.block_period
         native_clock = self._open_clock()
@@ -707,7 +820,10 @@ class StreamSession:
                 if chunk == 1:
                     state, out = step(state, self.bank, params,
                                       self._upload(xs[0]))
-                    pending.append(self._start_fetch(out, None))
+                    if not batched:
+                        pending.append(self._start_fetch(out, None))
+                    elif self._batch_add(out):
+                        self._flush_batch(pending)
                 else:
                     # zero-pad a partial chunk to the fixed [T, V, 2, B]
                     # upload; its pad is not rendered
@@ -717,9 +833,9 @@ class StreamSession:
                     pending.append(self._start_fetch(outs, n_valid))
                 self.control.end_block(n_valid)
 
-                # pipelined delivery: this block's (chunk's) device->host
-                # copy is queued; deliver the one from `pipeline_depth`
-                # dispatches ago
+                # pipelined delivery: this block's (chunk's, batch's)
+                # device->host copy is queued; deliver the one from
+                # `pipeline_depth` fetches ago
                 if len(pending) >= self.pipeline_depth + 1:
                     self._deliver(*pending.popleft())
 
@@ -730,6 +846,7 @@ class StreamSession:
                     # drain in-flight deliveries FIRST: a checkpoint must
                     # never get ahead of the sink, or a crash between save
                     # and delivery would lose the undelivered blocks
+                    self._flush_batch(pending)
                     while pending:
                         self._deliver(*pending.popleft())
                     # let subsystems publish in-flight host-side work (the
@@ -738,7 +855,10 @@ class StreamSession:
                         hook()
                     self._save(checkpoint_path, state, start_block + end)
 
-                if chunk == 1:
+                if batched:
+                    # recorded per batch at its delivery
+                    elapsed = 0.0
+                elif chunk == 1:
                     elapsed = self.timer.stop()
                 else:
                     # the chunk's wall time, recorded as its per-block
@@ -749,7 +869,8 @@ class StreamSession:
                         self.timer.record(elapsed)
                 if saved:
                     self.checkpoint_saves[-1]["block_s"] = (
-                        elapsed * n_valid)
+                        time.perf_counter() - self.timer._t0 if batched
+                        else elapsed * n_valid)
                 if (elapsed > self.block_period
                         and self.timer.missed > self._missed_logged):
                     self._missed_logged = self.timer.missed
@@ -774,6 +895,7 @@ class StreamSession:
                 if dry:
                     break   # the source ended (or the underrun cap) mid-chunk
 
+            self._flush_batch(pending)
             while pending:
                 self._deliver(*pending.popleft())
         finally:

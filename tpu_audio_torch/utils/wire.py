@@ -24,5 +24,8 @@ def encode_pcm16(x: torch.Tensor) -> torch.Tensor:
 
 
 def decode_pcm16(x: np.ndarray) -> np.ndarray:
-    """int16 -> f32 (host-side, after the transfer)."""
-    return x.astype(np.float32) / PCM16_SCALE
+    """int16 -> f32 (host-side, after the transfer), divided in place: the
+    JAX package's values with one f32 array allocated, not two."""
+    out = x.astype(np.float32)
+    out /= np.float32(PCM16_SCALE)
+    return out
