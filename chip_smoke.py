@@ -680,14 +680,13 @@ def run_working_set(bank, async_paging, configure, select, keep_sink, dev,
     ws._fault = timed("fault", ws._fault)
     engine.pack_bank_slot = timed("pack", engine.pack_bank_slot)
     session._maybe_collapse = timed("collapse", session._maybe_collapse)
-    stop = session.timer.stop
+    record = session.timer.record
 
-    def timed_stop():
-        elapsed = stop()
+    def timed_record(elapsed):
         parts["block", len(source.stamps) - 1] = elapsed * 1e3
-        return elapsed
+        record(elapsed)
 
-    session.timer.stop = timed_stop
+    session.timer.record = timed_record
     cp.block_hooks[:] = [timed("poll", h) if h == ws.poll else h
                          for h in cp.block_hooks]
     midi = MidiSchedule([select(b, v) for b, v in WS_CHURN]

@@ -1396,6 +1396,33 @@ def test_pcm16_batch_leaves_the_card_as_int16(cuda, monkeypatch):
     np.testing.assert_allclose(got, want, atol=1.01 / 32767)
 
 
+def test_session_spans_and_counters_on_the_card(cuda):
+    """Spans on the card change no output; each block has its span, the
+    re-select block its select span, every block a fetch_wait on its own
+    copy event; the counters hold the pinned uploads and the fetches."""
+    from tpu_audio_torch.utils.profiling import Spans
+
+    x = (np.random.default_rng(44).standard_normal((4, 2, 64 * 16)) * 0.05
+         ).astype(np.float32)
+    want, _, _ = _batched_session(cuda, x)
+    spans = Spans()
+    got, session, _ = _batched_session(cuda, x, spans=spans)
+    np.testing.assert_array_equal(got, want)
+    recs = spans.records()
+    # 16 blocks, then the read that finds the source dry
+    assert [r.block for r in recs if r.name == "block"] == list(range(17))
+    steps = [r.name for r in recs if r.name.startswith("step.")]
+    assert len(steps) == 16 and steps[8] == "step.indexed"
+    assert [r.block for r in recs if r.name == "select"] == [8]
+    assert [r.block for r in recs
+            if r.name == "fetch_wait"] == list(range(16))
+    counters = session.summary()["counters"]
+    assert counters["upload_bytes"] == counters["fetch_bytes"] == (
+        16 * 4 * 2 * 64 * 4)
+    assert counters["fetch_copies"] == 16
+    assert counters["collapses_pure"] == 1
+
+
 def test_pcm16_bank_upload_equals_the_f32_upload_on_the_card(cuda):
     """A bank on the 16-bit WAV grid crosses as int16 and is decoded on the
     card: the prepared bank equals the f32 upload's bit for bit."""

@@ -2,7 +2,7 @@
 the tools CLI (tpu_audio_torch/app/tools.py), make_index / write_index,
 the content-addressed disk cache (utils/diskcache.py), IRBank's spectra
 cache, ConvolutionReverb(cache_dir=) and the CLI's --cache-dir, --profile
-and --chunk-blocks.
+(its span table and counters) and --chunk-blocks.
 
 Every input is synthetic (WAVs written into tmp_path from a seed). The
 tools print what the JAX tool prints for the same inputs, to the
@@ -320,6 +320,55 @@ def test_cli_profile_cache_dir_and_chunk_blocks(bank_dir, capsys,
                    for ev in json.load(fh)["traceEvents"])
     assert tools_main(["profile", str(prof)]) == 0
     assert "category 'cpu_op'" in capsys.readouterr().out
+
+
+def test_cli_profile_prints_the_span_table_and_counters(bank_dir, capsys):
+    """--profile records the session's spans: their table and the
+    session's counters follow the summary line, and the Chrome trace
+    carries them as tpu_audio.* ranges."""
+    idx = _index(bank_dir)
+    settings = bank_dir / "settings.txt"
+    settings.write_text("conv.count 2\n" + "".join(
+        f"conv[{i}].index {idx}\nconv[{i}].maxPredelay 64\n"
+        f"conv[{i}].cc.message 176\nconv[{i}].cc.select 21\n"
+        for i in range(2)))
+    (bank_dir / "events.txt").write_text("4 B0 15 40\n")
+    prof = bank_dir / "prof"
+    assert port_main(["--settings", str(settings), "--signal", "noise",
+                      "--blocks", "10", "--block-size", "64", "--voices",
+                      "3", "--device", "cpu", "--midi",
+                      str(bank_dir / "events.txt"), "--profile",
+                      str(prof)]) == 0
+    lines = capsys.readouterr().out.splitlines()
+    first = next(i for i, line in enumerate(lines)
+                 if line.startswith("spans: "))
+    assert lines[first - 1].startswith("streamed 10 blocks")
+    assert lines[first].split()[1:] == ["name", "count", "mean_ms",
+                                        "p99_ms", "self_ms"]
+    rows = {}
+    for line in lines[first + 1:]:
+        if not line.startswith("spans: "):
+            break
+        name, count, *ms = line.split()[1:]
+        rows[name] = (int(count), [float(x) for x in ms])
+    assert list(rows)[:5] == ["block", "gather", "step_choice", "params",
+                              "upload"]
+    assert rows["block"][0] == 10 and rows["select"][0] == 1
+    assert rows["step.indexed"][0] + rows["step.steady"][0] == 10
+    assert rows["fetch_wait"][0] == rows["sink"][0] == 10
+    assert all(mean >= 0 and p99 >= 0 and mean >= own >= 0
+               for _, (mean, p99, own) in rows.values())
+    counters = dict(item.rsplit(" ", 1) for item in
+                    lines[first + 1 + len(rows)]
+                    .removeprefix("counters: ").split(" | "))
+    assert int(counters["upload_bytes"]) == 10 * 3 * 2 * 64 * 4
+    assert int(counters["collapses_pure"]) == 1
+    assert int(counters["indexed_blocks"]) == rows["step.indexed"][0]
+    with open(trace.newest_trace(prof)) as fh:
+        ranges = [ev["name"] for ev in json.load(fh)["traceEvents"]
+                  if ev.get("cat") == "user_annotation"]
+    assert ranges.count("tpu_audio.block") == 10
+    assert ranges.count("tpu_audio.select") == 1
 
 
 def test_cli_refuses_chunks_on_a_slew_engine(bank_dir):

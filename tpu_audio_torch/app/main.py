@@ -48,9 +48,12 @@ N outputs in one device-to-host copy, ``--wire pcm16`` as 16-bit PCM.
 and with ``--bank-prep host`` the fmajor and cascade packed banks) in a
 disk cache shared with the JAX package (the JAX flag's XLA compile cache
 has no counterpart: the CUDA kernels build once into
-``tpu_audio_torch/_build/``). ``--profile DIR`` writes a torch.profiler
-Chrome trace of the session to ``DIR/<pid>.pt.trace.json``, which
-``python -m tpu_audio_torch.app.tools profile DIR`` summarises.
+``tpu_audio_torch/_build/``). ``--profile DIR`` records the session's
+spans (runtime/stream.py) and writes a torch.profiler Chrome trace of the
+session to ``DIR/<pid>.pt.trace.json``, the spans in it as
+``tpu_audio.<span>`` ranges, which ``python -m tpu_audio_torch.app.tools
+profile DIR`` summarises; the run's span table and the session's
+counters are printed below its summary line.
 """
 
 from __future__ import annotations
@@ -66,6 +69,7 @@ from tpu_audio_torch.runtime.backends import (
 from tpu_audio_torch.runtime.stream import MidiSchedule
 from tpu_audio_torch.utils.device import select_gpu
 from tpu_audio_torch.utils.log import Log
+from tpu_audio_torch.utils.profiling import Spans
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -227,7 +231,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "with --bank-prep host; shared with the JAX "
                         "package)")
     p.add_argument("--profile", default=None, metavar="DIR",
-                   help="write a torch.profiler trace of the session to "
+                   help="record the session's spans, print their table "
+                        "and the session's counters, and write a "
+                        "torch.profiler trace of the session to "
                         "DIR/<pid>.pt.trace.json (summarise it with "
                         "python -m tpu_audio_torch.app.tools profile DIR)")
     p.add_argument("--device", default="cuda",
@@ -474,6 +480,18 @@ def _profiled_run(directory: str, session, state, **run_kwargs) -> None:
     Log.info("app", "profiler trace written to %s", path)
 
 
+def _print_spans(spans: Spans, counters: dict) -> None:
+    """The session's span table (per span: count, mean and 99th-percentile
+    duration, mean self time) and its counters."""
+    print(f"spans: {'name':<14} {'count':>7} {'mean_ms':>9} {'p99_ms':>9} "
+          f"{'self_ms':>9}" + (f"  ({spans.dropped} dropped past "
+                               f"{spans.capacity})" if spans.dropped else ""))
+    for name, row in spans.table().items():
+        print(f"spans: {name:<14} {row['count']:>7d} {row['mean_ms']:>9.3f} "
+              f"{row['p99_ms']:>9.3f} {row['self_ms']:>9.3f}")
+    print("counters: " + " | ".join(f"{k} {v}" for k, v in counters.items()))
+
+
 def _stream(args, model, rings: list) -> int:
     """Stream through the session; shm rings opened here are appended to
     `rings` (the caller unlinks them)."""
@@ -545,13 +563,14 @@ def _stream(args, model, rings: list) -> int:
             live_midi = (streams[0] if len(streams) == 1
                          else MultiMidiStream(streams))
 
+        spans = Spans() if args.profile else None
         session = model.session(source, sink, realtime=args.realtime,
                                 pipeline_depth=args.pipeline_depth,
                                 chunk_blocks=args.chunk_blocks,
                                 fetch_batch=args.fetch_batch, wire=args.wire,
                                 underrun_policy=underrun,
                                 max_consecutive_underruns=args.max_dry_blocks,
-                                clock=args.clock)
+                                clock=args.clock, spans=spans)
         if args.until_enter:
             import sys
             import threading
@@ -601,6 +620,8 @@ def _stream(args, model, rings: list) -> int:
                      "helps only if the device-to-host copy is the limit "
                      "(on an H100 it is not: PERF.md section 6)",
                      s["p99_ms"], session.block_period * 1e3)
+    if spans is not None:
+        _print_spans(spans, s["counters"])
     ws = model.working_set
     if ws is not None:
         print(f"working set: {ws.capacity} slots | misses {ws.misses} "

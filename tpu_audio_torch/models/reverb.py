@@ -469,8 +469,9 @@ class ConvolutionReverb:
                 **kwargs) -> StreamSession:
         """A StreamSession of this model; `kwargs` go to it unchanged
         (warmup, realtime, clock, pipeline_depth, underrun_policy,
-        max_consecutive_underruns, on_missed_deadline, chunk_blocks, mesh:
-        a parallel/mesh.py Mesh; the working set writes the session's
+        max_consecutive_underruns, on_missed_deadline, chunk_blocks,
+        fetch_batch, wire, spans: a utils/profiling.py Spans, mesh: a
+        parallel/mesh.py Mesh; the working set writes the session's
         placed bank while a run lasts, so that its slot writes reach every
         replica, and ``spectra`` stays the single-device bank)."""
         sess = StreamSession(self.engine, self.spectra, self.control,

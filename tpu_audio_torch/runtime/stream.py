@@ -81,6 +81,21 @@ at the source's end, at an underrun stop and at stop(). Pace is recorded
 per batch at delivery: the wall time between two deliveries over the
 batch's blocks, the missed-deadline hook fired from there.
 
+Spans (``spans=``, a utils/profiling.py Spans; None records nothing): the
+loop opens a span at each of its layer boundaries, all inside one
+``block`` span per iteration whose id is the iteration's first block
+index: ``gather`` (the source's reads), ``bank_swap`` and ``select``
+(only when a swap or a re-select runs), ``step_choice``, ``params`` (the
+control plane's device snapshot), ``upload``, ``step.<kind>`` (the
+engine's step call alone, kind ``steady``, ``indexed``, ``general``,
+``chunk`` or ``slew``), ``fetch`` (the device-to-host copy queued, or the
+output added to the open batch), ``end_block``, ``fetch_wait`` (the wait
+for a queued copy) and ``sink`` (the sink's writes, the pcm16 decode),
+both with the id of the block they deliver, ``checkpoint`` (a save) and
+``clock_wait`` (realtime pacing). Deliveries drained after the last
+block have no enclosing span. The session's counters, always kept, are
+in ``summary()["counters"]``.
+
 Left out of this port, by design: the JAX session's layout pinning.
 
 Where chunked dispatch differs from the JAX session's: a partial chunk
@@ -104,7 +119,7 @@ from tpu_audio_torch.runtime import native
 from tpu_audio_torch.runtime.backends import BlockSink, BlockSource
 from tpu_audio_torch.runtime.checkpoint import save_checkpoint
 from tpu_audio_torch.utils.log import Log
-from tpu_audio_torch.utils.profiling import BlockTimer
+from tpu_audio_torch.utils.profiling import BlockTimer, Spans
 from tpu_audio_torch.utils.wire import decode_pcm16, encode_pcm16
 
 STEADY_THRESHOLD = 1e-6  # coef_a below this ≈ crossfade fully decayed
@@ -192,8 +207,9 @@ class StreamSession:
                  max_consecutive_underruns: int | None = None,
                  on_missed_deadline=None, clock: str = "sleep",
                  chunk_blocks: int = 1, fetch_batch: int = 1,
-                 wire: str = "f32", mesh=None):
+                 wire: str = "f32", mesh=None, spans: Spans | None = None):
         self.engine = engine
+        self.spans = spans
         self.bank = bank
         self.device = engine.device
         # mesh: serve over a parallel/mesh.py Mesh through this session's
@@ -263,10 +279,13 @@ class StreamSession:
         # many of its slots are filled
         self._batch: list | None = None
         self._batch_n = 0
+        self._batch_id = 0
         self._batch_tprev = None
-        # device-to-host copies and their bytes, over every run
+        # device-to-host copies and their bytes, host-to-device bytes of the
+        # blocks' inputs, over every run
         self.fetch_copies = 0
         self.fetch_bytes = 0
+        self.upload_bytes = 0
         # "stop": end the stream when the source runs dry (file processing);
         # "silence": substitute silent blocks and keep real time, bounded
         # only by max_consecutive_underruns (None = ride out any outage)
@@ -296,11 +315,14 @@ class StreamSession:
         # fade step
         self.indexed_blocks = 0
         self.general_blocks = 0
+        # re-selects served by collapse_pure / by the materializing collapse
+        self.collapses_pure = 0
+        self.collapses_full = 0
 
         # coefficient engines pick a step from the host mirrors and collapse
         # on a re-select; "slew" engines only call engine.step
         protocol = engine.fade_protocol
-        spans = protocol == "spans"
+        span_fades = protocol == "spans"
         self._is_coef = protocol != "slew"
         if self.chunk_blocks > 1:
             from tpu_audio_torch.engine.fmajor import make_chunk_step
@@ -308,24 +330,25 @@ class StreamSession:
             self._step_steady = make_chunk_step(engine, steady=True)
             self._step_full = make_chunk_step(engine)
             self._step_indexed = (make_chunk_step(engine, indexed=True)
-                                  if spans else None)
+                                  if span_fades else None)
         else:
             self._step_steady, self._step_full = engine_steps(self._eng)
-            self._step_indexed = (self._eng.step_coef_indexed if spans
+            self._step_indexed = (self._eng.step_coef_indexed if span_fades
                                   else None)
-        self._collapse_pure = self._eng.collapse_pure if spans else None
+        self._collapse_pure = (self._eng.collapse_pure if span_fades
+                               else None)
         # 'selected' re-gathers its per-voice spectra at a collapse (it
         # takes the new selection) and at a bank swap
         self._selected = protocol == "selected"
         # the cascade rescales in-flight tail content at a re-select, which
         # needs the post-change parameters (the new fade's vsteps, predelay)
-        self._collapse_pure_params = (spans
+        self._collapse_pure_params = (span_fades
                                       and engine.collapse_pure_takes_params)
         # span-only engines (swap_snapshot=False) have no materialized
         # snapshot: a bank swap waits for the fades to decay
-        self._span_only = spans and not engine.swap_snapshot
+        self._span_only = span_fades and not engine.swap_snapshot
         # the state carries span provenance (base_pure)
-        self._has_provenance = spans or self._selected
+        self._has_provenance = span_fades or self._selected
         # analytic host mirror of coef_a for the step choice, and of span
         # purity (base_pure) for the indexed-step precondition
         self._a_host = np.zeros((engine.num_voices, 2), np.float64)
@@ -359,6 +382,13 @@ class StreamSession:
     def _maybe_collapse(self, state):
         if not self._pending_old:
             return state
+        if self.spans is None:
+            return self._collapse(state)
+        return self.spans.call("select", self._collapse, state)
+
+    def _collapse(self, state):
+        """Re-base the fades of the voices re-selected since the last
+        step."""
         # collapse_pure (a [V,2,K]-sized span update — the re-select block
         # then costs the same as a steady block) is valid iff the pre-state
         # was indexed-valid: every changed voice is then either pure (the
@@ -379,6 +409,7 @@ class StreamSession:
         old_t = torch.tensor(old_sel, device=self.device)
         changed_t = torch.tensor(changed, device=self.device)
         if use_pure:
+            self.collapses_pure += 1
             if self._collapse_pure_params:
                 return self._collapse_pure(state, old_t, changed_t,
                                            self.control.snapshot_device())
@@ -387,6 +418,7 @@ class StreamSession:
         # (virtual snapshots are materialized too), so the general fade
         # step may read state.base for anyone afterwards
         self._pure_host[:] = False
+        self.collapses_full += 1
         new_t = (torch.tensor(new_sel, device=self.device)
                  if self._selected else None)
         # the post-change parameters: the 'selected' cascade's in-flight
@@ -414,6 +446,16 @@ class StreamSession:
             self._a_host *= 1.0 - 1.0 / (vsteps + 5.0)
             vsteps = np.maximum(vsteps - 1.0, 0.0)
         return step
+
+    def _step_span(self, step) -> str:
+        """The span name of a per-block step the session picked."""
+        if not self._is_coef:
+            return "step.slew"
+        if step is self._step_steady:
+            return "step.steady"
+        if step is self._step_indexed:
+            return "step.indexed"
+        return "step.general"
 
     def _leaf(self, state, name: str) -> torch.Tensor:
         """One field of the state; on a mesh, joined over the shards (a
@@ -466,6 +508,11 @@ class StreamSession:
                          "to let the swap through",
                          self._swap_deferred_blocks)
             return state
+        if self.spans is None:
+            return self._swap_pending_bank(state)
+        return self.spans.call("bank_swap", self._swap_pending_bank, state)
+
+    def _swap_pending_bank(self, state):
         self._swap_deferred_blocks = 0
         self._swap_wait_logged = False
         new_bank = self._pending_bank
@@ -519,22 +566,26 @@ class StreamSession:
         # pinned buffer itself is returned and the sharded step copies
         # each voice row's slice to the row's device.
         if self.device.type != "cuda":
-            return torch.tensor(x, device=self.device)
+            t = torch.tensor(x, device=self.device)
+            self.upload_bytes += t.nbytes
+            return t
         pinned = torch.from_numpy(np.asarray(x, np.float32)).pin_memory()
+        self.upload_bytes += pinned.nbytes
         if self.mesh is not None:
             return pinned
         return pinned.to(self.device, non_blocking=True)
 
-    def _start_fetch(self, out, n_valid: int | None):
+    def _start_fetch(self, out, n_valid: int | None, block_id: int):
         """Queue the device->host copy of one output block, or of one
         chunk's [T, V, 2, B] outputs of which the first `n_valid` are
         delivered, or of a mesh step's VoiceShards (each row into its
         slice of one host buffer); returns what _deliver needs: the host
-        tensor, the events to wait for, n_valid."""
+        tensor, the events to wait for, n_valid and the id of the (first)
+        block."""
         parts = out if isinstance(out, list) else [out]
         if parts[0].device.type != "cuda":
             host = torch.cat(parts) if len(parts) > 1 else parts[0]
-            return host, (), n_valid
+            return host, (), n_valid, block_id
         rows = sum(t.shape[0] for t in parts)
         host = torch.empty((rows,) + tuple(parts[0].shape[1:]),
                            dtype=parts[0].dtype, pin_memory=True)
@@ -543,7 +594,7 @@ class StreamSession:
             host[v0:v0 + t.shape[0]].copy_(t, non_blocking=True)
             v0 += t.shape[0]
             done.append(self._copied(t))
-        return host, done, n_valid
+        return host, done, n_valid, block_id
 
     def _copied(self, t: torch.Tensor) -> torch.cuda.Event:
         """Count one device-to-host copy of `t`, just queued, and return an
@@ -555,7 +606,7 @@ class StreamSession:
         event.record(torch.cuda.current_stream(t.device))
         return event
 
-    def _batch_add(self, out) -> bool:
+    def _batch_add(self, out, block_id: int) -> bool:
         """Copy one block's output (each voice row's, on a mesh) into the
         next slot of the open batch on its device, so that a step output
         the next step reuses cannot reach the batch changed. True when
@@ -566,6 +617,7 @@ class StreamSession:
                                        dtype=t.dtype, device=t.device)
                            for t in parts]
             self._batch_n = 0
+            self._batch_id = block_id
         for buf, t in zip(self._batch, parts):
             buf[self._batch_n].copy_(t)
         self._batch_n += 1
@@ -592,32 +644,47 @@ class StreamSession:
             host.copy_(t, non_blocking=True)
             done.append(self._copied(t))
             hosts.append(host)
-        pending.append((hosts, done, n))
+        pending.append((hosts, done, n, self._batch_id))
 
-    def _deliver(self, host, done, n_valid: int | None) -> None:
+    def _deliver(self, host, done, n_valid: int | None,
+                 block_id: int) -> None:
+        """Wait for a queued copy and hand its blocks to the sink."""
+        sp = self.spans
+        batch = isinstance(host, list)
+        if sp is not None:
+            sp.open("fetch_wait", block_id)
         for event in done:
             event.synchronize()
-        if isinstance(host, list):
+        if sp is not None:
+            sp.close()
+            sp.open("sink", block_id)
+        if batch:
             self._deliver_batch(host, n_valid)
-            return
-        if n_valid is None:
+        elif n_valid is None:
             self.sink.write(host.numpy())
-            return
-        for block in host[:n_valid].numpy():   # a partial chunk's pad is
-            self.sink.write(block)             # trimmed here
+        else:
+            for block in host[:n_valid].numpy():   # a partial chunk's pad
+                self.sink.write(block)             # is trimmed here
+        if sp is not None:
+            sp.close()
+        if batch:
+            self._batch_pace(n_valid)
 
     def _deliver_batch(self, hosts: list, n: int) -> None:
-        """Write a fetched batch's n blocks to the sink (the voice rows'
-        parts joined, the pcm16 wire decoded), then record the pace: the
-        wall time since the previous batch's delivery over these n blocks,
-        once per block, and fire the missed-deadline hook from here (the
-        loop's own timing never sees a batch)."""
+        """Write a fetched batch's n blocks to the sink: the voice rows'
+        parts joined, the pcm16 wire decoded."""
         arr = (hosts[0].numpy() if len(hosts) == 1
                else np.concatenate([h.numpy() for h in hosts], axis=1))
         if arr.dtype == np.int16:
             arr = decode_pcm16(arr)
         for block in arr:
             self.sink.write(block)
+
+    def _batch_pace(self, n: int) -> None:
+        """Record a delivered batch's pace: the wall time since the
+        previous batch's delivery over its n blocks, once per block, and
+        fire the missed-deadline hook from here (the loop's own timing
+        never sees a batch)."""
         now = time.perf_counter()
         if self._batch_tprev is not None:
             per_block = (now - self._batch_tprev) / n
@@ -684,7 +751,7 @@ class StreamSession:
             else:
                 state, out = step(state, self.bank, params, self._upload(x),
                                   self.chunk_blocks)
-            _, done, _ = self._start_fetch(out, None)
+            _, done, _, _ = self._start_fetch(out, None, 0)
             for event in done:
                 event.synchronize()
         return time.perf_counter() - t0
@@ -778,6 +845,7 @@ class StreamSession:
 
         chunk = self.chunk_blocks
         batched = self.fetch_batch > 1
+        sp = self.spans
         pending = collections.deque()
         self._batch = None
         self._batch_tprev = None
@@ -795,43 +863,75 @@ class StreamSession:
                 # there, and a partial chunk renders its valid blocks only
                 want = chunk if max_blocks is None else min(
                     chunk, max_blocks - block_index)
-                xs, dry = self._gather(want)
+                block_id = start_block + block_index
+                if sp is None:
+                    xs, dry = self._gather(want)
+                else:
+                    sp.open("block", block_id)
+                    xs, dry = sp.call("gather", self._gather, want)
                 if not xs:
+                    if sp is not None:
+                        sp.close()
                     break
                 n_valid = len(xs)
 
                 if midi is not None:
-                    for device, message in midi.pop_due(start_block
-                                                        + block_index):
+                    for device, message in midi.pop_due(block_id):
                         self.control.apply_midi_message(message, device)
                 if live_midi is not None:
                     for device, message in live_midi.poll():
                         self.control.apply_midi_message(message, device)
 
-                self.timer.start()
+                # the block's timed work starts here: the source's read
+                # and the realtime wait stay out of BlockTimer
+                t0 = time.perf_counter()
                 state = self._apply_pending_bank(state)
                 if self._is_coef:
                     state = self._maybe_collapse(state)
-                    step = self._pick_coef_step(n_valid)
+                    step = (self._pick_coef_step(n_valid) if sp is None
+                            else sp.call("step_choice", self._pick_coef_step,
+                                         n_valid))
                 else:
                     step = self._step_full
 
-                params = self.control.snapshot_device()
+                params = (self.control.snapshot_device() if sp is None
+                          else sp.call("params", self.control.snapshot_device))
                 if chunk == 1:
-                    state, out = step(state, self.bank, params,
-                                      self._upload(xs[0]))
+                    if sp is None:
+                        state, out = step(state, self.bank, params,
+                                          self._upload(xs[0]))
+                    else:
+                        # the upload runs before the step, in its own span
+                        x = sp.call("upload", self._upload, xs[0])
+                        state, out = sp.call(self._step_span(step), step,
+                                             state, self.bank, params, x)
+                        sp.open("fetch")   # closed once the fetch is queued
                     if not batched:
-                        pending.append(self._start_fetch(out, None))
-                    elif self._batch_add(out):
+                        pending.append(self._start_fetch(out, None, block_id))
+                    elif self._batch_add(out, block_id):
                         self._flush_batch(pending)
+                    if sp is not None:
+                        sp.close()
                 else:
                     # zero-pad a partial chunk to the fixed [T, V, 2, B]
                     # upload; its pad is not rendered
                     xs += [np.zeros_like(xs[0])] * (chunk - n_valid)
-                    state, outs = step(state, self.bank, params,
-                                       self._upload(np.stack(xs)), n_valid)
-                    pending.append(self._start_fetch(outs, n_valid))
-                self.control.end_block(n_valid)
+                    if sp is None:
+                        state, outs = step(state, self.bank, params,
+                                           self._upload(np.stack(xs)),
+                                           n_valid)
+                        pending.append(self._start_fetch(outs, n_valid,
+                                                         block_id))
+                    else:
+                        x = sp.call("upload", self._upload, np.stack(xs))
+                        state, outs = sp.call("step.chunk", step, state,
+                                              self.bank, params, x, n_valid)
+                        pending.append(sp.call("fetch", self._start_fetch,
+                                               outs, n_valid, block_id))
+                if sp is None:
+                    self.control.end_block(n_valid)
+                else:
+                    sp.call("end_block", self.control.end_block, n_valid)
 
                 # pipelined delivery: this block's (chunk's, batch's)
                 # device->host copy is queued; deliver the one from
@@ -853,23 +953,24 @@ class StreamSession:
                     # async working set's uploads and deferred selects)
                     for hook in self.control.pre_checkpoint_hooks:
                         hook()
-                    self._save(checkpoint_path, state, start_block + end)
+                    if sp is None:
+                        self._save(checkpoint_path, state, start_block + end)
+                    else:
+                        sp.call("checkpoint", self._save, checkpoint_path,
+                                state, start_block + end)
 
                 if batched:
                     # recorded per batch at its delivery
                     elapsed = 0.0
-                elif chunk == 1:
-                    elapsed = self.timer.stop()
                 else:
-                    # the chunk's wall time, recorded as its per-block
+                    # a chunk's wall time is recorded as its per-block
                     # equivalent once per valid block
-                    chunk_s = time.perf_counter() - self.timer._t0
-                    elapsed = chunk_s / n_valid
+                    elapsed = (time.perf_counter() - t0) / n_valid
                     for _ in range(n_valid):
                         self.timer.record(elapsed)
                 if saved:
                     self.checkpoint_saves[-1]["block_s"] = (
-                        time.perf_counter() - self.timer._t0 if batched
+                        time.perf_counter() - t0 if batched
                         else elapsed * n_valid)
                 if (elapsed > self.block_period
                         and self.timer.missed > self._missed_logged):
@@ -885,12 +986,21 @@ class StreamSession:
                 behind = self.realtime and self.source.backlog() > 0
                 if native_clock is not None:
                     if not behind:
-                        native_clock.wait()
+                        if sp is None:
+                            native_clock.wait()
+                        else:
+                            sp.call("clock_wait", native_clock.wait)
                 elif self.realtime:
                     now = time.perf_counter()
                     if now < next_deadline and not behind:
-                        time.sleep(next_deadline - now)
+                        if sp is None:
+                            time.sleep(next_deadline - now)
+                        else:
+                            sp.call("clock_wait", time.sleep,
+                                    next_deadline - now)
                     next_deadline += chunk * self.block_period
+                if sp is not None:
+                    sp.close()
                 block_index = end
                 if dry:
                     break   # the source ended (or the underrun cap) mid-chunk
@@ -899,6 +1009,8 @@ class StreamSession:
             while pending:
                 self._deliver(*pending.popleft())
         finally:
+            if sp is not None:
+                sp.unwind()
             if native_clock is not None:
                 self.clock_ticks = native_clock.ticks
                 self.clock_missed = native_clock.missed
@@ -916,4 +1028,15 @@ class StreamSession:
         s["num_voices"] = self.engine.num_voices
         s["blocks_streamed"] = self.blocks_streamed
         s["underruns"] = self.underruns
+        s["counters"] = {
+            "upload_bytes": self.upload_bytes,
+            "fetch_copies": self.fetch_copies,
+            "fetch_bytes": self.fetch_bytes,
+            "indexed_blocks": self.indexed_blocks,
+            "general_blocks": self.general_blocks,
+            "collapses_pure": self.collapses_pure,
+            "collapses_full": self.collapses_full,
+            "underruns": self.underruns,
+            "param_uploads": self.control.uploads,
+        }
         return s
