@@ -238,7 +238,8 @@ def test_profiler_ranges_are_the_records():
 def test_counters_in_the_summary():
     """upload_bytes is blocks x V x 2 x B x 4; a re-select block runs one
     collapse (collapse_pure while the fades stay in the span, the
-    materializing one after a bank swap mid-fade broke it)."""
+    materializing one after a bank swap mid-fade broke it); a CPU engine
+    captures no graph: every steady block is counted in steady_eager."""
     model = _model()
     midi = MidiSchedule.parse("2 B0 15 40\n5 B0 15 7F\n8 B0 15 20\n")
     sink = WavSink("/dev/null")
@@ -261,3 +262,7 @@ def test_counters_in_the_summary():
     assert c["indexed_blocks"] == session.indexed_blocks > 0
     assert c["general_blocks"] == session.general_blocks > 0
     assert c["underruns"] == session.underruns == 0
+    steady = 10 - c["indexed_blocks"] - c["general_blocks"]
+    assert c["steady_eager"] == steady > 0
+    assert c["steady_captures"] == c["steady_replays"] == 0
+    assert model.engine.steady_eager == steady

@@ -64,7 +64,9 @@ kept (the JAX ``per_voice_mac_merged``).
 Unlike the JAX engine, whose state buffers are donated to each jitted
 step, the steps here update ``state.fdl`` (ring slot write or roll shift)
 and ``state.wet_ring`` IN PLACE and return a new FMajorState that shares
-them: the caller must treat the state it passed in as consumed.
+them: the caller must treat the state it passed in as consumed. On a CUDA
+device the steady ring step is replayed as one CUDA graph under the same
+contract (step_coef_steady, engine/step_graph.py).
 """
 
 from __future__ import annotations
@@ -78,6 +80,8 @@ import torch
 
 from tpu_audio_torch.engine import device_prep
 from tpu_audio_torch.engine.params import VoiceParams
+from tpu_audio_torch.engine.step_graph import (
+    SteadyRingGraph, run_on, steady_key)
 from tpu_audio_torch.ops.fft import SpectralTransform
 from tpu_audio_torch.ops.mac_shift import mac_shift
 from tpu_audio_torch.ops.mix import add_dry, wet_scale
@@ -347,6 +351,15 @@ class FMajorPartitionedConvolution:
         # it so the slot indices stay continuous across the wrap
         self.t_modulus = (math.lcm(self.pp, self.ring_slots) if ring
                           else self.ring_slots)
+        # the steady ring step's CUDA graph (step_coef_steady): off for a
+        # mesh's local engines (parallel/mesh.py), which step eagerly
+        self.steady_graphs = True
+        self.steady_captures = 0   # graphs captured
+        self.steady_replays = 0    # steady calls that replayed one
+        self.steady_eager = 0      # steady calls that did not
+        self._steady_graph = None
+        self._steady_warm = None   # the key whose eager first call ran
+        self._graph_stream = None
 
     # -- offline / cloning interface ------------------------------------------------
 
@@ -895,7 +908,47 @@ class FMajorPartitionedConvolution:
                             coef_c=c, wptr=wptr_next)
 
     def step_coef_steady(self, state, bank, params, x):
-        """Steady-state hot path: base term elided (coef_a ~ 0)."""
+        """Steady-state hot path: base term elided (coef_a ~ 0).
+
+        On a CUDA device in ring mode under 'allk' (outside a mesh:
+        ``steady_graphs``) the step is one CUDA graph
+        (engine/step_graph.py), bound to the state's ``fdl`` and
+        ``wet_ring`` and the bank's ``rhs2``: the first call on a set of
+        them runs eagerly on the capture stream, the next captures and
+        replays, every later one replays. A new set (a fresh or restored
+        state, another bank) releases the old capture. The outputs, the
+        in-place updates and the fresh leaves are the eager step's."""
+        if not (self.steady_graphs and x.is_cuda and self.ring_mode
+                and self.mac_strategy == "allk"):
+            self.steady_eager += 1
+            return self._step_steady(state, bank, params, x)
+        key = steady_key(state, bank, x)
+        graph = self._steady_graph
+        if graph is not None and graph.key == key:
+            self.steady_replays += 1
+            return graph.run(state, params, x)
+        if self._graph_stream is None:
+            self._graph_stream = torch.cuda.Stream(self.device)
+        if self._steady_warm != key:
+            self._steady_warm = key
+            self.steady_eager += 1
+            return run_on(self._graph_stream, self._step_steady, state, bank,
+                          params, x)
+        # release the old capture once nothing of it is in flight (the
+        # capture synchronizes anyway)
+        torch.cuda.synchronize(self.device)
+        del graph
+        self._steady_graph = None
+        graph = self._steady_graph = SteadyRingGraph(
+            self._step_steady, state, bank, params, x, self._graph_stream)
+        self.steady_captures += 1
+        self.steady_replays += 1
+        Log.info("fmajor", "captured the steady ring step as a CUDA graph "
+                 "(%d voices, %s; capture %d)", self.num_voices,
+                 self.mac_dtype_name, self.steady_captures)
+        return graph.run(state, params, x)
+
+    def _step_steady(self, state, bank, params, x):
         return self.step_coef(state, bank, params, x, with_base=False)
 
     def step_coef_indexed(self, state, bank, params, x):
@@ -1014,9 +1067,10 @@ def make_chunk_step(engine, steady: bool = False, indexed: bool = False):
     The returned ``chunk_step(state, bank, params, xs, blocks=None)`` is a
     Python loop of ``blocks`` step calls (default T) writing one
     preallocated [T, V, 2, B] output; rows past ``blocks`` (a partial
-    chunk's zero pad) are neither rendered nor written. It is not captured
-    as a CUDA graph yet (ROADMAP Queue 2 item 8b), so the host enqueues
-    every step's ops as a per-block session does. The steps update the
+    chunk's zero pad) are neither rendered nor written. The chunk is not
+    captured as one CUDA graph (ROADMAP Queue 4 item 8b): the host calls
+    every step as a per-block session does, and the steady ring step
+    replays its own graph (step_coef_steady). The steps update the
     state in place: the state passed in is consumed, and each block's input
     is a view of ``xs``, which the state keeps as ``prev_in``, so ``xs``
     must not be written afterwards."""

@@ -505,6 +505,11 @@ class ShardedEngine:
             return clones[dev]
 
         self.locals = [[local(d) for d in row] for row in mesh.devices]
+        # the mesh has not run over real cards: its local engines keep the
+        # eager steady step (no CUDA graph)
+        for eng in clones.values():
+            if isinstance(eng, FMajorPartitionedConvolution):
+                eng.steady_graphs = False
         self.state_layout = state_layout(engine, mesh)
         self.bank_layout = bank_layout(engine, mesh)
         # leaves the part shards do not hold; the small ones are copied

@@ -94,7 +94,9 @@ for a queued copy) and ``sink`` (the sink's writes, the pcm16 decode),
 both with the id of the block they deliver, ``checkpoint`` (a save) and
 ``clock_wait`` (realtime pacing). Deliveries drained after the last
 block have no enclosing span. The session's counters, always kept, are
-in ``summary()["counters"]``.
+in ``summary()["counters"]``, with the engine's steady-step graph counters
+(``steady_captures``, ``steady_replays``, ``steady_eager``:
+engine/fmajor.py) counted over the session's runs.
 
 Left out of this port, by design: the JAX session's layout pinning.
 
@@ -123,6 +125,8 @@ from tpu_audio_torch.utils.profiling import BlockTimer, Spans
 from tpu_audio_torch.utils.wire import decode_pcm16, encode_pcm16
 
 STEADY_THRESHOLD = 1e-6  # coef_a below this ≈ crossfade fully decayed
+# the fmajor engine's steady-step graph counters, reported as the session's
+GRAPH_COUNTERS = ("steady_captures", "steady_replays", "steady_eager")
 
 
 class MidiSchedule:
@@ -318,6 +322,8 @@ class StreamSession:
         # re-selects served by collapse_pure / by the materializing collapse
         self.collapses_pure = 0
         self.collapses_full = 0
+        # the engine's GRAPH_COUNTERS over this session's runs
+        self.graph_counts = dict.fromkeys(GRAPH_COUNTERS, 0)
 
         # coefficient engines pick a step from the host mirrors and collapse
         # on a re-select; "slew" engines only call engine.step
@@ -846,6 +852,7 @@ class StreamSession:
         chunk = self.chunk_blocks
         batched = self.fetch_batch > 1
         sp = self.spans
+        counts_before = self._engine_graph_counts()
         pending = collections.deque()
         self._batch = None
         self._batch_tprev = None
@@ -1009,6 +1016,8 @@ class StreamSession:
             while pending:
                 self._deliver(*pending.popleft())
         finally:
+            for name, n in self._engine_graph_counts().items():
+                self.graph_counts[name] += n - counts_before[name]
             if sp is not None:
                 sp.unwind()
             if native_clock is not None:
@@ -1038,5 +1047,10 @@ class StreamSession:
             "collapses_full": self.collapses_full,
             "underruns": self.underruns,
             "param_uploads": self.control.uploads,
+            **self.graph_counts,
         }
         return s
+
+    def _engine_graph_counts(self) -> dict:
+        """The engine's GRAPH_COUNTERS now (0 for an engine without)."""
+        return {n: getattr(self._eng, n, 0) for n in GRAPH_COUNTERS}
