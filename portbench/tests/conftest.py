@@ -1,8 +1,9 @@
-"""Shared pieces of the benchmark's CPU tests: a cell of the manifest cut
-to a size the CPU runs in seconds (4 IRs of 0.1 s, 6 voices), with the
+"""Shared pieces of the benchmark's CPU tests: the cells as BENCHMARK.json
+lists them, those of one generator kind, and a closed_stream cell cut to a
+size the CPU runs in seconds (4 IRs of 0.1 s, 6 voices), with the
 configuration's own limits, on the harness's one host thread (a shared
 machine's OpenMP pool can stall a 1.5 s window below the blocks the
-comparison needs)."""
+comparison needs). A test file of another kind brings its own cut."""
 
 import copy
 import os
@@ -19,11 +20,23 @@ from portbench import harness as _harness  # noqa: E402
 
 _harness.pin_host_threads()
 
-CELLS = ("ring_f32.stream_1024v", "ring_bf16.stream_2048v")
+
+def cells_of_kind(kind: str, root: Path = ROOT) -> tuple:
+    """The cells of `root`'s BENCHMARK.json whose traffic file names the
+    generator `kind`, in manifest order."""
+    m = _harness.load_manifest(root)
+    return tuple(w["name"] for w in m["workloads"]
+                 if _harness.resolve(m, w["name"], root, root / "portbench")
+                 .traffic["kind"] == kind)
+
+
+CELLS = tuple(w["name"] for w in _harness.load_manifest()["workloads"])
+STREAM_CELLS = cells_of_kind("closed_stream")
 
 
 def tiny(cell):
-    """`cell` at the CPU's size: every key but the sizes as committed."""
+    """closed_stream `cell` at the CPU's size: every key but the sizes as
+    committed."""
     cell.config = copy.deepcopy(cell.config)
     cell.traffic = copy.deepcopy(cell.traffic)
     cell.config["bank"].update(num_irs=4, ir_seconds=0.1)

@@ -1,5 +1,5 @@
 """The command's refusals, a CPU rehearsal of a whole run at a tiny size,
-and the card test of both cells."""
+and the card test, in every closed_stream cell of BENCHMARK.json."""
 
 import json
 import os
@@ -9,7 +9,7 @@ import sys
 
 import pytest
 
-from portbench.tests.conftest import CELLS, ROOT
+from portbench.tests.conftest import CELLS, ROOT, STREAM_CELLS
 
 REHEARSE = r"""
 import json, sys, time
@@ -47,19 +47,16 @@ def test_run_refuses_without_a_card():
     assert "no CUDA card" in proc.stderr
 
 
-def test_cpu_rehearsal_is_correct_and_loads_no_jax():
-    proc = python(REHEARSE.format(root=str(ROOT), cell=CELLS[0]))
+@pytest.mark.parametrize("name", STREAM_CELLS)
+def test_cpu_rehearsal_is_correct_and_loads_no_jax(harness, name):
+    proc = python(REHEARSE.format(root=str(ROOT), cell=name))
     assert proc.returncode == 0, proc.stderr[-3000:]
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     result = out["result"]
     assert result["correct"] and result["failed"] == 0
     assert list(result)[-1] == "checked"
-    assert set(result["metrics"]) == {"voice_s_per_s", "setup_s"}
-    proc = python(REHEARSE.format(root=str(ROOT), cell=CELLS[1]))
-    assert proc.returncode == 0, proc.stderr[-3000:]
-    result = json.loads(proc.stdout.strip().splitlines()[-1])["result"]
-    assert result["correct"]
-    assert set(result["metrics"]) == {"voice_s_per_s.host_paced", "setup_s"}
+    cell = harness.resolve(harness.load_manifest(), name)
+    assert set(result["metrics"]) == {e["name"] for e in cell.end_to_end}
     assert "tpu_audio_torch" in out["top"]
     assert not {"jax", "jaxlib", "flax", "tpu_audio"} & set(out["top"])
     assert proc.stderr.strip().splitlines()[-3].startswith("checked err_rms")
@@ -71,7 +68,7 @@ def test_run_fails_without_the_program(tmp_path):
     shutil.copy(ROOT / "BENCHMARK.json", tmp_path)
     shutil.copytree(ROOT / "portbench", tmp_path / "portbench",
                     ignore=shutil.ignore_patterns("__pycache__"))
-    proc = python(REHEARSE.format(root=str(tmp_path), cell=CELLS[0]),
+    proc = python(REHEARSE.format(root=str(tmp_path), cell=STREAM_CELLS[0]),
                   cwd=tmp_path)
     assert proc.returncode != 0
     assert "tpu_audio_torch" in proc.stderr
@@ -81,12 +78,15 @@ def test_run_fails_without_the_program(tmp_path):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", CELLS)
-def test_cell_on_the_card(name):
+@pytest.mark.parametrize("name", STREAM_CELLS)
+def test_cell_on_the_card(harness, name):
     import torch
 
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
+    chips = harness.resolve(harness.load_manifest(), name).chips
+    if torch.cuda.device_count() < chips:
+        pytest.skip(f"needs {chips} CUDA cards")
     proc = python(["portbench/run.py", "--workload", name, "--seed", "5",
                    "--seconds", "4", "--trace", "1"], timeout=900)
     assert proc.returncode == 0, proc.stderr[-3000:]
