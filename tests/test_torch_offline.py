@@ -34,6 +34,7 @@ from tpu_audio_torch.models.reverb import ConvolutionReverb
 from tpu_audio_torch.runtime import offline
 from tpu_audio_torch.runtime.backends import WavSource
 from tpu_audio_torch.runtime.stream import MidiSchedule, StreamSession
+from tpu_audio_torch.utils.profiling import Spans
 
 torch.set_num_threads(1)
 
@@ -479,6 +480,116 @@ def test_nonfinite_output_raises_on_every_wire():
     out = offline.render_offline(model, program(10 * 32), segments=2,
                                  wire="pcm16")
     assert np.isfinite(out).all()
+
+
+# -- stage spans and counters --------------------------------------------------------
+
+STAGES = ("input", "upload", "prime", "layout", "loop", "drain", "output")
+PATHS = {
+    "static": ({}, {"segments": 4}),
+    "automated": ({"automate": True}, {"segments": 5}),
+    "chunked": ({}, {"segments": 3, "track_chunk_blocks": 23}),
+    "chunked_automated": ({"automate": True},
+                          {"segments": 3, "track_chunk_blocks": 40}),
+}
+
+
+def _bounce_kwargs(path):
+    build, kwargs = PATHS[path]
+    if build.get("automate"):
+        kwargs = dict(kwargs, schedule=MidiSchedule(list(AUTOMATION)))
+    return build, kwargs
+
+
+@pytest.mark.parametrize("path", sorted(PATHS))
+def test_spans_leave_the_output_bit_identical(path):
+    """spans=None and spans=Spans() give the same bits on every path, and
+    the spans hold one `bounce` with its stages below it."""
+    build, _ = _bounce_kwargs(path)
+    x = program(97 * 32 + 3)
+    plain = offline.render_offline(build_model("port", **build), x,
+                                   **_bounce_kwargs(path)[1])
+    spans = Spans()
+    traced = offline.render_offline(build_model("port", **build), x,
+                                    spans=spans, **_bounce_kwargs(path)[1])
+    np.testing.assert_array_equal(traced, plain)
+    recs = spans.records()
+    assert [r.name for r in recs].count("bounce") == 1
+    names = {r.name for r in recs[1:]}
+    assert names == {f"bounce.{s}" for s in STAGES} | (
+        {"bounce.schedule"} if build.get("automate") else set())
+    assert all(r.parent == 0 and r.end_ns is not None for r in recs[1:])
+
+
+@pytest.mark.parametrize("path", ["static", "chunked"])
+def test_the_stages_tile_the_bounce(path):
+    """The children of `bounce` follow one another without overlap and
+    cover all but 2 % of it (what is left: the span calls themselves)."""
+    build, kwargs = _bounce_kwargs(path)
+    spans = Spans()
+    offline.render_offline(build_model("port", **build),
+                           program(120 * 32), spans=spans, **kwargs)
+    top, *kids = spans.records()
+    assert top.name == "bounce" and top.parent is None
+    assert kids[0].start_ns >= top.start_ns
+    assert kids[-1].end_ns <= top.end_ns
+    for a, b in zip(kids, kids[1:]):
+        assert a.end_ns <= b.start_ns
+    covered = sum(k.end_ns - k.start_ns for k in kids)
+    assert covered >= 0.98 * (top.end_ns - top.start_ns)
+    order = [k.name.split(".", 1)[1] for k in kids]
+    chunks = order.count("loop")
+    assert order == list(STAGES) * chunks
+    assert chunks == (1 if path == "static" else 7)
+
+
+def test_counters_of_a_small_bounce():
+    """Segments, virtual voices and steps as the plan sets them; the bytes
+    of the block tensor up and of the output buffer down; no graph on the
+    CPU."""
+    model = build_model("port")
+    eng = model.engine
+    x = program(50 * 32)
+    model.render_offline(x, segments=4)
+    c = model.offline_counters()
+    total = 50 + eng.history_blocks
+    seg_len = -(-total // 4)
+    assert c == {"segments": 4, "virtual_voices": 8,
+                 "steps": eng.prime_blocks + seg_len,
+                 "warmup_steps": eng.prime_blocks, "input_wire": "f32",
+                 "upload_bytes": 4 * seg_len * 2 * 32 * 4,
+                 "fetch_bytes": seg_len * 8 * 2 * 32 * 4,
+                 "steady_captures": 0, "steady_replays": 0,
+                 "steady_eager": seg_len + eng.prime_blocks}
+    model.render_offline(x, segments=4, wire="pcm16",
+                         track_chunk_blocks=40)
+    c = model.offline_counters()
+    chunks = -(-total // 40)
+    chunk_len = -(-(40 + eng.history_blocks) // 4)
+    assert c["steps"] == chunks * (eng.prime_blocks + chunk_len)
+    assert c["warmup_steps"] == chunks * eng.prime_blocks
+    assert c["fetch_bytes"] == chunks * chunk_len * 8 * 2 * 32 * 2
+    assert c["steady_captures"] == 0
+
+
+def test_counters_read_the_input_wire():
+    """A per-voice stem on the k/65536 grid goes up as int16 under
+    input_wire='auto' (2 bytes a sample), float noise as f32."""
+    model = build_model("port")
+    rng = np.random.default_rng(5)
+    k = rng.integers(-600, 600, (2, 2, 40 * 32))
+    model.render_offline((k / 65536.0).astype(np.float32), segments=2,
+                         input_wire="auto")
+    c = model.offline_counters()
+    seg_len = -(-(40 + model.engine.history_blocks) // 2)
+    assert c["input_wire"] == "pcm16"
+    assert c["upload_bytes"] == 2 * seg_len * 2 * 2 * 32 * 2
+    model.render_offline(
+        (rng.standard_normal((2, 2, 40 * 32)) * 0.01).astype(np.float32),
+        segments=2, input_wire="auto")
+    c = model.offline_counters()
+    assert c["input_wire"] == "f32"
+    assert c["upload_bytes"] == 2 * seg_len * 2 * 2 * 32 * 4
 
 
 # -- the model and the CLI -----------------------------------------------------------

@@ -231,6 +231,7 @@ class ConvolutionReverb:
         self.control = ControlPlane(num_voices, len(bank), max_predelay,
                                     device=self.device)
         self.working_set = None
+        self._offline_counters: dict = {}
         partitions = max_partitions or bank.max_partitions(block)
         if bank_capacity is not None:
             capacity = min(bank_capacity, len(bank))
@@ -515,10 +516,20 @@ class ConvolutionReverb:
         via ``schedule=MidiSchedule(...)``, which matches the live streaming
         session to float precision; ``mesh=`` renders the virtual voices
         in one lane per voice row of a parallel/mesh.py Mesh. Returns
-        per-voice output [V, 2, T + tail]."""
+        per-voice output [V, 2, T + tail]. ``spans=`` (a
+        utils/profiling.py Spans) records its stage spans; offline_counters()
+        then reads its counters."""
         from tpu_audio_torch.runtime.offline import render_offline
 
-        return render_offline(self, samples, **kwargs)
+        counters: dict = {}
+        out = render_offline(self, samples, counters=counters, **kwargs)
+        self._offline_counters = counters
+        return out
+
+    def offline_counters(self) -> dict:
+        """The counters of the last render_offline call that returned
+        (runtime/offline.py; {} before the first)."""
+        return dict(self._offline_counters)
 
 
 class MultiVoiceReverbServer(ConvolutionReverb):

@@ -57,6 +57,26 @@ What the port does where the JAX renderer serves XLA:
 All paths need a fully resident bank (no working-set paging). A CUDA model
 launches the engine's kernels on every step; only a CPU model takes their
 plain versions.
+
+Spans (``spans=``, a utils/profiling.py Spans; None records nothing): one
+``bounce`` span per call, whose children follow one another and tile it:
+``bounce.input`` (the checks, the input grid scan and quantization, the
+segment plan, the block tensor on the host), ``bounce.upload`` (the block
+tensor to every lane's device), ``bounce.schedule`` (automated bounces
+only: the control replay and the step tables), ``bounce.prime`` (the
+replicated control plane, the converged states, the delay lines primed),
+``bounce.layout`` (_step_inputs), ``bounce.loop`` (the pinned output buffer
+and the step loop's enqueue), ``bounce.drain`` (the wait for the device and
+the isfinite check) and ``bounce.output`` (the host reshape and transpose,
+the pcm16 decode). A chunked bounce repeats the children once per chunk
+inside its one ``bounce`` span. Counters, always kept (``counters=``, a dict
+cleared and filled; ConvolutionReverb.offline_counters() reads the last
+call's): ``segments`` and ``virtual_voices`` (per chunk), ``steps`` and
+``warmup_steps`` (summed over chunks), ``input_wire``, ``upload_bytes`` (the
+block tensors' bytes sent to the devices), ``fetch_bytes`` (the output
+buffers' bytes read back) and the engine's steady-step graph counters
+(``steady_captures``, ``steady_replays``, ``steady_eager``: engine/fmajor.py)
+over the call's steps.
 """
 
 from __future__ import annotations
@@ -68,8 +88,9 @@ import numpy as np
 import torch
 
 from tpu_audio_torch.engine.params import ControlPlane, VoiceParams
-from tpu_audio_torch.runtime.stream import engine_steps
+from tpu_audio_torch.runtime.stream import GRAPH_COUNTERS, engine_steps
 from tpu_audio_torch.utils.log import Log
+from tpu_audio_torch.utils.profiling import Spans
 from tpu_audio_torch.utils.wire import decode_pcm16, encode_pcm16
 
 # ms per steady step of the ring/'allk' fmajor engine at 4 s IRs as fixed +
@@ -153,6 +174,48 @@ def _input_decoder(input_wire: str, scale):
     return lambda a: a.to(torch.float32) / s
 
 
+class _Bounce:
+    """One render_offline call's stage spans and counters (see the module
+    docstring). Between start() and end() the ``bounce`` span and exactly
+    one stage span below it are open."""
+
+    def __init__(self, spans: Spans | None):
+        self.spans = spans
+        self.current = None
+        self.counters = {"segments": 0, "virtual_voices": 0, "steps": 0,
+                         "warmup_steps": 0, "input_wire": "f32",
+                         "upload_bytes": 0, "fetch_bytes": 0,
+                         **dict.fromkeys(GRAPH_COUNTERS, 0)}
+
+    def start(self) -> None:
+        if self.spans is not None:
+            self.spans.open("bounce")
+            self.spans.open("bounce.input")
+            self.current = "input"
+
+    def stage(self, name: str) -> None:
+        """Close the open stage span and open ``bounce.<name>``, unless
+        that stage is the open one."""
+        if self.spans is None or name == self.current:
+            return
+        self.spans.close()
+        self.spans.open("bounce." + name)
+        self.current = name
+
+    def end(self) -> None:
+        if self.current is not None:
+            self.spans.close()
+            self.spans.close()
+            self.current = None
+
+    def plan(self, nseg: int, virtual_voices: int) -> None:
+        self.counters.update(segments=nseg, virtual_voices=virtual_voices)
+
+
+def _graph_counts(engines) -> dict:
+    return {n: sum(getattr(e, n, 0) for e in engines) for n in GRAPH_COUNTERS}
+
+
 def render_offline(model, samples, *, segments: int | None = None,
                    include_tail: bool = True,
                    warmup_blocks: int | None = None,
@@ -161,7 +224,9 @@ def render_offline(model, samples, *, segments: int | None = None,
                    track_chunk_blocks: int | None = None,
                    mesh=None, wire: str = "f32",
                    bucket_blocks=None, input_wire: str = "f32",
-                   input_scale: float | None = None) -> np.ndarray:
+                   input_scale: float | None = None,
+                   spans: Spans | None = None,
+                   counters: dict | None = None) -> np.ndarray:
     """Render `samples` through `model` (ConvolutionReverb) at the control
     plane's current converged parameters: stereo [2, T] shared program
     material (or mono [T], duplicated like the CLI source), or per-voice
@@ -189,7 +254,29 @@ def render_offline(model, samples, *, segments: int | None = None,
     from the output. `input_wire='pcm16'` uploads the program material as
     int16, decoded on the device at `input_scale` (default 32767); 'auto'
     uploads bit-exactly when the input sits on a 16-bit grid and falls
-    back to f32."""
+    back to f32. `spans` records the call's stage spans and `counters`
+    receives its counters (module docstring)."""
+    bounce = _Bounce(spans)
+    bounce.start()
+    try:
+        out = _render(model, samples, bounce, segments=segments,
+                      include_tail=include_tail, warmup_blocks=warmup_blocks,
+                      max_virtual_voices=max_virtual_voices,
+                      schedule=schedule, track_chunk_blocks=track_chunk_blocks,
+                      mesh=mesh, wire=wire, bucket_blocks=bucket_blocks,
+                      input_wire=input_wire, input_scale=input_scale)
+    finally:
+        bounce.end()
+    if counters is not None:
+        counters.clear()
+        counters.update(bounce.counters)
+    return out
+
+
+def _render(model, samples, bounce: _Bounce, *, segments, include_tail,
+            warmup_blocks, max_virtual_voices, schedule, track_chunk_blocks,
+            mesh, wire, bucket_blocks, input_wire, input_scale) -> np.ndarray:
+    """render_offline's checks, then the path it takes."""
     _check_full_resident(model)
     if wire not in ("f32", "pcm16"):
         raise ValueError(f"wire must be 'f32' or 'pcm16', got {wire!r}")
@@ -205,6 +292,7 @@ def render_offline(model, samples, *, segments: int | None = None,
                      "uploading as int16, bit-exact", input_scale)
     elif input_wire == "pcm16" and input_scale is None:
         input_scale = 32767.0
+    bounce.counters["input_wire"] = input_wire
     if mesh is not None and not (
             hasattr(model.engine, "prime_fdl")
             or hasattr(model.engine, "ratio")):
@@ -213,18 +301,31 @@ def render_offline(model, samples, *, segments: int | None = None,
             "(voice data parallelism over the virtual-voice axis)")
     if track_chunk_blocks is not None:
         return _render_chunked(
-            model, samples, track_chunk_blocks, segments=segments,
+            model, samples, track_chunk_blocks, bounce, segments=segments,
             include_tail=include_tail, warmup_blocks=warmup_blocks,
             max_virtual_voices=max_virtual_voices, schedule=schedule,
             mesh=mesh, wire=wire, input_wire=input_wire,
             input_scale=input_scale)
     if schedule is not None:
         return _render_automated(
-            model, samples, schedule, segments=segments,
+            model, samples, schedule, bounce, segments=segments,
             include_tail=include_tail, warmup_blocks=warmup_blocks,
             max_virtual_voices=max_virtual_voices, mesh=mesh, wire=wire,
             bucket_blocks=bucket_blocks, input_wire=input_wire,
             input_scale=input_scale)
+    return _render_static(
+        model, samples, bounce, segments=segments, include_tail=include_tail,
+        warmup_blocks=warmup_blocks, max_virtual_voices=max_virtual_voices,
+        mesh=mesh, wire=wire, bucket_blocks=bucket_blocks,
+        input_wire=input_wire, input_scale=input_scale)
+
+
+def _render_static(model, samples, bounce: _Bounce, *, segments,
+                   include_tail, warmup_blocks, max_virtual_voices, mesh,
+                   wire, bucket_blocks, input_wire, input_scale
+                   ) -> np.ndarray:
+    """The bounce at the control plane's converged parameters (see
+    render_offline), its input wire resolved."""
     eng = model.engine
     v, b = eng.num_voices, eng.block
 
@@ -251,6 +352,7 @@ def render_offline(model, samples, *, segments: int | None = None,
             raise ValueError(f"segments must be >= 1, got {segments}")
     nseg = _mesh_round_segments(nseg, v, mesh, int(getattr(eng, "ratio", 1)))
     seg_len = -(-total_blocks // nseg)
+    bounce.plan(nseg, v * nseg)
     seng = _virtual_engine(eng, v * nseg)
     lanes = _lanes(seng, model.spectra, mesh)
 
@@ -258,8 +360,9 @@ def render_offline(model, samples, *, segments: int | None = None,
     # past the input (the zero tail flushes the ring-out), on every lane's
     # device
     xb = _block_tensor(x, per_voice, nseg * seg_len, b, t_samples)
-    xb_dev = {dev: torch.from_numpy(xb).to(dev) for dev in _devices(lanes)}
+    xb_dev = _upload_blocks(xb, lanes, bounce)
 
+    bounce.stage("prime")
     # the control plane, replicated voice-major: virtual voice v*nseg + s
     # carries voice v's parameters over segment s
     host = model.control.snapshot()
@@ -278,6 +381,7 @@ def render_offline(model, samples, *, segments: int | None = None,
                                 t0[lo:hi], _cut(voice_of, lo, hi), dec)
         states.append(state)
     steps = warmup + seg_len
+    bounce.stage("layout")
     inputs = {dev: _step_inputs(xd, per_voice, nseg, seg_len, warmup, steps,
                                 v, dec, voice_major=True)
               for dev, xd in xb_dev.items()}
@@ -298,7 +402,7 @@ def render_offline(model, samples, *, segments: int | None = None,
         return [s for s, _ in outs], [y for _, y in outs]
 
     out = _collect(step, states, warmup, seg_len, (v * nseg, 2, b), wire,
-                   _devices(lanes))
+                   lanes, bounce)
     # [seg_len, V*nseg, 2, B] -> [V, 2, nseg*seg_len*B]
     out = (out.reshape(seg_len, v, nseg, 2, b)
               .transpose(1, 3, 2, 0, 4)
@@ -342,8 +446,8 @@ def _chunk_input(x: np.ndarray, lo: int, hist: int, chunk_blocks: int,
     return xs
 
 
-def _render_chunked(model, samples, chunk_blocks: int, *, segments,
-                    include_tail, warmup_blocks, max_virtual_voices,
+def _render_chunked(model, samples, chunk_blocks: int, bounce: _Bounce, *,
+                    segments, include_tail, warmup_blocks, max_virtual_voices,
                     schedule, mesh=None, wire: str = "f32",
                     input_wire: str = "f32", input_scale=None
                     ) -> np.ndarray:
@@ -358,7 +462,7 @@ def _render_chunked(model, samples, chunk_blocks: int, *, segments,
                          f"got {chunk_blocks}")
     if schedule is not None:
         return _render_chunked_automated(
-            model, samples, chunk_blocks, schedule, segments=segments,
+            model, samples, chunk_blocks, schedule, bounce, segments=segments,
             include_tail=include_tail, warmup_blocks=warmup_blocks,
             max_virtual_voices=max_virtual_voices, mesh=mesh, wire=wire,
             input_wire=input_wire, input_scale=input_scale)
@@ -370,20 +474,21 @@ def _render_chunked(model, samples, chunk_blocks: int, *, segments,
     out_blocks = -(-t_samples // b) + (hist if include_tail else 0)
     outs = []
     for lo in range(0, out_blocks, chunk_blocks):
-        out = render_offline(model, _chunk_input(x, lo, hist, chunk_blocks, b),
-                             segments=segments, include_tail=False,
+        bounce.stage("input")
+        out = _render_static(model, _chunk_input(x, lo, hist, chunk_blocks, b),
+                             bounce, segments=segments, include_tail=False,
                              warmup_blocks=warmup_blocks,
                              max_virtual_voices=max_virtual_voices,
-                             mesh=mesh, wire=wire, input_wire=input_wire,
-                             input_scale=input_scale)
+                             mesh=mesh, wire=wire, bucket_blocks=None,
+                             input_wire=input_wire, input_scale=input_scale)
         outs.append(out[..., hist * b:])
     out = np.concatenate(outs, axis=-1)
     return out[..., :t_samples + (hist * b if include_tail else 0)]
 
 
 def _render_chunked_automated(model, samples, chunk_blocks: int, schedule,
-                              *, segments, include_tail, warmup_blocks,
-                              max_virtual_voices, mesh=None,
+                              bounce: _Bounce, *, segments, include_tail,
+                              warmup_blocks, max_virtual_voices, mesh=None,
                               wire: str = "f32", input_wire: str = "f32",
                               input_scale=None) -> np.ndarray:
     """Bounded-memory bounce of an automation timeline. The host replays
@@ -416,12 +521,14 @@ def _render_chunked_automated(model, samples, chunk_blocks: int, schedule,
     tpadg = max(los[-1] - hist + tpad_local, tpad_local)
     snap_points = sorted({max(s * seg_len - warmup + lo - hist, 0)
                           for lo in los for s in range(nseg)})
+    bounce.stage("schedule")
     sim = _ControlSim(model.control, schedule, tpadg, snap_points)
     outs = []
     for lo in los:
+        bounce.stage("input")
         out = _render_automated(
             model, _chunk_input(x, lo, hist, chunk_blocks, b), schedule,
-            segments=nseg, include_tail=False, warmup_blocks=warmup,
+            bounce, segments=nseg, include_tail=False, warmup_blocks=warmup,
             max_virtual_voices=max_virtual_voices, mesh=mesh, wire=wire,
             input_wire=input_wire, input_scale=input_scale,
             _chunk_ctx=(sim, lo - hist, tpadg))
@@ -629,11 +736,11 @@ def _schedule_tables(sim: _ControlSim, nseg: int, v: int, seg_len: int,
     return out
 
 
-def _render_automated(model, samples, schedule, *, segments,
-                      include_tail, warmup_blocks, max_virtual_voices,
-                      mesh=None, wire: str = "f32", bucket_blocks=None,
-                      input_wire: str = "f32", input_scale=None,
-                      _chunk_ctx=None) -> np.ndarray:
+def _render_automated(model, samples, schedule, bounce: _Bounce, *,
+                      segments, include_tail, warmup_blocks,
+                      max_virtual_voices, mesh=None, wire: str = "f32",
+                      bucket_blocks=None, input_wire: str = "f32",
+                      input_scale=None, _chunk_ctx=None) -> np.ndarray:
     """Time-parallel bounce of a scripted MIDI timeline — render_offline
     with ``schedule=`` (see the module docstring).
 
@@ -661,17 +768,20 @@ def _render_automated(model, samples, schedule, *, segments,
         eng, total_blocks, segments=segments, warmup_blocks=warmup_blocks,
         max_virtual_voices=max_virtual_voices, mesh=mesh)
     tpad = nseg * seg_len
+    bounce.plan(nseg, v * nseg)
     seng = _virtual_engine(eng, v * nseg)
     lanes = _lanes(seng, model.spectra, mesh)
 
     xb = _block_tensor(x, per_voice, tpad, b, t_samples)
-    xb_dev = {dev: torch.from_numpy(xb).to(dev) for dev in _devices(lanes)}
+    xb_dev = _upload_blocks(xb, lanes, bounce)
+    bounce.stage("schedule")
     if _chunk_ctx is None:
         abs_base, tpadg = 0, tpad
         sim = _ControlSim(model.control, schedule, tpad,
                           [max(s * seg_len - warmup, 0) for s in range(nseg)])
     tables = _schedule_tables(sim, nseg, v, seg_len, warmup, abs_base, tpadg)
     event = tables.pop("event")
+    bounce.stage("prime")
 
     def vm(arr: np.ndarray, lane) -> torch.Tensor:
         """[nseg, V, 2, ...] -> the lane's rows of the SEGMENT-major
@@ -733,6 +843,7 @@ def _render_automated(model, samples, schedule, *, segments,
         tbls.append({name: torch.from_numpy(np.ascontiguousarray(
             arr[:, lo:hi])).to(dev) for name, arr in tables.items()})
     steps = warmup + seg_len
+    bounce.stage("layout")
     inputs = {dev: _step_inputs(xd, per_voice, nseg, seg_len, warmup, steps,
                                 v, dec, voice_major=False)
               for dev, xd in xb_dev.items()}
@@ -767,7 +878,7 @@ def _render_automated(model, samples, schedule, *, segments,
         return [s for s, _ in outs], [y for _, y in outs]
 
     out = _collect(step, states, warmup, seg_len, (v * nseg, 2, b), wire,
-                   _devices(lanes))
+                   lanes, bounce)
     # [seg_len, nseg*V, 2, B] (segment-major) -> [V, 2, tpad*B]
     out = (out.reshape(seg_len, nseg, v, 2, b)
               .transpose(2, 3, 1, 0, 4)
@@ -839,6 +950,14 @@ def _devices(lanes) -> list[torch.device]:
     for lane in lanes:
         if lane.device not in out:
             out.append(lane.device)
+    return out
+
+
+def _upload_blocks(xb: np.ndarray, lanes, bounce: _Bounce) -> dict:
+    """The block tensor on every lane's device: {device: tensor}."""
+    bounce.stage("upload")
+    out = {dev: torch.from_numpy(xb).to(dev) for dev in _devices(lanes)}
+    bounce.counters["upload_bytes"] += xb.nbytes * len(out)
     return out
 
 
@@ -941,15 +1060,20 @@ def _step_loop(step, state, warmup: int, seg_len: int, out: torch.Tensor,
 
 
 def _collect(step, state, warmup: int, seg_len: int, shape: tuple,
-             wire: str, devices) -> np.ndarray:
+             wire: str, lanes, bounce: _Bounce) -> np.ndarray:
     """Drive the step loop and collect [seg_len, *shape] on the host: one
     pinned buffer (on CUDA) takes every kept step's output as it is
     produced, and the isfinite accumulators are read once, after the loop;
     non-finite output raises on every wire."""
+    devices = _devices(lanes)
+    engines = list({id(lane.engine): lane.engine for lane in lanes}.values())
+    graphs = _graph_counts(engines)
+    bounce.stage("loop")
     dtype = torch.int16 if wire == "pcm16" else torch.float32
     cuda = devices[0].type == "cuda"
     out = torch.empty((seg_len,) + shape, dtype=dtype, pin_memory=cuda)
     oks = _step_loop(step, state, warmup, seg_len, out, wire, devices)
+    bounce.stage("drain")
     if cuda:
         for dev in devices:
             torch.cuda.synchronize(dev)
@@ -957,4 +1081,11 @@ def _collect(step, state, warmup: int, seg_len: int, shape: tuple,
         raise RuntimeError(
             "offline bounce produced non-finite output (device isfinite "
             "accumulator on the raw engine output)")
+    c = bounce.counters
+    for name, n in _graph_counts(engines).items():
+        c[name] += n - graphs[name]
+    c["steps"] += warmup + seg_len
+    c["warmup_steps"] += warmup
+    c["fetch_bytes"] += out.numel() * out.element_size()
+    bounce.stage("output")
     return out.numpy()
