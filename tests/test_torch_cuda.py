@@ -592,6 +592,26 @@ def test_offline_bounce_on_the_card_matches_the_cpu(cuda, kind):
     assert counts["cuda"] == want and counts["cpu"] == (0, 0)
 
 
+def test_offline_input_buffer_on_the_card_is_pinned_and_reused(cuda):
+    """Two bounces of different 16-bit stems of one shape on the card go
+    up as int16 from one page-locked host buffer, allocated by the first
+    and reused by the second; each equals the CPU bounce within 3e-5."""
+    x = [(np.random.default_rng(seed).integers(-3000, 3000, (2, 2, 32 * 60
+                                                               + 5))
+          / 65536.0).astype(np.float32) for seed in (13, 14)]
+    model = _offline_model(cuda, "ring")
+    for i, xi in enumerate(x):
+        got = model.render_offline(xi, segments=3, input_wire="auto")
+        c = model.offline_counters()
+        assert c["input_wire"] == "pcm16" and c["input_onepass"] == 1
+        assert c["input_buffer_reused"] == i
+        assert model.engine._offline_input[1].is_pinned()
+        want = _offline_model("cpu", "ring").render_offline(
+            xi, segments=3, input_wire="auto")
+        np.testing.assert_allclose(got, want, atol=3e-5)
+        assert np.abs(want).max() > 1e-2
+
+
 @pytest.mark.parametrize("kind,wire,automated", [
     ("ring", "pcm16", False), ("ring", "f32", True),
     ("selected", "f32", True), ("cascade", "pcm16", True)])

@@ -10,7 +10,8 @@ another order, at other ring phases than the stream's), automated bounces
 5e-5, a bounce without its tail against the same bounce's head 1e-6, the
 engine hooks 1e-6, the control-plane replay bit for bit, the pcm16 wire
 half an LSB, CLI WAVs 1 LSB against the JAX CLI (which runs its matmul DFT)
-and 4 LSB against the port's streamed WAV.
+and 4 LSB against the port's streamed WAV; the one-pass input layout bit for
+bit against the three-pass chain it replaced.
 """
 
 import types
@@ -557,6 +558,7 @@ def test_counters_of_a_small_bounce():
     assert c == {"segments": 4, "virtual_voices": 8,
                  "steps": eng.prime_blocks + seg_len,
                  "warmup_steps": eng.prime_blocks, "input_wire": "f32",
+                 "input_onepass": 1, "input_buffer_reused": 0,
                  "upload_bytes": 4 * seg_len * 2 * 32 * 4,
                  "fetch_bytes": seg_len * 8 * 2 * 32 * 4,
                  "steady_captures": 0, "steady_replays": 0,
@@ -590,6 +592,155 @@ def test_counters_read_the_input_wire():
     c = model.offline_counters()
     assert c["input_wire"] == "f32"
     assert c["upload_bytes"] == 2 * seg_len * 2 * 2 * 32 * 4
+
+
+# -- the one-pass input layout -------------------------------------------------------
+
+def _ref_detect_input_grid(x):
+    """The three-pass chain the one pass replaced, kept as its reference:
+    the grid scan, ..."""
+    for scale in (65536.0, 32768.0, 32767.0):
+        xs = x * np.float32(scale)
+        if (xs.min() >= -32768.0 and xs.max() <= 32767.0
+                and not np.any(xs != np.round(xs))):
+            return "pcm16", scale
+    return "f32", None
+
+
+def _ref_quantize_input(x, input_wire, scale):
+    """... the quantization ..."""
+    if input_wire != "pcm16":
+        return x
+    return np.clip(np.round(x * np.float32(scale)), -32768, 32767).astype(
+        np.int16)
+
+
+def _ref_block_tensor(x, per_voice, t_pad_blocks, b, t_samples):
+    """... and the pad and transpose."""
+    if per_voice:
+        v = x.shape[0]
+        flat = np.zeros((v, 2, t_pad_blocks * b), x.dtype)
+        flat[..., :t_samples] = x
+        return np.ascontiguousarray(
+            flat.reshape(v, 2, t_pad_blocks, b).transpose(2, 0, 1, 3))
+    flat = np.zeros((2, t_pad_blocks * b), x.dtype)
+    flat[:, :t_samples] = x
+    return np.ascontiguousarray(
+        flat.reshape(2, t_pad_blocks, b).transpose(1, 0, 2))
+
+
+def _grid_input(shape, scale, seed=40, k=32768):
+    """Samples k / scale, k drawn from [-k, k)."""
+    k = np.random.default_rng(seed).integers(-k, k, shape)
+    return (k / np.float32(scale)).astype(np.float32)
+
+
+def _with(x, value, at=-3):
+    x = x.copy()
+    x.reshape(-1)[at] = value
+    return x
+
+
+# name: (input, input_wire, input_scale); T = 2187 blocks of 32 + 16 (more
+# than one piece a row, T not a multiple of the block) unless stated
+_T = 70000
+LAYOUT_CASES = {
+    "grid65536": (_grid_input((2, _T), 65536.0), "auto", None),
+    "grid32768": (_grid_input((2, _T), 32768.0), "auto", None),
+    "grid32767": (_grid_input((2, _T), 32767.0), "auto", None),
+    # in int16 on k/65536 but for 0.5, one step past it: the next grid
+    "over_range": (_with(_grid_input((2, _T), 32768.0, k=16384), 0.5),
+                   "auto", None),
+    "under_range": (_with(_grid_input((2, _T), 65536.0),
+                          np.float32(-32769 / 65536.0)), "auto", None),
+    "off_grid": ((np.random.default_rng(41).standard_normal((2, _T))
+                  * 0.1).astype(np.float32), "auto", None),
+    "late_off_grid": (_with(_grid_input((2, _T), 65536.0),
+                            np.float32(0.1), at=-1), "auto", None),
+    "nan": (_with(_grid_input((2, _T), 65536.0), np.nan), "auto", None),
+    "inf": (_with(_grid_input((2, _T), 65536.0), -np.inf), "auto", None),
+    "mono": (_grid_input((_T,), 65536.0), "auto", None),
+    "per_voice": (_grid_input((2, 2, _T), 32767.0), "auto", None),
+    "per_voice_short": (_grid_input((2, 2, 31 * 32 + 7), 65536.0), "auto",
+                        None),
+    "whole_blocks": (_grid_input((2, 40 * 32), 65536.0), "auto", None),
+    "transposed": (np.ascontiguousarray(_grid_input((_T, 2), 65536.0)).T,
+                   "auto", None),
+    "pcm16_clip": ((np.random.default_rng(42).standard_normal((2, 2, _T))
+                    * 0.7).astype(np.float32), "pcm16", 32767.0),
+    "pcm16_grid": (_grid_input((2, _T), 65536.0), "pcm16", 65536.0),
+    "f32": (_grid_input((2, 2, _T), 65536.0), "f32", None),
+}
+
+
+@pytest.mark.parametrize("case", sorted(LAYOUT_CASES))
+def test_one_pass_layout_matches_the_three_pass_chain(case):
+    """_input_blocks (the grid scan, the quantization and the block layout
+    in one pass, into the engine's buffer) gives today's three-function
+    chain's block tensor, bit for bit, with the same input wire and
+    scale."""
+    samples, wire, scale = LAYOUT_CASES[case]
+    v = samples.shape[0] if samples.ndim == 3 else 2
+    x, per_voice = offline._check_stereo(samples, v)
+    t = x.shape[-1]
+    b = 32
+    t_pad = -(-t // b) + 5
+    with np.errstate(invalid="ignore"):
+        want_wire, want_scale = (_ref_detect_input_grid(x) if wire == "auto"
+                                 else (wire, scale))
+        want = _ref_block_tensor(
+            _ref_quantize_input(x, want_wire, want_scale), per_voice, t_pad,
+            b, t)
+    eng = types.SimpleNamespace(block=b)
+    lane = offline._Lane(None, None, torch.device("cpu"), 0, v)
+    bounce = offline._Bounce(None)
+    for _ in range(2):                        # a fresh buffer, then reused
+        with np.errstate(invalid="ignore"):
+            got, got_wire, got_scale = offline._input_blocks(
+                eng, x, t_pad, wire, scale, [lane], bounce)
+        assert (got_wire, got_scale) == (want_wire, want_scale)
+        assert got.dtype == want.dtype and got.shape == want.shape
+        np.testing.assert_array_equal(got.view(np.uint8),
+                                      want.view(np.uint8))
+        assert bounce.counters["input_wire"] == want_wire
+        assert bounce.counters["input_onepass"] == 1
+        if wire == "auto":
+            assert offline._detect_input_grid(x) == (want_wire, want_scale)
+        got.fill(7)                           # the next pass rewrites it all
+
+
+def test_the_input_buffer_is_reused_and_counted():
+    """Back-to-back bounces of different stems of one shape reuse the
+    engine's host buffer, then another length allocates anew; each output
+    equals a freshly built model's bit for bit, and an earlier output is
+    left as it was (nothing it holds aliases the buffer). A chunked
+    bounce's chunks go through the pass too."""
+    def stems(seed, blocks):
+        return _grid_input((2, 2, blocks * 32 + 5), 65536.0, seed, k=3000)
+
+    model = build_model("port")
+    outs, reused = [], []
+    for seed, blocks in ((1, 40), (2, 40), (3, 47)):
+        x = stems(seed, blocks)
+        out = model.render_offline(x, segments=3, input_wire="auto")
+        c = model.offline_counters()
+        assert c["input_wire"] == "pcm16" and c["input_onepass"] == 1
+        reused.append(c["input_buffer_reused"])
+        np.testing.assert_array_equal(
+            out, build_model("port").render_offline(x, segments=3,
+                                                    input_wire="auto"))
+        outs.append((out, out.copy()))
+    assert reused == [0, 1, 0]
+    for out, kept in outs:
+        np.testing.assert_array_equal(out, kept)
+    x = stems(4, 47)
+    chunked = model.render_offline(x, segments=3, track_chunk_blocks=20,
+                                   input_wire="auto")
+    c = model.offline_counters()
+    assert c["input_onepass"] == 1 and c["input_wire"] == "pcm16"
+    np.testing.assert_array_equal(
+        chunked, build_model("port").render_offline(
+            x, segments=3, track_chunk_blocks=20, input_wire="auto"))
 
 
 # -- the model and the CLI -----------------------------------------------------------
