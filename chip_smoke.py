@@ -1546,11 +1546,11 @@ def run_bounce_automated(bank, dev, configure, select, keep_sink,
                          ).astype(np.float32) for _ in range(BLOCKS)],
                        axis=-1)
     total = BLOCKS + engine.history_blocks
-    _, warmup, nseg, seg_len = offline._plan_automated(
+    _, warmup, nseg, seg_len = offline._plan(
         engine, total, segments=None, warmup_blocks=None,
         max_virtual_voices=512)
     hist = engine.history_blocks
-    _, c_warmup, c_nseg, c_seg_len = offline._plan_automated(
+    _, c_warmup, c_nseg, c_seg_len = offline._plan(
         engine, hist + AUTO_CHUNK, segments=None, warmup_blocks=None,
         max_virtual_voices=512)
     chunks = -(-total // AUTO_CHUNK)

@@ -603,7 +603,7 @@ def test_offline_input_buffer_on_the_card_is_pinned_and_reused(cuda):
     for i, xi in enumerate(x):
         got = model.render_offline(xi, segments=3, input_wire="auto")
         c = model.offline_counters()
-        assert c["input_wire"] == "pcm16" and c["input_onepass"] == 1
+        assert c["input_wire"] == "pcm16"
         assert c["input_buffer_reused"] == i
         assert model.engine._offline_input[1].is_pinned()
         want = _offline_model("cpu", "ring").render_offline(

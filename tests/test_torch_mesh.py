@@ -596,19 +596,23 @@ def _bounce_model(side, kind):
 
 
 @pytest.mark.parametrize("kind", ["fmajor", "cascade"])
-@pytest.mark.parametrize("how", ["static", "automated", "chunked"])
+@pytest.mark.parametrize("how", ["static", "automated", "chunked",
+                                 "per_voice"])
 def test_mesh_bounce_matches_jax(kind, how):
     """render_offline(mesh=) over a 4-row mesh, against the JAX
     single-device bounce: 3 segments of 4 voices are 3
     virtual voices per lane on fmajor; the cascade rounds up to 4
-    segments, so that every lane holds whole stagger groups."""
-    x = (np.random.default_rng(1).standard_normal((2, 16 * 70)) * 0.1
+    segments, so that every lane holds whole stagger groups. `per_voice`
+    bounces [V, 2, T] input statically, each lane reading its virtual
+    voices' base voices."""
+    shape = (4, 2, 16 * 70) if how == "per_voice" else (2, 16 * 70)
+    x = (np.random.default_rng(1).standard_normal(shape) * 0.1
          ).astype(np.float32)
     kwargs = {"segments": 3}
     if how == "chunked":
         kwargs["track_chunk_blocks"] = 40
     jkwargs = dict(kwargs)
-    if how != "static":
+    if how in ("automated", "chunked"):
         kwargs["schedule"] = MidiSchedule(list(BOUNCE_EVENTS))
         jkwargs["schedule"] = JaxMidiSchedule(list(BOUNCE_EVENTS))
     mesh = cpu_mesh(4)

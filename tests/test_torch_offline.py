@@ -362,6 +362,22 @@ def test_chunked_automated_bounce(kwargs):
         5e-5)
 
 
+@pytest.mark.parametrize("chunk", [None, 23])
+@pytest.mark.parametrize("kwargs", [{}, CASCADE])
+def test_an_empty_schedule_bounces_as_the_static_bounce(kwargs, chunk):
+    """An automated bounce without events (the fade tables and the indexed
+    step) equals the static one (the steady step), whole and chunked, on
+    fmajor (the same plan and rows) and the cascade (the static bounce's
+    voice-major rows and unrounded plan, in f32)."""
+    b = kwargs.get("block", 32)
+    x = program(97 * b + 9)
+    opts = {"segments": 4, "track_chunk_blocks": chunk}
+    static = offline.render_offline(build_model("port", **kwargs), x, **opts)
+    automated = offline.render_offline(build_model("port", **kwargs), x,
+                                       schedule=MidiSchedule([]), **opts)
+    _close(automated, static, 3e-5)
+
+
 def test_control_replay_tables_equal_jax_to_the_bit():
     """_ControlSim's regimes, events and fade snapshots over AUTOMATION and
     a dense random CC stream, against the JAX replay."""
@@ -558,7 +574,7 @@ def test_counters_of_a_small_bounce():
     assert c == {"segments": 4, "virtual_voices": 8,
                  "steps": eng.prime_blocks + seg_len,
                  "warmup_steps": eng.prime_blocks, "input_wire": "f32",
-                 "input_onepass": 1, "input_buffer_reused": 0,
+                 "input_buffer_reused": 0,
                  "upload_bytes": 4 * seg_len * 2 * 32 * 4,
                  "fetch_bytes": seg_len * 8 * 2 * 32 * 4,
                  "steady_captures": 0, "steady_replays": 0,
@@ -703,7 +719,6 @@ def test_one_pass_layout_matches_the_three_pass_chain(case):
         np.testing.assert_array_equal(got.view(np.uint8),
                                       want.view(np.uint8))
         assert bounce.counters["input_wire"] == want_wire
-        assert bounce.counters["input_onepass"] == 1
         if wire == "auto":
             assert offline._detect_input_grid(x) == (want_wire, want_scale)
         got.fill(7)                           # the next pass rewrites it all
@@ -724,7 +739,7 @@ def test_the_input_buffer_is_reused_and_counted():
         x = stems(seed, blocks)
         out = model.render_offline(x, segments=3, input_wire="auto")
         c = model.offline_counters()
-        assert c["input_wire"] == "pcm16" and c["input_onepass"] == 1
+        assert c["input_wire"] == "pcm16"
         reused.append(c["input_buffer_reused"])
         np.testing.assert_array_equal(
             out, build_model("port").render_offline(x, segments=3,
@@ -737,7 +752,7 @@ def test_the_input_buffer_is_reused_and_counted():
     chunked = model.render_offline(x, segments=3, track_chunk_blocks=20,
                                    input_wire="auto")
     c = model.offline_counters()
-    assert c["input_onepass"] == 1 and c["input_wire"] == "pcm16"
+    assert c["input_wire"] == "pcm16"
     np.testing.assert_array_equal(
         chunked, build_model("port").render_offline(
             x, segments=3, track_chunk_blocks=20, input_wire="auto"))

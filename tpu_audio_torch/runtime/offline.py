@@ -6,9 +6,11 @@ is known up front, and partitioned overlap-save has finite memory: at
 converged parameters one output block depends only on the trailing
 ``engine.history_blocks`` input blocks. So the track splits into S
 segments, each segment becomes a VIRTUAL VOICE of the same engine
-(``engine.with_voices(V * S)``), every virtual voice is primed with the
-input that precedes its segment (warm-up output discarded), and all
-segments stream at once: the engine's voice axis becomes the time axis.
+(``engine.with_voices(V * S)``; virtual voice s*V + v carries voice v
+over segment s, but for a static bounce on the cascade: _stagger), every
+virtual voice is primed with the input that precedes its segment (warm-up
+output discarded), and all segments stream at once: the engine's voice
+axis becomes the time axis.
 The step count drops from T to warm-up + ceil(T / S); each step costs more
 device work, behind the same host launches.
 
@@ -76,10 +78,9 @@ the pcm16 decode). A chunked bounce repeats the children once per chunk
 inside its one ``bounce`` span. Counters, always kept (``counters=``, a dict
 cleared and filled; ConvolutionReverb.offline_counters() reads the last
 call's): ``segments`` and ``virtual_voices`` (per chunk), ``steps`` and
-``warmup_steps`` (summed over chunks), ``input_wire``, ``input_onepass``
-(1 when the input went through that pass: every path, a chunked bounce's
-chunks included), ``input_buffer_reused`` (1 when the call reused the held
-buffer and allocated none), ``upload_bytes`` (the block tensors' bytes
+``warmup_steps`` (summed over chunks), ``input_wire``,
+``input_buffer_reused`` (1 when the call reused the held buffer and
+allocated none), ``upload_bytes`` (the block tensors' bytes
 sent to the devices), ``fetch_bytes`` (the output buffers' bytes read
 back) and the engine's steady-step graph counters
 (``steady_captures``, ``steady_replays``, ``steady_eager``: engine/fmajor.py)
@@ -90,6 +91,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass, replace
+from functools import partial
 
 import numpy as np
 import torch
@@ -201,7 +203,7 @@ class _Bounce:
         self.current = None
         self.counters = {"segments": 0, "virtual_voices": 0, "steps": 0,
                          "warmup_steps": 0, "input_wire": "f32",
-                         "input_onepass": 0, "input_buffer_reused": 0,
+                         "input_buffer_reused": 0,
                          "upload_bytes": 0, "fetch_bytes": 0,
                          **dict.fromkeys(GRAPH_COUNTERS, 0)}
         self.buffer_allocated = False
@@ -295,7 +297,8 @@ def render_offline(model, samples, *, segments: int | None = None,
 def _render(model, samples, bounce: _Bounce, *, segments, include_tail,
             warmup_blocks, max_virtual_voices, schedule, track_chunk_blocks,
             mesh, wire, bucket_blocks, input_wire, input_scale) -> np.ndarray:
-    """render_offline's checks, then the path it takes."""
+    """render_offline's checks, then the one renderer (_render_span) over
+    the whole track, or over every chunk of it (_render_chunked)."""
     _check_full_resident(model)
     if wire not in ("f32", "pcm16"):
         raise ValueError(f"wire must be 'f32' or 'pcm16', got {wire!r}")
@@ -311,122 +314,189 @@ def _render(model, samples, bounce: _Bounce, *, segments, include_tail,
         _log_grid(input_wire, input_scale)
     elif input_wire == "pcm16" and input_scale is None:
         input_scale = 32767.0
-    if mesh is not None and not (
-            hasattr(model.engine, "prime_fdl")
-            or hasattr(model.engine, "ratio")):
-        raise ValueError(
-            "mesh-sharded bounce supports fmajor and cascade engines "
-            "(voice data parallelism over the virtual-voice axis)")
-    if track_chunk_blocks is not None:
-        return _render_chunked(
-            model, samples, track_chunk_blocks, bounce, segments=segments,
-            include_tail=include_tail, warmup_blocks=warmup_blocks,
-            max_virtual_voices=max_virtual_voices, schedule=schedule,
-            mesh=mesh, wire=wire, input_wire=input_wire,
-            input_scale=input_scale)
-    if schedule is not None:
-        return _render_automated(
-            model, samples, schedule, bounce, segments=segments,
-            include_tail=include_tail, warmup_blocks=warmup_blocks,
-            max_virtual_voices=max_virtual_voices, mesh=mesh, wire=wire,
-            bucket_blocks=bucket_blocks, input_wire=input_wire,
-            input_scale=input_scale)
-    return _render_static(
-        model, samples, bounce, segments=segments, include_tail=include_tail,
-        warmup_blocks=warmup_blocks, max_virtual_voices=max_virtual_voices,
-        mesh=mesh, wire=wire, bucket_blocks=bucket_blocks,
-        input_wire=input_wire, input_scale=input_scale)
-
-
-def _render_static(model, samples, bounce: _Bounce, *, segments,
-                   include_tail, warmup_blocks, max_virtual_voices, mesh,
-                   wire, bucket_blocks, input_wire, input_scale
-                   ) -> np.ndarray:
-    """The bounce at the control plane's converged parameters (see
-    render_offline), its input wire resolved."""
     eng = model.engine
+    selected = schedule is not None and _check_automatable(eng)
+    x, per_voice = _check_stereo(samples, eng.num_voices)
+    tail = eng.history_blocks if include_tail else 0
+    plan = partial(_plan, eng, segments=segments, warmup_blocks=warmup_blocks,
+                   max_virtual_voices=max_virtual_voices, mesh=mesh,
+                   static=schedule is None)
+    render = partial(_render_span, model, per_voice=per_voice,
+                     bounce=bounce, mesh=mesh, wire=wire,
+                     input_wire=input_wire, input_scale=input_scale,
+                     schedule=schedule, selected=selected)
+    if track_chunk_blocks is not None:
+        return _render_chunked(model, x, track_chunk_blocks, tail, plan,
+                               render, schedule, bounce)
+    total_blocks = _bucket_total(-(-x.shape[-1] // eng.block) + tail,
+                                 bucket_blocks)
+    return render(x, plan(total_blocks), x.shape[-1] + tail * eng.block)
+
+
+def _render_span(model, x: np.ndarray, plan: tuple, keep: int, *,
+                 per_voice: bool, bounce: _Bounce, mesh, wire, input_wire,
+                 input_scale, schedule, selected: bool, sim=None,
+                 abs_base: int = 0) -> np.ndarray:
+    """The bounce of `x` (checked [2, T], or [V, 2, T] when `per_voice`)
+    as `plan` (_plan's tuple) cuts it, its output trimmed to `keep`
+    samples. Without a schedule every virtual voice steps at the control
+    plane's converged parameters; with one it enters its segment with the
+    replay's fade state and steps through the replay's tables. `sim` is
+    the replay (_ControlSim, built over this span when None), read at
+    block ``local + abs_base``: the chunked path's seam
+    (_render_chunked)."""
+    eng = model.engine
+    fast, warmup, nseg, seg_len = plan
     v, b = eng.num_voices, eng.block
-
-    x, per_voice = _check_stereo(samples, v)
-    t_samples = x.shape[-1]
-    t_blocks = -(-t_samples // b)
-
-    fast = hasattr(eng, "prime_fdl")
-    warmup = int(warmup_blocks if warmup_blocks is not None
-                 else (eng.prime_blocks if fast else eng.history_blocks))
-    tail_blocks = eng.history_blocks if include_tail else 0
-    total_blocks = _bucket_total(t_blocks + tail_blocks, bucket_blocks)
-
-    # (the cascade's stagger invariant holds: num_voices % ratio == 0, so
-    # any v * nseg stays divisible)
-    if segments is None:
-        nseg = min(_auto_segments(total_blocks, warmup, v,
-                                  max_virtual_voices), total_blocks)
-    else:
-        nseg = int(segments)
-        if nseg < 1:
-            raise ValueError(f"segments must be >= 1, got {segments}")
-    nseg = _mesh_round_segments(nseg, v, mesh, int(getattr(eng, "ratio", 1)))
-    seg_len = -(-total_blocks // nseg)
-    bounce.plan(nseg, v * nseg)
-    seng = _virtual_engine(eng, v * nseg)
+    vv, tpad = v * nseg, nseg * seg_len
+    ratio, align = _stagger(eng, schedule is None)
+    voice_major = align < ratio
+    bounce.plan(nseg, vv)
+    seng = _virtual_engine(eng, vv)
     lanes = _lanes(seng, model.spectra, mesh)
 
     # block tensor [T', 2, B] (shared) or [T', V, 2, B] (per-voice), zero
     # past the input (the zero tail flushes the ring-out), on every lane's
     # device
-    xb, wire_in, scale = _input_blocks(eng, x, nseg * seg_len, input_wire,
+    xb, wire_in, scale = _input_blocks(eng, x, tpad, input_wire,
                                        input_scale, lanes, bounce)
     dec = _input_decoder(wire_in, scale)
     xb_dev = _upload_blocks(xb, lanes, bounce)
-
+    starts = np.arange(nseg) * seg_len - warmup    # warm-up start per segment
+    if schedule is not None:
+        bounce.stage("schedule")
+        if sim is None:
+            sim = _ControlSim(model.control, schedule, tpad,
+                              np.maximum(starts, 0))
+        tables = _schedule_tables(sim, nseg, v, seg_len, warmup, abs_base)
+        event = tables.pop("event")
+        # the fade state entering each segment's warm-up, [nseg, V, 2, ...]:
+        # coef_a, coef_c, the span g and the clipped selection
+        snap = [np.stack(f) for f in
+                zip(*(sim.snaps[max(t + abs_base, 0)] for t in starts))]
     bounce.stage("prime")
-    # the control plane, replicated voice-major: virtual voice v*nseg + s
-    # carries voice v's parameters over segment s
-    host = model.control.snapshot()
-    vp = {name: np.repeat(np.asarray(arr), nseg, axis=0)
-          for name, arr in vars(host).items()}
-    t0 = np.tile(np.arange(nseg) * seg_len - warmup, v)
-    voice_of = np.repeat(np.arange(v), nseg) if per_voice else None
-    states, vparams = [], []
+    # virtual voice j's base voice and segment: j = s*V + v (segment-major),
+    # or j = v*nseg + s (voice-major: a static bounce on the cascade,
+    # _stagger); a schedule's rows are segment-major
+    if voice_major:
+        voice, seg = np.divmod(np.arange(vv), nseg)
+    else:
+        seg, voice = np.divmod(np.arange(vv), v)
+    p0 = {name: np.asarray(arr)[voice]
+          for name, arr in vars(model.control.snapshot()).items()}
+    t0 = starts[seg]
+    voice_of = voice if per_voice else None
+    # the row of step i's [nseg (x V), 2, B] input blocks that each virtual
+    # voice reads; None where that is row j itself (_step_inputs' view)
+    src = seg * v + voice if per_voice else seg
+    src = None if np.array_equal(src, np.arange(vv)) else src
+
+    def rows(arr: np.ndarray, lane: _Lane) -> torch.Tensor:
+        """[nseg, V, 2, ...] -> the lane's rows of [nseg*V, 2, ...]."""
+        arr = arr.reshape((vv,) + arr.shape[2:])[lane.lo:lane.hi]
+        return torch.from_numpy(np.ascontiguousarray(arr)).to(lane.device)
+
+    states, vparams, tbls = [], [], []
     for lane in lanes:
-        lo, hi = lane.lo, lane.hi
+        lo, hi, dev, e, bank = (lane.lo, lane.hi, lane.device, lane.engine,
+                                lane.bank)
         vparams.append(VoiceParams(**{name: arr[lo:hi] for name, arr
-                                      in vp.items()}).to(lane.device))
-        state = lane.engine.init_converged(lane.bank, vparams[-1])
+                                      in p0.items()}).to(dev))
+        state = e.init_converged(bank, vparams[-1])
+        if schedule is not None:
+            g0 = rows(snap[2], lane)
+            state = replace(state, coef_a=rows(snap[0], lane),
+                            coef_c=rows(snap[1], lane))
+            if selected:
+                # the 'selected' strategy reads materialized per-voice
+                # tensors; the snapshot is still an affine span of the bank
+                # (the stream's collapse is base := a*base + c*bank[old],
+                # the recursion the host g tracks), so expand g once and
+                # gather the pre-event selection
+                state = replace(
+                    state,
+                    base=e._span_expand(bank, g0).to(state.base.dtype
+                                                     ).contiguous(),
+                    sel_spectra=e._gather_selection(bank,
+                                                    rows(snap[3], lane)),
+                    base_pure=torch.zeros((hi - lo, 2), dtype=torch.bool,
+                                          device=dev))
+            else:
+                if g0.shape[-1] != state.base_g.shape[-1]:
+                    raise ValueError(
+                        f"span width mismatch: control plane tracks "
+                        f"{g0.shape[-1]} IRs, engine state carries "
+                        f"{state.base_g.shape[-1]}")
+                state = replace(state, base_g=g0,
+                                base_pure=torch.ones((hi - lo, 2),
+                                                     dtype=torch.bool,
+                                                     device=dev))
+            tbls.append({name: torch.from_numpy(np.ascontiguousarray(
+                arr[:, lo:hi])).to(dev) for name, arr in tables.items()})
         if fast:
-            state = _prime_fast(lane.engine, state, xb_dev[lane.device],
-                                t0[lo:hi], _cut(voice_of, lo, hi), dec)
+            state = _prime_fast(e, state, xb_dev[dev], t0[lo:hi],
+                                _cut(voice_of, lo, hi), dec)
         states.append(state)
-    steps = warmup + seg_len
     bounce.stage("layout")
-    inputs = {dev: _step_inputs(xd, per_voice, nseg, seg_len, warmup, steps,
-                                v, dec, voice_major=True)
+    inputs = {dev: _step_inputs(xd, nseg, seg_len, warmup, warmup + seg_len,
+                                dec, src)
               for dev, xd in xb_dev.items()}
     del xb_dev
 
-    Log.info("offline", "bounce: %d blocks as %d segment(s) x %d + %d "
-             "warm-up steps (%d virtual voices in %d lane(s))",
-             total_blocks, nseg, seg_len, warmup, v * nseg, len(lanes))
+    Log.info("offline", "bounce: %d segment(s) x %d + %d warm-up steps (%d "
+             "virtual voices in %d lane(s))%s", nseg, seg_len, warmup, vv,
+             len(lanes), "" if sim is None else
+             f", {len(sim.regimes)} regime(s), "
+             f"{len(sim.ev_changed) - 1} re-select block(s)")
 
-    # converged static params ride the steady step (engine.step where the
-    # engine slews its own spectra: the slew is then a converged no-op)
-    steady = [engine_steps(lane.engine)[0] for lane in lanes]
+    if schedule is None:
+        # converged static params ride the steady step (engine.step where
+        # the engine slews its own spectra: the slew is then a converged
+        # no-op)
+        steady = [engine_steps(lane.engine)[0] for lane in lanes]
+
+        def lane_step(i, j, st, x_i):
+            return steady[j](st, lanes[j].bank, vparams[j], x_i)
+    else:
+        takes_params = seng.collapse_pure_takes_params
+
+        def lane_step(i, j, st, x_i):
+            e, bank, tbl = lanes[j].engine, lanes[j].bank, tbls[j]
+            params = VoiceParams(**{f: tbl[f][i] for f in _ControlSim.FIELDS})
+            if event[i]:
+                old, chg = tbl["old"][i], tbl["changed"][i]
+                if selected:
+                    st = e.collapse(st, bank, old, chg,
+                                    new_select=params.select)
+                else:
+                    st = e.collapse_pure(st, old, chg, *(
+                        (params,) if takes_params else ()))
+            if selected:
+                return e.step_coef(st, bank, params, x_i)
+            return e.step_coef_indexed(st, bank, params, x_i)
 
     def step(i, sts):
-        outs = [steady[j](st, lane.bank, vparams[j],
-                          inputs[lane.device](i)[lane.lo:lane.hi])
+        outs = [lane_step(i, j, st, inputs[lane.device](i)[lane.lo:lane.hi])
                 for j, (lane, st) in enumerate(zip(lanes, sts))]
         return [s for s, _ in outs], [y for _, y in outs]
 
-    out = _collect(step, states, warmup, seg_len, (v * nseg, 2, b), wire,
-                   lanes, bounce)
-    # [seg_len, V*nseg, 2, B] -> [V, 2, nseg*seg_len*B]
-    out = (out.reshape(seg_len, v, nseg, 2, b)
-              .transpose(1, 3, 2, 0, 4)
-              .reshape(v, 2, nseg * seg_len * b))
-    out_samples = t_samples + tail_blocks * b if include_tail else t_samples
-    return _decode_wire(out[..., :out_samples], wire)
+    out = _collect(step, states, warmup, seg_len, (vv, 2, b), wire, lanes,
+                   bounce)
+    return _output(out, v, keep, wire, voice_major)
+
+
+def _output(out: np.ndarray, v: int, keep: int, wire: str,
+            voice_major: bool) -> np.ndarray:
+    """_collect's [seg_len, nseg*V, 2, B] (segment- or voice-major rows)
+    as [V, 2, keep]: every voice's segments in track order, trimmed and off
+    the wire."""
+    seg_len, vv, _, b = out.shape
+    rows, order = (((v, vv // v), (1, 3, 2, 0, 4)) if voice_major
+                   else ((vv // v, v), (2, 3, 1, 0, 4)))
+    out = (out.reshape((seg_len,) + rows + (2, b))
+              .transpose(order)
+              .reshape(v, 2, -1))
+    return _decode_wire(out[..., :keep], wire)
 
 
 def _bucket_total(total_blocks: int, bucket_blocks) -> int:
@@ -464,92 +534,49 @@ def _chunk_input(x: np.ndarray, lo: int, hist: int, chunk_blocks: int,
     return xs
 
 
-def _render_chunked(model, samples, chunk_blocks: int, bounce: _Bounce, *,
-                    segments, include_tail, warmup_blocks, max_virtual_voices,
-                    schedule, mesh=None, wire: str = "f32",
-                    input_wire: str = "f32", input_scale=None
-                    ) -> np.ndarray:
+def _render_chunked(model, x: np.ndarray, chunk_blocks, tail: int, plan,
+                    render, schedule, bounce: _Bounce) -> np.ndarray:
     """Bounded-memory bounce: the track renders in `chunk_blocks`-block
-    chunks, each an independent time-parallel render over its slice plus
-    `history_blocks` of trailing input prefix (output discarded) — the
-    contract that makes segments exact makes chunks exact. With
-    ``schedule=`` see _render_chunked_automated."""
+    chunks, each an independent time-parallel render (`render`,
+    _render_span) of its slice plus `history_blocks` of trailing input
+    prefix (output discarded): the contract that makes segments exact
+    makes chunks exact. Every chunk has one span length, so one plan
+    (`plan`, _plan) serves them all. A schedule is replayed ONCE over the
+    whole (chunk-grid-padded) timeline, with fade snapshots at every
+    chunk's segment warm-up starts in absolute blocks; each chunk reads
+    parameters and events at ``local_block + (chunk_start - hist)``. The
+    chunk grid and the history prefix round up to the plan's alignment
+    (_stagger): every chunk's start offset then keeps the stream's
+    phase."""
     chunk_blocks = int(chunk_blocks)
     if chunk_blocks < 1:
         raise ValueError(f"track_chunk_blocks must be >= 1, "
                          f"got {chunk_blocks}")
-    if schedule is not None:
-        return _render_chunked_automated(
-            model, samples, chunk_blocks, schedule, bounce, segments=segments,
-            include_tail=include_tail, warmup_blocks=warmup_blocks,
-            max_virtual_voices=max_virtual_voices, mesh=mesh, wire=wire,
-            input_wire=input_wire, input_scale=input_scale)
     eng = model.engine
     b = eng.block
-    x, _ = _check_stereo(samples, eng.num_voices)
-    t_samples = x.shape[-1]
-    hist = eng.history_blocks
-    out_blocks = -(-t_samples // b) + (hist if include_tail else 0)
-    outs = []
-    for lo in range(0, out_blocks, chunk_blocks):
-        bounce.stage("input")
-        out = _render_static(model, _chunk_input(x, lo, hist, chunk_blocks, b),
-                             bounce, segments=segments, include_tail=False,
-                             warmup_blocks=warmup_blocks,
-                             max_virtual_voices=max_virtual_voices,
-                             mesh=mesh, wire=wire, bucket_blocks=None,
-                             input_wire=input_wire, input_scale=input_scale)
-        outs.append(out[..., hist * b:])
-    out = np.concatenate(outs, axis=-1)
-    return out[..., :t_samples + (hist * b if include_tail else 0)]
-
-
-def _render_chunked_automated(model, samples, chunk_blocks: int, schedule,
-                              bounce: _Bounce, *, segments, include_tail,
-                              warmup_blocks, max_virtual_voices, mesh=None,
-                              wire: str = "f32", input_wire: str = "f32",
-                              input_scale=None) -> np.ndarray:
-    """Bounded-memory bounce of an automation timeline. The host replays
-    the schedule ONCE over the whole (chunk-grid-padded) timeline, with
-    fade snapshots at every chunk's segment warm-up starts in absolute
-    blocks; each chunk renders its local span (history prefix + payload)
-    and reads parameters and events at ``local_block + (chunk_start -
-    hist)``. On the cascade the stagger schedule follows the engine's local
-    block counter, so the chunk grid and the history prefix round up to the
-    ratio: every chunk's start offset then keeps the stream's phase."""
-    eng = model.engine
-    _check_automatable(eng)
-    b = eng.block
-    ratio = int(getattr(eng, "ratio", 1))
-    if chunk_blocks % ratio:
-        chunk_blocks = -(-chunk_blocks // ratio) * ratio
+    _, align = _stagger(eng, schedule is None)
+    if chunk_blocks % align:
+        chunk_blocks = -(-chunk_blocks // align) * align
         Log.info("offline", "chunk grid rounded up to %d blocks (cascade "
-                 "stagger ratio %d alignment)", chunk_blocks, ratio)
-    x, _ = _check_stereo(samples, eng.num_voices)
+                 "stagger ratio %d alignment)", chunk_blocks, align)
     t_samples = x.shape[-1]
-    tail = eng.history_blocks if include_tail else 0
-    hist = -(-eng.history_blocks // ratio) * ratio
-    out_blocks = -(-t_samples // b) + tail
-    span_blocks = hist + chunk_blocks
-    _fast, warmup, nseg, seg_len = _plan_automated(
-        eng, span_blocks, segments=segments, warmup_blocks=warmup_blocks,
-        max_virtual_voices=max_virtual_voices, mesh=mesh)
-    los = list(range(0, out_blocks, chunk_blocks))
-    tpad_local = nseg * seg_len
-    tpadg = max(los[-1] - hist + tpad_local, tpad_local)
-    snap_points = sorted({max(s * seg_len - warmup + lo - hist, 0)
-                          for lo in los for s in range(nseg)})
-    bounce.stage("schedule")
-    sim = _ControlSim(model.control, schedule, tpadg, snap_points)
+    hist = -(-eng.history_blocks // align) * align
+    span = plan(hist + chunk_blocks)
+    _, warmup, nseg, seg_len = span
+    los = range(0, -(-t_samples // b) + tail, chunk_blocks)
+    sim = None
+    if schedule is not None:
+        tpad = nseg * seg_len
+        bounce.stage("schedule")
+        sim = _ControlSim(model.control, schedule,
+                          max(los[-1] - hist + tpad, tpad),
+                          sorted({max(s * seg_len - warmup + lo - hist, 0)
+                                  for lo in los for s in range(nseg)}))
     outs = []
     for lo in los:
         bounce.stage("input")
-        out = _render_automated(
-            model, _chunk_input(x, lo, hist, chunk_blocks, b), schedule,
-            bounce, segments=nseg, include_tail=False, warmup_blocks=warmup,
-            max_virtual_voices=max_virtual_voices, mesh=mesh, wire=wire,
-            input_wire=input_wire, input_scale=input_scale,
-            _chunk_ctx=(sim, lo - hist, tpadg))
+        out = render(_chunk_input(x, lo, hist, chunk_blocks, b), span,
+                     (hist + chunk_blocks) * b, sim=sim, abs_base=lo - hist)
         outs.append(out[..., hist * b:])
     out = np.concatenate(outs, axis=-1)
     return out[..., :t_samples + tail * b]
@@ -689,21 +716,38 @@ def _check_automatable(eng) -> bool:
     return selected
 
 
-def _plan_automated(eng, total_blocks: int, *, segments, warmup_blocks,
-                    max_virtual_voices, mesh=None):
-    """Segment plan for an automated bounce: (fast, warmup, nseg, seg_len).
+def _stagger(eng, static: bool) -> tuple[int, int]:
+    """(ratio, align): the engine's stagger ratio (1 on every engine but
+    the cascade) and the block count that a bounce's warm-up, segments and
+    chunk grid round up to.
 
-    The cascade's tail schedule is staggered (group g computes at blocks
-    t % ratio == g): a virtual voice's local block counter starts at 0, so
-    its stagger phase matches the stream's only when every segment's
-    warm-up start falls on a ratio boundary — hence the ratio-rounding of
-    warmup and seg_len. Converged params are phase-invariant (the static
-    path needs no alignment), but an event's fade scattering is not."""
+    The cascade's tail schedule is staggered: virtual voice j computes its
+    tail at local blocks t % ratio == j % ratio, its block counter starting
+    at 0 with its segment's warm-up. A scheduled bounce runs on the
+    stream's phases, as an event's fade scattering needs: segment-major
+    (j % ratio == v % ratio) with every warm-up start on a ratio boundary,
+    so align = ratio. A static one runs on the JAX static renderer's:
+    voice-major (align < ratio), unrounded. Converged parameters are
+    phase-invariant in f32, but the bf16 tail's rounding is not, and the
+    port's bf16 static bounce is held to that renderer's."""
+    ratio = int(getattr(eng, "ratio", 1))
+    return ratio, 1 if static else ratio
+
+
+def _plan(eng, total_blocks: int, *, segments, warmup_blocks,
+          max_virtual_voices, mesh=None, static=False):
+    """Segment plan of every bounce: (fast, warmup, nseg, seg_len), the
+    warm-up and the segment length rounded up to _stagger's alignment
+    (1 unless a scheduled bounce runs on the cascade)."""
     fast = hasattr(eng, "prime_fdl")
+    if mesh is not None and not (fast or hasattr(eng, "ratio")):
+        raise ValueError(
+            "mesh-sharded bounce supports fmajor and cascade engines "
+            "(voice data parallelism over the virtual-voice axis)")
+    ratio, align = _stagger(eng, static)
     warmup = int(warmup_blocks if warmup_blocks is not None
                  else (eng.prime_blocks if fast else eng.history_blocks))
-    ratio = int(getattr(eng, "ratio", 1))
-    warmup = -(-warmup // ratio) * ratio
+    warmup = -(-warmup // align) * align
     v = eng.num_voices
     if segments is None:
         nseg = min(_auto_segments(total_blocks, warmup, v,
@@ -713,12 +757,12 @@ def _plan_automated(eng, total_blocks: int, *, segments, warmup_blocks,
         if nseg < 1:
             raise ValueError(f"segments must be >= 1, got {segments}")
     nseg = _mesh_round_segments(nseg, v, mesh, ratio)
-    seg_len = -(-(-(-total_blocks // nseg)) // ratio) * ratio
+    seg_len = -(-(-(-total_blocks // nseg)) // align) * align
     return fast, warmup, nseg, seg_len
 
 
 def _schedule_tables(sim: _ControlSim, nseg: int, v: int, seg_len: int,
-                     warmup: int, abs_base: int, tpadg: int) -> dict:
+                     warmup: int, abs_base: int) -> dict:
     """Every step's parameters and re-select events, gathered on the host
     from the replay's tables: {field: [steps, nseg*V, 2]} for the eight
     VoiceParams fields plus "old" and "changed" (segment-major: virtual
@@ -734,7 +778,7 @@ def _schedule_tables(sim: _ControlSim, nseg: int, v: int, seg_len: int,
            + np.arange(steps)[:, None] - warmup)                # [steps, nseg]
     aidx = idx + abs_base                                       # absolute block
     live = aidx >= 0
-    aidxc = np.clip(aidx, 0, tpadg - 1)
+    aidxc = np.clip(aidx, 0, sim.regime_of_block.size - 1)
     reg = np.where(live, sim.regime_of_block[aidxc], 0)
     offs = np.where(live, aidx - np.asarray(sim.regime_starts)[reg], 0)
     ev = np.where(live, sim.event_of_block[aidxc], 0)
@@ -752,157 +796,6 @@ def _schedule_tables(sim: _ControlSim, nseg: int, v: int, seg_len: int,
     out["old"] = gather(ev, np.stack(sim.ev_old))
     out["event"] = out["changed"].any(axis=(1, 2))
     return out
-
-
-def _render_automated(model, samples, schedule, bounce: _Bounce, *,
-                      segments, include_tail, warmup_blocks,
-                      max_virtual_voices, mesh=None, wire: str = "f32",
-                      bucket_blocks=None, input_wire: str = "f32",
-                      input_scale=None, _chunk_ctx=None) -> np.ndarray:
-    """Time-parallel bounce of a scripted MIDI timeline — render_offline
-    with ``schedule=`` (see the module docstring).
-
-    ``_chunk_ctx = (sim, abs_base, tpad_global)`` is the chunked path's
-    seam (_render_chunked_automated): the replay was built once over the
-    global timeline, this call renders the chunk's local span, and every
-    parameter and event is read at the absolute block ``local +
-    abs_base``."""
-    eng = model.engine
-    selected = _check_automatable(eng)
-    v, b = eng.num_voices, eng.block
-    x, per_voice = _check_stereo(samples, v)
-    t_samples = x.shape[-1]
-    t_blocks = -(-t_samples // b)
-    if _chunk_ctx is None:
-        tail_blocks = eng.history_blocks if include_tail else 0
-        total_blocks = _bucket_total(t_blocks + tail_blocks, bucket_blocks)
-    else:
-        sim, abs_base, tpadg = _chunk_ctx
-        tail_blocks = 0
-        total_blocks = t_blocks
-    fast, warmup, nseg, seg_len = _plan_automated(
-        eng, total_blocks, segments=segments, warmup_blocks=warmup_blocks,
-        max_virtual_voices=max_virtual_voices, mesh=mesh)
-    tpad = nseg * seg_len
-    bounce.plan(nseg, v * nseg)
-    seng = _virtual_engine(eng, v * nseg)
-    lanes = _lanes(seng, model.spectra, mesh)
-
-    xb, wire_in, scale = _input_blocks(eng, x, tpad, input_wire,
-                                       input_scale, lanes, bounce)
-    dec = _input_decoder(wire_in, scale)
-    xb_dev = _upload_blocks(xb, lanes, bounce)
-    bounce.stage("schedule")
-    if _chunk_ctx is None:
-        abs_base, tpadg = 0, tpad
-        sim = _ControlSim(model.control, schedule, tpad,
-                          [max(s * seg_len - warmup, 0) for s in range(nseg)])
-    tables = _schedule_tables(sim, nseg, v, seg_len, warmup, abs_base, tpadg)
-    event = tables.pop("event")
-    bounce.stage("prime")
-
-    def vm(arr: np.ndarray, lane) -> torch.Tensor:
-        """[nseg, V, 2, ...] -> the lane's rows of the SEGMENT-major
-        [nseg*V, 2, ...] on its device. Segment-major (not the static
-        path's voice-major) keeps every virtual voice's cascade stagger
-        group, j % ratio == v % ratio (V is ratio-divisible, and so is
-        every lane's start), so with the ratio-aligned warm-up starts each
-        virtual voice computes its tail at the stream's block phases,
-        which the in-flight fade projections are sensitive to."""
-        arr = np.ascontiguousarray(arr)
-        rows = arr.reshape((nseg * v,) + arr.shape[2:])[lane.lo:lane.hi]
-        return torch.from_numpy(np.ascontiguousarray(rows)).to(lane.device)
-
-    host0 = model.control.snapshot()
-    p0 = {name: np.tile(np.asarray(arr), (nseg, 1))
-          for name, arr in vars(host0).items()}
-    snaps = [sim.snaps[max(s * seg_len - warmup + abs_base, 0)]
-             for s in range(nseg)]
-    # segment-major virtual packing: t0[s*V + v]
-    t0 = np.repeat(np.arange(nseg) * seg_len - warmup, v)
-    voice_of = np.tile(np.arange(v), nseg) if per_voice else None
-    states, tbls = [], []
-    for lane in lanes:
-        lo, hi, dev, e, bank = (lane.lo, lane.hi, lane.device, lane.engine,
-                                lane.bank)
-        state = e.init_converged(bank, VoiceParams(**{
-            name: arr[lo:hi] for name, arr in p0.items()}).to(dev))
-        g0 = vm(np.stack([s[2] for s in snaps]), lane)
-        state = replace(state, coef_a=vm(np.stack([s[0] for s in snaps]), lane),
-                        coef_c=vm(np.stack([s[1] for s in snaps]), lane))
-        if selected:
-            # the 'selected' strategy reads materialized per-voice tensors;
-            # the snapshot is still an affine span of the bank (the
-            # stream's collapse is base := a*base + c*bank[old], the
-            # recursion the host g tracks), so expand g once and gather
-            # the pre-event selection
-            sel0 = vm(np.stack([s[3] for s in snaps]), lane)
-            state = replace(
-                state,
-                base=e._span_expand(bank, g0).to(state.base.dtype
-                                                 ).contiguous(),
-                sel_spectra=e._gather_selection(bank, sel0),
-                base_pure=torch.zeros((hi - lo, 2), dtype=torch.bool,
-                                      device=dev))
-        else:
-            if g0.shape[-1] != state.base_g.shape[-1]:
-                raise ValueError(
-                    f"span width mismatch: control plane tracks "
-                    f"{g0.shape[-1]} IRs, engine state carries "
-                    f"{state.base_g.shape[-1]}")
-            state = replace(state, base_g=g0,
-                            base_pure=torch.ones((hi - lo, 2),
-                                                 dtype=torch.bool,
-                                                 device=dev))
-        if fast:
-            state = _prime_fast(e, state, xb_dev[dev], t0[lo:hi],
-                                _cut(voice_of, lo, hi), dec)
-        states.append(state)
-        tbls.append({name: torch.from_numpy(np.ascontiguousarray(
-            arr[:, lo:hi])).to(dev) for name, arr in tables.items()})
-    steps = warmup + seg_len
-    bounce.stage("layout")
-    inputs = {dev: _step_inputs(xd, per_voice, nseg, seg_len, warmup, steps,
-                                v, dec, voice_major=False)
-              for dev, xd in xb_dev.items()}
-    del xb_dev
-
-    Log.info("offline", "automated bounce: %d blocks as %d segment(s) x %d "
-             "+ %d warm-up steps (%d virtual voices in %d lane(s), %d "
-             "regime(s), %d re-select block(s))", total_blocks, nseg,
-             seg_len, warmup, v * nseg, len(lanes), len(sim.regimes),
-             len(sim.ev_changed) - 1)
-
-    takes_params = seng.collapse_pure_takes_params
-
-    def lane_step(i, st, lane, tbl):
-        e, bank = lane.engine, lane.bank
-        params = VoiceParams(**{f: tbl[f][i] for f in _ControlSim.FIELDS})
-        if event[i]:
-            old, chg = tbl["old"][i], tbl["changed"][i]
-            if selected:
-                st = e.collapse(st, bank, old, chg, new_select=params.select)
-            else:
-                st = e.collapse_pure(st, old, chg,
-                                     *((params,) if takes_params else ()))
-        x_i = inputs[lane.device](i)[lane.lo:lane.hi]
-        if selected:
-            return e.step_coef(st, bank, params, x_i)
-        return e.step_coef_indexed(st, bank, params, x_i)
-
-    def step(i, sts):
-        outs = [lane_step(i, st, lane, tbl)
-                for st, lane, tbl in zip(sts, lanes, tbls)]
-        return [s for s, _ in outs], [y for _, y in outs]
-
-    out = _collect(step, states, warmup, seg_len, (v * nseg, 2, b), wire,
-                   lanes, bounce)
-    # [seg_len, nseg*V, 2, B] (segment-major) -> [V, 2, tpad*B]
-    out = (out.reshape(seg_len, nseg, v, 2, b)
-              .transpose(2, 3, 1, 0, 4)
-              .reshape(v, 2, tpad * b))
-    out_samples = t_samples + tail_blocks * b if include_tail else t_samples
-    return _decode_wire(out[..., :out_samples], wire)
 
 
 def _input_blocks(eng, x: np.ndarray, t_pad_blocks: int, input_wire: str,
@@ -938,7 +831,7 @@ def _input_blocks(eng, x: np.ndarray, t_pad_blocks: int, input_wire: str,
                            out=_input_buffer(eng, shape, dtype, pinned,
                                              bounce),
                            scale=input_scale)
-    bounce.counters.update(input_wire=input_wire, input_onepass=1)
+    bounce.counters["input_wire"] = input_wire
     return xb, input_wire, input_scale
 
 
@@ -1119,15 +1012,14 @@ def _prime_fast(seng, state, xb_dev: torch.Tensor, t0: np.ndarray,
     return replace(state, prev_in=pim)
 
 
-def _step_inputs(xb_dev: torch.Tensor, per_voice: bool, nseg: int,
-                 seg_len: int, warmup: int, steps: int, v: int, dec,
-                 voice_major: bool):
-    """Every step's input blocks, laid out on the device before the loop.
-    Returns inputs(i) -> f32 [V*nseg, 2, B], step i's block of every
-    virtual voice: block s*seg_len + i - warmup of segment s, zero before
-    the track. Per-voice input is stored in the virtual order, so inputs(i)
-    is a view; shared input is stored once per segment and expanded to the
-    V voices by one copy per step."""
+def _step_inputs(xb_dev: torch.Tensor, nseg: int, seg_len: int,
+                 warmup: int, steps: int, dec, src: np.ndarray | None):
+    """Every step's input blocks, laid out on the device before the loop:
+    block s*seg_len + i - warmup of each segment s at step i, zero before
+    the track, as [nseg*V, 2, B] (per-voice input, segment-major) or
+    [nseg, 2, B] (shared). Returns inputs(i) -> f32 [nseg*V, 2, B], step
+    i's block of every virtual voice j: row src[j], gathered by one copy
+    a step, or row j itself, a view, when `src` is None."""
     dev = xb_dev.device
     idx = (np.arange(nseg)[None, :] * seg_len
            + np.arange(steps)[:, None] - warmup)                # [steps, nseg]
@@ -1137,16 +1029,11 @@ def _step_inputs(xb_dev: torch.Tensor, per_voice: bool, nseg: int,
     blocks = blocks.reshape((steps, nseg) + tuple(xb_dev.shape[1:]))
     before = torch.from_numpy(idx < 0).to(dev)
     blocks.view(steps, nseg, -1).masked_fill_(before[..., None], 0.0)
-    b = xb_dev.shape[-1]
-    if per_voice:                                   # [steps, nseg, V, 2, B]
-        if voice_major:
-            blocks = blocks.transpose(1, 2).contiguous()
-        return lambda i: blocks[i].reshape(v * nseg, 2, b)
-    if voice_major:                                 # [steps, nseg, 2, B]
-        return lambda i: blocks[i][None].expand(v, nseg, 2, b).reshape(
-            v * nseg, 2, b)
-    return lambda i: blocks[i][:, None].expand(nseg, v, 2, b).reshape(
-        nseg * v, 2, b)
+    blocks = blocks.reshape(steps, -1, 2, xb_dev.shape[-1])
+    if src is None:
+        return lambda i: blocks[i]
+    src = torch.from_numpy(src).to(dev)
+    return lambda i: blocks[i].index_select(0, src)
 
 
 def _step_loop(step, state, warmup: int, seg_len: int, out: torch.Tensor,
