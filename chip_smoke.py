@@ -1272,9 +1272,9 @@ class BounceStages:
     module functions while the context is open: the host input layout
     (_block_tensor), the prime (host wall and CUDA events), the step loop
     (host wall of the enqueue, CUDA events from its first step to its last,
-    the steps run) and _collect (host wall: the pinned buffer, the step
-    loop, the wait and the host copy). Summed over every call inside the
-    context (a chunked bounce makes several)."""
+    the steps run) and _collect (host wall: a step chunk's staging buffer,
+    its step loop and the wait). Summed over every call inside the context
+    (a bounce makes one per step chunk, a chunked bounce more)."""
 
     NAMES = ("_block_tensor", "_prime_fast", "_step_loop", "_collect")
 

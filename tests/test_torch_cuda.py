@@ -663,6 +663,62 @@ def test_offline_step_loops_never_sync(cuda, monkeypatch, kind, wire,
     assert ring_mac.launches - before == per_step * steps
 
 
+@pytest.mark.parametrize("kind,wire,automated", [
+    ("ring", "pcm16", False), ("ring", "f32", True),
+    ("cascade", "f32", False)])
+def test_offline_step_chunks_on_the_card(cuda, monkeypatch, kind, wire,
+                                         automated):
+    """A bounce collected in step chunks of 4 kept steps (the staging
+    budget cut to their rows): every chunk's step loop runs under
+    set_sync_debug_mode("error"), the output equals the CPU bounce's within
+    3e-5 (one LSB on the pcm16 wire), and the card launches `ring_mac` as
+    often as the one-chunk bounce does."""
+    from tpu_audio_torch.runtime import offline
+    from tpu_audio_torch.runtime.stream import MidiSchedule
+
+    strict_calls = []
+    loop = offline._step_loop
+
+    def strict(*args, **kwargs):
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            ok = loop(*args, **kwargs)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        strict_calls.append(1)
+        return ok
+
+    x = (np.random.default_rng(14).standard_normal((2, 32 * 50 + 9)) * 0.05
+         ).astype(np.float32)
+    events = [(6, "", bytes([0xB0, 0x15, 64])), (21, "", bytes([0xB0, 0x16,
+                                                               90]))]
+    outs = {}
+    for dev in ("cpu", cuda):
+        model = _offline_model(dev, kind, automate=automated)
+        kwargs = {"segments": 3, "wire": wire}
+        if automated:
+            kwargs["schedule"] = MidiSchedule(list(events))
+        if dev == cuda:
+            vv = 3 * model.engine.num_voices
+            monkeypatch.setattr(offline, "_STAGING_BYTES", 4 * vv * 2
+                                * model.engine.block * (2 if wire == "pcm16"
+                                                        else 4))
+            monkeypatch.setattr(offline, "_step_loop", strict)
+            before = ring_mac.launches
+        counters = {}
+        outs[str(dev)] = offline.render_offline(model, x, counters=counters,
+                                                **kwargs)
+    assert len(strict_calls) == counters["output_chunks"] > 2
+    atol = 3e-5 if wire == "f32" else 1.001 / 32767
+    np.testing.assert_allclose(outs["cuda"], outs["cpu"], atol=atol)
+    assert np.abs(outs["cpu"]).max() > 1e-2
+    steps = _bounce_steps(model.engine, 51, 3, automated)
+    per_step = {"ring": 1, "cascade": 2}[kind]
+    assert ring_mac.launches - before == per_step * steps
+    assert counters["steps"] == steps
+
+
 # -- checkpoints and recovery on the card ---------------------------------------------
 
 

@@ -14,6 +14,7 @@ and 4 LSB against the port's streamed WAV; the one-pass input layout bit for
 bit against the three-pass chain it replaced.
 """
 
+import threading
 import types
 
 import jax.numpy as jnp
@@ -538,14 +539,22 @@ def test_spans_leave_the_output_bit_identical(path):
     assert all(r.parent == 0 and r.end_ns is not None for r in recs[1:])
 
 
-@pytest.mark.parametrize("path", ["static", "chunked"])
-def test_the_stages_tile_the_bounce(path):
+@pytest.mark.parametrize("path,step_chunks", [
+    pytest.param("static", False, id="static"),
+    pytest.param("chunked", False, id="chunked"),
+    pytest.param("static", True, id="static-step-chunks")])
+def test_the_stages_tile_the_bounce(monkeypatch, path, step_chunks):
     """The children of `bounce` follow one another without overlap and
-    cover all but 2 % of it (what is left: the span calls themselves)."""
+    cover all but 2 % of it (what is left: the span calls themselves).
+    In step chunks `bounce.loop` and `bounce.drain` repeat per chunk and
+    `bounce.output` closes the bounce once."""
     build, kwargs = _bounce_kwargs(path)
-    spans = Spans()
-    offline.render_offline(build_model("port", **build),
-                           program(120 * 32), spans=spans, **kwargs)
+    if step_chunks:
+        # 3 kept steps' rows a chunk: 8 virtual voices, f32 blocks of 32
+        monkeypatch.setattr(offline, "_STAGING_BYTES", 3 * 8 * 2 * 32 * 4)
+    spans, counters = Spans(), {}
+    offline.render_offline(build_model("port", **build), program(120 * 32),
+                           spans=spans, counters=counters, **kwargs)
     top, *kids = spans.records()
     assert top.name == "bounce" and top.parent is None
     assert kids[0].start_ns >= top.start_ns
@@ -556,14 +565,20 @@ def test_the_stages_tile_the_bounce(path):
     assert covered >= 0.98 * (top.end_ns - top.start_ns)
     order = [k.name.split(".", 1)[1] for k in kids]
     chunks = order.count("loop")
+    if step_chunks:
+        assert chunks == counters["output_chunks"] > 1
+        assert order == (list(STAGES[:4]) + ["loop", "drain"] * chunks
+                         + ["output"])
+        return
     assert order == list(STAGES) * chunks
     assert chunks == (1 if path == "static" else 7)
 
 
-def test_counters_of_a_small_bounce():
+def test_counters_of_a_small_bounce(monkeypatch):
     """Segments, virtual voices and steps as the plan sets them; the bytes
     of the block tensor up and of the output buffer down; no graph on the
-    CPU."""
+    CPU; one step chunk, none overlapped. In step chunks the totals hold,
+    and every kept step but the last chunk's overlaps the loop."""
     model = build_model("port")
     eng = model.engine
     x = program(50 * 32)
@@ -577,8 +592,20 @@ def test_counters_of_a_small_bounce():
                  "input_buffer_reused": 0,
                  "upload_bytes": 4 * seg_len * 2 * 32 * 4,
                  "fetch_bytes": seg_len * 8 * 2 * 32 * 4,
+                 "output_chunks": 1, "output_overlap_steps": 0,
                  "steady_captures": 0, "steady_replays": 0,
                  "steady_eager": seg_len + eng.prime_blocks}
+    whole = c
+    for per_chunk in (3, 1):
+        monkeypatch.setattr(offline, "_STAGING_BYTES",
+                            per_chunk * 8 * 2 * 32 * 4 + 7)
+        model.render_offline(x, segments=4)
+        c = model.offline_counters()
+        chunks = -(-seg_len // per_chunk)
+        assert c == dict(whole, output_chunks=chunks,
+                         output_overlap_steps=per_chunk * (chunks - 1),
+                         input_buffer_reused=1)
+    monkeypatch.undo()
     model.render_offline(x, segments=4, wire="pcm16",
                          track_chunk_blocks=40)
     c = model.offline_counters()
@@ -588,6 +615,7 @@ def test_counters_of_a_small_bounce():
     assert c["warmup_steps"] == chunks * eng.prime_blocks
     assert c["fetch_bytes"] == chunks * chunk_len * 8 * 2 * 32 * 2
     assert c["steady_captures"] == 0
+    assert c["output_chunks"] == chunks and c["output_overlap_steps"] == 0
 
 
 def test_counters_read_the_input_wire():
@@ -608,6 +636,143 @@ def test_counters_read_the_input_wire():
     c = model.offline_counters()
     assert c["input_wire"] == "f32"
     assert c["upload_bytes"] == 2 * seg_len * 2 * 2 * 32 * 4
+
+
+# -- step chunks: the output written while the loop runs -----------------------------
+
+
+def _ref_output(rows, v, keep, wire, voice_major):
+    """The output stage before step chunks: one _collect's whole
+    [seg_len, nseg*V, 2, B] rows transposed into track order, trimmed and
+    decoded (astype, then an in-place divide)."""
+    seg_len, vv, _, b = rows.shape
+    order, perm = (((v, vv // v), (1, 3, 2, 0, 4)) if voice_major
+                   else ((vv // v, v), (2, 3, 1, 0, 4)))
+    out = (rows.reshape((seg_len,) + order + (2, b)).transpose(perm)
+           .reshape(v, 2, -1))[..., :keep]
+    if wire != "pcm16":
+        return out
+    out = out.astype(np.float32)
+    out /= np.float32(32767.0)
+    return out
+
+
+def _record_spans(monkeypatch):
+    """Record every _render_span call of a bounce: its `keep`, wire and row
+    order, the rows each of its _collect calls returned, and its result."""
+    calls = []
+    render_span, collect = offline._render_span, offline._collect
+
+    def span(model, x, plan, keep, **kwargs):
+        ratio, align = offline._stagger(model.engine,
+                                        kwargs["schedule"] is None)
+        call = {"keep": keep, "wire": kwargs["wire"], "rows": [],
+                "voice_major": align < ratio, "v": model.engine.num_voices}
+        calls.append(call)
+        call["out"] = render_span(model, x, plan, keep, **kwargs)
+        return call["out"]
+
+    def rows(*args, **kwargs):
+        got = collect(*args, **kwargs)
+        calls[-1]["rows"].append(got.copy())
+        return got
+
+    monkeypatch.setattr(offline, "_render_span", span)
+    monkeypatch.setattr(offline, "_collect", rows)
+    return calls
+
+
+def _same_bits(got, want):
+    assert got.shape == want.shape and got.dtype == want.dtype
+    assert np.array_equal(got.view(np.uint32), want.view(np.uint32))
+
+
+STEP_CHUNK_CASES = {
+    # name: (model kwargs, render kwargs, per-voice input, kept steps a chunk)
+    "f32": ({}, {"segments": 4}, False, 5),
+    "pcm16_one_step": ({}, {"segments": 4, "wire": "pcm16"}, False, 1),
+    "per_voice_pcm16": ({}, {"segments": 3, "wire": "pcm16"}, True, 4),
+    "no_tail": ({}, {"segments": 4, "include_tail": False}, False, 3),
+    "cascade_voice_major": (CASCADE, {"segments": 4}, False, 5),
+    "cascade_per_voice_pcm16": (CASCADE, {"segments": 3, "wire": "pcm16"},
+                                True, 2),
+    "automated_pcm16": ({"automate": True},
+                        {"segments": 5, "wire": "pcm16"}, False, 4),
+    "automated_cascade": (dict(CASCADE, automate=True), {"segments": 4},
+                          False, 3),
+    "track_chunks": ({}, {"segments": 3, "track_chunk_blocks": 23}, True,
+                     2),
+    "mesh": ({}, {"segments": 3, "wire": "pcm16"}, True, 3),
+}
+
+
+@pytest.mark.parametrize("case", sorted(STEP_CHUNK_CASES))
+def test_step_chunks_change_no_bit(monkeypatch, case):
+    """A bounce collected in step chunks (the staging budget cut to a few
+    kept steps' rows) equals the one-chunk bounce bit for bit, and every
+    _render_span's result equals the output stage before step chunks
+    (_ref_output) applied to its chunks' rows joined: f32 and pcm16
+    wires, segment-major and voice-major rows (a static cascade bounce),
+    shared and per-voice input, a track ending mid-segment and mid-block,
+    automated, track-chunked and meshed bounces. The counters are the
+    one-chunk bounce's but for the two of the output chunks."""
+    build, kwargs, per_voice, per_chunk = STEP_CHUNK_CASES[case]
+    b = build.get("block", 32)
+    t = 97 * b + 11
+    x = (program(t) if not per_voice else
+         (np.random.default_rng(8).standard_normal((2, 2, t)) * 0.1
+          ).astype(np.float32))
+    if build.get("automate"):
+        kwargs = dict(kwargs, schedule=MidiSchedule(list(AUTOMATION)))
+    if case == "mesh":
+        from tpu_audio_torch.parallel import make_mesh
+        kwargs = dict(kwargs, mesh=make_mesh(devices=["cpu"] * 2))
+
+    def bounce():
+        model = build_model("port", **build)
+        if kwargs.get("schedule") is not None:
+            kwargs["schedule"].rewind_to(0)
+        return model.render_offline(x, **kwargs), model.offline_counters()
+
+    one, c_one = bounce()
+    kept = c_one["steps"] - c_one["warmup_steps"]
+    monkeypatch.setattr(offline, "_STAGING_BYTES",
+                        per_chunk * c_one["fetch_bytes"] // kept)
+    calls = _record_spans(monkeypatch)
+    many, c_many = bounce()
+    _same_bits(many, one)
+    assert c_many["output_chunks"] > 2 * c_one["output_chunks"]
+    assert 0 < c_many["output_overlap_steps"] < kept
+    assert {k: n for k, n in c_many.items() if not k.startswith("output")} \
+        == {k: n for k, n in c_one.items() if not k.startswith("output")}
+    assert len(calls) == c_one["output_chunks"]
+    assert sum(len(call["rows"]) for call in calls) == c_many["output_chunks"]
+    for call in calls:
+        assert [len(r) for r in call["rows"][:-1]] == [per_chunk] * (
+            len(call["rows"]) - 1)
+        assert 0 < len(call["rows"][-1]) <= per_chunk
+        _same_bits(call["out"], _ref_output(
+            np.concatenate(call["rows"]), call["v"], call["keep"],
+            call["wire"], call["voice_major"]))
+
+
+@pytest.mark.parametrize("wire", ["f32", "pcm16"])
+def test_a_nonfinite_middle_step_chunk_raises_and_stops_the_worker(
+        monkeypatch, wire):
+    """NaN input in the middle of the track: the first step chunk that
+    holds non-finite output raises, and the output worker is shut down."""
+    model = build_model("port", num_voices=1)
+    x = program(40 * 32)
+    x[0, 12 * 32 + 5] = np.nan
+    # 2 kept steps' rows a chunk: 2 virtual voices, blocks of 32
+    monkeypatch.setattr(offline, "_STAGING_BYTES", 2 * 2 * 2 * 32 * 4)
+    calls = _record_spans(monkeypatch)
+    with pytest.raises(RuntimeError, match="non-finite"):
+        offline.render_offline(model, x, segments=2, wire=wire)
+    seg_len = -(-(40 + model.engine.history_blocks) // 2)
+    assert 1 < len(calls[0]["rows"]) < -(-seg_len // 2) - 1
+    assert not [th for th in threading.enumerate()
+                if th.name.startswith("bounce-output")]
 
 
 # -- the one-pass input layout -------------------------------------------------------

@@ -41,16 +41,19 @@ What the port does where the JAX renderer serves XLA:
   - the 'selected' collapse runs on the blocks the host event table marks,
     and the 'allk' collapse_pure likewise (on other blocks it is the
     identity);
-  - each step's output is copied, without waiting, into one pinned host
-    buffer; an isfinite accumulator on the device is read once, after the
-    loop;
+  - the step loop runs in step chunks (_step_chunks, sized by the host
+    bytes of their rows, _STAGING_BYTES): each step's output is copied,
+    without waiting, into its chunk's staging buffer (pinned on CUDA), and
+    an isfinite accumulator on the device is read once a chunk, after its
+    drain; one worker thread writes each chunk's rows into the track-order
+    result, off the wire, while the next chunk renders (_write_rows);
   - no compile cache and no background precompile;
   - a mesh (``mesh=``, parallel/mesh.py, voice axis only) splits the
     virtual voices into contiguous lanes, one per voice row: each lane
     runs the row's local engine on its own device, with its own copy of
     the bank, the input and the step tables, and the host loop steps every
-    lane in turn, each lane's output copied into its slice of the one
-    pinned host buffer. The lanes never communicate (the bounce's time
+    lane in turn, each lane's output copied into its slice of the step
+    chunk's staging buffer. The lanes never communicate (the bounce's time
     axis is embarrassingly parallel), and the segment count is rounded so
     that the virtual voices split evenly, in whole stagger groups on the
     cascade (_mesh_round_segments). A mesh with a part axis > 1 is
@@ -71,25 +74,30 @@ the same shape and pinned when a lane is on CUDA: _input_blocks),
 page-locked memory on CUDA), ``bounce.schedule`` (automated bounces
 only: the control replay and the step tables), ``bounce.prime`` (the
 replicated control plane, the converged states, the delay lines primed),
-``bounce.layout`` (_step_inputs), ``bounce.loop`` (the pinned output buffer
-and the step loop's enqueue), ``bounce.drain`` (the wait for the device and
-the isfinite check) and ``bounce.output`` (the host reshape and transpose,
-the pcm16 decode). A chunked bounce repeats the children once per chunk
-inside its one ``bounce`` span. Counters, always kept (``counters=``, a dict
-cleared and filled; ConvolutionReverb.offline_counters() reads the last
-call's): ``segments`` and ``virtual_voices`` (per chunk), ``steps`` and
-``warmup_steps`` (summed over chunks), ``input_wire``,
-``input_buffer_reused`` (1 when the call reused the held buffer and
-allocated none), ``upload_bytes`` (the block tensors' bytes
-sent to the devices), ``fetch_bytes`` (the output buffers' bytes read
-back) and the engine's steady-step graph counters
-(``steady_captures``, ``steady_replays``, ``steady_eager``: engine/fmajor.py)
-over the call's steps.
+``bounce.layout`` (_step_inputs), then once per step chunk ``bounce.loop``
+(the chunk's staging buffer and its steps' enqueue) and ``bounce.drain``
+(the wait for the device, the isfinite check and the chunk's hand-off to
+the output worker), and last ``bounce.output`` (the wait for the worker to
+write the last chunk into the result). A chunked bounce repeats the
+children once per chunk of the track inside its one ``bounce`` span.
+Counters, always kept (``counters=``, a dict cleared and filled;
+ConvolutionReverb.offline_counters() reads the last call's): ``segments``
+and ``virtual_voices`` (per track chunk), ``steps`` and ``warmup_steps``
+(summed over chunks), ``input_wire``, ``input_buffer_reused`` (1 when the
+call reused the held buffer and allocated none), ``upload_bytes`` (the
+block tensors' bytes sent to the devices), ``fetch_bytes`` (the staging
+buffers' bytes read back), ``output_chunks`` (step chunks collected),
+``output_overlap_steps`` (kept steps handed to the output worker before
+the last step chunk of their render ran: all but the last chunk's) and
+the engine's steady-step graph counters (``steady_captures``,
+``steady_replays``, ``steady_eager``: engine/fmajor.py) over the call's
+steps.
 """
 
 from __future__ import annotations
 
 import math
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, replace
 from functools import partial
 
@@ -157,6 +165,15 @@ _GRIDS = (65536.0, 32768.0, 32767.0)
 # samples per piece of the block-tensor pass: 128 KiB of f32, which stays in
 # a core's L2 through the piece's passes
 _PIECE = 1 << 15
+# host bytes of one step chunk's rows (_step_chunks): the step loop is
+# collected a chunk at a time, and the output worker writes each chunk into
+# the result while the next one runs. A chunk boundary costs ~1 ms of card
+# time and the last chunk's write is not hidden: on an NVIDIA H100 80GB
+# HBM3 at 700 W the 64-voice, 8-segment pcm16 bounce (0.5 MB a kept step,
+# 738 kept steps) spent a median 1.442 s in its loop, drains and output
+# wait at 32 MB (12 chunks; 11 bounces), 1.440 s at 16 MB, 1.454 s at
+# 64 MB (3 each) and 1.981 s in one chunk (11)
+_STAGING_BYTES = 32 << 20
 
 
 def _on_grid(x: np.ndarray, scale: float) -> bool:
@@ -205,6 +222,7 @@ class _Bounce:
                          "warmup_steps": 0, "input_wire": "f32",
                          "input_buffer_reused": 0,
                          "upload_bytes": 0, "fetch_bytes": 0,
+                         "output_chunks": 0, "output_overlap_steps": 0,
                          **dict.fromkeys(GRAPH_COUNTERS, 0)}
         self.buffer_allocated = False
 
@@ -339,11 +357,13 @@ def _render_span(model, x: np.ndarray, plan: tuple, keep: int, *,
                  abs_base: int = 0) -> np.ndarray:
     """The bounce of `x` (checked [2, T], or [V, 2, T] when `per_voice`)
     as `plan` (_plan's tuple) cuts it, its output trimmed to `keep`
-    samples. Without a schedule every virtual voice steps at the control
-    plane's converged parameters; with one it enters its segment with the
-    replay's fade state and steps through the replay's tables. `sim` is
-    the replay (_ControlSim, built over this span when None), read at
-    block ``local + abs_base``: the chunked path's seam
+    samples: the step loop runs in step chunks (_collect), and a worker
+    thread writes each chunk's rows into the result (_write_rows) while
+    the next one runs. Without a schedule every virtual voice steps at the
+    control plane's converged parameters; with one it enters its segment
+    with the replay's fade state and steps through the replay's tables.
+    `sim` is the replay (_ControlSim, built over this span when None),
+    read at block ``local + abs_base``: the chunked path's seam
     (_render_chunked)."""
     eng = model.engine
     fast, warmup, nseg, seg_len = plan
@@ -480,23 +500,72 @@ def _render_span(model, x: np.ndarray, plan: tuple, keep: int, *,
                 for j, (lane, st) in enumerate(zip(lanes, sts))]
         return [s for s, _ in outs], [y for _, y in outs]
 
-    out = _collect(step, states, warmup, seg_len, (vv, 2, b), wire, lanes,
-                   bounce)
-    return _output(out, v, keep, wire, voice_major)
+    # the step loop in chunks of kept steps; each chunk's rows go to the
+    # worker, which writes them into the result while the next chunk runs
+    out = np.empty((v, 2, keep), np.float32)
+    chunks = _step_chunks(seg_len, vv * 2 * b * (2 if wire == "pcm16" else 4))
+    pool = ThreadPoolExecutor(max_workers=1,
+                              thread_name_prefix="bounce-output")
+    try:
+        written = []
+        for k0, k1 in chunks:
+            first = k0 == 0
+            rows = _collect(step, states, warmup if first else 0, k1 - k0,
+                            (vv, 2, b), wire, lanes, bounce,
+                            start=0 if first else warmup + k0)
+            written.append(pool.submit(_write_rows, rows, out, k0, seg_len,
+                                       wire, voice_major))
+            del rows    # the staging buffer is freed once the worker wrote it
+        bounce.stage("output")
+        for done in written:
+            done.result()
+    finally:
+        pool.shutdown(cancel_futures=True)
+    bounce.counters["output_chunks"] += len(chunks)
+    bounce.counters["output_overlap_steps"] += chunks[-1][0]
+    return out
 
 
-def _output(out: np.ndarray, v: int, keep: int, wire: str,
-            voice_major: bool) -> np.ndarray:
-    """_collect's [seg_len, nseg*V, 2, B] (segment- or voice-major rows)
-    as [V, 2, keep]: every voice's segments in track order, trimmed and off
-    the wire."""
-    seg_len, vv, _, b = out.shape
-    rows, order = (((v, vv // v), (1, 3, 2, 0, 4)) if voice_major
-                   else ((vv // v, v), (2, 3, 1, 0, 4)))
-    out = (out.reshape((seg_len,) + rows + (2, b))
-              .transpose(order)
-              .reshape(v, 2, -1))
-    return _decode_wire(out[..., :keep], wire)
+def _step_chunks(kept: int, step_bytes: int) -> list[tuple[int, int]]:
+    """The kept steps [0, kept) cut into chunks [k0, k1) of as many steps
+    as _STAGING_BYTES holds rows of (`step_bytes` a step), the remainder
+    last, so the one write left after the loop is the shortest; a bounce
+    whose rows fit is one chunk."""
+    n = max(1, _STAGING_BYTES // step_bytes)
+    return [(k, min(k + n, kept)) for k in range(0, kept, n)]
+
+
+def _write_rows(rows: np.ndarray, out: np.ndarray, k0: int, seg_len: int,
+                wire: str, voice_major: bool) -> None:
+    """Kept steps [k0, k0 + n) of _collect's rows [n, nseg*V, 2, B]
+    (segment- or voice-major) into the result `out` [V, 2, keep], off the
+    wire, in one pass: step k of segment s lands at samples
+    s*seg_len*B + k*B of every voice, clipped to `keep`."""
+    n, vv, _, b = rows.shape
+    v, _, keep = out.shape
+    nseg = vv // v
+    rows = rows.reshape((n, v, nseg, 2, b) if voice_major
+                        else (n, nseg, v, 2, b))
+    for s in range(nseg):
+        seg = rows[:, :, s] if voice_major else rows[:, s]     # [n, V, 2, B]
+        lo = (s * seg_len + k0) * b
+        m = min(n * b, keep - lo)
+        if m <= 0:
+            break
+        full, rem = divmod(m, b)
+        # a view: the split axis is the contiguous last one
+        dst = out[..., lo:lo + full * b].reshape(v, 2, full, b)
+        _from_wire(seg[:full], dst.transpose(2, 0, 1, 3), wire)
+        if rem:
+            _from_wire(seg[full, ..., :rem], out[..., lo + full * b:lo + m],
+                       wire)
+
+
+def _from_wire(src: np.ndarray, dst: np.ndarray, wire: str) -> None:
+    if wire == "pcm16":
+        decode_pcm16(src, out=dst)
+    else:
+        np.copyto(dst, src)
 
 
 def _bucket_total(total_blocks: int, bucket_blocks) -> int:
@@ -513,10 +582,6 @@ def _bucket_total(total_blocks: int, bucket_blocks) -> int:
             raise ValueError(f"bucket_blocks must be >= 1 or 'auto', "
                              f"got {bucket_blocks}")
     return -(-total_blocks // g) * g
-
-
-def _decode_wire(out: np.ndarray, wire: str) -> np.ndarray:
-    return decode_pcm16(out) if wire == "pcm16" else out
 
 
 def _chunk_input(x: np.ndarray, lo: int, hist: int, chunk_blocks: int,
@@ -1036,20 +1101,21 @@ def _step_inputs(xb_dev: torch.Tensor, nseg: int, seg_len: int,
     return lambda i: blocks[i].index_select(0, src)
 
 
-def _step_loop(step, state, warmup: int, seg_len: int, out: torch.Tensor,
-               wire: str, devices) -> list:
-    """Run every step, queue each kept output's copy into the host buffer
-    `out` without waiting, and return the isfinite accumulators (a bool
-    tensor per device, not yet read): the loop reads nothing back from the
-    device. `step(i, states)` steps every lane and returns (states, the
-    lanes' outputs in virtual-voice order), each copied into its rows of
-    `out`. The accumulators see the RAW output: the pcm16 encoder clips
-    NaN into ordinary int16 values, so a check after it could never
-    fail."""
+def _step_loop(step, state: list, warmup: int, kept: int, out: torch.Tensor,
+               wire: str, devices, start: int = 0) -> list:
+    """Run `warmup` + `kept` steps from step `start` on, queue each kept
+    output's copy into the host buffer `out` without waiting, and return
+    the isfinite accumulators (a bool tensor per device, not yet read): the
+    loop reads nothing back from the device. `step(i, states)` steps every
+    lane and returns (states, the lanes' outputs in virtual-voice order),
+    each copied into its rows of `out`; `state`, the lanes' states, is
+    advanced in place, so the next step chunk continues from it. The
+    accumulators see the RAW output: the pcm16 encoder clips NaN into
+    ordinary int16 values, so a check after it could never fail."""
     ok = {dev: torch.ones((), dtype=torch.bool, device=dev)
           for dev in devices}
-    for i in range(warmup + seg_len):
-        state, ys = step(i, state)
+    for i in range(warmup + kept):
+        state[:], ys = step(start + i, state)
         if i < warmup:
             continue
         v0 = 0
@@ -1062,20 +1128,25 @@ def _step_loop(step, state, warmup: int, seg_len: int, out: torch.Tensor,
     return list(ok.values())
 
 
-def _collect(step, state, warmup: int, seg_len: int, shape: tuple,
-             wire: str, lanes, bounce: _Bounce) -> np.ndarray:
-    """Drive the step loop and collect [seg_len, *shape] on the host: one
-    pinned buffer (on CUDA) takes every kept step's output as it is
-    produced, and the isfinite accumulators are read once, after the loop;
-    non-finite output raises on every wire."""
+def _collect(step, state: list, warmup: int, kept: int, shape: tuple,
+             wire: str, lanes, bounce: _Bounce, start: int = 0) -> np.ndarray:
+    """Drive one step chunk (_step_loop: `warmup` + `kept` steps from step
+    `start`, the lanes' states `state` carried from the last chunk and
+    advanced in place) and collect its kept steps' rows on the host as
+    [kept, *shape], step-major: one staging buffer, pinned on CUDA, takes
+    every kept step's output as it is produced; then the devices drain and
+    the isfinite accumulators are read, so non-finite output raises on
+    every wire, at the first chunk that holds it. Each call adds its steps,
+    bytes and graph counts to the bounce's counters."""
     devices = _devices(lanes)
     engines = list({id(lane.engine): lane.engine for lane in lanes}.values())
     graphs = _graph_counts(engines)
     bounce.stage("loop")
     dtype = torch.int16 if wire == "pcm16" else torch.float32
     cuda = devices[0].type == "cuda"
-    out = torch.empty((seg_len,) + shape, dtype=dtype, pin_memory=cuda)
-    oks = _step_loop(step, state, warmup, seg_len, out, wire, devices)
+    out = torch.empty((kept,) + shape, dtype=dtype, pin_memory=cuda)
+    oks = _step_loop(step, state, warmup, kept, out, wire, devices,
+                     start=start)
     bounce.stage("drain")
     if cuda:
         for dev in devices:
@@ -1087,8 +1158,7 @@ def _collect(step, state, warmup: int, seg_len: int, shape: tuple,
     c = bounce.counters
     for name, n in _graph_counts(engines).items():
         c[name] += n - graphs[name]
-    c["steps"] += warmup + seg_len
+    c["steps"] += warmup + kept
     c["warmup_steps"] += warmup
     c["fetch_bytes"] += out.numel() * out.element_size()
-    bounce.stage("output")
     return out.numpy()

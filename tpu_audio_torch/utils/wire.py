@@ -23,9 +23,8 @@ def encode_pcm16(x: torch.Tensor) -> torch.Tensor:
     return torch.round(torch.clamp(x, -1.0, 1.0) * PCM16_SCALE).to(torch.int16)
 
 
-def decode_pcm16(x: np.ndarray) -> np.ndarray:
-    """int16 -> f32 (host-side, after the transfer), divided in place: the
-    JAX package's values with one f32 array allocated, not two."""
-    out = x.astype(np.float32)
-    out /= np.float32(PCM16_SCALE)
-    return out
+def decode_pcm16(x: np.ndarray, out: np.ndarray | None = None) -> np.ndarray:
+    """int16 -> f32 (host-side, after the transfer) in one pass, into `out`
+    (any f32 view of x's shape) when given: the JAX package's values, each
+    int16 converted to f32 and divided by 32767 in f32."""
+    return np.divide(x, np.float32(PCM16_SCALE), out=out, dtype=np.float32)
