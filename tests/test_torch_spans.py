@@ -21,7 +21,9 @@ torch.set_num_threads(1)
 
 V, B = 2, 64
 PER_BLOCK = ["gather", "step_choice", "params", "upload"]
-RARE = {"select", "bank_swap", "checkpoint", "clock_wait"}
+RARE = {"control", "select", "bank_swap", "checkpoint", "clock_wait"}
+# the rare spans that another's path opens too: a re-select comes by MIDI
+ALSO = {"select": {"control"}}
 
 
 def _model(sample_rate=44100):
@@ -110,14 +112,20 @@ def test_each_block_has_its_span_tree(mode):
 
 @pytest.mark.parametrize("path", sorted(RARE))
 def test_rare_spans_open_on_their_path_only(path, tmp_path):
-    """select on a MIDI re-select's block, bank_swap on a swap_bank,
-    checkpoint on a save, clock_wait in a realtime run; no other rare
-    span opens."""
+    """control on a block whose MIDI message is due (a wet CC here),
+    select on a MIDI re-select's block (inside control), bank_swap on a
+    swap_bank, checkpoint on a save, clock_wait in a realtime run; no other
+    rare span opens."""
     spans = Spans()
     run_kwargs, session_kw = {}, {}
     model = _model(sample_rate=2000 if path == "clock_wait" else 44100)
     if path == "select":
         run_kwargs["midi"] = MidiSchedule.parse("2 B0 15 40\n4 B0 15 7F\n")
+    elif path == "control":
+        for v in range(V):
+            for ch in range(2):
+                model.control.set_mapping(v, ch, CCMapping(select=21, wet=22))
+        run_kwargs["midi"] = MidiSchedule.parse("2 B0 16 40\n4 B0 16 7F\n")
     elif path == "checkpoint":
         run_kwargs.update(checkpoint_path=tmp_path / "ckpt",
                           checkpoint_every=3)
@@ -132,18 +140,21 @@ def test_rare_spans_open_on_their_path_only(path, tmp_path):
     tree, _ = _tree(spans)
     where = {name: sorted(bid for bid, kids in tree.items()
                           for n, _ in kids if n == name) for name in RARE}
-    want = {"select": [2, 4], "bank_swap": [0], "checkpoint": [2, 5]}
+    want = {"control": [2, 4], "select": [2, 4], "bank_swap": [0],
+            "checkpoint": [2, 5]}
     for name in RARE - {path}:
-        assert where[name] == [], (name, where)
+        want_there = want[path] if name in ALSO.get(path, ()) else []
+        assert where[name] == want_there, (name, where)
     if path == "clock_wait":
         # a 32 ms block period: the CPU renders a block well inside it
         assert where["clock_wait"] and len(where["clock_wait"]) >= 3
         return
     assert where[path] == want[path]
     if path == "select":
-        # the select span opens before the block's step choice, and the
-        # fades then ride the indexed step
-        assert [n for n, _ in tree[2][:3]] == ["gather", "select",
+        # the control span (the MIDI dispatch) and the select span open
+        # before the block's step choice, and the fades then ride the
+        # indexed step
+        assert [n for n, _ in tree[2][:4]] == ["gather", "control", "select",
                                                "step_choice"]
         assert ("step.indexed", 2) in tree[2]
 

@@ -84,8 +84,10 @@ batch's blocks, the missed-deadline hook fired from there.
 Spans (``spans=``, a utils/profiling.py Spans; None records nothing): the
 loop opens a span at each of its layer boundaries, all inside one
 ``block`` span per iteration whose id is the iteration's first block
-index: ``gather`` (the source's reads), ``bank_swap`` and ``select``
-(only when a swap or a re-select runs), ``step_choice``, ``params`` (the
+index: ``gather`` (the source's reads), ``control`` (the scripted and
+live MIDI messages applied to the control plane, only on a block where
+one is due), ``bank_swap`` and ``select`` (only when a swap or a
+re-select runs), ``step_choice``, ``params`` (the
 control plane's device snapshot), ``upload``, ``step.<kind>`` (the
 engine's step call alone, kind ``steady``, ``indexed``, ``general``,
 ``chunk`` or ``slew``), ``fetch`` (the device-to-host copy queued, or the
@@ -96,7 +98,17 @@ both with the id of the block they deliver, ``checkpoint`` (a save) and
 block have no enclosing span. The session's counters, always kept, are
 in ``summary()["counters"]``, with the engine's steady-step graph counters
 (``steady_captures``, ``steady_replays``, ``steady_eager``:
-engine/fmajor.py) counted over the session's runs.
+engine/fmajor.py) counted over the session's runs. Of the crossfades:
+``selects`` (re-selected channels the session collapsed),
+``fades_interrupted`` (those of them whose fade was still live, coef_a at
+or above STEADY_THRESHOLD on the host mirror) and
+``fading_channel_blocks`` (per block, the channels whose fade is live,
+summed over the blocks).
+
+BlockTimer's interval per block starts after the MIDI dispatch: the
+source's read, the ``control`` span's work and the realtime wait are
+outside it, so the summary's per-block times (p50, p99, RTF, missed
+deadlines) leave the dispatch out; the ``control`` span times it.
 
 Left out of this port, by design: the JAX session's layout pinning.
 
@@ -322,6 +334,11 @@ class StreamSession:
         # re-selects served by collapse_pure / by the materializing collapse
         self.collapses_pure = 0
         self.collapses_full = 0
+        # re-selected channels collapsed, those of them that interrupted a
+        # live fade, and the live fades' channel-blocks
+        self.selects = 0
+        self.fades_interrupted = 0
+        self.fading_channel_blocks = 0
         # the engine's GRAPH_COUNTERS over this session's runs
         self.graph_counts = dict.fromkeys(GRAPH_COUNTERS, 0)
 
@@ -409,8 +426,11 @@ class StreamSession:
         for (v, ch), old in self._pending_old.items():
             old_sel[v, ch] = old
             changed[v, ch] = True
+            self.fades_interrupted += bool(self._a_host[v, ch]
+                                           >= STEADY_THRESHOLD)
             self._a_host[v, ch] = 1.0
             self._pure_host[v, ch] = use_pure
+        self.selects += len(self._pending_old)
         self._pending_old.clear()
         old_t = torch.tensor(old_sel, device=self.device)
         changed_t = torch.tensor(changed, device=self.device)
@@ -438,9 +458,11 @@ class StreamSession:
         chunk): steady once every fade has decayed, else the indexed or
         general fade step. Then the analytic coef_a mirror advanced exactly
         as the device recursion advances it, with the chunk's in-step
-        vsteps countdown (make_chunk_step)."""
+        vsteps countdown (make_chunk_step), and the live fades' channels
+        counted per block while any is live."""
         vsteps = self.control.vsteps.astype(np.float64)
-        if bool((self._a_host < STEADY_THRESHOLD).all()):
+        fading = int(np.count_nonzero(self._a_host >= STEADY_THRESHOLD))
+        if not fading:
             step = self._step_steady
         elif self._step_indexed is not None and self._indexed_valid():
             step = self._step_indexed
@@ -448,7 +470,11 @@ class StreamSession:
         else:
             step = self._step_full
             self.general_blocks += blocks
-        for _ in range(blocks):
+        for i in range(blocks):
+            if i and fading:
+                fading = int(np.count_nonzero(
+                    self._a_host >= STEADY_THRESHOLD))
+            self.fading_channel_blocks += fading
             self._a_host *= 1.0 - 1.0 / (vsteps + 5.0)
             vsteps = np.maximum(vsteps - 1.0, 0.0)
         return step
@@ -777,6 +803,12 @@ class StreamSession:
         self.clock_used = "sleep"
         return None
 
+    def _dispatch(self, messages) -> None:
+        """Apply a block's due MIDI messages, scripted then live, in
+        order."""
+        for device, message in messages:
+            self.control.apply_midi_message(message, device)
+
     def _save(self, path, state, block_index: int) -> None:
         figures = save_checkpoint(path, state, self.control,
                                   meta={"block_index": block_index})
@@ -882,12 +914,14 @@ class StreamSession:
                     break
                 n_valid = len(xs)
 
-                if midi is not None:
-                    for device, message in midi.pop_due(block_id):
-                        self.control.apply_midi_message(message, device)
+                due = midi.pop_due(block_id) if midi is not None else []
                 if live_midi is not None:
-                    for device, message in live_midi.poll():
-                        self.control.apply_midi_message(message, device)
+                    due += live_midi.poll()
+                if due:
+                    if sp is None:
+                        self._dispatch(due)
+                    else:
+                        sp.call("control", self._dispatch, due)
 
                 # the block's timed work starts here: the source's read
                 # and the realtime wait stay out of BlockTimer
@@ -1045,6 +1079,9 @@ class StreamSession:
             "general_blocks": self.general_blocks,
             "collapses_pure": self.collapses_pure,
             "collapses_full": self.collapses_full,
+            "selects": self.selects,
+            "fades_interrupted": self.fades_interrupted,
+            "fading_channel_blocks": self.fading_channel_blocks,
             "underruns": self.underruns,
             "param_uploads": self.control.uploads,
             **self.graph_counts,
